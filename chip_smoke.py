@@ -4,22 +4,37 @@
 
 Phases (each prints one line; any failure exits non-zero):
   1. device   — nvidia-smi name and power limit;
-  2. build    — nvcc builds the packed SpMM kernel (csrc/packed_spmm.cu);
-  3. kernel   — at the shapes of the ID-GCN Full / ws train batch (the
-                real 'gcn' packs from the port's loader, D = 128): kernel
-                vs its plain PyTorch version on the fwd and bwd packs, in
-                float32 and bfloat16, bitwise-repeatable launches, and
-                times of the kernel, the plain version and one library
-                call (torch.sparse.mm on a CSR tensor of the same matrix)
+  2. build    — nvcc builds the kernels, one library per source
+                (csrc/packed_spmm.cu, csrc/packed_attention.cu), side by
+                side;
+  ID-GCN Full / ws (configs/idgcn_ws.yaml), kernel K1:
+  3. kernel   — at the shapes of the train batch (the real 'gcn' packs
+                from the port's loader, D = 128): kernel vs its plain
+                PyTorch version on the fwd and bwd packs, in float32 and
+                bfloat16, bitwise-repeatable launches, and times of the
+                kernel, the plain version and one library call
+                (torch.sparse.mm on a CSR tensor of the same matrix)
                 beside the bound;
   4. model    — the full-width model's logits and gradients on the card
-                against the same model on the CPU (plain SpMM);
-  5. train    — configs/idgcn_ws.yaml through graphgym_tpu_torch.main
-                for a few epochs at full width (3 x 128, head 256):
-                finite losses and 6 kernel launches per train step plus
-                3 per eval batch;
+                against the same model on the CPU (plain versions);
+  5. train    — the config through graphgym_tpu_torch.main for a few
+                epochs at full width (3 x 128, head 256): finite losses,
+                6 K1 launches per train step plus 3 per eval batch, no
+                K3 launch;
   6. profile  — torch.profiler over a few more train steps: device time
                 by kernel and the device's idle share.
+  ID-GAT Full / ws (configs/idgat_ws.yaml), kernel K3:
+  7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
+                   softmax'd random alpha: kernel vs plain on the fwd
+                   pack and, alpha carried by the slot map, the bwd pack,
+                   in float32 and bfloat16, and at H = 4 (dv = 32);
+                   bitwise-repeatable launches; kernel, plain and library
+                   (torch.sparse.mm, CSR of alpha) times beside the bound;
+  8. model_att   — as 4, for the full-width Tfg-idgat model;
+  9. train_att   — as 5: 6 K3 launches per train step plus 3 per eval
+                   batch, no K1 launch;
+ 10. profile_att — as 6, and whether two train steps from the same state
+                   give bitwise-equal losses and parameters.
 Then the kernel table as one JSON line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -48,11 +63,13 @@ from graphgym_tpu_torch.device import resolve_device  # noqa: E402
 from graphgym_tpu_torch.main import run_single  # noqa: E402
 from graphgym_tpu_torch.nn.model import build_model  # noqa: E402
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K  # noqa: E402
+from graphgym_tpu_torch.ops.segment import segment_softmax  # noqa: E402
 from graphgym_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from graphgym_tpu_torch.train.loop import Trainer  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "configs", "idgcn_ws.yaml")
+CFG_ATT = os.path.join(ROOT, "configs", "idgat_ws.yaml")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -108,12 +125,12 @@ def device_ms(fn, iters: int = 20) -> float:
     return sum(device_ms_by_kernel(fn, iters).values())
 
 
-def csr_of(pack: K.PackedCSR, n: int) -> torch.Tensor:
-    """The pack's matrix as a torch CSR tensor (padding slots dropped)."""
-    rows = (pack.tiles.long()[:, None] * K.ROWS_PER_TILE
-            + pack.local_rows.long()).reshape(-1)
+def csr_of(pack: K.PackedCSR, n: int, values=None) -> torch.Tensor:
+    """The pack's matrix (or, given per-slot values, that matrix) as a
+    torch CSR tensor (padding slots dropped)."""
+    rows = K.pack_rows(pack).reshape(-1)
     cols = pack.senders.long().reshape(-1)
-    vals = pack.weights.reshape(-1)
+    vals = (pack.weights if values is None else values).reshape(-1)
     keep = cols < n
     coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
                                   vals[keep], (n, n)).coalesce()
@@ -148,25 +165,91 @@ def check_kernel(packs, n: int, d: int, device) -> dict:
     calls = {"kernel": lambda: K.packed_spmm_cuda(fwd, x),
              "plain": lambda: K.spmm_packed_plain(fwd, x),
              "library": lambda: torch.sparse.mm(a, x)}
+    return dict(max_abs_err=max(errs["fwd_float32"], errs["bwd_float32"]),
+                errs=errs, library_err=lib_err.item(),
+                **timings(calls, fwd, x, slot_bytes=8))
+
+
+def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
+            slot_bytes: int) -> dict:
+    """Device ms per call of the kernel, the plain version and the
+    library call, their CUDA-event loop times, and the bound: each input
+    read once (x, the pack's slot_bytes on each slot the kernel reads,
+    row_range), the f32 output written once, over the card's memory
+    rate, against 2 flops per slot and column over its f32 rate."""
     ms = {k: device_ms(f) for k, f in calls.items()}
     loop_ms = {k: call_ms(f) for k, f in calls.items()}
-    slots = fwd.senders.numel()
-    ranges = fwd.row_range.long()
+    n, d = x.shape
+    ranges = pack.row_range.long()
     real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
     moved = (x.numel() * x.element_size()        # x read once
-             + real_slots * 8                     # senders, weights
-             + fwd.row_range.numel() * 4
+             + real_slots * slot_bytes
+             + pack.row_range.numel() * 4
              + n * d * 4)                         # out written once
     flops = 2 * real_slots * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return dict(max_abs_err=max(errs["fwd_float32"], errs["bwd_float32"]),
-                errs=errs, library_err=lib_err.item(), ms=ms["kernel"],
-                plain_ms=ms["plain"], library_ms=ms["library"],
-                call_ms=loop_ms,
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms["library"], call_ms=loop_ms,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=flops, slots=slots,
+                bytes=moved, flops=flops, slots=pack.senders.numel(),
                 real_slots=real_slots)
+
+
+def check_attention_kernel(packs, n: int, d: int, device) -> dict:
+    """K3 against its plain version at the train 'att' pack: alpha is a
+    segment softmax of random logits over the valid slots, as the layer
+    makes it; the bwd pack takes it through the slot map."""
+    fwd, bwd, slot_map = packs
+    gen = torch.Generator(device=device).manual_seed(1)
+    v = torch.randn(n, d, generator=gen, device=device)
+    rows = K.pack_rows(fwd).reshape(-1)
+    valid = (fwd.weights > 0).reshape(-1, 1)
+
+    def softmax_alpha(heads):
+        logits = torch.randn(rows.numel(), heads, generator=gen,
+                             device=device)
+        alpha = segment_softmax(logits, rows, n,
+                                mask=valid.expand(-1, heads))
+        return alpha.view(fwd.senders.shape + (heads,))
+
+    alphas = {heads: softmax_alpha(heads) for heads in (1, 4)}
+    errs = {}
+    for heads, alpha in alphas.items():
+        for name, pack, a in (("fwd", fwd, alpha),
+                              ("bwd", bwd, K.alpha_to_bwd(alpha,
+                                                          slot_map))):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                vin = v.to(dtype)
+                got = K.packed_segment_matmul_headed(pack, vin, a)
+                want = K.packed_segment_matmul_headed_plain(pack, vin, a)
+                torch.cuda.synchronize()
+                case = f"{name}_h{heads}_{str(dtype)[6:]}"
+                if got.shape != (n, d) or not torch.isfinite(got).all():
+                    fail(f"K3 {case}: bad output {tuple(got.shape)}")
+                err = (got - want).abs().max().item()
+                if not torch.allclose(got, want, **tol):
+                    fail(f"K3 {case}: kernel vs plain max err {err} "
+                         f"beyond {tol}")
+                errs[case] = err
+                if not torch.equal(
+                        got, K.packed_segment_matmul_headed(pack, vin, a)):
+                    fail(f"K3 {case}: two launches differ")
+    alpha1 = alphas[1]
+    a = csr_of(fwd, n, alpha1[..., 0])
+    lib_err = (torch.sparse.mm(a, v)
+               - K.packed_segment_matmul_headed(fwd, v, alpha1)).abs().max()
+    calls = {
+        "kernel": lambda: K.packed_segment_matmul_headed_cuda(fwd, v,
+                                                              alpha1),
+        "plain": lambda: K.packed_segment_matmul_headed_plain(fwd, v,
+                                                              alpha1),
+        "library": lambda: torch.sparse.mm(a, v)}
+    return dict(max_abs_err=max(e for k, e in errs.items()
+                                if k.endswith("float32")),
+                errs=errs, library_err=lib_err.item(),
+                **timings(calls, fwd, v, slot_bytes=8))  # sender, alpha
 
 
 def check_model(cfg, batch, device) -> dict:
@@ -215,9 +298,82 @@ def profile_steps(cfg, loaders, device, steps: int = 5) -> dict:
                 top=[dict(name=k[:80], ms_per_step=v) for k, v in top])
 
 
+def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
+    """Two trainers from the same seed on the same batch: are their
+    losses, step for step, and their parameters after the last step
+    bitwise equal?  (The kernels are; index_add_ on the card adds with
+    atomics in no fixed order.)"""
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
+        batch = trainer._place(loaders[0].batches(0)[0])
+        losses = [trainer.train_step(batch)[0].item() for _ in range(steps)]
+        runs.append((losses, [p.detach().clone()
+                              for p in trainer.model.parameters()]))
+    (l0, p0), (l1, p1) = runs
+    return dict(losses=[l0, l1], losses_bitwise_equal=l0 == l1,
+                params_bitwise_equal=all(map(torch.equal, p0, p1)),
+                params_max_abs_diff=max((a - b).abs().max().item()
+                                        for a, b in zip(p0, p1)))
+
+
 def read_stats(path: str):
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def train_path(cfg_file: str, overrides, out: str, loaders, counted,
+               silent) -> dict:
+    """Drive graphgym_tpu_torch.main's run_single on one config, loaded
+    afresh (its data pipeline writes label bins into the cfg): every
+    launch count set to 0 just before, read just after.  The kernel
+    ``counted`` must launch 2 x layers per train step plus layers per
+    eval batch (``loaders`` give the batch counts), ``silent`` never."""
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
+    epochs = cfg.optim.max_epoch
+    steps = epochs * len(loaders[0])
+    evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, epochs)
+                for e in range(epochs)) * len(loaders[1])
+    layers = cfg.gnn.layers_mp
+    expected = 2 * layers * steps + layers * evals
+    counted.launches = silent.launches = 0
+    result = run_single(cfg, cfg.out_dir, cfg_file)
+    torch.cuda.synchronize()
+    launches, stray = counted.launches, silent.launches
+    train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
+    val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
+    losses = [s["loss"] for s in train]
+    if len(losses) != epochs or not all(map(math.isfinite, losses)):
+        fail(f"{cfg_file}: train losses {losses}")
+    if launches != expected:
+        fail(f"{cfg_file}: {counted.__name__} launches {launches}, "
+             f"expected {expected} ({2 * layers}/train step x {steps} + "
+             f"{layers}/eval batch x {evals})")
+    if stray:
+        fail(f"{cfg_file}: {silent.__name__} launched {stray} times")
+    accs = [s["accuracy"] for s in val]
+    if not all(0.0 <= a <= 1.0 for a in accs):
+        fail(f"{cfg_file}: val accuracies {accs}")
+    step_s = [s["time_iter"] for s in train]
+    return dict(epochs=epochs, losses=losses, val_acc=accs,
+                best_val_acc=result["best_val_acc"], step_s=step_s,
+                step_s_median_after_first=float(np.median(step_s[1:])),
+                launches=launches, expected_launches=expected,
+                launches_per_train_step=2 * layers,
+                launches_per_eval_batch=layers,
+                **{f"{silent.__name__}_launches": stray},
+                params=cfg.params)
+
+
+def load_path(cfg_file: str, overrides):
+    """The config, its loaders, and the host time to build them (load,
+    labels, split, ego union, collate, packs)."""
+    cfg = load_cfg(cfg_file, overrides)
+    t0 = time.perf_counter()
+    loaders = create_loader(create_dataset(cfg), cfg)
+    loaders[0].batches(0)
+    return cfg, loaders, time.perf_counter() - t0
 
 
 def main() -> None:
@@ -232,75 +388,62 @@ def main() -> None:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     info = K.build()
-    K.library()
-    ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", seconds=info.seconds, ptxas=ptxas)
+    for name in K.SOURCES:
+        K.library(name)
+    phase("build", seconds=max(b.seconds for b in info.values()),
+          ptxas={name: [ln.strip() for ln in b.log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                 for name, b in info.items()})
 
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
-    cfg = load_cfg(CFG, overrides)
-    t0 = time.perf_counter()
-    splits = create_dataset(cfg)
-    loaders = create_loader(splits, cfg)
+
+    # ---- ID-GCN Full / ws: kernel K1
+    cfg, loaders, host_s = load_path(CFG, overrides)
     train_batch = loaders[0].batches(0)[0]
-    host_s = time.perf_counter() - t0
     n, d = train_batch.num_nodes, cfg.gnn.dim_inner
     dev_batch = train_batch.to(device)
     k1 = check_kernel(dev_batch.packs["gcn"], n, d, device)
     phase("kernel", n=n, d=d, chunks=int(dev_batch.packs["gcn"][0]
                                          .senders.shape[0]),
           host_data_s=host_s, **k1)
-
     phase("model", **check_model(cfg, loaders[1].batches(0)[0], device))
-
-    shutil.rmtree(OUT, ignore_errors=True)
-    cfg = load_cfg(CFG, overrides + ["out_dir", OUT])
-    steps = EPOCHS * len(loaders[0])
-    evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, EPOCHS)
-                for e in range(EPOCHS)) * len(loaders[1])
-    layers = cfg.gnn.layers_mp
-    expected = 2 * layers * steps + layers * evals
-    K.packed_spmm_cuda.launches = 0
-    result = run_single(cfg, cfg.out_dir, CFG)
-    torch.cuda.synchronize()
-    launches = K.packed_spmm_cuda.launches
-    train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
-    val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
-    losses = [s["loss"] for s in train]
-    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
-        fail(f"train losses {losses}")
-    if launches != expected:
-        fail(f"kernel launches {launches}, expected {expected} "
-             f"({2 * layers}/train step x {steps} + {layers}/eval batch "
-             f"x {evals})")
-    accs = [s["accuracy"] for s in val]
-    if not all(0.0 <= a <= 1.0 for a in accs):
-        fail(f"val accuracies {accs}")
-    step_s = [s["time_iter"] for s in train]
-    phase("train", epochs=EPOCHS, losses=losses, val_acc=accs,
-          best_val_acc=result["best_val_acc"], step_s=step_s,
-          step_s_median_after_first=float(np.median(step_s[1:])),
-          launches=launches, expected_launches=expected,
-          launches_per_train_step=2 * layers,
-          launches_per_eval_batch=layers,
-          params=cfg.params)
-
+    train = train_path(CFG, overrides, os.path.join(OUT, "idgcn"), loaders,
+                       K.packed_spmm_cuda,
+                       K.packed_segment_matmul_headed_cuda)
+    phase("train", **train)
     phase("profile", **profile_steps(cfg, loaders, device))
 
-    print(json.dumps({"kernels": [{
-        "name": "packed_spmm",
-        "route": "cuda",
-        "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
-        "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]}), flush=True)
+    # ---- ID-GAT Full / ws: kernel K3
+    cfg, loaders, host_s = load_path(CFG_ATT, overrides)
+    train_batch = loaders[0].batches(0)[0]
+    n, d = train_batch.num_nodes, cfg.gnn.dim_inner
+    dev_batch = train_batch.to(device)
+    k3 = check_attention_kernel(dev_batch.packs["att"], n, d, device)
+    phase("kernel_att", n=n, d=d, heads=cfg.gnn.att_heads,
+          chunks=int(dev_batch.packs["att"][0].senders.shape[0]),
+          host_data_s=host_s, **k3)
+    phase("model_att", **check_model(cfg, loaders[1].batches(0)[0],
+                                     device))
+    train_att = train_path(CFG_ATT, overrides, os.path.join(OUT, "idgat"),
+                           loaders, K.packed_segment_matmul_headed_cuda,
+                           K.packed_spmm_cuda)
+    phase("train_att", **train_att)
+    phase("profile_att", **profile_steps(cfg, loaders, device),
+          repeat=repeat_steps(cfg, loaders, device))
+
+    row = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+           "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": "packed_spmm", "route": "cuda",
+         "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
+         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
+         **{k: {**k1, **train}[k] for k in row}},
+        {"name": "packed_attention", "route": "cuda",
+         "source": "graphgym_tpu_torch/csrc/packed_attention.cu",
+         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:537",
+         **{k: {**k3, **train_att}[k] for k in row}},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

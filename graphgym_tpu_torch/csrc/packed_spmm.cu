@@ -31,19 +31,14 @@
 // Padding: a sender outside [0, n_rows) reads as zero (pack padding
 // slots carry sender == n_rows, one past the last row of x).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;              // output rows per block
-constexpr int kPerLane = 4;            // columns per lane per pass
-constexpr int kPassCols = 32 * kPerLane;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using ggt::kPassCols;
+using ggt::kPerLane;
+using ggt::kWarps;
+using ggt::to_float;
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)

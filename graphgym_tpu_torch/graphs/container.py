@@ -44,7 +44,8 @@ class GraphBatch:
       node_id_index: [K] ego-net center slots (ID-GNN Full).
       id_mask:    [K] bool mask over node_id_index slots.
       packs:      dict kind -> (fwd PackedCSR, bwd PackedCSR), the packed
-                  SpMM layouts of A and A^T (graphs/packing.py).
+                  SpMM layouts of A and A^T, and for 'att' also the
+                  fwd->bwd slot map (graphs/packing.py).
 
     Host batches hold numpy arrays.  ``to(device)`` gives torch tensors;
     index arrays become int64 there, except the packs, whose int32
@@ -90,11 +91,15 @@ class GraphBatch:
                 t = t.long()
             return t.to(device)
 
+        def move_pack(p):
+            if isinstance(p, tuple):        # a PackedCSR
+                return type(p)(*(move(a) for a in p))
+            return move(p)                  # the 'att' slot map
+
         packs = None
         if self.packs is not None:
-            packs = {kind: tuple(type(p)(*(move(a) for a in p))
-                                 for p in pair)
-                     for kind, pair in self.packs.items()}
+            packs = {kind: tuple(move_pack(p) for p in entry)
+                     for kind, entry in self.packs.items()}
         return GraphBatch(
             senders=move(self.senders, True),
             receivers=move(self.receivers, True),

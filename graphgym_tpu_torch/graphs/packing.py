@@ -6,10 +6,15 @@ graph structure) and the packed chunk layouts of A and A^T:
 
   'gcn' — D^-1/2 (A + I) D^-1/2 with the reference's inf guard
           (TfgIDLayer.py:528-566); self-loops only on real nodes.
+  'att' — A + self-loops on real nodes, weights a validity indicator
+          (1 real, 0 padding); the attention coefficients are computed
+          in the layer (packing.py:71-79 of the JAX package).
 
 The bwd layout packs the transpose with the same weights, giving
-dx = A^T g.  The 'plain', 'mean' and 'att' kinds belong to the layers
-of ROADMAP A9-A10.
+dx = A^T g.  The 'att' entry carries a third array, the slot map: for
+each bwd slot the fwd slot of the same edge, so the backward carries
+the per-slot coefficients into bwd order.  The 'plain' and 'mean' kinds
+belong to the layers of ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from graphgym_tpu_torch.graphs.container import bucket_size
-from graphgym_tpu_torch.ops.cuda.spmm_kernel import (PackedCSR, pack_csr,
+from graphgym_tpu_torch.ops.cuda.spmm_kernel import (PackedCSR,
+                                                     pack_csr_with_slots,
                                                      pad_pack)
 
 
@@ -40,29 +46,60 @@ def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
     return s, r, (dis[r] * w * dis[s]).astype(np.float32)
 
 
+def _att_edges(senders: np.ndarray, receivers: np.ndarray,
+               edge_weight: np.ndarray, node_mask: np.ndarray,
+               num_nodes: int):
+    """A plus self-loops on real nodes, weight 1 real / 0 padding."""
+    loop = np.arange(num_nodes, dtype=senders.dtype)
+    s = np.concatenate([senders, loop])
+    r = np.concatenate([receivers, loop])
+    w = np.concatenate([(edge_weight != 0).astype(np.float32),
+                        node_mask.astype(np.float32)])
+    return s, r, w
+
+
 def build_packs(senders: np.ndarray, receivers: np.ndarray,
                 edge_weight: np.ndarray, node_mask: np.ndarray,
                 num_nodes: int, kinds: Sequence[str] = ("gcn",)
-                ) -> Dict[str, Tuple[PackedCSR, PackedCSR]]:
-    """num_nodes here is the PADDED node count (packs target padded
-    rows; the padding row receives only weight-0 contributions)."""
+                ) -> Dict[str, tuple]:
+    """kind -> (fwd, bwd) packs, and for 'att' also the slot map
+    [NC_bwd, C] int32.  num_nodes here is the PADDED node count (packs
+    target padded rows; the padding row receives only weight-0
+    contributions)."""
     senders = np.asarray(senders, np.int64)
     receivers = np.asarray(receivers, np.int64)
     edge_weight = np.asarray(edge_weight, np.float32)
     node_mask = np.asarray(node_mask, bool)
     out = {}
     for kind in kinds:
-        if kind != "gcn":
+        if kind == "gcn":
+            s, r, w = _gcn_weights(senders, receivers, edge_weight,
+                                   node_mask, num_nodes)
+        elif kind == "att":
+            s, r, w = _att_edges(senders, receivers, edge_weight,
+                                 node_mask, num_nodes)
+        else:
             raise NotImplementedError(
-                f"pack kind {kind!r} is not ported yet (ROADMAP A9-A10)")
-        s, r, w = _gcn_weights(senders, receivers, edge_weight,
-                               node_mask, num_nodes)
-        fwd = pack_csr(s, r, w, num_nodes)
-        bwd = pack_csr(r, s, w, num_nodes)
+                f"pack kind {kind!r} is not ported yet (ROADMAP A9)")
+        fwd, fwd_slot = pack_csr_with_slots(s, r, w, num_nodes)
+        bwd, bwd_slot = pack_csr_with_slots(r, s, w, num_nodes)
         # bucket chunk counts so multi-batch loaders share shapes
-        out[kind] = (_pad_to_bucket(fwd, num_nodes),
-                     _pad_to_bucket(bwd, num_nodes))
+        fwd = _pad_to_bucket(fwd, num_nodes)
+        bwd = _pad_to_bucket(bwd, num_nodes)
+        out[kind] = (fwd, bwd)
+        if kind == "att":
+            out[kind] += (_slot_map(fwd, bwd, fwd_slot, bwd_slot),)
     return out
+
+
+def _slot_map(fwd: PackedCSR, bwd: PackedCSR, fwd_slot: np.ndarray,
+              bwd_slot: np.ndarray) -> np.ndarray:
+    """For each bwd slot, the fwd slot of the same edge.  Bwd padding
+    slots point one past the last fwd slot, where the backward appends
+    a zero coefficient."""
+    slot_map = np.full(bwd.senders.size, fwd.senders.size, np.int32)
+    slot_map[bwd_slot] = fwd_slot
+    return slot_map.reshape(bwd.senders.shape)
 
 
 def _pad_to_bucket(pack: PackedCSR, num_nodes: int) -> PackedCSR:

@@ -3,7 +3,8 @@
 Each layer carries ``kernel``, applied to all nodes, and ``id_kernel``,
 applied additionally to the ego-net center rows in
 ``graph.node_id_index`` (reference contrib/layer/idconv.py:62-67).
-The port of graphgym_tpu/nn/id_layers.py: GCNIDConv on the packed path.
+The port of graphgym_tpu/nn/id_layers.py: GCNIDConv and TfgIDGAT on the
+packed path.
 """
 
 from __future__ import annotations
@@ -12,8 +13,17 @@ import torch
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.nn.layers import glorot, packed_spmm, zeros
+from graphgym_tpu_torch.nn.layers import (TfgGATConv, glorot, packed_spmm,
+                                          zeros)
 from graphgym_tpu_torch.ops import sparse as sp
+
+
+def _id_index(graph: GraphBatch):
+    if graph.node_id_index is None:
+        raise ValueError(
+            "ID layers need graph.node_id_index (run the 'ego' "
+            "transform; reference models/transform.py:38)")
+    return graph.node_id_index, graph.id_mask
 
 
 class GCNIDConv(nn.Module):
@@ -30,13 +40,24 @@ class GCNIDConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        if graph.node_id_index is None:
-            raise ValueError(
-                "ID layers need graph.node_id_index (run the 'ego' "
-                "transform; reference models/transform.py:38)")
-        h = sp.apply_id_weights(graph.node_feat, graph.node_id_index,
-                                self.kernel, self.id_kernel, graph.id_mask)
+        idx, id_mask = _id_index(graph)
+        h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
+                                self.id_kernel, id_mask)
         h = packed_spmm(graph, "gcn", h)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
+
+
+class TfgIDGAT(TfgGATConv):
+    """tfg-style ID-GAT (id_layers.py:258-337; reference
+    TfgIDLayer.py:269-388 ``gat_id``): TfgGATConv's dot-product
+    attention with the identity coloring applied to V only,
+    V = x Wv with V[id] += x[id] Wv_id."""
+
+    has_id_kernel = True
+
+    def values(self, graph: GraphBatch) -> torch.Tensor:
+        idx, id_mask = _id_index(graph)
+        return sp.apply_id_weights(graph.node_feat, idx, self.kernel,
+                                   self.id_kernel, id_mask)

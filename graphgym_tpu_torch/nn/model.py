@@ -3,27 +3,36 @@
 The port of graphgym_tpu/nn/model.py for the Tfg model family
 (reference main_zd.py:28-257): plain conv + relu stacks with a
 Dense(256) -> Dense(C) head, no pre-MP, no BatchNorm and no post-stage
-L2 norm.  The layer table holds ``Tfg-idgcn``; other layer types are
-ROADMAP A9-A11.
+L2 norm.  The layer table holds ``Tfg-idgcn``, ``Tfg-idgat`` and
+``Tfg-gatconv``; other layer types are ROADMAP A9-A11.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
-from graphgym_tpu_torch.nn.layers import GeneralLayer, glorot, zeros
+from graphgym_tpu_torch.nn.layers import (GeneralLayer, TfgGATConv, glorot,
+                                          zeros)
 
 HeadOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+# layer type -> conv(dim_in, dim_out, opts, init generator, dropout
+# generator) (nn/model.py:104-112 of the JAX package)
 LAYERS = {
-    "Tfg-idgcn": lambda dim_in, dim_out, generator: idl.GCNIDConv(
-        dim_in, dim_out, use_bias=True, generator=generator),
+    "Tfg-idgcn": lambda dim_in, dim_out, opts, gen, _: idl.GCNIDConv(
+        dim_in, dim_out, use_bias=True, generator=gen),
+    "Tfg-gatconv": lambda dim_in, dim_out, opts, gen, drop_gen: TfgGATConv(
+        dim_in, dim_out, heads=opts.att_heads, att_dropout=opts.att_dropout,
+        generator=gen, dropout_generator=drop_gen),
+    "Tfg-idgat": lambda dim_in, dim_out, opts, gen, drop_gen: idl.TfgIDGAT(
+        dim_in, dim_out, heads=opts.att_heads, att_dropout=opts.att_dropout,
+        generator=gen, dropout_generator=drop_gen),
 }
 
 
@@ -36,6 +45,8 @@ class GNNOptions:
     layers_mp: int = 2
     dim_inner: int = 16
     act: str = "relu"
+    att_heads: int = 1
+    att_dropout: float = 0.0
 
 
 def options_from_cfg(cfg) -> GNNOptions:
@@ -52,18 +63,22 @@ def options_from_cfg(cfg) -> GNNOptions:
     return GNNOptions(layer_type=cfg.gnn.layer_type,
                       dim_in=cfg.share.dim_in, dim_out=cfg.share.dim_out,
                       layers_mp=cfg.gnn.layers_mp,
-                      dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act)
+                      dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act,
+                      att_heads=cfg.gnn.att_heads,
+                      att_dropout=cfg.gnn.att_dropout)
 
 
 class GNNStackStage(nn.Module):
     """Plain stack of MP layers (gnn.py:65-81); Tfg has no L2 norm."""
 
-    def __init__(self, opts: GNNOptions, generator: torch.Generator):
+    def __init__(self, opts: GNNOptions, generator: torch.Generator,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         dims = [opts.dim_in] + [opts.dim_inner] * opts.layers_mp
         self.layers = nn.ModuleList(
-            GeneralLayer(LAYERS[opts.layer_type](dims[i], dims[i + 1],
-                                                 generator),
+            GeneralLayer(LAYERS[opts.layer_type](dims[i], dims[i + 1], opts,
+                                                 generator,
+                                                 dropout_generator),
                          act=opts.act)
             for i in range(opts.layers_mp))
 
@@ -98,10 +113,11 @@ class GNN(nn.Module):
     """Full Tfg model (gnn.py:123-168): MP stage -> Tfg head.
     ``forward`` returns (pred, label, mask) at the supervised slots."""
 
-    def __init__(self, opts: GNNOptions, generator: torch.Generator):
+    def __init__(self, opts: GNNOptions, generator: torch.Generator,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         self.opts = opts
-        self.mp = GNNStackStage(opts, generator)
+        self.mp = GNNStackStage(opts, generator, dropout_generator)
         dim = opts.dim_inner if opts.layers_mp > 0 else opts.dim_in
         self.post_mp = TfgMLPHead(dim, opts.dim_out, generator)
 
@@ -112,6 +128,13 @@ class GNN(nn.Module):
 def build_model(cfg, device: torch.device) -> GNN:
     """create_model equivalent (reference model_builder.py:15): glorot
     kernels drawn from a torch.Generator seeded with cfg.seed, zero
-    biases, on ``device``."""
+    biases, on ``device``.  With att_dropout > 0 the attention layers
+    draw their dropout masks from a second Generator on ``device``,
+    seeded with cfg.seed (dropout acts in train mode only)."""
+    opts = options_from_cfg(cfg)
     generator = torch.Generator().manual_seed(int(cfg.seed))
-    return GNN(options_from_cfg(cfg), generator).to(device)
+    dropout_generator = None
+    if opts.att_dropout > 0:
+        dropout_generator = torch.Generator(device=device).manual_seed(
+            int(cfg.seed))
+    return GNN(opts, generator, dropout_generator).to(device)

@@ -1,16 +1,20 @@
-"""Packed segmented SpMM: host packing, the Hopper kernel, its plain
-version and the autograd wrapper.
+"""Packed segmented SpMM: host packing, the Hopper kernels, their plain
+versions and the autograd wrappers.
 
-The port of graphgym_tpu/ops/pallas/spmm_kernel.py for the weighted
-kernel (``_kernel_weighted``, K1 in PERF.md).  Host side, ``pack_csr``
-sorts edges by receiver and cuts them into chunks of C slots, each
-owned by one R-row output tile; the layout is the JAX package's, array
-for array.  Device side, ``packed_spmm_cuda`` launches the CUDA C++
-kernel in ``csrc/packed_spmm.cu``, which fuses the ``x[senders]``
-gather that the TPU version ran outside its kernel.
+The port of graphgym_tpu/ops/pallas/spmm_kernel.py for two kernels:
 
-On a CUDA tensor ``spmm_packed`` launches the kernel (or raises); on a
-CPU tensor it takes ``spmm_packed_plain``, the same arithmetic in plain
+  K1  the weighted sum (``_kernel_weighted``) -> ``csrc/packed_spmm.cu``;
+  K3  the per-head weighted sum of attention (``_kernel_headed``)
+      -> ``csrc/packed_attention.cu``.
+
+Host side, ``pack_csr`` sorts edges by receiver and cuts them into
+chunks of C slots, each owned by one R-row output tile; the layout is
+the JAX package's, array for array.  Device side, each kernel fuses the
+``x[senders]`` gather that the TPU version ran outside its kernel.
+
+On a CUDA tensor the entry points (``spmm_packed``,
+``packed_segment_matmul_headed``) launch the kernel or raise; on a CPU
+tensor they take the plain version, the same arithmetic in plain
 PyTorch.
 """
 
@@ -19,12 +23,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +39,8 @@ EDGES_PER_CHUNK = 1024  # C: edge slots per chunk
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
-_SOURCE = os.path.join(_CSRC, "packed_spmm.cu")
+# one shared library per source, csrc/<name>.cu
+SOURCES = ("packed_spmm", "packed_attention")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -72,6 +78,18 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
     Edges are sorted by (receiver, sender), so partial sums accumulate
     in a fixed order.  Every tile gets at least one chunk; padding slots
     carry sender ``num_nodes``, weight 0 and local row 0."""
+    pack, _ = pack_csr_with_slots(senders, receivers, weights, num_nodes)
+    if pad_chunks_to is not None:
+        pack = pad_pack(pack, pad_chunks_to, num_nodes)
+    return pack
+
+
+def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
+                        weights: Optional[np.ndarray], num_nodes: int
+                        ) -> Tuple[PackedCSR, np.ndarray]:
+    """``pack_csr`` without chunk padding, and the flat slot [E] that
+    each input edge landed in (the attention path maps its fwd slots to
+    its bwd slots with it)."""
     R, C = ROWS_PER_TILE, EDGES_PER_CHUNK
     senders = np.asarray(senders, np.int64)
     receivers = np.asarray(receivers, np.int64)
@@ -125,9 +143,9 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
     row_range = np.stack([start, end], 1).astype(np.int32)
     pack = PackedCSR(out_s.reshape(nc, C), out_w.reshape(nc, C),
                      out_l.reshape(nc, C), out_t, row_range)
-    if pad_chunks_to is not None:
-        pack = pad_pack(pack, pad_chunks_to, num_nodes)
-    return pack
+    edge_slot = np.empty(e, np.int64)
+    edge_slot[order] = slot
+    return pack, edge_slot
 
 
 def pad_pack(pack: PackedCSR, pad_chunks_to: int,
@@ -149,8 +167,21 @@ def pad_pack(pack: PackedCSR, pad_chunks_to: int,
 
 
 # --------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # --------------------------------------------------------------------------
+
+def pack_rows(pack: PackedCSR) -> torch.Tensor:
+    """Receiver row of every packed slot, [NC, C] int64: tiles*R + local
+    (spmm_kernel.py:675-678)."""
+    return (pack.tiles.long()[:, None] * ROWS_PER_TILE
+            + pack.local_rows.long())
+
+
+def _f32_tiles(n: int, d: int, device) -> torch.Tensor:
+    num_tiles = (n + ROWS_PER_TILE - 1) // ROWS_PER_TILE
+    return torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
+                       device=device)
+
 
 def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x from the packed layout: gather, weight, index_add_
@@ -160,23 +191,37 @@ def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     xp = torch.cat([x, x.new_zeros(1, d)]).float()
     msg = xp.index_select(0, pack.senders.reshape(-1).long())
     msg = msg * pack.weights.reshape(-1, 1)
-    rows = (pack.tiles.long()[:, None] * ROWS_PER_TILE
-            + pack.local_rows.long()).reshape(-1)
-    num_tiles = (n + ROWS_PER_TILE - 1) // ROWS_PER_TILE
-    out = torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
-                      device=x.device)
-    out.index_add_(0, rows, msg)
+    out = _f32_tiles(n, d, x.device)
+    out.index_add_(0, pack_rows(pack).reshape(-1), msg)
     return out[:n].to(x.dtype)
 
 
+def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
+                                       alpha: torch.Tensor) -> torch.Tensor:
+    """out[row(s), h*dv + k] += alpha[s, h] * v[senders[s], h*dv + k]
+    over the pack's slots: gather, per-head multiply, index_add_ into
+    f32 tiles.  v [num_nodes, H*dv] f32 or bf16, alpha [NC, C, H];
+    out [num_nodes, H*dv] f32.  The padding sender num_nodes reads an
+    appended zero row."""
+    n, d = v.shape
+    heads = alpha.shape[-1]
+    vp = torch.cat([v, v.new_zeros(1, d)]).float()
+    msg = vp.index_select(0, pack.senders.reshape(-1).long())
+    msg = msg.view(-1, heads, d // heads) * alpha.reshape(-1, heads, 1)
+    out = _f32_tiles(n, d, v.device)
+    out.index_add_(0, pack_rows(pack).reshape(-1), msg.view(-1, d))
+    return out[:n]
+
+
 # --------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: build, bind, launch
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: str        # the shared library
-    seconds: float   # nvcc wall time (0.0 when the library was built)
+    seconds: float   # wall time of the nvcc run that built it, all
+                     # sources side by side (0.0 when already built)
     log: str         # nvcc's output (ptxas register / spill report)
 
 
@@ -187,86 +232,157 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the packed "
-                           "SpMM kernel needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's "
+                           "kernels need the CUDA toolkit")
     return found
 
 
+def _digest(source: str) -> str:
+    """Hash of the flags, the source and every header in csrc/, so that
+    an edit to any file the library is built from rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile csrc/packed_spmm.cu for sm_90a into BUILD_DIR, once per
-    source version (the file name carries the source's hash)."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libpacked_spmm_{digest}.so")
-    if os.path.exists(path):
-        return BuildInfo(path, 0.0, "")
+def build() -> Dict[str, BuildInfo]:
+    """Compile each csrc/<name>.cu of SOURCES for sm_90a into its own
+    shared library in BUILD_DIR, once per version of its files (the
+    library's name carries their hash).  The nvcc processes run side
+    by side; every one is waited for before any failure is raised."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
+    out, running = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
+    for name in SOURCES:
+        source = os.path.join(_CSRC, f"{name}.cu")
+        path = os.path.join(BUILD_DIR, f"lib{name}_{_digest(source)}.so")
+        if os.path.exists(path):
+            out[name] = BuildInfo(path, 0.0, "")
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        running[name] = (path, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: proc.communicate()[0]
+            for name, (_, _, proc) in running.items()}
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return BuildInfo(path, seconds, proc.stdout + proc.stderr)
+    for name, (path, tmp, proc) in running.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu "
+                               f"({proc.returncode}):\n{logs[name]}")
+        os.replace(tmp, path)
+        out[name] = BuildInfo(path, seconds, logs[name])
+    return out
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # x, n_rows, d, senders, weights, row_range, out, stream
+    "packed_spmm": [_P, _LL, _I, _P, _P, _P, _P, _P],
+    # v, n_rows, d, heads, senders, alpha, row_range, out, stream
+    "packed_attention": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
+}
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build().path)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.packed_spmm_f32, lib.packed_spmm_bf16):
-        fn.argtypes = [p, ll, i, p, p, p, p, p]
+def library(name: str) -> ctypes.CDLL:
+    """The built library of csrc/<name>.cu, with its f32 and bf16 entry
+    points bound."""
+    lib = ctypes.CDLL(build()[name].path)
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(name: str, cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"packed_spmm_cuda: {msg}")
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check_inputs(name: str, pack: PackedCSR, x: torch.Tensor) -> None:
+    """What both kernels take: a 2-D f32 or bf16 CUDA x of num_nodes
+    rows, and the pack's int32 / f32 arrays contiguous on x's device."""
+    _check(name, x.is_cuda and x.dim() == 2, "x must be a 2-D CUDA tensor")
+    _check(name, x.dtype in (torch.float32, torch.bfloat16),
+           f"x dtype {x.dtype} not supported (float32, bfloat16)")
+    n = x.shape[0]
+    _check(name, tuple(pack.row_range.shape) == (n, 2),
+           f"row_range {tuple(pack.row_range.shape)} for {n} rows")
+    for field, a, dtype in (("senders", pack.senders, torch.int32),
+                            ("weights", pack.weights, torch.float32),
+                            ("row_range", pack.row_range, torch.int32)):
+        _check(name, a.device == x.device and a.dtype == dtype
+               and a.is_contiguous(),
+               f"{field} must be a contiguous {dtype} tensor on {x.device}")
+    _check(name, pack.senders.shape == pack.weights.shape,
+           "pack arrays disagree in shape")
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    lib = library(name)
+    fn = getattr(lib, f"{name}_f32" if x.dtype == torch.float32
+                 else f"{name}_bf16")
+    err = fn(x.data_ptr(), *args,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel: f32 out [num_nodes, D] = A @ x, with x
-    [num_nodes, D] f32 or bf16 on a CUDA device.  Adds one to
+    """Launch the Hopper kernel K1: f32 out [num_nodes, D] = A @ x, with
+    x [num_nodes, D] f32 or bf16 on a CUDA device.  Adds one to
     ``packed_spmm_cuda.launches`` per launch."""
-    _check(x.is_cuda and x.dim() == 2, "x must be a 2-D CUDA tensor")
-    _check(x.dtype in (torch.float32, torch.bfloat16),
-           f"x dtype {x.dtype} not supported (float32, bfloat16)")
+    _check_inputs("packed_spmm_cuda", pack, x)
     x = x.contiguous()
     n, d = x.shape
-    _check(tuple(pack.row_range.shape) == (n, 2),
-           f"row_range {tuple(pack.row_range.shape)} for {n} rows")
-    for name, a, dtype in (("senders", pack.senders, torch.int32),
-                           ("weights", pack.weights, torch.float32),
-                           ("row_range", pack.row_range, torch.int32)):
-        _check(a.device == x.device and a.dtype == dtype
-               and a.is_contiguous(),
-               f"{name} must be a contiguous {dtype} tensor on {x.device}")
-    _check(pack.senders.shape == pack.weights.shape,
-           "pack arrays disagree in shape")
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return out
-    lib = library()
-    fn = lib.packed_spmm_f32 if x.dtype == torch.float32 \
-        else lib.packed_spmm_bf16
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), n, d, pack.senders.data_ptr(),
-             pack.weights.data_ptr(), pack.row_range.data_ptr(),
-             out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"packed_spmm kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch("packed_spmm", x, n, d, pack.senders.data_ptr(),
+            pack.weights.data_ptr(), pack.row_range.data_ptr(),
+            out.data_ptr())
     packed_spmm_cuda.launches += 1
     return out
 
 
 packed_spmm_cuda.launches = 0
+
+
+def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
+                                      alpha: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel K3: f32 out [num_nodes, H*dv], out[row,
+    h*dv + k] = sum over the row's slots of alpha[s, h] * v[senders[s],
+    h*dv + k], with v [num_nodes, H*dv] f32 or bf16 and alpha [NC, C, H]
+    f32 on a CUDA device.  Adds one to
+    ``packed_segment_matmul_headed_cuda.launches`` per launch."""
+    name = "packed_segment_matmul_headed_cuda"
+    _check_inputs(name, pack, v)
+    _check(name, alpha.dim() == 3
+           and alpha.shape[:2] == pack.senders.shape,
+           f"alpha {tuple(alpha.shape)} for a pack of "
+           f"{tuple(pack.senders.shape)} slots")
+    _check(name, alpha.dtype == torch.float32 and alpha.device == v.device,
+           f"alpha must be a float32 tensor on {v.device}")
+    heads = alpha.shape[-1]
+    _check(name, heads > 0 and v.shape[1] % heads == 0,
+           f"{heads} heads do not divide the width {v.shape[1]}")
+    v, alpha = v.contiguous(), alpha.contiguous()
+    n, d = v.shape
+    out = torch.empty(n, d, dtype=torch.float32, device=v.device)
+    if n == 0 or d == 0:
+        return out
+    _launch("packed_attention", v, n, d, heads, pack.senders.data_ptr(),
+            alpha.data_ptr(), pack.row_range.data_ptr(), out.data_ptr())
+    packed_segment_matmul_headed_cuda.launches += 1
+    return out
+
+
+packed_segment_matmul_headed_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -300,3 +416,75 @@ class SpmmPackFn(torch.autograd.Function):
 def spmm_pack_vjp(fwd_pack: PackedCSR, bwd_pack: PackedCSR,
                   x: torch.Tensor) -> torch.Tensor:
     return SpmmPackFn.apply(fwd_pack, bwd_pack, x)
+
+
+def packed_segment_matmul_headed(pack: PackedCSR, v: torch.Tensor,
+                                 alpha: torch.Tensor) -> torch.Tensor:
+    """Per-head weighted aggregation from a packed layout
+    (spmm_kernel.py:584-625, with the v[senders] gather fused): the
+    kernel for a CUDA tensor, the plain version for a CPU one.  f32
+    out [num_nodes, H*dv]."""
+    if v.is_cuda:
+        return packed_segment_matmul_headed_cuda(pack, v, alpha)
+    return packed_segment_matmul_headed_plain(pack, v, alpha)
+
+
+def alpha_to_bwd(alpha: torch.Tensor, slot_map: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-slot coefficients [NC, C, H] of the fwd 'att' pack carried
+    into bwd slot order [NC_bwd, C, H]; bwd padding slots, which the map
+    points one past the fwd slots, get 0."""
+    heads = alpha.shape[-1]
+    flat = torch.cat([alpha.reshape(-1, heads), alpha.new_zeros(1, heads)])
+    return flat.index_select(0, slot_map.reshape(-1)).view(
+        slot_map.shape + (heads,))
+
+
+class SegmentMatmulHeadedFn(torch.autograd.Function):
+    """Differentiable per-head weighted aggregation over the 'att' packs
+    (the port of ``segment_matmul_headed_vjp``, spmm_kernel.py:628-672):
+
+        out[row(s), h, :] += alpha[s, h] * v[sender(s), h, :]
+
+    Gradients: dv = A_alpha^T g is the same kernel on the bwd pack, with
+    alpha carried into bwd slot order by ``slot_map`` (deterministic, no
+    atomics, no [E, H*dv] message gradient; the JAX package gathers,
+    multiplies and scatters instead, with the same result);
+    dalpha[s, h] = <g[row(s), h, :], v[sender(s), h, :]> is the SDDMM,
+    in plain ops as XLA ran it there.  Padding slots read a zero v row,
+    so their dalpha is 0.  The packs and the map get no gradient."""
+
+    @staticmethod
+    def forward(ctx, v: torch.Tensor, alpha: torch.Tensor,
+                fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                slot_map: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(v, alpha)
+        ctx.packs = (fwd_pack, bwd_pack, slot_map)
+        return packed_segment_matmul_headed(fwd_pack, v, alpha)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        v, alpha = ctx.saved_tensors
+        fwd_pack, bwd_pack, slot_map = ctx.packs
+        g = g.contiguous()
+        n, d = v.shape
+        heads = alpha.shape[-1]
+        dv = dalpha = None
+        if ctx.needs_input_grad[0]:
+            dv = packed_segment_matmul_headed(
+                bwd_pack, g, alpha_to_bwd(alpha, slot_map)).to(v.dtype)
+        if ctx.needs_input_grad[1]:
+            rows = pack_rows(fwd_pack).reshape(-1).clamp_max(g.shape[0] - 1)
+            vp = torch.cat([v, v.new_zeros(1, d)])
+            v_j = vp.index_select(0, fwd_pack.senders.reshape(-1).long())
+            prod = g.index_select(0, rows) * v_j
+            dalpha = prod.view(-1, heads, d // heads).sum(-1).view(
+                alpha.shape).to(alpha.dtype)
+        return dv, dalpha, None, None, None
+
+
+def segment_matmul_headed_vjp(v: torch.Tensor, alpha: torch.Tensor,
+                              fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                              slot_map: torch.Tensor) -> torch.Tensor:
+    return SegmentMatmulHeadedFn.apply(v, alpha, fwd_pack, bwd_pack,
+                                       slot_map)

@@ -1,6 +1,9 @@
 """The torch port imports neither jax, flax, optax nor the JAX package.
 
 Checked in a subprocess: tests/conftest.py imports jax into this one.
+The probe imports every module of the package (pkgutil.walk_packages),
+so a module that imports JAX fails it even when no entry point reaches
+that module.
 """
 
 import os
@@ -10,12 +13,13 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import sys
+import importlib, pkgutil, sys
 import graphgym_tpu_torch
-import graphgym_tpu_torch.main
-import graphgym_tpu_torch.weights
-import graphgym_tpu_torch.data.loaders
-import graphgym_tpu_torch.train.loop
+names = [m.name for m in pkgutil.walk_packages(
+    graphgym_tpu_torch.__path__, "graphgym_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("MODULES:" + ",".join(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "graphgym_tpu"))
@@ -30,13 +34,20 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("BAD:")]
     assert line == ["BAD:"], out.stdout
+    (mods,) = [ln[len("MODULES:"):].split(",") for ln in
+               out.stdout.splitlines() if ln.startswith("MODULES:")]
+    for name in ("graphgym_tpu_torch.main", "graphgym_tpu_torch.ops.segment",
+                 "graphgym_tpu_torch.nn.act",
+                 "graphgym_tpu_torch.ops.cuda.spmm_kernel"):
+        assert name in mods
 
 
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py's imports (it exits before main() without a card)."""
-    probe = PROBE.replace("import graphgym_tpu_torch.main",
-                          "import torch; torch.cuda.is_available = "
-                          "lambda: True; import chip_smoke")
+    probe = PROBE.replace("import graphgym_tpu_torch\n",
+                          "import graphgym_tpu_torch\nimport torch; "
+                          "torch.cuda.is_available = lambda: True; "
+                          "import chip_smoke\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

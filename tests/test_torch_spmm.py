@@ -13,6 +13,8 @@ emulated in numpy here; the kernel itself runs under the ``cuda``
 marker on a card.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -200,3 +202,28 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     torch.testing.assert_close(
         xg.grad, K.spmm_packed_plain(bwd, torch.ones_like(x)), **tol)
     assert torch.equal(K.spmm_packed(fwd, x), K.spmm_packed(fwd, x))
+
+
+def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
+    """A library's name changes with its source, with any csrc header
+    and with the flags, so an edit never loads a stale build."""
+    import shutil
+
+    for name in K.SOURCES:
+        shutil.copy(os.path.join(K._CSRC, f"{name}.cu"), tmp_path)
+    shutil.copy(os.path.join(K._CSRC, "common.cuh"), tmp_path)
+    monkeypatch.setattr(K, "_CSRC", str(tmp_path))
+    src = str(tmp_path / "packed_attention.cu")
+    base = K._digest(src)
+    assert base != K._digest(str(tmp_path / "packed_spmm.cu"))
+    (tmp_path / "common.cuh").write_text(
+        (tmp_path / "common.cuh").read_text() + "\n// edit\n")
+    edited_header = K._digest(src)
+    (tmp_path / "extra.cuh").write_text("// a new header\n")
+    new_header = K._digest(src)
+    with open(src, "a") as f:
+        f.write("\n// edit\n")
+    edited_source = K._digest(src)
+    monkeypatch.setattr(K, "NVCC_FLAGS", K.NVCC_FLAGS + ["-lineinfo"])
+    assert len({base, edited_header, new_header, edited_source,
+                K._digest(src)}) == 5
