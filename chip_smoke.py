@@ -5,8 +5,8 @@
 Phases (each prints one line; any failure exits non-zero):
   1. device   — nvidia-smi name and power limit;
   2. build    — nvcc builds the kernels, one library per source
-                (csrc/packed_spmm.cu, csrc/packed_attention.cu), side by
-                side;
+                (csrc/packed_spmm.cu, csrc/packed_segment.cu,
+                csrc/packed_attention.cu), side by side;
   ID-GCN Full / ws (configs/idgcn_ws.yaml), kernel K1:
   3. kernel   — at the shapes of the train batch (the real 'gcn' packs
                 from the port's loader, D = 128): kernel vs its plain
@@ -20,7 +20,7 @@ Phases (each prints one line; any failure exits non-zero):
   5. train    — the config through graphgym_tpu_torch.main for a few
                 epochs at full width (3 x 128, head 256): finite losses,
                 6 K1 launches per train step plus 3 per eval batch, no
-                K3 launch;
+                K2 or K3 launch;
   6. profile  — torch.profiler over a few more train steps: device time
                 by kernel and the device's idle share.
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernel K3:
@@ -32,9 +32,31 @@ Phases (each prints one line; any failure exits non-zero):
                    (torch.sparse.mm, CSR of alpha) times beside the bound;
   8. model_att   — as 4, for the full-width Tfg-idgat model;
   9. train_att   — as 5: 6 K3 launches per train step plus 3 per eval
-                   batch, no K1 launch;
+                   batch, no K1 or K2 launch;
  10. profile_att — as 6, and whether two train steps from the same state
                    give bitwise-equal losses and parameters.
+  ID-GIN Full / ws (configs/idgin_ws.yaml), kernel K1 on the 'plain'
+  pack:
+ 11. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
+                   (layer 0 aggregates the raw 1-wide features);
+ 12. model_gin   — as 4 (the GIN MLP's BatchNorm in train mode), and the
+                   running statistics after it, on seeded random features
+                   (see check_model);
+ 13. train_gin   — as 5: 5 K1 launches per train step (layer 0's input
+                   needs no gradient) plus 3 per eval batch, no K2 or K3;
+ 14. profile_gin — as 6.
+  ID-SAGE Full / ws (configs/idsage_ws.yaml), K1 on the 'mean' pack:
+ 15. model_sage, 16. train_sage — as 12 and 13.
+  Kernel K2, which no path runs:
+ 17. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
+                   against its plain version with a random message on
+                   every slot (padding slots included), against K1 with
+                   msg = x[senders] * w, in bfloat16, on a pack built
+                   with group G = 2; bitwise-repeatable launches;
+                   segment_matmul_vjp's gradient against the plain
+                   version's; kernel, plain and library (index_add_,
+                   torch.sparse.mm of the 0/1 slot matrix) times beside
+                   the bound.
 Then the kernel table as one JSON line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -70,12 +92,17 @@ from graphgym_tpu_torch.train.loop import Trainer  # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "configs", "idgcn_ws.yaml")
 CFG_ATT = os.path.join(ROOT, "configs", "idgat_ws.yaml")
+CFG_GIN = os.path.join(ROOT, "configs", "idgin_ws.yaml")
+CFG_SAGE = os.path.join(ROOT, "configs", "idsage_ws.yaml")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 F32_TOL = dict(rtol=1e-5, atol=1e-6)    # only the sum order differs
 BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # one bf16 ulp after the f32 sum
+# K2 sums up to 41,286 messages into one row: two f32 sums in different
+# orders differ by a share of the row's sum of |msg|, not of its value
+SEG_REL, SEG_ATOL = 1e-5, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -123,6 +150,22 @@ def device_ms_by_kernel(fn, iters: int = 20) -> dict:
 
 def device_ms(fn, iters: int = 20) -> float:
     return sum(device_ms_by_kernel(fn, iters).values())
+
+
+def time_calls(calls: dict, bound_ms: float):
+    """Device ms per call of each fn (torch.profiler), its CUDA-event
+    loop time, and which of the two the device ms is.  Where the
+    profiler's time is below ``bound_ms``, the least time the card could
+    take for the call's work, it missed some of the call's kernels (it
+    records none of some calls, and part of torch.sparse.mm's), and the
+    device ms is the loop time."""
+    loop = {k: call_ms(f) for k, f in calls.items()}
+    ms, timed_by = {}, {}
+    for k, f in calls.items():
+        t = device_ms(f)
+        ms[k], timed_by[k] = ((t, "profiler") if t >= bound_ms
+                              else (loop[k], "events"))
+    return ms, loop, timed_by
 
 
 def csr_of(pack: K.PackedCSR, n: int, values=None) -> torch.Tensor:
@@ -177,8 +220,6 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
     read once (x, the pack's slot_bytes on each slot the kernel reads,
     row_range), the f32 output written once, over the card's memory
     rate, against 2 flops per slot and column over its f32 rate."""
-    ms = {k: device_ms(f) for k, f in calls.items()}
-    loop_ms = {k: call_ms(f) for k, f in calls.items()}
     n, d = x.shape
     ranges = pack.row_range.long()
     real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
@@ -188,9 +229,11 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
              + n * d * 4)                         # out written once
     flops = 2 * real_slots * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    ms, loop_ms, timed_by = time_calls(calls, bound_ms)
     return dict(ms=ms["kernel"], plain_ms=ms["plain"],
                 library_ms=ms["library"], call_ms=loop_ms,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
+                timed_by=timed_by, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, slots=pack.senders.numel(),
                 real_slots=real_slots)
@@ -252,8 +295,149 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
                 **timings(calls, fwd, v, slot_bytes=8))  # sender, alpha
 
 
-def check_model(cfg, batch, device) -> dict:
-    """Full-width logits and gradients, card (kernel) vs CPU (plain)."""
+def hold_sums(case: str, got: torch.Tensor, want: torch.Tensor,
+              scale: torch.Tensor) -> float:
+    """K2 against a reference sum of the same messages:
+    |got - want| <= SEG_REL * (the row's sum of |msg|) + SEG_ATOL."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"K2 {case}: bad output {tuple(got.shape)}")
+    err = (got - want).abs()
+    excess = (err - SEG_REL * scale - SEG_ATOL).max().item()
+    if excess > 0:
+        fail(f"K2 {case}: max err {err.max().item()} beyond "
+             f"{SEG_REL} x sum|msg| + {SEG_ATOL} (by {excess})")
+    return err.max().item()
+
+
+def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
+                         device) -> dict:
+    """K2 at the train 'plain' fwd pack: against its plain version with
+    a random message on every slot, against K1 with msg = x[senders] *
+    w, in bf16, on a pack built with G = 2; bitwise repeats; the vjp's
+    gradient; times.  Returns the launches of the checks (the timing
+    loops not counted)."""
+    K.packed_segment_matmul_cuda.launches = 0
+    gen = torch.Generator(device=device).manual_seed(2)
+    local, tiles = pack.local_rows, pack.tiles
+    nt = K.num_tiles_of(n)
+    t0 = time.perf_counter()
+    runs = K.segment_runs_host(local.cpu().numpy(), tiles.cpu().numpy(), nt)
+    index_s = time.perf_counter() - t0
+
+    def seg(m, loc=local, til=tiles, group=1):
+        return K.packed_segment_matmul(m, loc, til, nt, group=group)
+
+    def plain(m, loc=local, til=tiles):
+        return K.packed_segment_matmul_plain(m, loc, til, nt)
+
+    errs = {}
+    msg = torch.randn(pack.senders.shape + (d,), generator=gen,
+                      device=device)
+    scale = plain(msg.abs())
+    got = seg(msg)
+    errs["random_f32"] = hold_sums("random f32", got, plain(msg), scale)
+    if not torch.equal(got, seg(msg)):
+        fail("K2 f32: two launches differ")
+    # every slot counts: zeroing the padding slots' messages changes rows
+    real = (pack.senders < n)[..., None]
+    if torch.equal(got, seg(msg * real)):
+        fail("K2: the padding slots' messages were not summed")
+    # against K1 on the same pack: msg = x[senders] * w
+    x = torch.randn(n, d, generator=gen, device=device)
+    xp = torch.cat([x, x.new_zeros(1, d)])
+    wmsg = (xp.index_select(0, pack.senders.reshape(-1).long())
+            .view(msg.shape) * pack.weights[..., None])
+    errs["vs_k1"] = hold_sums("vs K1", seg(wmsg)[:n], K.spmm_packed(pack, x),
+                              plain(wmsg.abs())[:n])
+    # bf16 messages, f32 sums
+    mb = msg.bfloat16()
+    got = seg(mb)
+    errs["random_bf16"] = hold_sums("random bf16", got, plain(mb),
+                                    plain(mb.float().abs()))
+    if not torch.equal(got, seg(mb)):
+        fail("K2 bf16: two launches differ")
+    # a pack built with group G = 2 from the same edges ('plain': raw A)
+    p2 = K.pack_csr(host_batch.senders, host_batch.receivers,
+                    host_batch.edge_weight, n, group=2)
+    loc2, til2 = (torch.from_numpy(a).to(device)
+                  for a in (p2.local_rows, p2.tiles))
+    m2 = torch.randn(p2.senders.shape + (d,), generator=gen, device=device)
+    got = seg(m2, loc2, til2, group=2)
+    errs["group2_f32"] = hold_sums("G = 2", got, plain(m2, loc2, til2),
+                                   plain(m2.abs(), loc2, til2))
+    if not torch.equal(got, seg(m2, loc2, til2, group=2)):
+        fail("K2 G = 2: two launches differ")
+    # segment_matmul_vjp: forward by K2, d_msg = g[rows]; the plain
+    # version's autograd gives the same gather (n is a whole number of
+    # tiles here, so the clamp does not act)
+    g = torch.randn(n, d, generator=gen, device=device)
+    grads = []
+    for fn in (lambda m: K.segment_matmul_vjp(m, local, tiles, n),
+               lambda m: plain(m)[:n]):
+        mr = msg.clone().requires_grad_(True)
+        out = fn(mr)
+        out.backward(g)
+        grads.append((out.detach(), mr.grad))
+    (out_k, d_k), (out_p, d_p) = grads
+    errs["vjp_fwd"] = hold_sums("vjp forward", out_k, out_p, scale[:n])
+    if not torch.equal(d_k, d_p):
+        fail(f"K2 vjp: d_msg differs from the plain version's by "
+             f"{(d_k - d_p).abs().max().item()}")
+    torch.cuda.synchronize()
+    launches = K.packed_segment_matmul_cuda.launches
+
+    # times at f32: kernel, plain, and two library calls for the same
+    # function (atomic index_add_; a 0/1 CSR [rows, slots] times msg)
+    rows = K.slot_rows(local, tiles).reshape(-1)
+    flat = msg.view(-1, d)
+    out_lib = torch.zeros(nt * K.ROWS_PER_TILE, d, device=device)
+    ones = torch.sparse_coo_tensor(
+        torch.stack([rows, torch.arange(rows.numel(), device=device)]),
+        torch.ones(rows.numel(), device=device),
+        (nt * K.ROWS_PER_TILE, rows.numel())).coalesce().to_sparse_csr()
+    lib_err = (torch.sparse.mm(ones, flat) - seg(msg)).abs().max().item()
+    calls = {"kernel": lambda: K.packed_segment_matmul_cuda(msg, local,
+                                                            tiles, nt),
+             "plain": lambda: plain(msg),
+             "index_add": lambda: out_lib.index_add_(0, rows, flat),
+             "sparse_mm": lambda: torch.sparse.mm(ones, flat)}
+    moved = (msg.numel() * msg.element_size()        # every slot once
+             + (local.numel() + tiles.numel()) * 4     # the pack ints
+             + nt * K.ROWS_PER_TILE * d * 4)           # out written once
+    flops = msg.numel()                                # one add each
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    ms, loop_ms, timed_by = time_calls(calls, max(t_bytes, t_ops) * 1e3)
+    library = min(("index_add", "sparse_mm"), key=ms.get)
+    return dict(max_abs_err=errs["random_f32"], errs=errs, launches=launches,
+                library_err=lib_err, ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms[library], library=library,
+                index_add_ms=ms["index_add"], sparse_mm_ms=ms["sparse_mm"],
+                call_ms=loop_ms, timed_by=timed_by,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved, flops=flops, slots=rows.numel(),
+                runs=len(runs.run_out), partials=runs.num_partials,
+                combined_rows=len(runs.comb_rows),
+                longest_row_slots=int(np.bincount(
+                    rows.cpu().numpy()).max()),
+                index_build_s=index_s)
+
+
+def check_model(cfg, batch, device, random_features: bool = False
+                ) -> dict:
+    """Full-width logits, gradients and BatchNorm running statistics,
+    card (kernel) vs CPU (plain).  ``random_features`` replaces the
+    batch's features with seeded normal ones: ws's are a constant 1, on
+    which ID-GIN's layer-0 id MLP sees nearly the same row at every ego
+    center, so its BatchNorm normalizes rounding noise and its gradients
+    differ between any two f32 summation orders (on the CPU, f32 against
+    float64 by more than their own size); with random features every
+    gradient holds at the tolerance below."""
+    if random_features:
+        gen = torch.Generator().manual_seed(3)
+        batch = batch.replace(node_feat=torch.randn(
+            batch.node_feat.shape, generator=gen).numpy()
+            * batch.node_mask[:, None])
     model = build_model(cfg, device)
     ref = build_model(cfg, torch.device("cpu"))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -264,8 +448,15 @@ def check_model(cfg, batch, device) -> dict:
         loss = torch.nn.functional.cross_entropy(pred[mask], label[mask])
         loss.backward()
         outs.append((pred.detach().cpu(),
-                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
-    (p_gpu, g_gpu), (p_cpu, g_cpu) = outs
+                     {k: p.grad.cpu() for k, p in m.named_parameters()},
+                     {k: v.cpu() for k, v in m.named_buffers()}))
+    (p_gpu, g_gpu, b_gpu), (p_cpu, g_cpu, b_cpu) = outs
+    buf_err = 0.0
+    for k in b_cpu:       # BatchNorm running statistics after the step
+        if not torch.allclose(b_gpu[k], b_cpu[k], rtol=1e-4, atol=1e-5):
+            fail(f"buffer {k} card vs CPU: max err "
+                 f"{(b_gpu[k] - b_cpu[k]).abs().max().item()}")
+        buf_err = max(buf_err, (b_gpu[k] - b_cpu[k]).abs().max().item())
     if not torch.allclose(p_gpu, p_cpu, rtol=1e-4, atol=1e-5):
         fail(f"model logits card vs CPU: max err "
              f"{(p_gpu - p_cpu).abs().max().item()}")
@@ -276,7 +467,8 @@ def check_model(cfg, batch, device) -> dict:
                  f"{(g_gpu[k] - g_cpu[k]).abs().max().item()}")
         worst = max(worst, (g_gpu[k] - g_cpu[k]).abs().max().item())
     return dict(logits_max_err=(p_gpu - p_cpu).abs().max().item(),
-                grad_max_err=worst)
+                grad_max_err=worst, buffers=len(b_cpu),
+                buffers_max_err=buf_err)
 
 
 def profile_steps(cfg, loaders, device, steps: int = 5) -> dict:
@@ -323,24 +515,26 @@ def read_stats(path: str):
 
 
 def train_path(cfg_file: str, overrides, out: str, loaders, counted,
-               silent) -> dict:
+               per_step: int, per_eval: int, silent) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg): every
     launch count set to 0 just before, read just after.  The kernel
-    ``counted`` must launch 2 x layers per train step plus layers per
-    eval batch (``loaders`` give the batch counts), ``silent`` never."""
+    ``counted`` must launch per_step times per train step and per_eval
+    times per eval batch (``loaders`` give the batch counts), each
+    kernel of ``silent`` never."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
     steps = epochs * len(loaders[0])
     evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, epochs)
                 for e in range(epochs)) * len(loaders[1])
-    layers = cfg.gnn.layers_mp
-    expected = 2 * layers * steps + layers * evals
-    counted.launches = silent.launches = 0
+    expected = per_step * steps + per_eval * evals
+    for k in (counted, *silent):
+        k.launches = 0
     result = run_single(cfg, cfg.out_dir, cfg_file)
     torch.cuda.synchronize()
-    launches, stray = counted.launches, silent.launches
+    launches = counted.launches
+    stray = {k.__name__: k.launches for k in silent}
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
@@ -348,10 +542,10 @@ def train_path(cfg_file: str, overrides, out: str, loaders, counted,
         fail(f"{cfg_file}: train losses {losses}")
     if launches != expected:
         fail(f"{cfg_file}: {counted.__name__} launches {launches}, "
-             f"expected {expected} ({2 * layers}/train step x {steps} + "
-             f"{layers}/eval batch x {evals})")
-    if stray:
-        fail(f"{cfg_file}: {silent.__name__} launched {stray} times")
+             f"expected {expected} ({per_step}/train step x {steps} + "
+             f"{per_eval}/eval batch x {evals})")
+    if any(stray.values()):
+        fail(f"{cfg_file}: kernels that must not launch did: {stray}")
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -360,10 +554,9 @@ def train_path(cfg_file: str, overrides, out: str, loaders, counted,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_after_first=float(np.median(step_s[1:])),
                 launches=launches, expected_launches=expected,
-                launches_per_train_step=2 * layers,
-                launches_per_eval_batch=layers,
-                **{f"{silent.__name__}_launches": stray},
-                params=cfg.params)
+                launches_per_train_step=per_step,
+                launches_per_eval_batch=per_eval,
+                silent_launches=stray, params=cfg.params)
 
 
 def load_path(cfg_file: str, overrides):
@@ -398,6 +591,9 @@ def main() -> None:
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
 
+    k1_, k2_, k3_ = (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
+                     K.packed_segment_matmul_headed_cuda)
+
     # ---- ID-GCN Full / ws: kernel K1
     cfg, loaders, host_s = load_path(CFG, overrides)
     train_batch = loaders[0].batches(0)[0]
@@ -408,9 +604,9 @@ def main() -> None:
                                          .senders.shape[0]),
           host_data_s=host_s, **k1)
     phase("model", **check_model(cfg, loaders[1].batches(0)[0], device))
+    # every layer's SpMM input (x W) needs a gradient: 2 per layer
     train = train_path(CFG, overrides, os.path.join(OUT, "idgcn"), loaders,
-                       K.packed_spmm_cuda,
-                       K.packed_segment_matmul_headed_cuda)
+                       k1_, 6, 3, (k2_, k3_))
     phase("train", **train)
     phase("profile", **profile_steps(cfg, loaders, device))
 
@@ -426,23 +622,64 @@ def main() -> None:
     phase("model_att", **check_model(cfg, loaders[1].batches(0)[0],
                                      device))
     train_att = train_path(CFG_ATT, overrides, os.path.join(OUT, "idgat"),
-                           loaders, K.packed_segment_matmul_headed_cuda,
-                           K.packed_spmm_cuda)
+                           loaders, k3_, 6, 3, (k1_, k2_))
     phase("train_att", **train_att)
     phase("profile_att", **profile_steps(cfg, loaders, device),
           repeat=repeat_steps(cfg, loaders, device))
 
+    # ---- ID-GIN Full / ws: kernel K1 on the 'plain' pack
+    cfg, loaders, host_s = load_path(CFG_GIN, overrides)
+    gin_batch = loaders[0].batches(0)[0]
+    n, d = gin_batch.num_nodes, cfg.gnn.dim_inner
+    plain_packs = gin_batch.to(device).packs["plain"]
+    k1_gin = {f"d{dd}": check_kernel(plain_packs, n, dd, device)
+              for dd in (d, gin_batch.node_feat.shape[1])}
+    phase("kernel_gin", n=n, chunks=int(plain_packs[0].senders.shape[0]),
+          host_data_s=host_s, **k1_gin)
+    phase("model_gin", **check_model(cfg, loaders[1].batches(0)[0],
+                                     device, random_features=True))
+    # layer 0 aggregates the raw features, which need no gradient:
+    # 1 + 2 x 2 per train step
+    train_gin = train_path(CFG_GIN, overrides, os.path.join(OUT, "idgin"),
+                           loaders, k1_, 5, 3, (k2_, k3_))
+    phase("train_gin", **train_gin)
+    phase("profile_gin", **profile_steps(cfg, loaders, device))
+
+    # ---- ID-SAGE Full / ws: kernel K1 on the 'mean' pack
+    cfg, loaders, host_s = load_path(CFG_SAGE, overrides)
+    phase("model_sage", host_data_s=host_s,
+          **check_model(cfg, loaders[1].batches(0)[0], device,
+                        random_features=True))
+    train_sage = train_path(CFG_SAGE, overrides,
+                            os.path.join(OUT, "idsage"), loaders, k1_, 5, 3,
+                            (k2_, k3_))
+    phase("train_sage", **train_sage)
+
+    # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
+    k2 = check_segment_kernel(gin_batch, plain_packs[0], gin_batch.num_nodes,
+                              d, device)
+    phase("kernel_seg", n=gin_batch.num_nodes, d=d, **k2)
+
     row = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
            "bound_by", "library_ms")
+    k1_paths = {"idgcn_ws": train, "idgin_ws": train_gin,
+                "idsage_ws": train_sage}
     print(json.dumps({"kernels": [
         {"name": "packed_spmm", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
-         **{k: {**k1, **train}[k] for k in row}},
+         "path": ", ".join(k1_paths),
+         **{k: k1[k] for k in row[1:]},
+         "launches": sum(t["launches"] for t in k1_paths.values()),
+         "launches_by_path": {p: t["launches"] for p, t in k1_paths.items()}},
+        {"name": "packed_segment", "route": "cuda",
+         "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
+         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",
+         "path": None, **{k: k2[k] for k in row}},
         {"name": "packed_attention", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_attention.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:537",
-         **{k: {**k3, **train_att}[k] for k in row}},
+         "path": "idgat_ws", **{k: {**k3, **train_att}[k] for k in row}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

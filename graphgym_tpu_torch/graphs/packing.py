@@ -4,17 +4,19 @@ The port of graphgym_tpu/graphs/packing.py.  Per collated GraphBatch it
 precomputes the normalized edge weights (pure functions of the static
 graph structure) and the packed chunk layouts of A and A^T:
 
-  'gcn' — D^-1/2 (A + I) D^-1/2 with the reference's inf guard
-          (TfgIDLayer.py:528-566); self-loops only on real nodes.
-  'att' — A + self-loops on real nodes, weights a validity indicator
-          (1 real, 0 padding); the attention coefficients are computed
-          in the layer (packing.py:71-79 of the JAX package).
+  'gcn'   — D^-1/2 (A + I) D^-1/2 with the reference's inf guard
+            (TfgIDLayer.py:528-566); self-loops only on real nodes.
+  'plain' — raw A (GIN sum aggregation).
+  'mean'  — D^-1 A (SAGE mean aggregation), the degree counting edges
+            of nonzero weight.
+  'att'   — A + self-loops on real nodes, weights a validity indicator
+            (1 real, 0 padding); the attention coefficients are computed
+            in the layer (packing.py:71-79 of the JAX package).
 
 The bwd layout packs the transpose with the same weights, giving
 dx = A^T g.  The 'att' entry carries a third array, the slot map: for
 each bwd slot the fwd slot of the same edge, so the backward carries
-the per-slot coefficients into bwd order.  The 'plain' and 'mean' kinds
-belong to the layers of ROADMAP A9.
+the per-slot coefficients into bwd order.
 """
 
 from __future__ import annotations
@@ -46,6 +48,17 @@ def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
     return s, r, (dis[r] * w * dis[s]).astype(np.float32)
 
 
+def _mean_weights(senders: np.ndarray, receivers: np.ndarray,
+                  edge_weight: np.ndarray, num_nodes: int):
+    """Each edge's weight over its receiver's count of nonzero-weight
+    in-edges (0 where the count is 0)."""
+    deg = np.zeros(num_nodes, np.float64)
+    np.add.at(deg, receivers, (edge_weight != 0).astype(np.float64))
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+    return senders, receivers, (edge_weight * inv[receivers]).astype(
+        np.float32)
+
+
 def _att_edges(senders: np.ndarray, receivers: np.ndarray,
                edge_weight: np.ndarray, node_mask: np.ndarray,
                num_nodes: int):
@@ -75,12 +88,16 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
         if kind == "gcn":
             s, r, w = _gcn_weights(senders, receivers, edge_weight,
                                    node_mask, num_nodes)
+        elif kind == "plain":
+            s, r, w = senders, receivers, edge_weight
+        elif kind == "mean":
+            s, r, w = _mean_weights(senders, receivers, edge_weight,
+                                    num_nodes)
         elif kind == "att":
             s, r, w = _att_edges(senders, receivers, edge_weight,
                                  node_mask, num_nodes)
         else:
-            raise NotImplementedError(
-                f"pack kind {kind!r} is not ported yet (ROADMAP A9)")
+            raise ValueError(f"unknown pack kind {kind!r}")
         fwd, fwd_slot = pack_csr_with_slots(s, r, w, num_nodes)
         bwd, bwd_slot = pack_csr_with_slots(r, s, w, num_nodes)
         # bucket chunk counts so multi-batch loaders share shapes

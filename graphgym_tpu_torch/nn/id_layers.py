@@ -3,8 +3,8 @@
 Each layer carries ``kernel``, applied to all nodes, and ``id_kernel``,
 applied additionally to the ego-net center rows in
 ``graph.node_id_index`` (reference contrib/layer/idconv.py:62-67).
-The port of graphgym_tpu/nn/id_layers.py: GCNIDConv and TfgIDGAT on the
-packed path.
+The port of graphgym_tpu/nn/id_layers.py: GCNIDConv, TfgIDSAGE,
+TfgIDGAT and GINIDConv on the packed path.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import torch
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.nn.layers import (TfgGATConv, glorot, packed_spmm,
-                                          zeros)
+from graphgym_tpu_torch.nn.layers import (TfgGATConv, _gin_mlp, gin_mlp_init,
+                                          glorot, packed_spmm, zeros)
 from graphgym_tpu_torch.ops import sparse as sp
 
 
@@ -49,6 +49,37 @@ class GCNIDConv(nn.Module):
         return graph.replace(node_feat=h)
 
 
+class TfgIDSAGE(nn.Module):
+    """tfg-style ID-SAGE (id_layers.py:145-181; reference
+    TfgIDLayer.py:15-120), three kernels, self, id and neighbor:
+
+      h = x W_self;  h[id] += x[id] W_id
+      out = [h || mean_nb(x) W_nb] + b
+
+    the neighbor mean on the 'mean' pack (the JAX layer's concat=True,
+    normalize=False, which no model changes)."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = True,
+                 *, generator: torch.Generator):
+        super().__init__()
+        d = dim_out // 2
+        self.self_kernel = glorot((dim_in, d), generator)
+        self.id_kernel = glorot((dim_in, d), generator)
+        self.neighbor_kernel = glorot((dim_in, d), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        idx, id_mask = _id_index(graph)
+        h_nb = packed_spmm(graph, "mean", x) @ self.neighbor_kernel
+        h = sp.apply_id_weights(x, idx, self.self_kernel, self.id_kernel,
+                                id_mask)
+        h = torch.cat([h, h_nb], -1)
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
 class TfgIDGAT(TfgGATConv):
     """tfg-style ID-GAT (id_layers.py:258-337; reference
     TfgIDLayer.py:269-388 ``gat_id``): TfgGATConv's dot-product
@@ -61,3 +92,30 @@ class TfgIDGAT(TfgGATConv):
         idx, id_mask = _id_index(graph)
         return sp.apply_id_weights(graph.node_feat, idx, self.kernel,
                                    self.id_kernel, id_mask)
+
+
+class GINIDConv(nn.Module):
+    """ID-GIN (id_layers.py:340-369; reference idconv.py:350-382 ==
+    TfgIDLayer.py:123-167):
+
+      h = (1 + eps) x + sum_nb x          (the 'plain' pack)
+      out = MLP(h);  out[id] += MLP_id(h[id])
+
+    with eps = 0 (the JAX layer's default, which no model changes).
+    With ``mlp_bn`` each MLP ends in BN + ReLU: MLP's BN over the real
+    nodes (node_mask), MLP_id's over the real ego centers (id_mask)."""
+
+    def __init__(self, dim_in: int, dim_out: int, mlp_bn: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        gin_mlp_init(self, "mlp", dim_in, dim_out, mlp_bn, generator)
+        gin_mlp_init(self, "mlp_id", dim_in, dim_out, mlp_bn, generator)
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        idx, id_mask = _id_index(graph)
+        h = x + packed_spmm(graph, "plain", x)
+        out = _gin_mlp(self, "mlp", h, graph.node_mask)
+        out_id = _gin_mlp(self, "mlp_id", h.index_select(0, idx), id_mask)
+        return graph.replace(node_feat=sp.scatter_add_rows(
+            out, idx, out_id, mask=id_mask))

@@ -1,7 +1,8 @@
 """Layer building blocks of the port (graphgym_tpu/nn/layers.py subset):
 the glorot initializer, the packed SpMM and packed attention dispatch,
-the Tfg dot-product GAT and the GeneralLayer wrapper.  Modules take and
-return a GraphBatch whose arrays are tensors.
+the packed-branch GCN, SAGE and GIN convs with the GIN MLP, the Tfg
+dot-product GAT and the GeneralLayer wrapper.  Modules take and return
+a GraphBatch whose arrays are tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn.act import act_dict
+from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops import segment as S
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
     pack_rows, segment_matmul_headed_vjp, spmm_pack_vjp)
@@ -183,6 +185,112 @@ class TfgGATConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias
         return graph.replace(node_feat=out)
+
+
+class GCNConv(nn.Module):
+    """GCN with the renormalization trick: h = D^-1/2 (A+I) D^-1/2 (x W)
+    + b (layers.py:266-293; reference layer.py:135-142,
+    TfgIDLayer.py:478-525 without the id kernel), on the 'gcn' pack.
+    The JAX layer's ``improved`` option takes the COO path (ROADMAP A0)
+    and no model sets it."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.kernel = glorot((dim_in, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        h = packed_spmm(graph, "gcn", graph.node_feat @ self.kernel)
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE with mean aggregation over the 'mean' pack
+    (layers.py:296-333).  combine='concat' is tfg MeanGraphSage
+    (TfgIDLayer.py:86-120): h = [x W_self || mean_nb(x) W_nb];
+    combine='sum' is pyg SAGEConv (reference layer.py:145-152):
+    h = x W_self + mean_nb(x) W_nb."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 combine: str = "sum", *, generator: torch.Generator):
+        super().__init__()
+        if combine not in ("sum", "concat"):
+            raise ValueError(f"SAGEConv combine {combine!r}")
+        if combine == "concat" and dim_out % 2:
+            raise ValueError("SAGEConv concat needs an even dim_out (tfg: "
+                             "'units must be an even number if concat is "
+                             "True')")
+        self.combine = combine
+        d = dim_out // 2 if combine == "concat" else dim_out
+        self.self_kernel = glorot((dim_in, d), generator)
+        self.neighbor_kernel = glorot((dim_in, d), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        h_nb = packed_spmm(graph, "mean", x) @ self.neighbor_kernel
+        h_self = x @ self.self_kernel
+        h = (torch.cat([h_self, h_nb], -1) if self.combine == "concat"
+             else h_self + h_nb)
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
+def gin_mlp_init(mod: nn.Module, prefix: str, dim_in: int, dim_out: int,
+                 with_bn: bool, generator: torch.Generator) -> None:
+    """Register the GIN MLP's parameters on ``mod`` under the flax
+    names: <prefix>_kernel1/_bias1/_kernel2/_bias2 and, with BN, the
+    submodule <prefix>_bn (its eps and momentum are the JAX layer's
+    defaults, not cfg.bn's, as at layers.py:568)."""
+    setattr(mod, f"{prefix}_kernel1", glorot((dim_in, dim_out), generator))
+    setattr(mod, f"{prefix}_bias1", zeros((dim_out,)))
+    setattr(mod, f"{prefix}_kernel2", glorot((dim_out, dim_out), generator))
+    setattr(mod, f"{prefix}_bias2", zeros((dim_out,)))
+    if with_bn:
+        setattr(mod, f"{prefix}_bn", MaskedBatchNorm(dim_out))
+
+
+def _gin_mlp(mod: nn.Module, prefix: str, h: torch.Tensor,
+             mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The 2-layer GIN MLP (layers.py:551-570): Dense -> ReLU -> Dense,
+    then BN over the ``mask`` rows -> ReLU when <prefix>_bn exists (the
+    Tfg variant, reference main_zd.py:181-186).  Its weight names
+    contain 'kernel', so the Tfg L2 term covers them."""
+    def p(name):
+        return getattr(mod, f"{prefix}_{name}")
+    h = torch.relu(h @ p("kernel1") + p("bias1"))
+    h = h @ p("kernel2") + p("bias2")
+    bn = getattr(mod, f"{prefix}_bn", None)
+    if bn is not None:
+        h = torch.relu(bn(h, mask))
+    return h
+
+
+class GINConv(nn.Module):
+    """GIN: h = MLP((1 + eps) x + sum_neighbors x) (layers.py:502-548;
+    reference layer.py:165-174, TfgIDLayer.py:123-167), the neighbor sum
+    on the 'plain' pack, with eps = 0 (the JAX layer's default, which no
+    model changes).  Only ``agg='sum'`` is ported: the JAX package's
+    other cfg.gnn.gin_agg ablations take the COO SpMM (ROADMAP A0)."""
+
+    def __init__(self, dim_in: int, dim_out: int, mlp_bn: bool = False,
+                 agg: str = "sum", *, generator: torch.Generator):
+        super().__init__()
+        if agg != "sum":
+            raise NotImplementedError(
+                f"GINConv agg {agg!r} needs the COO SpMM, which is not "
+                "ported yet (ROADMAP A0)")
+        gin_mlp_init(self, "mlp", dim_in, dim_out, mlp_bn, generator)
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        h = x + packed_spmm(graph, "plain", x)
+        return graph.replace(node_feat=_gin_mlp(self, "mlp", h,
+                                                graph.node_mask))
 
 
 class GeneralLayer(nn.Module):

@@ -2,9 +2,10 @@
 
 The port of graphgym_tpu/nn/model.py for the Tfg model family
 (reference main_zd.py:28-257): plain conv + relu stacks with a
-Dense(256) -> Dense(C) head, no pre-MP, no BatchNorm and no post-stage
-L2 norm.  The layer table holds ``Tfg-idgcn``, ``Tfg-idgat`` and
-``Tfg-gatconv``; other layer types are ROADMAP A9-A11.
+Dense(256) -> Dense(C) head, no pre-MP, no BatchNorm wrapper and no
+post-stage L2 norm (the GIN layers keep the BatchNorm inside their MLP).
+The layer table holds the Tfg layer types of nn/model.py:101-113 of the
+JAX package; other layer types are ROADMAP A9-A11.
 """
 
 from __future__ import annotations
@@ -17,16 +18,26 @@ from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
-from graphgym_tpu_torch.nn.layers import (GeneralLayer, TfgGATConv, glorot,
-                                          zeros)
+from graphgym_tpu_torch.nn.layers import (GCNConv, GeneralLayer, GINConv,
+                                          SAGEConv, TfgGATConv, glorot, zeros)
 
 HeadOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 # layer type -> conv(dim_in, dim_out, opts, init generator, dropout
-# generator) (nn/model.py:104-112 of the JAX package)
+# generator) (nn/model.py:101-113 of the JAX package)
 LAYERS = {
+    "Tfg-gcnconv": lambda dim_in, dim_out, opts, gen, _: GCNConv(
+        dim_in, dim_out, use_bias=True, generator=gen),
+    "Tfg-sageconv": lambda dim_in, dim_out, opts, gen, _: SAGEConv(
+        dim_in, dim_out, use_bias=True, combine="concat", generator=gen),
+    "Tfg-ginconv": lambda dim_in, dim_out, opts, gen, _: GINConv(
+        dim_in, dim_out, mlp_bn=True, agg=opts.gin_agg, generator=gen),
     "Tfg-idgcn": lambda dim_in, dim_out, opts, gen, _: idl.GCNIDConv(
         dim_in, dim_out, use_bias=True, generator=gen),
+    "Tfg-idsage": lambda dim_in, dim_out, opts, gen, _: idl.TfgIDSAGE(
+        dim_in, dim_out, use_bias=True, generator=gen),
+    "Tfg-idgin": lambda dim_in, dim_out, opts, gen, _: idl.GINIDConv(
+        dim_in, dim_out, mlp_bn=True, generator=gen),
     "Tfg-gatconv": lambda dim_in, dim_out, opts, gen, drop_gen: TfgGATConv(
         dim_in, dim_out, heads=opts.att_heads, att_dropout=opts.att_dropout,
         generator=gen, dropout_generator=drop_gen),
@@ -47,6 +58,9 @@ class GNNOptions:
     act: str = "relu"
     att_heads: int = 1
     att_dropout: float = 0.0
+    gin_agg: str = "sum"
+    bn_eps: float = 1e-5      # the BN wrapper's (A11); the Tfg GIN MLP's
+    bn_mom: float = 0.1       # BN keeps the defaults, as in the JAX layer
 
 
 def options_from_cfg(cfg) -> GNNOptions:
@@ -65,7 +79,9 @@ def options_from_cfg(cfg) -> GNNOptions:
                       layers_mp=cfg.gnn.layers_mp,
                       dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act,
                       att_heads=cfg.gnn.att_heads,
-                      att_dropout=cfg.gnn.att_dropout)
+                      att_dropout=cfg.gnn.att_dropout,
+                      gin_agg=cfg.gnn.gin_agg, bn_eps=cfg.bn.eps,
+                      bn_mom=cfg.bn.mom)
 
 
 class GNNStackStage(nn.Module):

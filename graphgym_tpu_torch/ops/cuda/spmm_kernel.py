@@ -1,25 +1,29 @@
 """Packed segmented SpMM: host packing, the Hopper kernels, their plain
 versions and the autograd wrappers.
 
-The port of graphgym_tpu/ops/pallas/spmm_kernel.py for two kernels:
+The port of graphgym_tpu/ops/pallas/spmm_kernel.py, all three kernels:
 
   K1  the weighted sum (``_kernel_weighted``) -> ``csrc/packed_spmm.cu``;
+  K2  the unweighted sum of given messages (``_kernel``)
+      -> ``csrc/packed_segment.cu``;
   K3  the per-head weighted sum of attention (``_kernel_headed``)
       -> ``csrc/packed_attention.cu``.
 
 Host side, ``pack_csr`` sorts edges by receiver and cuts them into
 chunks of C slots, each owned by one R-row output tile; the layout is
-the JAX package's, array for array.  Device side, each kernel fuses the
-``x[senders]`` gather that the TPU version ran outside its kernel.
+the JAX package's, array for array.  Device side, K1 and K3 fuse the
+``x[senders]`` gather that the TPU version ran outside its kernel; K2
+sums messages it is given, every slot of the pack.
 
 On a CUDA tensor the entry points (``spmm_packed``,
-``packed_segment_matmul_headed``) launch the kernel or raise; on a CPU
-tensor they take the plain version, the same arithmetic in plain
-PyTorch.
+``packed_segment_matmul``, ``packed_segment_matmul_headed``) launch the
+kernel or raise; on a CPU tensor they take the plain version, the same
+arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -40,7 +44,7 @@ EDGES_PER_CHUNK = 1024  # C: edge slots per chunk
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 # one shared library per source, csrc/<name>.cu
-SOURCES = ("packed_spmm", "packed_attention")
+SOURCES = ("packed_spmm", "packed_segment", "packed_attention")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -71,26 +75,33 @@ class PackedCSR(NamedTuple):
 
 def pack_csr(senders: np.ndarray, receivers: np.ndarray,
              weights: Optional[np.ndarray], num_nodes: int,
-             pad_chunks_to: Optional[int] = None) -> PackedCSR:
+             pad_chunks_to: Optional[int] = None,
+             group: int = 1) -> PackedCSR:
     """Host-side packing (the numpy path of the JAX package's
-    ``pack_csr``, spmm_kernel.py:119-179, with group G = 1).
+    ``pack_csr``, spmm_kernel.py:74-179).
 
     Edges are sorted by (receiver, sender), so partial sums accumulate
-    in a fixed order.  Every tile gets at least one chunk; padding slots
-    carry sender ``num_nodes``, weight 0 and local row 0."""
-    pack, _ = pack_csr_with_slots(senders, receivers, weights, num_nodes)
+    in a fixed order.  Each row's span is padded to a multiple of
+    ``group`` (G) slots, which keep the row's local index and weight 0,
+    so aligned groups of G slots belong to one row.  Every tile gets at
+    least one chunk; the other padding slots carry sender ``num_nodes``,
+    weight 0 and local row 0."""
+    pack, _ = pack_csr_with_slots(senders, receivers, weights, num_nodes,
+                                  group)
     if pad_chunks_to is not None:
         pack = pad_pack(pack, pad_chunks_to, num_nodes)
     return pack
 
 
 def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
-                        weights: Optional[np.ndarray], num_nodes: int
-                        ) -> Tuple[PackedCSR, np.ndarray]:
+                        weights: Optional[np.ndarray], num_nodes: int,
+                        group: int = 1) -> Tuple[PackedCSR, np.ndarray]:
     """``pack_csr`` without chunk padding, and the flat slot [E] that
     each input edge landed in (the attention path maps its fwd slots to
     its bwd slots with it)."""
-    R, C = ROWS_PER_TILE, EDGES_PER_CHUNK
+    R, C, G = ROWS_PER_TILE, EDGES_PER_CHUNK, group
+    if G < 1 or C % G:
+        raise ValueError(f"group {G} must divide the chunk of {C} slots")
     senders = np.asarray(senders, np.int64)
     receivers = np.asarray(receivers, np.int64)
     e = len(senders)
@@ -103,22 +114,24 @@ def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
     num_tiles = (num_nodes + R - 1) // R
 
     deg = np.bincount(r_s, minlength=num_nodes).astype(np.int64)
+    padded = (deg + G - 1) // G * G
     tile_of_row = np.arange(num_nodes) // R
-    tile_slots = np.bincount(tile_of_row, weights=deg,
+    tile_slots = np.bincount(tile_of_row, weights=padded,
                              minlength=num_tiles).astype(np.int64)
     chunks_per_tile = np.maximum((tile_slots + C - 1) // C, 1)
     nc = int(chunks_per_tile.sum())
     chunk_start = np.concatenate([[0], np.cumsum(chunks_per_tile)])
 
-    # slot offset of each row within its tile = running sizes minus the
-    # tile's base
-    cum = np.concatenate([[0], np.cumsum(deg)])[:-1]
+    # slot offset of each row within its tile = running padded sizes
+    # minus the tile's base
+    cum = np.concatenate([[0], np.cumsum(padded)])[:-1]
     tile_base_cum = cum[::R][:num_tiles]
     rows_in_tile = np.minimum(R, num_nodes - np.arange(num_tiles) * R)
     row_off_in_tile = cum - np.repeat(tile_base_cum, rows_in_tile)
     # global slot of edge k: tile's first chunk * C + row offset + rank
     # within the row
-    rank = np.arange(e) - cum[r_s]
+    first_pos = np.concatenate([[0], np.cumsum(deg)])[:-1]
+    rank = np.arange(e) - first_pos[r_s]
     slot = (chunk_start[tile_of_row[r_s]] * C
             + row_off_in_tile[r_s] + rank)
 
@@ -128,6 +141,13 @@ def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
     out_s[slot] = s_s
     out_w[slot] = w_s
     out_l[slot] = (r_s - tile_of_row[r_s] * R).astype(np.int32)
+    # the group padding slots after a row's edges keep its local index
+    pad_amt = padded - deg
+    pr = np.repeat(np.arange(num_nodes), pad_amt)
+    pad_rank = np.arange(len(pr)) - np.repeat(
+        np.concatenate([[0], np.cumsum(pad_amt)])[:-1], pad_amt)
+    out_l[chunk_start[tile_of_row[pr]] * C + row_off_in_tile[pr]
+          + deg[pr] + pad_rank] = (pr - tile_of_row[pr] * R)
     out_t = np.repeat(np.arange(num_tiles, dtype=np.int32),
                       chunks_per_tile)
     if nc * C >= 2 ** 31:
@@ -170,17 +190,24 @@ def pad_pack(pack: PackedCSR, pad_chunks_to: int,
 # Plain PyTorch versions
 # --------------------------------------------------------------------------
 
-def pack_rows(pack: PackedCSR) -> torch.Tensor:
-    """Receiver row of every packed slot, [NC, C] int64: tiles*R + local
+def slot_rows(local_rows: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """Output row of every packed slot, [NC, C] int64: tiles*R + local
     (spmm_kernel.py:675-678)."""
-    return (pack.tiles.long()[:, None] * ROWS_PER_TILE
-            + pack.local_rows.long())
+    return tiles.long()[:, None] * ROWS_PER_TILE + local_rows.long()
+
+
+def pack_rows(pack: PackedCSR) -> torch.Tensor:
+    """Receiver row of every slot of ``pack``, [NC, C] int64."""
+    return slot_rows(pack.local_rows, pack.tiles)
+
+
+def num_tiles_of(n: int) -> int:
+    return (n + ROWS_PER_TILE - 1) // ROWS_PER_TILE
 
 
 def _f32_tiles(n: int, d: int, device) -> torch.Tensor:
-    num_tiles = (n + ROWS_PER_TILE - 1) // ROWS_PER_TILE
-    return torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
-                       device=device)
+    return torch.zeros(num_tiles_of(n) * ROWS_PER_TILE, d,
+                       dtype=torch.float32, device=device)
 
 
 def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
@@ -211,6 +238,111 @@ def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
     out = _f32_tiles(n, d, v.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg.view(-1, d))
     return out[:n]
+
+
+def packed_segment_matmul_plain(msg: torch.Tensor, local_rows: torch.Tensor,
+                                tiles: torch.Tensor,
+                                num_tiles: int) -> torch.Tensor:
+    """out[tiles[i]*R + local_rows[i, c]] += msg[i, c] over every slot,
+    padding slots included: index_add_ into f32 tiles.  msg [NC, C, D]
+    f32 or bf16; out [num_tiles*R, D] f32."""
+    d = msg.shape[-1]
+    out = torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
+                      device=msg.device)
+    out.index_add_(0, slot_rows(local_rows, tiles).reshape(-1),
+                   msg.reshape(-1, d).float())
+    return out
+
+
+# --------------------------------------------------------------------------
+# K2's row -> slots index (host-built, once per pack)
+# --------------------------------------------------------------------------
+
+RUN_SLOTS = 128   # most slots of one row that one warp of K2 sums
+
+
+class SegmentRuns(NamedTuple):
+    """Where K2 reads and writes, for one pack.
+
+    run_start    [runs + 1] int32 — first flat slot of each run, then
+                 the slot count.  A run is at most RUN_SLOTS consecutive
+                 slots of one output row within one chunk; runs are in
+                 slot order and cover every slot.
+    run_out      [runs] int32 — where a run's sum goes: its output row
+                 when it is the row's only run, else partial p as -(p+1)
+    comb_rows    [M] int32 — the output rows with no run or several
+    comb_ptr     [M + 1] int32 — their partials, comb_ptr[m] up to
+                 comb_ptr[m + 1], numbered in slot order
+    num_partials int
+    """
+    run_start: Any
+    run_out: Any
+    comb_rows: Any
+    comb_ptr: Any
+    num_partials: int
+
+
+def segment_runs_host(local_rows: np.ndarray, tiles: np.ndarray,
+                      num_tiles: int) -> SegmentRuns:
+    """K2's index of a pack (numpy): the slots cut into runs, and for
+    each output row either its single run or its partials."""
+    local_rows = np.asarray(local_rows, np.int64)
+    nc, c = local_rows.shape
+    rows = (np.asarray(tiles, np.int64)[:, None] * ROWS_PER_TILE
+            + local_rows).reshape(-1)
+    n_out = num_tiles * ROWS_PER_TILE
+    if rows.size and (rows.min() < 0 or rows.max() >= n_out):
+        raise ValueError(f"pack rows outside the {n_out} rows of "
+                         f"{num_tiles} tiles")
+    # a run starts at each chunk, at each change of row, and every
+    # RUN_SLOTS slots after that
+    new = np.ones(rows.size, bool)
+    new[1:] = rows[1:] != rows[:-1]
+    new[::c] = True
+    starts = np.flatnonzero(new)
+    pieces = -(-np.diff(np.append(starts, rows.size)) // RUN_SLOTS)
+    first = np.cumsum(pieces) - pieces
+    k = np.arange(int(pieces.sum()))
+    run_start = (np.repeat(starts, pieces)
+                 + (k - np.repeat(first, pieces)) * RUN_SLOTS)
+    run_row = rows[run_start]
+    count = np.bincount(run_row, minlength=n_out)
+    # partials of rows with several runs: by row, then in slot order
+    multi = np.flatnonzero(count[run_row] > 1)
+    multi = multi[np.argsort(run_row[multi], kind="stable")]
+    run_out = run_row.copy()
+    run_out[multi] = -1 - np.arange(len(multi))
+    comb_rows = np.flatnonzero(count != 1)
+    sizes = np.where(count[comb_rows] > 1, count[comb_rows], 0)
+    return SegmentRuns(
+        np.append(run_start, rows.size).astype(np.int32),
+        run_out.astype(np.int32), comb_rows.astype(np.int32),
+        np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+        len(multi))
+
+
+_RUNS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_RUNS_CACHE_SIZE = 8
+
+
+def segment_runs(local_rows: torch.Tensor, tiles: torch.Tensor,
+                 num_tiles: int) -> SegmentRuns:
+    """``segment_runs_host`` of a pack, on local_rows' device, built
+    once per pack.  The cache holds the pack's own tensors, so a hit
+    names the same memory, unchanged since (equal version counters)."""
+    key = (local_rows.data_ptr(), tiles.data_ptr(), local_rows.device,
+           tuple(local_rows.shape), tuple(tiles.shape),
+           local_rows._version, tiles._version, num_tiles)
+    hit = _RUNS_CACHE.get(key)
+    if hit is None:
+        host = segment_runs_host(local_rows.cpu().numpy(),
+                                 tiles.cpu().numpy(), num_tiles)
+        runs = SegmentRuns(*(torch.from_numpy(a).to(local_rows.device)
+                             for a in host[:4]), host.num_partials)
+        hit = _RUNS_CACHE[key] = (local_rows, tiles, runs)
+        while len(_RUNS_CACHE) > _RUNS_CACHE_SIZE:
+            _RUNS_CACHE.popitem(last=False)
+    return hit[2]
 
 
 # --------------------------------------------------------------------------
@@ -282,6 +414,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     # x, n_rows, d, senders, weights, row_range, out, stream
     "packed_spmm": [_P, _LL, _I, _P, _P, _P, _P, _P],
+    # msg, d, n_runs, run_start, run_out, n_comb, comb_rows, comb_ptr,
+    # partial, out, stream
+    "packed_segment": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
     # v, n_rows, d, heads, senders, alpha, row_range, out, stream
     "packed_attention": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
 }
@@ -385,6 +520,46 @@ def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
 packed_segment_matmul_headed_cuda.launches = 0
 
 
+def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
+                               tiles: torch.Tensor,
+                               num_tiles: int) -> torch.Tensor:
+    """Launch the Hopper kernel K2: f32 out [num_tiles*R, D],
+    out[tiles[i]*R + local_rows[i, c]] += msg[i, c] over every slot, with
+    msg [NC, C, D] f32 or bf16 and the pack's int32 local_rows [NC, C]
+    and tiles [NC] on a CUDA device.  Adds one to
+    ``packed_segment_matmul_cuda.launches`` per launch."""
+    name = "packed_segment_matmul_cuda"
+    _check(name, msg.is_cuda and msg.dim() == 3,
+           "msg must be a 3-D CUDA tensor")
+    _check(name, msg.dtype in (torch.float32, torch.bfloat16),
+           f"msg dtype {msg.dtype} not supported (float32, bfloat16)")
+    _check(name, tuple(local_rows.shape) == tuple(msg.shape[:2])
+           and tuple(tiles.shape) == tuple(msg.shape[:1]),
+           f"local_rows {tuple(local_rows.shape)} and tiles "
+           f"{tuple(tiles.shape)} for msg {tuple(msg.shape)}")
+    for field, a in (("local_rows", local_rows), ("tiles", tiles)):
+        _check(name, a.device == msg.device and a.dtype == torch.int32,
+               f"{field} must be an int32 tensor on {msg.device}")
+    runs = segment_runs(local_rows, tiles, num_tiles)
+    msg = msg.contiguous()
+    d = msg.shape[-1]
+    out = torch.empty(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
+                      device=msg.device)
+    if out.numel() == 0:
+        return out
+    partial = torch.empty(runs.num_partials, d, dtype=torch.float32,
+                          device=msg.device)
+    _launch("packed_segment", msg, d, runs.run_out.numel(),
+            runs.run_start.data_ptr(), runs.run_out.data_ptr(),
+            runs.comb_rows.numel(), runs.comb_rows.data_ptr(),
+            runs.comb_ptr.data_ptr(), partial.data_ptr(), out.data_ptr())
+    packed_segment_matmul_cuda.launches += 1
+    return out
+
+
+packed_segment_matmul_cuda.launches = 0
+
+
 # --------------------------------------------------------------------------
 # Entry points
 # --------------------------------------------------------------------------
@@ -395,6 +570,55 @@ def spmm_packed(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return packed_spmm_cuda(pack, x).to(x.dtype)
     return spmm_packed_plain(pack, x)
+
+
+def packed_segment_matmul(msg: torch.Tensor, local_rows: torch.Tensor,
+                          tiles: torch.Tensor, num_tiles: int,
+                          group: int = 1) -> torch.Tensor:
+    """out[t*R + j] = the sum of msg over the slots of tile t's chunks
+    whose local row is j (spmm_kernel.py:376-438 with weights=None),
+    every slot, padding slots included: the kernel for a CUDA tensor,
+    the plain version for a CPU one.  msg [NC, C, D] f32 or bf16; f32
+    out [num_tiles*R, D].  ``group`` is the G the pack was built with;
+    both versions sum in f32 in slot order whatever G is (the TPU kernel
+    pre-sums aligned groups, and rounds them to bf16 for bf16 msg)."""
+    if group < 1 or msg.shape[1] % group:
+        raise ValueError(f"group {group} must divide the chunk of "
+                         f"{msg.shape[1]} slots")
+    if msg.is_cuda:
+        return packed_segment_matmul_cuda(msg, local_rows, tiles, num_tiles)
+    return packed_segment_matmul_plain(msg, local_rows, tiles, num_tiles)
+
+
+class SegmentMatmulFn(torch.autograd.Function):
+    """Differentiable packed segmented sum (the port of
+    ``segment_matmul_vjp``, spmm_kernel.py:505-534): out[rows] += msg,
+    rows = tiles*R + local_rows, sliced to num_nodes rows.  The gradient
+    is the gather d_msg[i, c] = g[rows[i, c]], with rows clamped to the
+    last row of g as the JAX rule does (:526): a slot whose row lies past
+    num_nodes reads g[num_nodes - 1].  local_rows and tiles get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, msg: torch.Tensor, local_rows: torch.Tensor,
+                tiles: torch.Tensor, num_nodes: int) -> torch.Tensor:
+        ctx.save_for_backward(local_rows, tiles)
+        ctx.msg_dtype = msg.dtype
+        return packed_segment_matmul(msg, local_rows, tiles,
+                                     num_tiles_of(num_nodes))[:num_nodes]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        local_rows, tiles = ctx.saved_tensors
+        rows = slot_rows(local_rows, tiles).clamp_max(g.shape[0] - 1)
+        d_msg = g.index_select(0, rows.reshape(-1)).view(
+            rows.shape + g.shape[1:])
+        return d_msg.to(ctx.msg_dtype), None, None, None
+
+
+def segment_matmul_vjp(msg: torch.Tensor, local_rows: torch.Tensor,
+                       tiles: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    return SegmentMatmulFn.apply(msg, local_rows, tiles, num_nodes)
 
 
 class SpmmPackFn(torch.autograd.Function):

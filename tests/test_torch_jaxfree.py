@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
     (mods,) = [ln[len("MODULES:"):].split(",") for ln in
                out.stdout.splitlines() if ln.startswith("MODULES:")]
     for name in ("graphgym_tpu_torch.main", "graphgym_tpu_torch.ops.segment",
-                 "graphgym_tpu_torch.nn.act",
+                 "graphgym_tpu_torch.nn.act", "graphgym_tpu_torch.nn.norm",
                  "graphgym_tpu_torch.ops.cuda.spmm_kernel"):
         assert name in mods
 
