@@ -6,7 +6,8 @@ Phases (each prints one line; any failure exits non-zero):
   1. device   — nvidia-smi name and power limit;
   2. build    — nvcc builds the kernels, one library per source
                 (csrc/packed_spmm.cu, csrc/packed_segment.cu,
-                csrc/packed_attention.cu), side by side;
+                csrc/packed_attention.cu, csrc/packed_sddmm.cu), side by
+                side;
   ID-GCN Full / ws (configs/idgcn_ws.yaml), kernel K1:
   3. kernel   — at the shapes of the train batch (the real 'gcn' packs
                 from the port's loader, D = 128): kernel vs its plain
@@ -16,39 +17,51 @@ Phases (each prints one line; any failure exits non-zero):
                 (torch.sparse.mm on a CSR tensor of the same matrix)
                 beside the bound;
   4. model    — the full-width model's logits and gradients on the card
-                against the same model on the CPU (plain versions);
+                against the same model on the CPU (plain versions), and
+                then its eval-mode logits;
   5. train    — the config through graphgym_tpu_torch.main for a few
                 epochs at full width (3 x 128, head 256): finite losses,
                 6 K1 launches per train step plus 3 per eval batch, no
-                K2 or K3 launch;
+                launch of another kernel;
   6. profile  — torch.profiler over a few more train steps: device time
-                by kernel and the device's idle share.
-  ID-GAT Full / ws (configs/idgat_ws.yaml), kernel K3:
+                by kernel, the device's idle share, the peak of device
+                memory and the widest tensor any op of a step takes.
+  ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
                    pack and, alpha carried by the slot map, the bwd pack,
-                   in float32 and bfloat16, and at H = 4 (dv = 32);
+                   in float32 (a warp a row) and bfloat16 (a half-warp),
+                   and at H = 4 (dv = 32); bitwise-repeatable launches;
+                   kernel, plain and library (torch.sparse.mm, CSR of
+                   alpha) times beside the bound at H = 1 and 4;
+  8. kernel_sddmm — at the real train 'att' fwd pack, D = 128: the SDDMM
+                   against its plain version in float32 and bfloat16, at
+                   H = 1 and 4, exact 0 on every slot of pack weight 0,
                    bitwise-repeatable launches; kernel, plain and library
-                   (torch.sparse.mm, CSR of alpha) times beside the bound;
-  8. model_att   — as 4, for the full-width Tfg-idgat model;
-  9. train_att   — as 5: 6 K3 launches per train step plus 3 per eval
-                   batch, no K1 or K2 launch;
- 10. profile_att — as 6, and whether two train steps from the same state
-                   give bitwise-equal losses and parameters.
+                   (torch.sparse.sampled_addmm on a CSR of the valid
+                   slots, H = 1) times beside the bound;
+  9. model_att   — as 4, for the full-width Tfg-idgat model;
+ 10. train_att   — as 5: 12 K3 launches (forward, dv, dq, dk per layer)
+                   and 6 SDDMM launches (score, dalpha) per train step,
+                   3 of each per eval batch, no K1 or K2 launch;
+ 11. profile_att — as 6, no op taking a tensor as wide as [E, D] (E the
+                   pack's slots), and whether two train steps from the
+                   same state give bitwise-equal losses and parameters.
   ID-GIN Full / ws (configs/idgin_ws.yaml), kernel K1 on the 'plain'
   pack:
- 11. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
+ 12. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
                    (layer 0 aggregates the raw 1-wide features);
- 12. model_gin   — as 4 (the GIN MLP's BatchNorm in train mode), and the
-                   running statistics after it, on seeded random features
-                   (see check_model);
- 13. train_gin   — as 5: 5 K1 launches per train step (layer 0's input
-                   needs no gradient) plus 3 per eval batch, no K2 or K3;
- 14. profile_gin — as 6.
+ 13. model_gin   — as 4 (the GIN MLP's BatchNorm in train mode), the
+                   running statistics after it and the eval-mode logits
+                   that use them, on seeded random features (see
+                   check_model);
+ 14. train_gin   — as 5: 5 K1 launches per train step (layer 0's input
+                   needs no gradient) plus 3 per eval batch, no other;
+ 15. profile_gin — as 6.
   ID-SAGE Full / ws (configs/idsage_ws.yaml), K1 on the 'mean' pack:
- 15. model_sage, 16. train_sage — as 12 and 13.
+ 16. model_sage, 17. train_sage — as 13 and 14.
   Kernel K2, which no path runs:
- 17. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
+ 18. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
                    every slot (padding slots included), against K1 with
                    msg = x[senders] * w, in bfloat16, on a pack built
@@ -129,9 +142,9 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms_by_kernel(fn, iters: int = 20) -> dict:
-    """Device time per call of each kernel fn launches (torch.profiler;
-    annotation ranges excluded, they would count their kernels twice)."""
+def profile_events(fn, iters: int = 20):
+    """torch.profiler's per-name averages over iters calls of fn, after
+    three calls of warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -142,9 +155,25 @@ def device_ms_by_kernel(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def device_ms_by_kernel(fn, iters: int = 20, events=None) -> dict:
+    """Device time per call of each kernel fn launches (torch.profiler;
+    annotation ranges excluded, they would count their kernels twice)."""
+    events = events if events is not None else profile_events(fn, iters)
     return {ev.key: ev.self_device_time_total / iters / 1e3
-            for ev in prof.key_averages()
+            for ev in events
             if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)}
+
+
+def host_ms_by_op(events, iters: int) -> dict:
+    """Host time per call of fn in each operator's own code (self CPU
+    time, torch.profiler), and its calls per call of fn."""
+    return {ev.key: (ev.self_cpu_time_total / iters / 1e3, ev.count / iters)
+            for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CPU
             and not getattr(ev, "is_user_annotation", False)}
 
 
@@ -232,7 +261,7 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
     bound_ms = max(t_bytes, t_ops) * 1e3
     ms, loop_ms, timed_by = time_calls(calls, bound_ms)
     return dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                library_ms=ms["library"], call_ms=loop_ms,
+                library_ms=ms.get("library"), call_ms=loop_ms,
                 timed_by=timed_by, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, slots=pack.senders.numel(),
@@ -256,6 +285,7 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
                                 mask=valid.expand(-1, heads))
         return alpha.view(fwd.senders.shape + (heads,))
 
+    k3 = K.packed_segment_matmul_headed_cuda
     alphas = {heads: softmax_alpha(heads) for heads in (1, 4)}
     errs = {}
     for heads, alpha in alphas.items():
@@ -284,15 +314,107 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
     lib_err = (torch.sparse.mm(a, v)
                - K.packed_segment_matmul_headed(fwd, v, alpha1)).abs().max()
     calls = {
-        "kernel": lambda: K.packed_segment_matmul_headed_cuda(fwd, v,
-                                                              alpha1),
+        "kernel": lambda: k3(fwd, v, alpha1),
         "plain": lambda: K.packed_segment_matmul_headed_plain(fwd, v,
                                                               alpha1),
         "library": lambda: torch.sparse.mm(a, v)}
+    alpha4 = alphas[4]
+    calls4 = {
+        "kernel": lambda: k3(fwd, v, alpha4),
+        "plain": lambda: K.packed_segment_matmul_headed_plain(fwd, v,
+                                                              alpha4)}
     return dict(max_abs_err=max(e for k, e in errs.items()
                                 if k.endswith("float32")),
                 errs=errs, library_err=lib_err.item(),
-                **timings(calls, fwd, v, slot_bytes=8))  # sender, alpha
+                **timings(calls, fwd, v, slot_bytes=8),  # sender, alpha
+                h4=timings(calls4, fwd, v, slot_bytes=4 + 4 * 4))
+
+
+def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
+    """The SDDMM at the train 'att' fwd pack against its plain version:
+    f32 and bf16, H = 1 and 4, within SEG_REL of the slot's sum of
+    |a * b| products (two f32 sums of 128 products in different orders),
+    exact 0 on every slot of pack weight 0, bitwise repeats; times at
+    H = 1 and 4 and, at H = 1, torch.sparse.sampled_addmm on a CSR of the
+    valid slots."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    sddmm = K.packed_sddmm_cuda
+    zero_w = pack.weights == 0
+    errs, inputs = {}, {}
+    for heads in (1, 4):
+        a, b = (torch.randn(n, heads, d // heads, generator=gen,
+                            device=device) for _ in range(2))
+        inputs[heads] = (a, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            case = f"h{heads}_{str(dtype)[6:]}"
+            ai, bi = a.to(dtype), b.to(dtype)
+            got = K.packed_sddmm(pack, ai, bi)
+            want = K.packed_sddmm_plain(pack, ai, bi)
+            scale = K.packed_sddmm_plain(pack, ai.float().abs(),
+                                         bi.float().abs())
+            torch.cuda.synchronize()
+            if got.shape != pack.senders.shape + (heads,) \
+                    or not torch.isfinite(got).all():
+                fail(f"SDDMM {case}: bad output {tuple(got.shape)}")
+            err = (got - want).abs()
+            if (err > SEG_REL * scale + SEG_ATOL).any():
+                fail(f"SDDMM {case}: max err {err.max().item()} beyond "
+                     f"{SEG_REL} x sum|a*b| + {SEG_ATOL}")
+            if (got[zero_w] != 0).any():
+                fail(f"SDDMM {case}: a slot of pack weight 0 is not 0")
+            errs[case] = err.max().item()
+            if not torch.equal(got, K.packed_sddmm(pack, ai, bi)):
+                fail(f"SDDMM {case}: two launches differ")
+
+    def bound(heads, real_slots):
+        moved = (2 * n * d * 4                      # a and b read once
+                 + real_slots * 8                   # sender, weight
+                 + pack.row_range.numel() * 4
+                 + pack.senders.numel() * heads * 4)  # out written once
+        flops = 2 * real_slots * d
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=moved, flops=flops)
+
+    ranges = pack.row_range.long()
+    real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
+    # the library call: the valid slots as a CSR pattern, H = 1
+    live = (pack.weights > 0).reshape(-1)
+    rows = K.pack_rows(pack).reshape(-1)[live]
+    cols = pack.senders.reshape(-1)[live].long()
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), torch.ones(rows.numel(), device=device),
+        (n, n)).coalesce().to_sparse_csr()
+    a1, b1 = (t[:, 0] for t in inputs[1])
+    b1t = b1.t()
+
+    def library():
+        return torch.sparse.sampled_addmm(csr, a1, b1t, beta=0.0)
+
+    lib = library().values()
+    kern = K.packed_sddmm(pack, *inputs[1]).reshape(-1)[live]
+    # the CSR holds the valid slots in slot order (rows, then senders,
+    # ascending) unless an edge repeats
+    lib_err = ((lib - kern).abs().max().item()
+               if lib.numel() == kern.numel() else None)
+    out = {}
+    for heads in (1, 4):
+        a, b = inputs[heads]
+        calls = {"kernel": lambda: sddmm(pack, a, b),
+                 "plain": lambda: K.packed_sddmm_plain(pack, a, b)}
+        if heads == 1:
+            calls["library"] = library
+        bd = bound(heads, real_slots)
+        ms, loop_ms, timed_by = time_calls(calls, bd["bound_ms"])
+        out[f"h{heads}"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                                library_ms=ms.get("library"),
+                                call_ms=loop_ms, timed_by=timed_by, **bd)
+    return dict(max_abs_err=max(e for k, e in errs.items()
+                                if k.endswith("float32")),
+                errs=errs, library_err=lib_err, slots=pack.senders.numel(),
+                real_slots=real_slots, csr_nnz=csr.values().numel(),
+                **out["h1"], h4=out["h4"])
 
 
 def hold_sums(case: str, got: torch.Tensor, want: torch.Tensor,
@@ -426,7 +548,8 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
 def check_model(cfg, batch, device, random_features: bool = False
                 ) -> dict:
     """Full-width logits, gradients and BatchNorm running statistics,
-    card (kernel) vs CPU (plain).  ``random_features`` replaces the
+    card (kernel) vs CPU (plain), and then the eval-mode logits (which
+    read those running statistics).  ``random_features`` replaces the
     batch's features with seeded normal ones: ws's are a constant 1, on
     which ID-GIN's layer-0 id MLP sees nearly the same row at every ego
     center, so its BatchNorm normalizes rounding noise and its gradients
@@ -447,19 +570,24 @@ def check_model(cfg, batch, device, random_features: bool = False
         pred, label, mask = m(b)
         loss = torch.nn.functional.cross_entropy(pred[mask], label[mask])
         loss.backward()
+        m.eval()
+        with torch.no_grad():
+            pred_eval = m(b)[0]
         outs.append((pred.detach().cpu(),
                      {k: p.grad.cpu() for k, p in m.named_parameters()},
-                     {k: v.cpu() for k, v in m.named_buffers()}))
-    (p_gpu, g_gpu, b_gpu), (p_cpu, g_cpu, b_cpu) = outs
+                     {k: v.cpu() for k, v in m.named_buffers()},
+                     pred_eval.cpu()))
+    (p_gpu, g_gpu, b_gpu, e_gpu), (p_cpu, g_cpu, b_cpu, e_cpu) = outs
     buf_err = 0.0
     for k in b_cpu:       # BatchNorm running statistics after the step
         if not torch.allclose(b_gpu[k], b_cpu[k], rtol=1e-4, atol=1e-5):
             fail(f"buffer {k} card vs CPU: max err "
                  f"{(b_gpu[k] - b_cpu[k]).abs().max().item()}")
         buf_err = max(buf_err, (b_gpu[k] - b_cpu[k]).abs().max().item())
-    if not torch.allclose(p_gpu, p_cpu, rtol=1e-4, atol=1e-5):
-        fail(f"model logits card vs CPU: max err "
-             f"{(p_gpu - p_cpu).abs().max().item()}")
+    for name, got, want in (("train", p_gpu, p_cpu), ("eval", e_gpu, e_cpu)):
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            fail(f"model {name}-mode logits card vs CPU: max err "
+                 f"{(got - want).abs().max().item()}")
     worst = 0.0
     for k in g_cpu:
         if not torch.allclose(g_gpu[k], g_cpu[k], rtol=1e-3, atol=1e-5):
@@ -467,27 +595,77 @@ def check_model(cfg, batch, device, random_features: bool = False
                  f"{(g_gpu[k] - g_cpu[k]).abs().max().item()}")
         worst = max(worst, (g_gpu[k] - g_cpu[k]).abs().max().item())
     return dict(logits_max_err=(p_gpu - p_cpu).abs().max().item(),
+                eval_logits_max_err=(e_gpu - e_cpu).abs().max().item(),
                 grad_max_err=worst, buffers=len(b_cpu),
                 buffers_max_err=buf_err)
 
 
-def profile_steps(cfg, loaders, device, steps: int = 5) -> dict:
+def widest_op_inputs(fn, top: int = 5) -> list:
+    """The ops of one call of fn (forward and backward) whose widest
+    tensor argument has the most elements (torch.profiler with shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def numel(shape) -> int:
+        if isinstance(shape, (list, tuple)) and shape and all(
+                isinstance(x, int) for x in shape):
+            return math.prod(shape)
+        if isinstance(shape, (list, tuple)):
+            return max((numel(x) for x in shape), default=0)
+        return 0
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.events():
+        widest = max((numel(sh) for sh in ev.input_shapes or []), default=0)
+        if widest > ops.get(ev.name, (0, None))[0]:
+            ops[ev.name] = (widest, ev.input_shapes)
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
+    return [dict(op=name, numel=w, shapes=str(sh)[:160])
+            for name, (w, sh) in ranked]
+
+
+def profile_steps(cfg, loaders, device, steps: int = 5,
+                  forbid_numel: int = 0) -> dict:
     """Device time by kernel over a few train steps (torch.profiler),
-    and the device's busy share of the step's wall time."""
+    the device's busy share of the step's wall time, the peak of device
+    memory over the steps, the host time in operators' own code (the
+    rest of the host's step is Python and the launch path), and the ops
+    with the widest tensor arguments; with ``forbid_numel``, fails if an
+    op takes a tensor that large."""
     trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
     batch = trainer._place(loaders[0].batches(0)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(steps):
         trainer.train_step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_kernel = device_ms_by_kernel(lambda: trainer.train_step(batch),
-                                    iters=steps)
+    peak = torch.cuda.max_memory_allocated(device)
+    events = profile_events(lambda: trainer.train_step(batch), steps)
+    by_kernel = device_ms_by_kernel(None, steps, events)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    by_op = host_ms_by_op(events, steps)
+    host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
+    widest = widest_op_inputs(lambda: trainer.train_step(batch))
+    if forbid_numel and widest[0]["numel"] >= forbid_numel:
+        fail(f"an op of the train step takes a tensor of "
+             f"{widest[0]['numel']} elements (>= {forbid_numel}): "
+             f"{widest[0]}")
     return dict(step_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-                top=[dict(name=k[:80], ms_per_step=v) for k, v in top])
+                peak_memory_bytes=peak,
+                top=[dict(name=k[:80], ms_per_step=v) for k, v in top],
+                host_ops_ms=sum(ms for ms, _ in by_op.values()),
+                host_op_calls=sum(c for _, c in by_op.values()),
+                host_top=[dict(name=k[:60], ms_per_step=ms,
+                               calls_per_step=c)
+                          for k, (ms, c) in host_top],
+                widest_op_inputs=widest)
 
 
 def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
@@ -514,38 +692,43 @@ def read_stats(path: str):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def train_path(cfg_file: str, overrides, out: str, loaders, counted,
-               per_step: int, per_eval: int, silent) -> dict:
+def kernels() -> tuple:
+    """Every kernel wrapper of the port (each counts its launches)."""
+    return (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
+            K.packed_segment_matmul_headed_cuda, K.packed_sddmm_cuda)
+
+
+def train_path(cfg_file: str, overrides, out: str, loaders,
+               expected: dict) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg): every
-    launch count set to 0 just before, read just after.  The kernel
-    ``counted`` must launch per_step times per train step and per_eval
-    times per eval batch (``loaders`` give the batch counts), each
-    kernel of ``silent`` never."""
+    launch count set to 0 just before, read just after.  ``expected``
+    maps a kernel wrapper to its launches (per train step, per eval
+    batch), ``loaders`` give the batch counts; every other kernel must
+    not launch."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
     steps = epochs * len(loaders[0])
     evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, epochs)
                 for e in range(epochs)) * len(loaders[1])
-    expected = per_step * steps + per_eval * evals
-    for k in (counted, *silent):
+    want = {k.__name__: expected.get(k, (0, 0)) for k in kernels()}
+    for k in kernels():
         k.launches = 0
     result = run_single(cfg, cfg.out_dir, cfg_file)
     torch.cuda.synchronize()
-    launches = counted.launches
-    stray = {k.__name__: k.launches for k in silent}
+    launches = {k.__name__: k.launches for k in kernels()}
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
     if len(losses) != epochs or not all(map(math.isfinite, losses)):
         fail(f"{cfg_file}: train losses {losses}")
-    if launches != expected:
-        fail(f"{cfg_file}: {counted.__name__} launches {launches}, "
-             f"expected {expected} ({per_step}/train step x {steps} + "
-             f"{per_eval}/eval batch x {evals})")
-    if any(stray.values()):
-        fail(f"{cfg_file}: kernels that must not launch did: {stray}")
+    for name, (per_step, per_eval) in want.items():
+        total = per_step * steps + per_eval * evals
+        if launches[name] != total:
+            fail(f"{cfg_file}: {name} launches {launches[name]}, expected "
+                 f"{total} ({per_step}/train step x {steps} + "
+                 f"{per_eval}/eval batch x {evals})")
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -553,10 +736,9 @@ def train_path(cfg_file: str, overrides, out: str, loaders, counted,
     return dict(epochs=epochs, losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_after_first=float(np.median(step_s[1:])),
-                launches=launches, expected_launches=expected,
-                launches_per_train_step=per_step,
-                launches_per_eval_batch=per_eval,
-                silent_launches=stray, params=cfg.params)
+                launches=launches,
+                launches_per_train_step_and_eval_batch=want,
+                params=cfg.params)
 
 
 def load_path(cfg_file: str, overrides):
@@ -591,8 +773,9 @@ def main() -> None:
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
 
-    k1_, k2_, k3_ = (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
-                     K.packed_segment_matmul_headed_cuda)
+    k1_, k3_, sddmm_ = (K.packed_spmm_cuda,
+                        K.packed_segment_matmul_headed_cuda,
+                        K.packed_sddmm_cuda)
 
     # ---- ID-GCN Full / ws: kernel K1
     cfg, loaders, host_s = load_path(CFG, overrides)
@@ -606,26 +789,32 @@ def main() -> None:
     phase("model", **check_model(cfg, loaders[1].batches(0)[0], device))
     # every layer's SpMM input (x W) needs a gradient: 2 per layer
     train = train_path(CFG, overrides, os.path.join(OUT, "idgcn"), loaders,
-                       k1_, 6, 3, (k2_, k3_))
+                       {k1_: (6, 3)})
     phase("train", **train)
     phase("profile", **profile_steps(cfg, loaders, device))
 
-    # ---- ID-GAT Full / ws: kernel K3
+    # ---- ID-GAT Full / ws: kernels K3 and the SDDMM
     cfg, loaders, host_s = load_path(CFG_ATT, overrides)
     train_batch = loaders[0].batches(0)[0]
     n, d = train_batch.num_nodes, cfg.gnn.dim_inner
     dev_batch = train_batch.to(device)
-    k3 = check_attention_kernel(dev_batch.packs["att"], n, d, device)
+    att_packs = dev_batch.packs["att"]
+    k3 = check_attention_kernel(att_packs, n, d, device)
     phase("kernel_att", n=n, d=d, heads=cfg.gnn.att_heads,
-          chunks=int(dev_batch.packs["att"][0].senders.shape[0]),
-          host_data_s=host_s, **k3)
+          chunks=int(att_packs[0].senders.shape[0]), host_data_s=host_s,
+          **k3)
+    sddmm = check_sddmm_kernel(att_packs[0], n, d, device)
+    phase("kernel_sddmm", n=n, d=d, **sddmm)
     phase("model_att", **check_model(cfg, loaders[1].batches(0)[0],
                                      device))
+    # per layer: K3 forward, dv, dq, dk; SDDMM score, dalpha (layer 0's
+    # Wq, Wk, Wv train too); an eval batch runs the forwards
     train_att = train_path(CFG_ATT, overrides, os.path.join(OUT, "idgat"),
-                           loaders, k3_, 6, 3, (k1_, k2_))
+                           loaders, {k3_: (12, 3), sddmm_: (6, 3)})
     phase("train_att", **train_att)
-    phase("profile_att", **profile_steps(cfg, loaders, device),
-          repeat=repeat_steps(cfg, loaders, device))
+    phase("profile_att", **profile_steps(
+        cfg, loaders, device, forbid_numel=att_packs[0].senders.numel() * d),
+        repeat=repeat_steps(cfg, loaders, device))
 
     # ---- ID-GIN Full / ws: kernel K1 on the 'plain' pack
     cfg, loaders, host_s = load_path(CFG_GIN, overrides)
@@ -641,7 +830,7 @@ def main() -> None:
     # layer 0 aggregates the raw features, which need no gradient:
     # 1 + 2 x 2 per train step
     train_gin = train_path(CFG_GIN, overrides, os.path.join(OUT, "idgin"),
-                           loaders, k1_, 5, 3, (k2_, k3_))
+                           loaders, {k1_: (5, 3)})
     phase("train_gin", **train_gin)
     phase("profile_gin", **profile_steps(cfg, loaders, device))
 
@@ -651,8 +840,8 @@ def main() -> None:
           **check_model(cfg, loaders[1].batches(0)[0], device,
                         random_features=True))
     train_sage = train_path(CFG_SAGE, overrides,
-                            os.path.join(OUT, "idsage"), loaders, k1_, 5, 3,
-                            (k2_, k3_))
+                            os.path.join(OUT, "idsage"), loaders,
+                            {k1_: (5, 3)})
     phase("train_sage", **train_sage)
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
@@ -660,26 +849,38 @@ def main() -> None:
                               d, device)
     phase("kernel_seg", n=gin_batch.num_nodes, d=d, **k2)
 
-    row = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-           "bound_by", "library_ms")
+    row = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+           "library_ms")
     k1_paths = {"idgcn_ws": train, "idgin_ws": train_gin,
                 "idsage_ws": train_sage}
+
+    def path_launches(kernel, paths):
+        by_path = {p: t["launches"][kernel.__name__]
+                   for p, t in paths.items()}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
     print(json.dumps({"kernels": [
         {"name": "packed_spmm", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
-         "path": ", ".join(k1_paths),
-         **{k: k1[k] for k in row[1:]},
-         "launches": sum(t["launches"] for t in k1_paths.values()),
-         "launches_by_path": {p: t["launches"] for p, t in k1_paths.items()}},
+         "path": ", ".join(k1_paths), **{k: k1[k] for k in row},
+         **path_launches(k1_, k1_paths)},
         {"name": "packed_segment", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",
-         "path": None, **{k: k2[k] for k in row}},
+         "path": None, "launches": k2["launches"],
+         **{k: k2[k] for k in row}},
         {"name": "packed_attention", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_attention.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:537",
-         "path": "idgat_ws", **{k: {**k3, **train_att}[k] for k in row}},
+         "path": "idgat_ws", **{k: k3[k] for k in row},
+         **path_launches(k3_, {"idgat_ws": train_att})},
+        {"name": "packed_sddmm", "route": "cuda",
+         "source": "graphgym_tpu_torch/csrc/packed_sddmm.cu",
+         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
+                     "graphgym_tpu/nn/layers.py:152",
+         "path": "idgat_ws", **{k: sddmm[k] for k in row},
+         **path_launches(sddmm_, {"idgat_ws": train_att})},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,7 @@ from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops import segment as S
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
-    pack_rows, segment_matmul_headed_vjp, spmm_pack_vjp)
+    pack_rows, packed_scaled_dot, segment_matmul_headed_vjp, spmm_pack_vjp)
 
 
 def glorot(shape, generator: torch.Generator) -> nn.Parameter:
@@ -66,7 +66,10 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     itself.
 
     h_heads: [N, H, d] receiver-side (query) features; keys and values
-    default to h_heads.  score_fn(h_i, h_j) -> [NC, C, H] raw scores.
+    default to h_heads.  score_fn(h_i, h_j) -> [NC, C, H] raw scores of
+    the gathered [NC, C, H, d] features; a ``ScaledDot`` score_fn is
+    computed on the packs instead (``packed_scaled_dot``: the SDDMM
+    kernel, and K3 for its gradients), with no [NC, C, H, d] tensor.
     node_scores: optional (s_dst [N, H], s_src [N, H]) for scores that
     decompose per node (GAT's additive attention); only those scalars
     are gathered per edge, and alpha = score_transform(s_dst[i] +
@@ -102,8 +105,12 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
             alpha = score_transform(alpha)
     else:
         k = keys if keys is not None else h_heads
-        alpha = score_fn(take_padded(h_heads, rows),
-                         take_padded(k, fwd.senders))    # [NC, C, H]
+        if isinstance(score_fn, ScaledDot):
+            alpha = packed_scaled_dot(h_heads, k, fwd, bwd, slot_map,
+                                      score_fn.scale)    # [NC, C, H]
+        else:
+            alpha = score_fn(take_padded(h_heads, rows),
+                             take_padded(k, fwd.senders))
     flat = alpha.reshape(-1, heads)
     mask = valid.reshape(-1, 1).expand_as(flat)
     alpha = S.segment_softmax(flat, rows.reshape(-1), n, mask=mask)
@@ -117,14 +124,21 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     return out.view(n, heads, dv)
 
 
-def scaled_dot(dh: int, dtype: torch.dtype) -> Callable:
-    """score(q_i, k_j) = sum(q_i * k_j) / sqrt(dh), the scale rounded
-    to the input dtype as in the JAX package."""
-    scale = torch.sqrt(torch.tensor(float(dh), dtype=dtype)).item()
+class ScaledDot:
+    """The score sum(q_i * k_j) / scale over the last axis.
+    ``packed_attention`` recognises it and computes it on the packs."""
 
-    def score(q_i, k_j):
-        return (q_i * k_j).sum(-1) / scale
-    return score
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def __call__(self, q_i: torch.Tensor, k_j: torch.Tensor) -> torch.Tensor:
+        return (q_i * k_j).sum(-1) / self.scale
+
+
+def scaled_dot(dh: int, dtype: torch.dtype) -> ScaledDot:
+    """score(q_i, k_j) = sum(q_i * k_j) / sqrt(dh), the scale rounded
+    to the input dtype as in the JAX package (layers.py:454)."""
+    return ScaledDot(torch.sqrt(torch.tensor(float(dh), dtype=dtype)).item())
 
 
 class TfgGATConv(nn.Module):

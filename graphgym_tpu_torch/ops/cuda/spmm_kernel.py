@@ -1,24 +1,28 @@
 """Packed segmented SpMM: host packing, the Hopper kernels, their plain
 versions and the autograd wrappers.
 
-The port of graphgym_tpu/ops/pallas/spmm_kernel.py, all three kernels:
+The port of graphgym_tpu/ops/pallas/spmm_kernel.py, all three kernels,
+and the SDDMM that K3's backward and the dot-product attention score
+ran as XLA gathers:
 
   K1  the weighted sum (``_kernel_weighted``) -> ``csrc/packed_spmm.cu``;
   K2  the unweighted sum of given messages (``_kernel``)
       -> ``csrc/packed_segment.cu``;
   K3  the per-head weighted sum of attention (``_kernel_headed``)
-      -> ``csrc/packed_attention.cu``.
+      -> ``csrc/packed_attention.cu``;
+  the per-slot, per-head dot products (``_segmm_headed_bwd``'s d_w,
+      graphgym_tpu/nn/layers.py's score) -> ``csrc/packed_sddmm.cu``.
 
 Host side, ``pack_csr`` sorts edges by receiver and cuts them into
 chunks of C slots, each owned by one R-row output tile; the layout is
-the JAX package's, array for array.  Device side, K1 and K3 fuse the
-``x[senders]`` gather that the TPU version ran outside its kernel; K2
-sums messages it is given, every slot of the pack.
+the JAX package's, array for array.  Device side, K1, K3 and the SDDMM
+fuse the ``x[senders]`` gather that the TPU version ran outside its
+kernel; K2 sums messages it is given, every slot of the pack.
 
 On a CUDA tensor the entry points (``spmm_packed``,
-``packed_segment_matmul``, ``packed_segment_matmul_headed``) launch the
-kernel or raise; on a CPU tensor they take the plain version, the same
-arithmetic in plain PyTorch.
+``packed_segment_matmul``, ``packed_segment_matmul_headed``,
+``packed_sddmm``) launch the kernel or raise; on a CPU tensor they take
+the plain version, the same arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ EDGES_PER_CHUNK = 1024  # C: edge slots per chunk
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 # one shared library per source, csrc/<name>.cu
-SOURCES = ("packed_spmm", "packed_segment", "packed_attention")
+SOURCES = ("packed_spmm", "packed_segment", "packed_attention",
+           "packed_sddmm")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -240,6 +245,22 @@ def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
     return out[:n]
 
 
+def packed_sddmm_plain(pack: PackedCSR, a: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """out[s, h] = <a[row(s), h, :], b[senders[s], h, :]> where the pack
+    weight of slot s is nonzero, else 0: gather, multiply in f32, sum
+    per head, mask.  a and b [num_nodes, H, dh]; f32 out [NC, C, H].
+    The padding sender num_nodes reads an appended zero row."""
+    n, heads, dh = a.shape
+    rows = pack_rows(pack).reshape(-1).clamp_max(n - 1)
+    bp = torch.cat([b.reshape(n, -1), b.new_zeros(1, heads * dh)])
+    prod = (a.reshape(n, -1).float().index_select(0, rows)
+            * bp.float().index_select(0, pack.senders.reshape(-1).long()))
+    out = prod.view(-1, heads, dh).sum(-1).view(pack.senders.shape
+                                                + (heads,))
+    return torch.where(pack.weights[..., None] != 0, out, 0.0)
+
+
 def packed_segment_matmul_plain(msg: torch.Tensor, local_rows: torch.Tensor,
                                 tiles: torch.Tensor,
                                 num_tiles: int) -> torch.Tensor:
@@ -419,6 +440,9 @@ _ARGTYPES = {
     "packed_segment": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
     # v, n_rows, d, heads, senders, alpha, row_range, out, stream
     "packed_attention": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
+    # a, b, n_rows, d, heads, senders, weights, row_range, n_slots, out,
+    # stream
+    "packed_sddmm": [_P, _P, _LL, _I, _I, _P, _P, _P, _LL, _P, _P],
 }
 
 
@@ -511,13 +535,45 @@ def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
     out = torch.empty(n, d, dtype=torch.float32, device=v.device)
     if n == 0 or d == 0:
         return out
-    _launch("packed_attention", v, n, d, heads, pack.senders.data_ptr(),
-            alpha.data_ptr(), pack.row_range.data_ptr(), out.data_ptr())
+    _launch("packed_attention", v, n, d, heads,
+            pack.senders.data_ptr(), alpha.data_ptr(),
+            pack.row_range.data_ptr(), out.data_ptr())
     packed_segment_matmul_headed_cuda.launches += 1
     return out
 
 
 packed_segment_matmul_headed_cuda.launches = 0
+
+
+def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper SDDMM kernel: f32 out [NC, C, H], out[s, h] =
+    <a[row(s), h, :], b[senders[s], h, :]> on the slots of nonzero pack
+    weight, 0 on every other slot, with a and b [num_nodes, H, dh] f32
+    or bf16 (one dtype) on a CUDA device.  Adds one to
+    ``packed_sddmm_cuda.launches`` per launch."""
+    name = "packed_sddmm_cuda"
+    _check(name, a.dim() == 3 and b.shape == a.shape,
+           f"a {tuple(a.shape)} and b {tuple(b.shape)} must both be "
+           "[num_nodes, heads, dh]")
+    _check(name, b.dtype == a.dtype and b.device == a.device,
+           f"b ({b.dtype} on {b.device}) must match a ({a.dtype} on "
+           f"{a.device})")
+    n, heads, dh = a.shape
+    a, b = (t.reshape(n, heads * dh).contiguous() for t in (a, b))
+    _check_inputs(name, pack, a)
+    out = torch.empty(pack.senders.shape + (heads,), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0 or n == 0 or dh == 0:
+        return out.zero_()
+    _launch("packed_sddmm", a, b.data_ptr(), n, heads * dh, heads,
+            pack.senders.data_ptr(), pack.weights.data_ptr(),
+            pack.row_range.data_ptr(), pack.senders.numel(), out.data_ptr())
+    packed_sddmm_cuda.launches += 1
+    return out
+
+
+packed_sddmm_cuda.launches = 0
 
 
 def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
@@ -664,6 +720,20 @@ def alpha_to_bwd(alpha: torch.Tensor, slot_map: torch.Tensor
         slot_map.shape + (heads,))
 
 
+def packed_sddmm(pack: PackedCSR, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Per-slot, per-head dot products on a packed layout (the SDDMM
+    half of ``_segmm_headed_bwd``, spmm_kernel.py:655-669, and the
+    score of graphgym_tpu/nn/layers.py:152-156, both XLA gathers there):
+    out[s, h] = <a[row(s), h, :], b[senders[s], h, :]> on the slots of
+    nonzero pack weight and 0 on the others, a and b [num_nodes, H, dh];
+    f32 out [NC, C, H].  The kernel for a CUDA tensor, the plain version
+    for a CPU one."""
+    if a.is_cuda:
+        return packed_sddmm_cuda(pack, a, b)
+    return packed_sddmm_plain(pack, a, b)
+
+
 class SegmentMatmulHeadedFn(torch.autograd.Function):
     """Differentiable per-head weighted aggregation over the 'att' packs
     (the port of ``segment_matmul_headed_vjp``, spmm_kernel.py:628-672):
@@ -674,9 +744,11 @@ class SegmentMatmulHeadedFn(torch.autograd.Function):
     alpha carried into bwd slot order by ``slot_map`` (deterministic, no
     atomics, no [E, H*dv] message gradient; the JAX package gathers,
     multiplies and scatters instead, with the same result);
-    dalpha[s, h] = <g[row(s), h, :], v[sender(s), h, :]> is the SDDMM,
-    in plain ops as XLA ran it there.  Padding slots read a zero v row,
-    so their dalpha is 0.  The packs and the map get no gradient."""
+    dalpha[s, h] = <g[row(s), h, :], v[sender(s), h, :]> is the SDDMM
+    kernel, and 0 on every slot of pack weight 0, where the JAX package
+    has <g, v> (ROADMAP C: the masked softmax gives those slots alpha 0
+    and passes no gradient back through them).  The packs and the map
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, v: torch.Tensor, alpha: torch.Tensor,
@@ -698,12 +770,9 @@ class SegmentMatmulHeadedFn(torch.autograd.Function):
             dv = packed_segment_matmul_headed(
                 bwd_pack, g, alpha_to_bwd(alpha, slot_map)).to(v.dtype)
         if ctx.needs_input_grad[1]:
-            rows = pack_rows(fwd_pack).reshape(-1).clamp_max(g.shape[0] - 1)
-            vp = torch.cat([v, v.new_zeros(1, d)])
-            v_j = vp.index_select(0, fwd_pack.senders.reshape(-1).long())
-            prod = g.index_select(0, rows) * v_j
-            dalpha = prod.view(-1, heads, d // heads).sum(-1).view(
-                alpha.shape).to(alpha.dtype)
+            dalpha = packed_sddmm(
+                fwd_pack, g.view(n, heads, d // heads),
+                v.to(g.dtype).view(n, heads, d // heads)).to(alpha.dtype)
         return dv, dalpha, None, None, None
 
 
@@ -712,3 +781,51 @@ def segment_matmul_headed_vjp(v: torch.Tensor, alpha: torch.Tensor,
                               slot_map: torch.Tensor) -> torch.Tensor:
     return SegmentMatmulHeadedFn.apply(v, alpha, fwd_pack, bwd_pack,
                                        slot_map)
+
+
+class PackedScoreFn(torch.autograd.Function):
+    """Differentiable scaled dot-product score on the 'att' packs:
+
+        score[s, h] = <q[row(s), h, :], k[sender(s), h, :]> / scale
+
+    on the slots of nonzero pack weight, 0 on the others (the JAX
+    package's score, graphgym_tpu/nn/layers.py:152-156 and :454-457, on
+    gathered [E, H, dh] q and k; there every slot gets the dot product,
+    and the softmax masks the weight-0 ones).  Forward is the SDDMM
+    kernel.  With c = dscore / scale, 0 on the weight-0 slots, the
+    gradients are K3: dq = A_c k on the fwd pack, dk = A_c^T q on the bwd
+    pack with c carried by ``slot_map``.  No [E, H*dh] tensor, no
+    atomics.  The packs and the map get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, fwd_pack: PackedCSR,
+                bwd_pack: PackedCSR, slot_map: torch.Tensor,
+                scale: float) -> torch.Tensor:
+        ctx.save_for_backward(q, k)
+        ctx.packs = (fwd_pack, bwd_pack, slot_map)
+        ctx.scale = scale
+        return (packed_sddmm(fwd_pack, q, k) / scale).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dscore: torch.Tensor):
+        q, k = ctx.saved_tensors
+        fwd_pack, bwd_pack, slot_map = ctx.packs
+        n = q.shape[0]
+        c = torch.where(fwd_pack.weights[..., None] != 0,
+                        dscore.float() / ctx.scale, 0.0).contiguous()
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            dq = packed_segment_matmul_headed(
+                fwd_pack, k.reshape(n, -1), c).view(q.shape).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = packed_segment_matmul_headed(
+                bwd_pack, q.reshape(n, -1),
+                alpha_to_bwd(c, slot_map)).view(k.shape).to(k.dtype)
+        return dq, dk, None, None, None, None
+
+
+def packed_scaled_dot(q: torch.Tensor, k: torch.Tensor, fwd_pack: PackedCSR,
+                      bwd_pack: PackedCSR, slot_map: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """[NC, C, H] scores of the fwd pack's slots from q, k [N, H, dh]."""
+    return PackedScoreFn.apply(q, k, fwd_pack, bwd_pack, slot_map, scale)
