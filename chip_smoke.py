@@ -12,20 +12,24 @@ Phases (each prints one line; any failure exits non-zero):
   3. kernel   — at the shapes of the train batch (the real 'gcn' packs
                 from the port's loader, D = 128): kernel vs its plain
                 PyTorch version on the fwd and bwd packs, in float32 and
-                bfloat16, bitwise-repeatable launches, and times of the
-                kernel, the plain version and one library call
-                (torch.sparse.mm on a CSR tensor of the same matrix)
-                beside the bound;
+                bfloat16, bitwise-repeatable launches, the same bits as
+                K3 at one head with alpha = the pack's weights (the row
+                walk both run), and on both packs times of the kernel,
+                the plain version, one library call (torch.sparse.mm on
+                a CSR tensor of the same matrix) and the launch floor (an
+                empty kernel over K1's grid) beside the bound, and of the
+                kernel in bfloat16 on the fwd pack;
   4. model    — the full-width model's logits and gradients on the card
                 against the same model on the CPU (plain versions), and
                 then its eval-mode logits;
   5. train    — the config through graphgym_tpu_torch.main for a few
                 epochs at full width (3 x 128, head 256): finite losses,
-                6 K1 launches per train step plus 3 per eval batch, no
-                launch of another kernel;
+                6 K1 launches per train step plus 3 per eval batch, none
+                at D = 1, no launch of another kernel;
   6. profile  — torch.profiler over a few more train steps: device time
-                by kernel, the device's idle share, the peak of device
-                memory and the widest tensor any op of a step takes.
+                by kernel (and of the port's own kernels), the device's
+                idle share, the peak of device memory and the widest
+                tensor any op of a step takes.
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
@@ -50,18 +54,21 @@ Phases (each prints one line; any failure exits non-zero):
   ID-GIN Full / ws (configs/idgin_ws.yaml), kernel K1 on the 'plain'
   pack:
  12. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
-                   (layer 0 aggregates the raw 1-wide features);
+                   (layer 0 aggregates the raw 1-wide features: K1's
+                   narrow walk, a thread a row);
  13. model_gin   — as 4 (the GIN MLP's BatchNorm in train mode), the
                    running statistics after it and the eval-mode logits
                    that use them, on seeded random features (see
                    check_model);
  14. train_gin   — as 5: 5 K1 launches per train step (layer 0's input
-                   needs no gradient) plus 3 per eval batch, no other;
+                   needs no gradient) plus 3 per eval batch, one of each
+                   at D = 1, no other;
  15. profile_gin — as 6.
   ID-SAGE Full / ws (configs/idsage_ws.yaml), K1 on the 'mean' pack:
- 16. model_sage, 17. train_sage — as 13 and 14.
+ 16. kernel_sage — as 3, at the train 'mean' packs, D = 1;
+ 17. model_sage, 18. train_sage, 19. profile_sage — as 13, 14 and 15.
   Kernel K2, which no path runs:
- 18. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
+ 20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
                    every slot (padding slots included), against K1 with
                    msg = x[senders] * w, in bfloat16, on a pack built
@@ -70,12 +77,14 @@ Phases (each prints one line; any failure exits non-zero):
                    version's; kernel, plain and library (index_add_,
                    torch.sparse.mm of the 0/1 slot matrix) times beside
                    the bound.
-Then the kernel table as one JSON line, and last the result line
+Then the kernel table as one JSON line (K1 twice: D = 128 and D = 1),
+and last the result line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -209,7 +218,33 @@ def csr_of(pack: K.PackedCSR, n: int, values=None) -> torch.Tensor:
     return coo.to_sparse_csr()
 
 
+def k1_floor(pack: K.PackedCSR, x: torch.Tensor, out: torch.Tensor):
+    """The launch floor under K1 (csrc/packed_spmm.cu,
+    packed_spmm_floor_*): an empty kernel over the grid K1 takes for
+    these arguments, launched as its wrapper launches K1.  Counts no
+    launch of K1."""
+    suffix = "f32" if x.dtype == torch.float32 else "bf16"
+    fn = getattr(K.library("packed_spmm"), f"packed_spmm_floor_{suffix}")
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    args = (x.data_ptr(), x.shape[0], x.shape[1], pack.senders.data_ptr(),
+            pack.weights.data_ptr(), pack.row_range.data_ptr(),
+            out.data_ptr())
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"K1 floor launch: CUDA error {err}")
+    return launch
+
+
 def check_kernel(packs, n: int, d: int, device) -> dict:
+    """K1 against its plain version on the fwd and bwd packs, f32 and
+    bf16; bitwise-repeatable launches; the same bits as K3 at one head
+    with alpha = the pack's weights (the walk both run); times of the
+    kernel, the plain version, the library call and the launch floor on
+    both packs, and of the kernel in bf16 on the fwd pack."""
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(n, d, generator=gen, device=device)
     fwd, bwd = packs
@@ -232,23 +267,50 @@ def check_kernel(packs, n: int, d: int, device) -> dict:
             again = K.spmm_packed(pack, xin)
             if not torch.equal(got, again):
                 fail(f"{name}/{dtype}: two launches differ")
-    a = csr_of(fwd, n)
-    lib_err = (torch.sparse.mm(a, x) - K.spmm_packed(fwd, x)).abs().max()
-    calls = {"kernel": lambda: K.packed_spmm_cuda(fwd, x),
-             "plain": lambda: K.spmm_packed_plain(fwd, x),
-             "library": lambda: torch.sparse.mm(a, x)}
-    return dict(max_abs_err=max(errs["fwd_float32"], errs["bwd_float32"]),
-                errs=errs, library_err=lib_err.item(),
-                **timings(calls, fwd, x, slot_bytes=8))
+            if not torch.equal(K.packed_spmm_cuda(pack, xin),
+                               K.packed_segment_matmul_headed_cuda(
+                                   pack, xin, pack.weights[..., None])):
+                fail(f"{name}/{dtype}: K1 differs from K3 at one head "
+                     "with alpha = the pack's weights")
+    out = {}
+    for name, pack in (("fwd", fwd), ("bwd", bwd)):
+        a = csr_of(pack, n)
+        lib_err = (torch.sparse.mm(a, x)
+                   - K.spmm_packed(pack, x)).abs().max().item()
+        calls = {"kernel": lambda: K.packed_spmm_cuda(pack, x),
+                 "plain": lambda: K.spmm_packed_plain(pack, x),
+                 "library": lambda: torch.sparse.mm(a, x)}
+        out[name] = dict(library_err=lib_err,
+                         **timings(calls, pack, x, slot_bytes=8),
+                         **floor_timings(pack, x))
+    xb = x.bfloat16()
+    bf16 = timings({"kernel": lambda: K.packed_spmm_cuda(fwd, xb)}, fwd,
+                   xb, slot_bytes=8)
+    return dict(width=d,
+                max_abs_err=max(errs["fwd_float32"], errs["bwd_float32"]),
+                errs=errs, **out["fwd"], bwd=out["bwd"],
+                bf16={k: bf16[k] for k in ("ms", "call_ms", "timed_by",
+                                           "bound_ms", "bytes")})
+
+
+def floor_timings(pack: K.PackedCSR, x: torch.Tensor) -> dict:
+    """The launch floor's device ms per call (the profiler; its CUDA-event
+    loop time where the profiler records none) and its loop time."""
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    ms, loop_ms, timed_by = time_calls({"floor": k1_floor(pack, x, out)},
+                                       bound_ms=1e-9)
+    return dict(floor_ms=ms["floor"], floor_call_ms=loop_ms["floor"],
+                floor_timed_by=timed_by["floor"])
 
 
 def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
             slot_bytes: int) -> dict:
-    """Device ms per call of the kernel, the plain version and the
-    library call, their CUDA-event loop times, and the bound: each input
-    read once (x, the pack's slot_bytes on each slot the kernel reads,
-    row_range), the f32 output written once, over the card's memory
-    rate, against 2 flops per slot and column over its f32 rate."""
+    """Device ms per call of the kernel and, where given, the plain
+    version and the library call, their CUDA-event loop times, and the
+    bound: each input read once (x, the pack's slot_bytes on each slot
+    the kernel reads, row_range), the f32 output written once, over the
+    card's memory rate, against 2 flops per slot and column over its f32
+    rate."""
     n, d = x.shape
     ranges = pack.row_range.long()
     real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
@@ -260,7 +322,7 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     ms, loop_ms, timed_by = time_calls(calls, bound_ms)
-    return dict(ms=ms["kernel"], plain_ms=ms["plain"],
+    return dict(ms=ms["kernel"], plain_ms=ms.get("plain"),
                 library_ms=ms.get("library"), call_ms=loop_ms,
                 timed_by=timed_by, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -649,6 +711,10 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
     by_kernel = device_ms_by_kernel(None, steps, events)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # the port's own kernels (csrc/): row_walk_* runs K1 and K3
+    own = sorted((kv for kv in by_kernel.items()
+                  if "row_walk" in kv[0] or "packed_" in kv[0]),
+                 key=lambda kv: -kv[1])
     by_op = host_ms_by_op(events, steps)
     host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
     widest = widest_op_inputs(lambda: trainer.train_step(batch))
@@ -660,6 +726,8 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 peak_memory_bytes=peak,
                 top=[dict(name=k[:80], ms_per_step=v) for k, v in top],
+                port_kernels=[dict(name=k[:80], ms_per_step=v)
+                              for k, v in own],
                 host_ops_ms=sum(ms for ms, _ in by_op.values()),
                 host_op_calls=sum(c for _, c in by_op.values()),
                 host_top=[dict(name=k[:60], ms_per_step=ms,
@@ -687,6 +755,20 @@ def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
                                         for a, b in zip(p0, p1)))
 
 
+def ptxas_report(log: str) -> list:
+    """Registers and spills of each kernel from nvcc's -Xptxas -v output:
+    one line per entry function, its (mangled) name first."""
+    out, fn = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif fn and "spill" in ln:
+            out.append(f"{fn}: {ln.strip()}")
+        elif fn and "registers" in ln and out:
+            out[-1] += "; " + ln.split(":", 1)[-1].strip()
+    return out
+
+
 def read_stats(path: str):
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -699,13 +781,14 @@ def kernels() -> tuple:
 
 
 def train_path(cfg_file: str, overrides, out: str, loaders,
-               expected: dict) -> dict:
+               expected: dict, k1_narrow=(0, 0)) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg): every
     launch count set to 0 just before, read just after.  ``expected``
     maps a kernel wrapper to its launches (per train step, per eval
     batch), ``loaders`` give the batch counts; every other kernel must
-    not launch."""
+    not launch.  ``k1_narrow`` is the share of K1's launches at D = 1
+    (its narrow walk), per train step and per eval batch."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
@@ -715,9 +798,11 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     want = {k.__name__: expected.get(k, (0, 0)) for k in kernels()}
     for k in kernels():
         k.launches = 0
+    K.packed_spmm_cuda.launches_by_width.clear()
     result = run_single(cfg, cfg.out_dir, cfg_file)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels()}
+    k1_by_width = dict(K.packed_spmm_cuda.launches_by_width)
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
@@ -729,6 +814,11 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
             fail(f"{cfg_file}: {name} launches {launches[name]}, expected "
                  f"{total} ({per_step}/train step x {steps} + "
                  f"{per_eval}/eval batch x {evals})")
+    narrow = k1_narrow[0] * steps + k1_narrow[1] * evals
+    if k1_by_width.get(1, 0) != narrow:
+        fail(f"{cfg_file}: K1 launches at D = 1 {k1_by_width.get(1, 0)}, "
+             f"expected {narrow} ({k1_narrow[0]}/train step, "
+             f"{k1_narrow[1]}/eval batch)")
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -736,7 +826,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     return dict(epochs=epochs, losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_after_first=float(np.median(step_s[1:])),
-                launches=launches,
+                launches=launches, k1_launches_by_width=k1_by_width,
                 launches_per_train_step_and_eval_batch=want,
                 params=cfg.params)
 
@@ -766,9 +856,7 @@ def main() -> None:
     for name in K.SOURCES:
         K.library(name)
     phase("build", seconds=max(b.seconds for b in info.values()),
-          ptxas={name: [ln.strip() for ln in b.log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                 for name, b in info.items()})
+          ptxas={name: ptxas_report(b.log) for name, b in info.items()})
 
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
@@ -821,28 +909,35 @@ def main() -> None:
     gin_batch = loaders[0].batches(0)[0]
     n, d = gin_batch.num_nodes, cfg.gnn.dim_inner
     plain_packs = gin_batch.to(device).packs["plain"]
+    d_in = gin_batch.node_feat.shape[1]
     k1_gin = {f"d{dd}": check_kernel(plain_packs, n, dd, device)
-              for dd in (d, gin_batch.node_feat.shape[1])}
+              for dd in (d, d_in)}
     phase("kernel_gin", n=n, chunks=int(plain_packs[0].senders.shape[0]),
           host_data_s=host_s, **k1_gin)
     phase("model_gin", **check_model(cfg, loaders[1].batches(0)[0],
                                      device, random_features=True))
-    # layer 0 aggregates the raw features, which need no gradient:
-    # 1 + 2 x 2 per train step
+    # layer 0 aggregates the raw 1-wide features, which need no
+    # gradient: 1 + 2 x 2 per train step, one of them at D = 1
     train_gin = train_path(CFG_GIN, overrides, os.path.join(OUT, "idgin"),
-                           loaders, {k1_: (5, 3)})
+                           loaders, {k1_: (5, 3)}, k1_narrow=(1, 1))
     phase("train_gin", **train_gin)
     phase("profile_gin", **profile_steps(cfg, loaders, device))
 
     # ---- ID-SAGE Full / ws: kernel K1 on the 'mean' pack
     cfg, loaders, host_s = load_path(CFG_SAGE, overrides)
+    sage_batch = loaders[0].batches(0)[0]
+    mean_packs = sage_batch.to(device).packs["mean"]
+    phase("kernel_sage", n=sage_batch.num_nodes, d=d_in,
+          chunks=int(mean_packs[0].senders.shape[0]),
+          **check_kernel(mean_packs, sage_batch.num_nodes, d_in, device))
     phase("model_sage", host_data_s=host_s,
           **check_model(cfg, loaders[1].batches(0)[0], device,
                         random_features=True))
     train_sage = train_path(CFG_SAGE, overrides,
                             os.path.join(OUT, "idsage"), loaders,
-                            {k1_: (5, 3)})
+                            {k1_: (5, 3)}, k1_narrow=(1, 1))
     phase("train_sage", **train_sage)
+    phase("profile_sage", **profile_steps(cfg, loaders, device))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     k2 = check_segment_kernel(gin_batch, plain_packs[0], gin_batch.num_nodes,
@@ -859,12 +954,27 @@ def main() -> None:
                    for p, t in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
+    def k1_launches(width):
+        by_path = {p: t["k1_launches_by_width"].get(width, 0)
+                   for p, t in k1_paths.items()}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
+    # K1's rows: D = 128 at the ID-GCN 'gcn' fwd pack (its narrow walk's
+    # D = 1 at the ID-GIN 'plain' fwd pack); launches at that width
+    k1_d1 = k1_gin[f"d{d_in}"]
     print(json.dumps({"kernels": [
         {"name": "packed_spmm", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
-         "path": ", ".join(k1_paths), **{k: k1[k] for k in row},
-         **path_launches(k1_, k1_paths)},
+         "path": ", ".join(k1_paths), "width": k1["width"],
+         **{k: k1[k] for k in row + ("floor_ms",)},
+         **k1_launches(k1["width"])},
+        {"name": "packed_spmm_d1", "route": "cuda",
+         "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
+         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
+         "path": "idgin_ws, idsage_ws", "width": k1_d1["width"],
+         **{k: k1_d1[k] for k in row + ("floor_ms",)},
+         **k1_launches(k1_d1["width"])},
         {"name": "packed_segment", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",

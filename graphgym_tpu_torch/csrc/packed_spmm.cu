@@ -1,4 +1,4 @@
-// Weighted packed segmented SpMM for Hopper (sm_90a).
+// Weighted packed segmented SpMM (K1) for Hopper (sm_90a).
 //
 // Replaces graphgym_tpu/ops/pallas/spmm_kernel.py:_kernel_weighted (and
 // the x[senders] gather that spmm_packed runs before it):
@@ -17,76 +17,25 @@
 // Bound: bytes.  Per edge the kernel reads 8 bytes of pack and one
 // D-wide row of x (mostly from L2: x is reread once per in-edge); each
 // output row is written once.  There is no product for the tensor
-// cores to take.
+// cores to take.  At D = 1 the bytes of the ws train pack take less
+// time than any launch: there the launch itself is the floor.
 //
-// Design: one warp owns one output row.  It walks the row's slots in
-// order; lane l accumulates columns l, l+32, l+64, l+96 of each pass of
-// 128 columns in registers, so every x-row read is four coalesced 128-byte
-// loads and the rows of a block's eight warps are independent.  No two
-// warps touch one output row: there are no atomics, the sum order is
-// the slot order (products rounded, then summed, as in the plain
-// version), launches are bitwise repeatable (the determinism contract of
-// tests/test_determinism.py:54-67), and each output row is written once.
+// Design: K1 is the one-head case of the row walk it shares with K3
+// (row_walk.cuh), with alpha = the pack's weights, whose [num_chunks,
+// chunk] f32 array is the same memory as a slot-major [num_chunks *
+// chunk, 1].  The walk is picked by width: a thread per row, and a warp
+// for a hub row, at D <= 8 (ID-GIN's and ID-SAGE's 1-wide layer 0); row
+// groups with 16-byte loads and batched, shuffled senders and weights
+// at a width of a multiple of 16 bytes (D = 128); a warp per row at any
+// other width.  Every walk sums a row's products (rounded, then summed,
+// as in the plain version) in slot order with no atomics, so launches
+// are bitwise repeatable (the determinism contract of
+// tests/test_determinism.py:54-67), and writes each output row once.
 //
 // Padding: a sender outside [0, n_rows) reads as zero (pack padding
 // slots carry sender == n_rows, one past the last row of x).
 
-#include "common.cuh"
-
-namespace {
-
-using ggt::kPassCols;
-using ggt::kPerLane;
-using ggt::kWarps;
-using ggt::to_float;
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
-packed_spmm_kernel(const T* __restrict__ x, long long n_rows, int d,
-                   const int* __restrict__ senders,
-                   const float* __restrict__ weights,
-                   const int* __restrict__ row_range,
-                   float* __restrict__ out) {
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  const int begin = row_range[2 * row];
-  const int end = row_range[2 * row + 1];
-  for (int c0 = 0; c0 < d; c0 += kPassCols) {
-    float acc[kPerLane];
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) acc[j] = 0.f;
-#pragma unroll 4
-    for (int k = begin; k < end; ++k) {
-      const long long s = senders[k];
-      const float w = weights[k];
-      if (s < 0 || s >= n_rows) continue;  // the same for the whole warp
-      const T* xs = x + s * d;
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int col = c0 + j * 32 + lane;
-        if (col < d) acc[j] += __fmul_rn(w, to_float(xs[col]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int col = c0 + j * 32 + lane;
-      if (col < d) out[row * d + col] = acc[j];
-    }
-  }
-}
-
-template <typename T>
-int launch(const T* x, long long n_rows, int d, const int* senders,
-           const float* weights, const int* row_range, float* out,
-           void* stream) {
-  const unsigned blocks = (unsigned)((n_rows + kWarps - 1) / kWarps);
-  packed_spmm_kernel<T><<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
-      x, n_rows, d, senders, weights, row_range, out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "row_walk.cuh"
 
 // Plain C entry points (bound with ctypes).  x is [n_rows, d] row-major,
 // senders / weights are the pack's [num_chunks, chunk] arrays, row_range
@@ -96,16 +45,35 @@ extern "C" int packed_spmm_f32(const void* x, long long n_rows, int d,
                                const void* senders, const void* weights,
                                const void* row_range, void* out,
                                void* stream) {
-  return launch<float>((const float*)x, n_rows, d, (const int*)senders,
-                       (const float*)weights, (const int*)row_range,
-                       (float*)out, stream);
+  return ggt::launch_row_walk<float>(
+      (const float*)x, n_rows, d, 1, (const int*)senders,
+      (const float*)weights, (const int*)row_range, (float*)out,
+      (cudaStream_t)stream);
 }
 
 extern "C" int packed_spmm_bf16(const void* x, long long n_rows, int d,
                                 const void* senders, const void* weights,
                                 const void* row_range, void* out,
                                 void* stream) {
-  return launch<__nv_bfloat16>((const __nv_bfloat16*)x, n_rows, d,
-                               (const int*)senders, (const float*)weights,
-                               (const int*)row_range, (float*)out, stream);
+  return ggt::launch_row_walk<__nv_bfloat16>(
+      (const __nv_bfloat16*)x, n_rows, d, 1, (const int*)senders,
+      (const float*)weights, (const int*)row_range, (float*)out,
+      (cudaStream_t)stream);
+}
+
+// The launch floor under packed_spmm_f32 / _bf16, for measurement: the
+// same arguments, an empty kernel over the grid that call would take.
+extern "C" int packed_spmm_floor_f32(const void* x, long long n_rows, int d,
+                                     const void*, const void*, const void*,
+                                     void* out, void* stream) {
+  return ggt::launch_floor<float>((const float*)x, n_rows, d, 1,
+                                  (const float*)out, (cudaStream_t)stream);
+}
+
+extern "C" int packed_spmm_floor_bf16(const void* x, long long n_rows, int d,
+                                      const void*, const void*, const void*,
+                                      void* out, void* stream) {
+  return ggt::launch_floor<__nv_bfloat16>((const __nv_bfloat16*)x, n_rows,
+                                          d, 1, (const float*)out,
+                                          (cudaStream_t)stream);
 }

@@ -9,7 +9,8 @@ ran as XLA gathers:
   K2  the unweighted sum of given messages (``_kernel``)
       -> ``csrc/packed_segment.cu``;
   K3  the per-head weighted sum of attention (``_kernel_headed``)
-      -> ``csrc/packed_attention.cu``;
+      -> ``csrc/packed_attention.cu`` (K1 is its one-head case: both
+      run the row walk of ``csrc/row_walk.cuh``);
   the per-slot, per-head dot products (``_segmm_headed_bwd``'s d_w,
       graphgym_tpu/nn/layers.py's score) -> ``csrc/packed_sddmm.cu``.
 
@@ -495,7 +496,9 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
 def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel K1: f32 out [num_nodes, D] = A @ x, with
     x [num_nodes, D] f32 or bf16 on a CUDA device.  Adds one to
-    ``packed_spmm_cuda.launches`` per launch."""
+    ``packed_spmm_cuda.launches`` per launch, and to its D's entry of
+    ``packed_spmm_cuda.launches_by_width`` (the kernel picks its walk by
+    width)."""
     _check_inputs("packed_spmm_cuda", pack, x)
     x = x.contiguous()
     n, d = x.shape
@@ -506,10 +509,12 @@ def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
             pack.weights.data_ptr(), pack.row_range.data_ptr(),
             out.data_ptr())
     packed_spmm_cuda.launches += 1
+    packed_spmm_cuda.launches_by_width[d] += 1
     return out
 
 
 packed_spmm_cuda.launches = 0
+packed_spmm_cuda.launches_by_width = collections.Counter()
 
 
 def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,

@@ -99,14 +99,40 @@ def test_row_range_holds_every_nonzero_slot(seed):
     assert lo == hi
 
 
+def hub_graph(seed, hub=2500):
+    """random_graph with `hub` more edges into row 0: a row far longer
+    than the narrow walk gives one thread (row_walk.cuh: kLongRow)."""
+    s, r, w, n = random_graph(seed)
+    rng = np.random.default_rng(seed + 100)
+    return (np.concatenate([s, rng.integers(0, 300, hub)]),
+            np.concatenate([r, np.zeros(hub, np.int64)]),
+            np.concatenate([w, rng.random(hub).astype(np.float32) + 0.1]),
+            n)
+
+
+# row_walk.cuh: a row of more than LONG_ROW (kLongRow) slots is a hub row
+# of the narrow walk, which its warp takes HUB_TRIP (kHubBatches * 32)
+# slots a trip
+LONG_ROW, HUB_TRIP = 32, 128
+
+
 def kernel_emulation(pack: K.PackedCSR, x: np.ndarray) -> np.ndarray:
     """The CUDA kernel's arithmetic in numpy: per row, its row_range in
-    slot order, f32 products rounded then summed."""
+    slot order, f32 products rounded then summed.  A hub row of the
+    narrow walk forms each trip's products at once, one slot a lane, and
+    adds them in slot order: the same order, the same bits."""
     n, d = x.shape
     out = np.zeros((n, d), np.float32)
     s = pack.senders.reshape(-1)
     w = pack.weights.reshape(-1)
     for row, (lo, hi) in enumerate(pack.row_range):
+        if d <= 8 and hi - lo > LONG_ROW:
+            for k0 in range(lo, hi, HUB_TRIP):
+                ks = np.arange(k0, min(k0 + HUB_TRIP, hi))
+                ks = ks[(s[ks] >= 0) & (s[ks] < n)]
+                for p in w[ks, None] * x[s[ks]]:
+                    out[row] += p
+            continue
         for k in range(lo, hi):
             if 0 <= s[k] < n:
                 out[row] += np.float32(w[k]) * x[s[k]]
@@ -123,6 +149,22 @@ def test_kernel_emulation_matches_plain(seed):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("d", [1, 3, 8])
+def test_kernel_emulation_with_hub_matches_plain(d):
+    """The narrow walk's order, hub row included, against the plain
+    version on the CPU (whose index_add_ adds in slot order too)."""
+    s, r, w, n = hub_graph(7)
+    fwd = K.pack_csr(s, r, w, n, pad_chunks_to=40)
+    bwd = K.pack_csr(r, s, w, n, pad_chunks_to=40)
+    lengths = np.diff(fwd.row_range, axis=1)
+    assert lengths.max() > 2000 and lengths[0, 0] == lengths.max()
+    x = np.random.default_rng(d).normal(size=(n, d)).astype(np.float32)
+    for pack in (fwd, bwd):
+        want = K.spmm_packed_plain(pack_tensors(pack), torch.from_numpy(x))
+        np.testing.assert_array_equal(kernel_emulation(pack, x),
+                                      want.numpy())
+
+
 def pack_tensors(pack: K.PackedCSR, device="cpu") -> K.PackedCSR:
     return K.PackedCSR(*(torch.from_numpy(np.asarray(a)).to(device)
                          for a in pack))
@@ -134,7 +176,7 @@ def two_planes(a: np.ndarray) -> np.ndarray:
     return np.array(hi.astype(jnp.float32) + lo.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("seed,d", [(0, 16), (1, 128)])
+@pytest.mark.parametrize("seed,d", [(0, 16), (1, 128), (2, 1), (3, 3)])
 def test_spmm_pack_vjp_matches_jax(jax_numpy_packer, seed, d):
     s, r, w, n = random_graph(seed)
     w = np.array(jnp.asarray(w).astype(jnp.bfloat16).astype(jnp.float32))
@@ -182,26 +224,55 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 64, 128, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(cuda_device, dtype):
-    s, r, w, n = random_graph(5)
-    fwd = pack_tensors(K.pack_csr(s, r, w, n, pad_chunks_to=64),
-                       cuda_device)
-    bwd = pack_tensors(K.pack_csr(r, s, w, n, pad_chunks_to=64),
-                       cuda_device)
-    x = torch.randn(n, 128, device=cuda_device).to(dtype)
+def test_cuda_kernel_matches_plain(cuda_device, dtype, d):
+    """K1's walks by width (row_walk.cuh): a thread per row with a warp
+    per hub row (D <= 8), row groups with 16-byte loads (64, 128), a warp
+    per row (130); fwd and bwd packs of a graph with a hub row.  The
+    reference is the plain version on the CPU, which sums each row in
+    slot order as the kernel does (on the card its index_add_ sums with
+    atomics, in no fixed order)."""
+    s, r, w, n = hub_graph(5)
+    fwd_h = K.pack_csr(s, r, w, n, pad_chunks_to=64)
+    bwd_h = K.pack_csr(r, s, w, n, pad_chunks_to=64)
+    fwd, bwd = (pack_tensors(p, cuda_device) for p in (fwd_h, bwd_h))
+    x = torch.randn(n, d, device=cuda_device).to(dtype)
+    g = torch.randn(n, d, device=cuda_device).to(dtype)
     tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
            else dict(rtol=1e-2, atol=1e-3))
     before = K.packed_spmm_cuda.launches
+    before_d = K.packed_spmm_cuda.launches_by_width[d]
     xg = x.clone().requires_grad_(True)
     out = K.spmm_pack_vjp(fwd, bwd, xg)
-    out.backward(torch.ones_like(out))
+    out.backward(g)
     torch.cuda.synchronize()
     assert K.packed_spmm_cuda.launches == before + 2
-    torch.testing.assert_close(out, K.spmm_packed_plain(fwd, x), **tol)
+    assert K.packed_spmm_cuda.launches_by_width[d] == before_d + 2
     torch.testing.assert_close(
-        xg.grad, K.spmm_packed_plain(bwd, torch.ones_like(x)), **tol)
-    assert torch.equal(K.spmm_packed(fwd, x), K.spmm_packed(fwd, x))
+        out.cpu(), K.spmm_packed_plain(pack_tensors(fwd_h), x.cpu()), **tol)
+    torch.testing.assert_close(
+        xg.grad.cpu(), K.spmm_packed_plain(pack_tensors(bwd_h), g.cpu()),
+        **tol)
+    for pack in (fwd, bwd):
+        assert torch.equal(K.packed_spmm_cuda(pack, x),
+                           K.packed_spmm_cuda(pack, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_equals_headed_one_head(cuda_device, dtype, d):
+    """K1 is K3's walk at one head with alpha = the pack's weights: the
+    two libraries give the same bits."""
+    s, r, w, n = hub_graph(6)
+    for pack in (K.pack_csr(s, r, w, n), K.pack_csr(r, s, w, n)):
+        pack = pack_tensors(pack, cuda_device)
+        x = torch.randn(n, d, device=cuda_device).to(dtype)
+        assert torch.equal(
+            K.packed_spmm_cuda(pack, x),
+            K.packed_segment_matmul_headed_cuda(pack, x,
+                                                pack.weights[..., None]))
 
 
 def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
