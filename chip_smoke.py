@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints one line; a failure prints {"phase": ..., "error":
+...} on stdout and exits 1):
   1. device   — nvidia-smi name and power limit;
   2. build    — nvcc builds the kernels, one library per source
                 (csrc/packed_spmm.cu, csrc/packed_segment.cu,
@@ -29,7 +30,8 @@ Phases (each prints one line; any failure exits non-zero):
   6. profile  — torch.profiler over a few more train steps: device time
                 by kernel (and of the port's own kernels), the device's
                 idle share, the peak of device memory and the widest
-                tensor any op of a step takes.
+                tensor any op of a step takes; two trainers from one
+                seed must give bitwise-equal losses and parameters.
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
@@ -37,7 +39,11 @@ Phases (each prints one line; any failure exits non-zero):
                    in float32 (a warp a row) and bfloat16 (a half-warp),
                    and at H = 4 (dv = 32); bitwise-repeatable launches;
                    kernel, plain and library (torch.sparse.mm, CSR of
-                   alpha) times beside the bound at H = 1 and 4;
+                   alpha) times beside the bound at H = 1 and 4; the
+                   attention softmax (its row sums: K3 at dv = 1) card
+                   vs plain and CPU, values and gradient, at H = 1 and
+                   4, bitwise repeats, the row sums' times beside the
+                   bound and index_add_;
   8. kernel_sddmm — at the real train 'att' fwd pack, D = 128: the SDDMM
                    against its plain version in float32 and bfloat16, at
                    H = 1 and 4, exact 0 on every slot of pack weight 0,
@@ -45,12 +51,14 @@ Phases (each prints one line; any failure exits non-zero):
                    (torch.sparse.sampled_addmm on a CSR of the valid
                    slots, H = 1) times beside the bound;
   9. model_att   — as 4, for the full-width Tfg-idgat model;
- 10. train_att   — as 5: 12 K3 launches (forward, dv, dq, dk per layer)
-                   and 6 SDDMM launches (score, dalpha) per train step,
-                   3 of each per eval batch, no K1 or K2 launch;
+ 10. train_att   — as 5: 18 K3 launches (per layer: the softmax's row
+                   sums and the aggregation forward; dv, the softmax's
+                   row sum, dq and dk backward; 6 of them at width 1, the
+                   row sums) and 6 SDDMM launches (score, dalpha) per
+                   train step; 6 K3 (3 at width 1) and 3 SDDMM per eval
+                   batch; no K1 or K2 launch;
  11. profile_att — as 6, no op taking a tensor as wide as [E, D] (E the
-                   pack's slots), and whether two train steps from the
-                   same state give bitwise-equal losses and parameters.
+                   pack's slots) and no index_add_ over the E slots.
   ID-GIN Full / ws (configs/idgin_ws.yaml), kernel K1 on the 'plain'
   pack:
  12. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
@@ -77,8 +85,25 @@ Phases (each prints one line; any failure exits non-zero):
                    version's; kernel, plain and library (index_add_,
                    torch.sparse.mm of the 0/1 slot matrix) times beside
                    the bound.
-Then the kernel table as one JSON line (K1 twice: D = 128 and D = 1),
-and last the result line
+  The benchmark (graphgym_tpu_torch/bench.py, the root bench.py's
+  defaults: N = 131,072, E = 2,000,000, D = 128; row 0 of each pack
+  takes ~5,500 slots):
+ 21. bench       — K1 on make_graph's fwd and bwd packs against its plain
+                   version (f32, bf16; a share of each row's sum of
+                   |terms|), bitwise repeats, spmm_bidir's gradient,
+                   times beside the bound, the launch floor and
+                   torch.sparse.mm, each pack's longest row; K3 on its
+                   'att' pack at H = 8, dv = 16 and its softmax row sums
+                   (H = 8 and 1), held and timed the same way;
+ 22. bench_runs  — the entry points with exact launch counts: bench.main
+                   (K1 2 per fwd_bwd step, 1 per fwd step), the bf16 chain,
+                   bench_attention (K3 6 and SDDMM 1 per step; gradients
+                   of two calls bitwise equal; card vs CPU on a small
+                   graph) and bench_train_epoch of the four ws paths,
+                   rates and epoch times as median and IQR.
+Then the kernel table as one JSON line (K1 at D = 128, at D = 1 and on
+make_graph's pack; K3's aggregation, its softmax row sums and its H = 8
+aggregation on make_graph's 'att' pack), and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -96,20 +121,37 @@ import time
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-             "False); this script runs the port on the card only")
+_PHASE = ["import"]   # the phase running now, named in a failure line
 
-from graphgym_tpu_torch.config import load_cfg  # noqa: E402
-from graphgym_tpu_torch.data.loaders import (create_dataset,  # noqa: E402
-                                             create_loader)
-from graphgym_tpu_torch.device import resolve_device  # noqa: E402
-from graphgym_tpu_torch.main import run_single  # noqa: E402
-from graphgym_tpu_torch.nn.model import build_model  # noqa: E402
-from graphgym_tpu_torch.ops.cuda import spmm_kernel as K  # noqa: E402
-from graphgym_tpu_torch.ops.segment import segment_softmax  # noqa: E402
-from graphgym_tpu_torch.train import checkpoint as ckpt  # noqa: E402
-from graphgym_tpu_torch.train.loop import Trainer  # noqa: E402
+
+def fail(msg: str) -> None:
+    """Print why the run failed as one JSON line on stdout (and on
+    stderr), then exit 1."""
+    line = json.dumps({"phase": _PHASE[0], "error": msg})
+    print(line, flush=True)
+    print(f"chip_smoke: FAILED: {line}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+if not torch.cuda.is_available():
+    _PHASE[0] = "device"
+    fail("no CUDA device (torch.cuda.is_available() is False); this "
+         "script runs the port on the card only")
+
+try:
+    from graphgym_tpu_torch import bench as B
+    from graphgym_tpu_torch.config import load_cfg
+    from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
+    from graphgym_tpu_torch.device import resolve_device
+    from graphgym_tpu_torch.main import run_single
+    from graphgym_tpu_torch.nn.model import build_model
+    from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
+    from graphgym_tpu_torch.ops.segment import segment_softmax
+    from graphgym_tpu_torch.train import checkpoint as ckpt
+    from graphgym_tpu_torch.train.loop import Trainer
+except ImportError as exc:
+    fail(f"{type(exc).__name__}: {exc} (run from the root of a checkout "
+         "of the repository)")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "configs", "idgcn_ws.yaml")
@@ -125,10 +167,17 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # one bf16 ulp after the f32 sum
 # K2 sums up to 41,286 messages into one row: two f32 sums in different
 # orders differ by a share of the row's sum of |msg|, not of its value
 SEG_REL, SEG_ATOL = 1e-5, 1e-6
+# the bench phase: the root bench.py's defaults (make_graph's row 0 gets
+# ~5,500 slots), 3 repeats of each timed chain
+BENCH_DIMS = (131072, 2_000_000, 128)
+BENCH_ITERS, BENCH_REPEATS = 20, 3
+BENCH_HEADS, BENCH_DV = 8, 16
+SMALL_GRAPH = (2048, 32768)   # the attention step, card against CPU
 
 
-def fail(msg: str) -> None:
-    sys.exit(f"chip_smoke: FAILED: {msg}")
+def begin(name: str) -> None:
+    """Name the phase that runs from here on (a failure line names it)."""
+    _PHASE[0] = name
 
 
 def phase(name: str, **kw) -> None:
@@ -392,6 +441,66 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
                 h4=timings(calls4, fwd, v, slot_bytes=4 + 4 * 4))
 
 
+def check_softmax(pack: K.PackedCSR, n: int, device) -> dict:
+    """The attention softmax (``packed_segment_softmax``, whose row sums
+    are K3 at dv = 1) at the train 'att' fwd pack, H = 1 (K3's narrow
+    walk) and H = 4 (its scalar walk): K3 at dv = 1 against its plain
+    version; the Function's values and gradient on the card against the
+    CPU (F32_TOL: exp and the sum order differ); bitwise-repeatable
+    forward and backward; at H = 1 times of the row sums (K3, plain, and
+    index_add_ into [N, 1], the atomic call it replaced) beside the
+    bound."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    cpu_pack = K.PackedCSR(*(a.cpu() for a in pack))
+    valid = (pack.weights > 0)[..., None]
+    errs, c1 = {}, None
+    for heads in (1, 4):
+        shape = pack.senders.shape + (heads,)
+        c = torch.where(valid, torch.rand(shape, generator=gen,
+                                          device=device), 0.0)
+        ones = torch.ones(n, heads, device=device)
+        got = K.packed_row_sum(pack, c)
+        want = K.packed_segment_matmul_headed_plain(pack, ones, c)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **F32_TOL):
+            fail(f"K3 row sums H = {heads}: max err "
+                 f"{(got - want).abs().max().item()} beyond {F32_TOL}")
+        errs[f"row_sum_h{heads}"] = (got - want).abs().max().item()
+        if not torch.equal(got, K.packed_row_sum(pack, c)):
+            fail(f"K3 row sums H = {heads}: two launches differ")
+        logits = torch.randn(shape, generator=gen, device=device) * 3
+        g = torch.randn(shape, generator=gen, device=device)
+        runs = []
+        for pk, lg, gg in ((pack, logits, g), (pack, logits, g),
+                           (cpu_pack, logits.cpu(), g.cpu())):
+            x = lg.clone().requires_grad_(True)
+            alpha = K.packed_segment_softmax(x, pk)
+            alpha.backward(gg)
+            runs.append((alpha.detach().cpu(), x.grad.cpu()))
+        (a0, d0), (a1, d1), (a_cpu, d_cpu) = runs
+        if not (torch.equal(a0, a1) and torch.equal(d0, d1)):
+            fail(f"softmax H = {heads}: two runs on the card differ")
+        for what, x, y in (("values", a0, a_cpu), ("gradient", d0, d_cpu)):
+            if not torch.allclose(x, y, **F32_TOL):
+                fail(f"softmax H = {heads} {what}: card vs CPU max err "
+                     f"{(x - y).abs().max().item()} beyond {F32_TOL}")
+            errs[f"softmax_h{heads}_{what}"] = (x - y).abs().max().item()
+        if heads == 1:
+            c1 = c
+    ones = torch.ones(n, 1, device=device)
+    rows = K.pack_rows(pack).reshape(-1)
+    out_lib = torch.zeros(n, 1, device=device)
+    calls = {"kernel": lambda: K.packed_segment_matmul_headed_cuda(
+                 pack, ones, c1),
+             "plain": lambda: K.packed_segment_matmul_headed_plain(
+                 pack, ones, c1),
+             "library": lambda: out_lib.index_add_(0, rows,
+                                                   c1.view(-1, 1))}
+    return dict(max_abs_err=errs["row_sum_h1"], errs=errs, width=1,
+                library="index_add_",
+                **timings(calls, pack, ones, slot_bytes=8))
+
+
 def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
     """The SDDMM at the train 'att' fwd pack against its plain version:
     f32 and bf16, H = 1 and 4, within SEG_REL of the slot's sum of
@@ -480,16 +589,16 @@ def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
 
 
 def hold_sums(case: str, got: torch.Tensor, want: torch.Tensor,
-              scale: torch.Tensor) -> float:
-    """K2 against a reference sum of the same messages:
-    |got - want| <= SEG_REL * (the row's sum of |msg|) + SEG_ATOL."""
+              scale: torch.Tensor, rel: float = SEG_REL) -> float:
+    """A kernel's sums against a reference sum of the same terms:
+    |got - want| <= rel * (the row's sum of |terms|) + SEG_ATOL."""
     if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"K2 {case}: bad output {tuple(got.shape)}")
-    err = (got - want).abs()
-    excess = (err - SEG_REL * scale - SEG_ATOL).max().item()
+        fail(f"{case}: bad output {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs()
+    excess = (err - rel * scale - SEG_ATOL).max().item()
     if excess > 0:
-        fail(f"K2 {case}: max err {err.max().item()} beyond "
-             f"{SEG_REL} x sum|msg| + {SEG_ATOL} (by {excess})")
+        fail(f"{case}: max err {err.max().item()} beyond "
+             f"{rel} x sum|terms| + {SEG_ATOL} (by {excess})")
     return err.max().item()
 
 
@@ -519,7 +628,7 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                       device=device)
     scale = plain(msg.abs())
     got = seg(msg)
-    errs["random_f32"] = hold_sums("random f32", got, plain(msg), scale)
+    errs["random_f32"] = hold_sums("K2 random f32", got, plain(msg), scale)
     if not torch.equal(got, seg(msg)):
         fail("K2 f32: two launches differ")
     # every slot counts: zeroing the padding slots' messages changes rows
@@ -531,12 +640,12 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
     xp = torch.cat([x, x.new_zeros(1, d)])
     wmsg = (xp.index_select(0, pack.senders.reshape(-1).long())
             .view(msg.shape) * pack.weights[..., None])
-    errs["vs_k1"] = hold_sums("vs K1", seg(wmsg)[:n], K.spmm_packed(pack, x),
-                              plain(wmsg.abs())[:n])
+    errs["vs_k1"] = hold_sums("K2 vs K1", seg(wmsg)[:n],
+                              K.spmm_packed(pack, x), plain(wmsg.abs())[:n])
     # bf16 messages, f32 sums
     mb = msg.bfloat16()
     got = seg(mb)
-    errs["random_bf16"] = hold_sums("random bf16", got, plain(mb),
+    errs["random_bf16"] = hold_sums("K2 random bf16", got, plain(mb),
                                     plain(mb.float().abs()))
     if not torch.equal(got, seg(mb)):
         fail("K2 bf16: two launches differ")
@@ -547,7 +656,7 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                   for a in (p2.local_rows, p2.tiles))
     m2 = torch.randn(p2.senders.shape + (d,), generator=gen, device=device)
     got = seg(m2, loc2, til2, group=2)
-    errs["group2_f32"] = hold_sums("G = 2", got, plain(m2, loc2, til2),
+    errs["group2_f32"] = hold_sums("K2 G = 2", got, plain(m2, loc2, til2),
                                    plain(m2.abs(), loc2, til2))
     if not torch.equal(got, seg(m2, loc2, til2, group=2)):
         fail("K2 G = 2: two launches differ")
@@ -563,7 +672,7 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
         out.backward(g)
         grads.append((out.detach(), mr.grad))
     (out_k, d_k), (out_p, d_p) = grads
-    errs["vjp_fwd"] = hold_sums("vjp forward", out_k, out_p, scale[:n])
+    errs["vjp_fwd"] = hold_sums("K2 vjp forward", out_k, out_p, scale[:n])
     if not torch.equal(d_k, d_p):
         fail(f"K2 vjp: d_msg differs from the plain version's by "
              f"{(d_k - d_p).abs().max().item()}")
@@ -605,6 +714,217 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                 longest_row_slots=int(np.bincount(
                     rows.cpu().numpy()).max()),
                 index_build_s=index_s)
+
+
+def longest_rows(pack: K.PackedCSR) -> dict:
+    """A pack's longest row (the slots its row_range spans) and how many
+    rows are longer than the narrow walk's kLongRow (32 slots)."""
+    lengths = (pack.row_range[:, 1] - pack.row_range[:, 0]).long()
+    return dict(longest_row=int(lengths.argmax()),
+                longest_row_slots=int(lengths.max()),
+                rows_over_32_slots=int((lengths > 32).sum()))
+
+
+def median_iqr(values) -> dict:
+    q1, med, q3 = (float(np.percentile(values, q)) for q in (25, 50, 75))
+    return dict(median=med, iqr=q3 - q1, n=len(values),
+                values=list(values))
+
+
+def check_bench_kernels(device) -> dict:
+    """K1 and K3 on the benchmark's graph (make_graph at the root
+    bench.py's defaults: row 0 of each pack takes ~5,500 slots): K1
+    against its plain version on the fwd and bwd packs, f32 and bf16,
+    held by hold_sums' rule; bitwise-repeatable launches;
+    spmm_bidir's gradient of sum(out^2) against the plain version's
+    (one unchained call: the benchmark's chain overflows); K3 on the
+    'att' pack at the attention workload's H = 8, dv = 16 and its
+    softmax row sums at dv = 1 (H = 8: the scalar walk; H = 1: the
+    narrow walk's hub rows), held the same way; times of the kernels,
+    plain versions, library calls and K1's launch floor beside the
+    bounds."""
+    n, e, d = BENCH_DIMS
+    t0 = time.perf_counter()
+    *_, x_host, host_pack = B.bidir_graph(n, e, d)
+    out = dict(n=n, edges=e, d=d, host_pack_s=time.perf_counter() - t0)
+    pack = host_pack.to(device)
+    x = torch.from_numpy(x_host).to(device)
+    out.update(fwd_rows=longest_rows(pack.fwd),
+               bwd_rows=longest_rows(pack.bwd))
+    errs = {}
+    for name, p in (("fwd", pack.fwd), ("bwd", pack.bwd)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xin = x.to(dtype)
+            case = f"K1 make_graph {name} {str(dtype)[6:]}"
+            got = K.packed_spmm_cuda(p, xin)
+            errs[f"{name}_{str(dtype)[6:]}"] = hold_sums(
+                case, got, K.spmm_packed_plain(p, xin.float()),
+                K.spmm_packed_plain(p, xin.float().abs()))
+            if not torch.equal(got, K.packed_spmm_cuda(p, xin)):
+                fail(f"{case}: two launches differ")
+    grads = []
+    for fn in (lambda t: K.spmm_bidir(pack, t, n),
+               lambda t: K.spmm_packed_plain(pack.fwd, t)):
+        xg = x.clone().requires_grad_(True)
+        (fn(xg) ** 2).sum().backward()
+        grads.append(xg.grad)
+    # |out| <= A|x| (w >= 0): the forward's and the backward's rounding
+    # both count against 2 A^T A |x|
+    scale = 2 * K.spmm_packed_plain(pack.bwd,
+                                    K.spmm_packed_plain(pack.fwd, x.abs()))
+    errs["spmm_bidir_dx"] = hold_sums("spmm_bidir dx", *grads, scale,
+                                      rel=2 * SEG_REL)
+    for name, p in (("fwd", pack.fwd), ("bwd", pack.bwd)):
+        a = csr_of(p, n)
+        calls = {"kernel": lambda: K.packed_spmm_cuda(p, x),
+                 "plain": lambda: K.spmm_packed_plain(p, x),
+                 "library": lambda: torch.sparse.mm(a, x)}
+        out[f"k1_{name}"] = dict(
+            library_err=(torch.sparse.mm(a, x)
+                         - K.packed_spmm_cuda(p, x)).abs().max().item(),
+            **timings(calls, p, x, slot_bytes=8), **floor_timings(p, x))
+    xb = x.bfloat16()
+    out["k1_fwd_bf16"] = timings(
+        {"kernel": lambda: K.packed_spmm_cuda(pack.fwd, xb)}, pack.fwd, xb,
+        slot_bytes=8)
+    out["k1_errs"] = errs
+
+    # K3 on the attention workload's 'att' pack (edges + self-loops)
+    batch, h, *_ = B.attention_graph(n, e, BENCH_HEADS, BENCH_DV)
+    att, _, _ = batch.to(device).packs["att"]
+    na = batch.num_nodes
+    gen = torch.Generator(device=device).manual_seed(6)
+    valid = (att.weights > 0)[..., None]
+    rows = K.pack_rows(att).reshape(-1)
+    v = torch.from_numpy(h).to(device).view(na, -1)
+    logits = torch.randn(att.senders.shape + (BENCH_HEADS,), generator=gen,
+                         device=device)
+    alpha = K.packed_segment_softmax(logits, att)
+    plain = K.packed_segment_matmul_headed_plain
+    k3 = K.packed_segment_matmul_headed_cuda
+    got = k3(att, v, alpha)
+    errs = {"h8": hold_sums("K3 make_graph H = 8", got, plain(att, v, alpha),
+                            plain(att, v.abs(), alpha))}
+    if not torch.equal(got, k3(att, v, alpha)):
+        fail("K3 make_graph H = 8: two launches differ")
+    sums = {}
+    for heads in (BENCH_HEADS, 1):
+        c = torch.where(valid, torch.rand(att.senders.shape + (heads,),
+                                          generator=gen, device=device), 0.0)
+        ones = torch.ones(na, heads, device=device)
+        got = K.packed_row_sum(att, c)
+        want = plain(att, ones, c)
+        errs[f"row_sum_h{heads}"] = hold_sums(
+            f"K3 make_graph row sums H = {heads}", got, want, want)
+        if not torch.equal(got, K.packed_row_sum(att, c)):
+            fail(f"K3 make_graph row sums H = {heads}: two launches differ")
+        out_lib = torch.zeros(na, heads, device=device)
+        sums[heads] = timings(
+            {"kernel": lambda: k3(att, ones, c),
+             "plain": lambda: plain(att, ones, c),
+             "library": lambda: out_lib.index_add_(0, rows,
+                                                   c.view(-1, heads))},
+            att, ones, slot_bytes=4 + 4 * heads)
+    alpha1 = alpha[..., :1].contiguous()
+    a1 = csr_of(att, na, alpha1[..., 0])
+    out.update(
+        att_rows=longest_rows(att), k3_errs=errs,
+        k3_h8=timings({"kernel": lambda: k3(att, v, alpha),
+                       "plain": lambda: plain(att, v, alpha)},
+                      att, v, slot_bytes=4 + 4 * BENCH_HEADS),
+        k3_h1=dict(**timings({"kernel": lambda: k3(att, v, alpha1),
+                              "plain": lambda: plain(att, v, alpha1),
+                              "library": lambda: torch.sparse.mm(a1, v)},
+                             att, v, slot_bytes=8),
+                   **floor_timings(att, v)),
+        row_sums_h8=sums[BENCH_HEADS], row_sums_h1=sums[1])
+    return out
+
+
+def check_bench_runs(device) -> dict:
+    """The benchmark's entry points (graphgym_tpu_torch/bench.py) at the
+    root bench.py's defaults, each run's launches counted: ``main`` (its
+    one JSON line: K1 fwd_bwd, fwd only and the COO fwd_bwd chains, K1
+    twice per fwd_bwd step and once per fwd step), the bf16 fwd_bwd
+    chain, ``bench_attention`` (K3 6 and the SDDMM 1 per step: forward
+    the softmax sums and the aggregation; backward dv, the SDDMM's
+    dalpha, the softmax row sum and the two node-score gradients), the
+    attention gradients from two calls bitwise equal and, at a small
+    graph, card against CPU, and ``bench_train_epoch`` of the four ws
+    paths (one batch an epoch).  Rates and epoch times as median and
+    IQR over BENCH_REPEATS."""
+    import contextlib
+    import io
+
+    n, e, d = BENCH_DIMS
+    it, rep = BENCH_ITERS, BENCH_REPEATS
+    k1, k3, sddmm = (K.packed_spmm_cuda, K.packed_segment_matmul_headed_cuda,
+                     K.packed_sddmm_cuda)
+    chain = 1 + it * rep      # a warm-up step, then rep chains of it
+
+    def run(what, fn, want):
+        result, (launches, _) = counted(fn)
+        hold_counts(f"bench {what}", launches,
+                    {k.__name__: v for k, v in want.items()})
+        return result, launches
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line, main_launches = run("main", lambda: B.main(
+            ["--nodes", str(n), "--edges", str(e), "--dim", str(d),
+             "--iters", str(it), "--repeats", str(rep), "--device",
+             "cuda"]), {k1: (3 * chain, f"2 per fwd_bwd and 1 per fwd "
+                             f"step, {chain} steps each")})
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != line \
+            or "vs_baseline" in line:
+        fail(f"bench main printed {lines}")
+    bf16, bf16_launches = run("bf16", lambda: B.bench_spmm(
+        n, e, d, it, "pallas", "bfloat16", "fwd_bwd", rep, device),
+        {k1: (2 * chain, f"2 per fwd_bwd step, {chain} steps")})
+    att_steps = (1 + it) * rep
+    att, att_launches = run("attention", lambda: [B.bench_attention(
+        n, e, BENCH_HEADS, BENCH_DV, it, device) for _ in range(rep)],
+        {k3: (6 * att_steps, f"6 per step, {att_steps} steps"),
+         sddmm: (att_steps, f"1 per step, {att_steps} steps")})
+    step, inputs = B.attention_step(n, e, BENCH_HEADS, BENCH_DV, device)
+    g0, g1 = step(*inputs), step(*inputs)
+    if not all(torch.isfinite(g).all() for g in g0):
+        fail("bench attention: a gradient is not finite")
+    if not all(map(torch.equal, g0, g1)):
+        fail("bench attention: the gradients of two calls differ")
+    sn, se = SMALL_GRAPH
+    step_c, in_c = B.attention_step(sn, se, BENCH_HEADS, BENCH_DV, device)
+    step_h, in_h = B.attention_step(sn, se, BENCH_HEADS, BENCH_DV, "cpu")
+    small_err = {}
+    for name, x, y in zip(("h", "s_dst", "s_src"), step_c(*in_c),
+                          step_h(*in_h)):
+        x = x.cpu()
+        if not torch.allclose(x, y, rtol=1e-3, atol=1e-5):
+            fail(f"bench attention d{name}: card vs CPU max err "
+                 f"{(x - y).abs().max().item()} (small graph {sn}, {se})")
+        small_err[name] = (x - y).abs().max().item()
+    per_step = {"Tfg-idgcn": {k1: 6}, "Tfg-idgat": {k3: 18, sddmm: 6},
+                "Tfg-idgin": {k1: 5}, "Tfg-idsage": {k1: 5}}
+    epochs, steps = {}, (1 + EPOCHS) * rep
+    for layer in B.TRAIN_LAYERS:
+        runs, launches = run(layer, lambda: [B.bench_train_epoch(
+            layer, "pallas", EPOCHS, device=device) for _ in range(rep)],
+            {k: (c * steps, f"{c}/train step x {steps}")
+             for k, c in per_step[layer].items()})
+        epochs[layer] = dict(epoch_s=median_iqr([dt for dt, _ in runs]),
+                             train_edges_per_s=median_iqr(
+                                 [eps for _, eps in runs]),
+                             launches=launches)
+    return dict(iters=it, repeats=rep, main=line,
+                main_launches=main_launches,
+                bf16_fwd_bwd_edges_per_s=median_iqr(bf16),
+                bf16_launches=bf16_launches,
+                attention_fwd_bwd_edges_per_s=median_iqr(att),
+                attention_launches=att_launches,
+                attention_grads_bitwise_equal=True,
+                attention_small_card_vs_cpu_max_err=small_err,
+                train_epochs=epochs)
 
 
 def check_model(cfg, batch, device, random_features: bool = False
@@ -664,7 +984,8 @@ def check_model(cfg, batch, device, random_features: bool = False
 
 def widest_op_inputs(fn, top: int = 5) -> list:
     """The ops of one call of fn (forward and backward) whose widest
-    tensor argument has the most elements (torch.profiler with shapes)."""
+    tensor argument has the most elements (torch.profiler with shapes),
+    and the longest index any index_add of the call takes."""
     from torch.profiler import ProfilerActivity, profile
 
     def numel(shape) -> int:
@@ -679,24 +1000,29 @@ def widest_op_inputs(fn, top: int = 5) -> list:
             as prof:
         fn()
         torch.cuda.synchronize()
-    ops = {}
+    ops, index_add = {}, 0
     for ev in prof.events():
-        widest = max((numel(sh) for sh in ev.input_shapes or []), default=0)
+        shapes = ev.input_shapes or []
+        widest = max((numel(sh) for sh in shapes), default=0)
         if widest > ops.get(ev.name, (0, None))[0]:
-            ops[ev.name] = (widest, ev.input_shapes)
+            ops[ev.name] = (widest, shapes)
+        if "index_add" in ev.name and len(shapes) > 2 \
+                and len(shapes[2]) == 1:   # (self, dim, index, source)
+            index_add = max(index_add, shapes[2][0])
     ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
     return [dict(op=name, numel=w, shapes=str(sh)[:160])
-            for name, (w, sh) in ranked]
+            for name, (w, sh) in ranked], index_add
 
 
 def profile_steps(cfg, loaders, device, steps: int = 5,
-                  forbid_numel: int = 0) -> dict:
+                  forbid_numel: int = 0, forbid_index_add: int = 0) -> dict:
     """Device time by kernel over a few train steps (torch.profiler),
     the device's busy share of the step's wall time, the peak of device
     memory over the steps, the host time in operators' own code (the
     rest of the host's step is Python and the launch path), and the ops
     with the widest tensor arguments; with ``forbid_numel``, fails if an
-    op takes a tensor that large."""
+    op takes a tensor that large, or an index_add an index that long
+    (one entry per pack slot: a scatter of per-slot values)."""
     trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
     batch = trainer._place(loaders[0].batches(0)[0])
     torch.cuda.synchronize()
@@ -717,11 +1043,15 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
                  key=lambda kv: -kv[1])
     by_op = host_ms_by_op(events, steps)
     host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
-    widest = widest_op_inputs(lambda: trainer.train_step(batch))
+    widest, index_add = widest_op_inputs(lambda: trainer.train_step(batch))
     if forbid_numel and widest[0]["numel"] >= forbid_numel:
         fail(f"an op of the train step takes a tensor of "
              f"{widest[0]['numel']} elements (>= {forbid_numel}): "
              f"{widest[0]}")
+    if forbid_index_add and index_add >= forbid_index_add:
+        fail(f"an index_add of the train step takes an index of "
+             f"{index_add} entries (>= {forbid_index_add}, the pack's "
+             "slots)")
     return dict(step_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 peak_memory_bytes=peak,
@@ -733,14 +1063,15 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
                 host_top=[dict(name=k[:60], ms_per_step=ms,
                                calls_per_step=c)
                           for k, (ms, c) in host_top],
-                widest_op_inputs=widest)
+                widest_op_inputs=widest, longest_index_add_index=index_add)
 
 
 def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
-    """Two trainers from the same seed on the same batch: are their
-    losses, step for step, and their parameters after the last step
-    bitwise equal?  (The kernels are; index_add_ on the card adds with
-    atomics in no fixed order.)"""
+    """Two trainers from the same seed on the same batch: fails unless
+    their losses, step for step, and their parameters after the last
+    step are bitwise equal (the port's contract: no float atomics; the
+    index_add_ left on the paths adds rows of unique ids, or exact
+    zeros at the padding row)."""
     runs = []
     for _ in range(2):
         trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
@@ -749,10 +1080,14 @@ def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
         runs.append((losses, [p.detach().clone()
                               for p in trainer.model.parameters()]))
     (l0, p0), (l1, p1) = runs
-    return dict(losses=[l0, l1], losses_bitwise_equal=l0 == l1,
-                params_bitwise_equal=all(map(torch.equal, p0, p1)),
-                params_max_abs_diff=max((a - b).abs().max().item()
-                                        for a, b in zip(p0, p1)))
+    out = dict(losses=[l0, l1], losses_bitwise_equal=l0 == l1,
+               params_bitwise_equal=all(map(torch.equal, p0, p1)),
+               params_max_abs_diff=max((a - b).abs().max().item()
+                                       for a, b in zip(p0, p1)))
+    if not (out["losses_bitwise_equal"] and out["params_bitwise_equal"]):
+        fail(f"{cfg.gnn.layer_type}: two train runs from one seed differ: "
+             f"{out}")
+    return out
 
 
 def ptxas_report(log: str) -> list:
@@ -780,45 +1115,64 @@ def kernels() -> tuple:
             K.packed_segment_matmul_headed_cuda, K.packed_sddmm_cuda)
 
 
+def by_width_kernels() -> tuple:
+    """The wrappers that also count their launches by width (K1, K3)."""
+    return (K.packed_spmm_cuda, K.packed_segment_matmul_headed_cuda)
+
+
+def counted(fn):
+    """fn's result and the launches of every kernel during it: each
+    count set to 0 just before, read just after (launches, and K1's and
+    K3's launches at width 1)."""
+    for k in kernels():
+        k.launches = 0
+    for k in by_width_kernels():
+        k.launches_by_width.clear()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, ({k.__name__: k.launches for k in kernels()},
+                    {k.__name__: k.launches_by_width.get(1, 0)
+                     for k in by_width_kernels()})
+
+
+def hold_counts(what: str, launches: dict, want: dict) -> None:
+    """Fail unless every kernel launched exactly ``want`` times (0 where
+    ``want`` names it not); ``want`` maps a wrapper to (count, how)."""
+    for k, count in launches.items():
+        total, how = want.get(k, (0, "no launch"))
+        if count != total:
+            fail(f"{what}: {k} launches {count}, expected {total} ({how})")
+
+
 def train_path(cfg_file: str, overrides, out: str, loaders,
-               expected: dict, k1_narrow=(0, 0)) -> dict:
+               expected: dict, d1=None) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
-    afresh (its data pipeline writes label bins into the cfg): every
-    launch count set to 0 just before, read just after.  ``expected``
-    maps a kernel wrapper to its launches (per train step, per eval
-    batch), ``loaders`` give the batch counts; every other kernel must
-    not launch.  ``k1_narrow`` is the share of K1's launches at D = 1
-    (its narrow walk), per train step and per eval batch."""
+    afresh (its data pipeline writes label bins into the cfg), launches
+    counted (``counted``).  ``expected`` maps a kernel wrapper to its
+    launches (per train step, per eval batch), ``loaders`` give the
+    batch counts; every other kernel must not launch.  ``d1`` maps K1
+    or K3 to the share of those launches at width 1 (K1's narrow walk
+    of a 1-wide input, K3's softmax row sums at one head)."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
     steps = epochs * len(loaders[0])
     evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, epochs)
                 for e in range(epochs)) * len(loaders[1])
-    want = {k.__name__: expected.get(k, (0, 0)) for k in kernels()}
-    for k in kernels():
-        k.launches = 0
-    K.packed_spmm_cuda.launches_by_width.clear()
-    result = run_single(cfg, cfg.out_dir, cfg_file)
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels()}
-    k1_by_width = dict(K.packed_spmm_cuda.launches_by_width)
+
+    def totals(per):
+        return {k.__name__: (s * steps + e * evals,
+                             f"{s}/train step x {steps} + {e}/eval batch "
+                             f"x {evals}") for k, (s, e) in per.items()}
+    result, (launches, width1) = counted(
+        lambda: run_single(cfg, cfg.out_dir, cfg_file))
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
     if len(losses) != epochs or not all(map(math.isfinite, losses)):
         fail(f"{cfg_file}: train losses {losses}")
-    for name, (per_step, per_eval) in want.items():
-        total = per_step * steps + per_eval * evals
-        if launches[name] != total:
-            fail(f"{cfg_file}: {name} launches {launches[name]}, expected "
-                 f"{total} ({per_step}/train step x {steps} + "
-                 f"{per_eval}/eval batch x {evals})")
-    narrow = k1_narrow[0] * steps + k1_narrow[1] * evals
-    if k1_by_width.get(1, 0) != narrow:
-        fail(f"{cfg_file}: K1 launches at D = 1 {k1_by_width.get(1, 0)}, "
-             f"expected {narrow} ({k1_narrow[0]}/train step, "
-             f"{k1_narrow[1]}/eval batch)")
+    hold_counts(cfg_file, launches, totals(expected))
+    hold_counts(f"{cfg_file}, at width 1", width1, totals(d1 or {}))
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -826,8 +1180,9 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     return dict(epochs=epochs, losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_after_first=float(np.median(step_s[1:])),
-                launches=launches, k1_launches_by_width=k1_by_width,
-                launches_per_train_step_and_eval_batch=want,
+                launches=launches, launches_at_width_1=width1,
+                launches_per_train_step_and_eval_batch={
+                    k.__name__: v for k, v in expected.items()},
                 params=cfg.params)
 
 
@@ -842,6 +1197,7 @@ def load_path(cfg_file: str, overrides):
 
 
 def main() -> None:
+    begin("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -852,6 +1208,7 @@ def main() -> None:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
+    begin("build")
     info = K.build()
     for name in K.SOURCES:
         K.library(name)
@@ -866,6 +1223,7 @@ def main() -> None:
                         K.packed_sddmm_cuda)
 
     # ---- ID-GCN Full / ws: kernel K1
+    begin("kernel")
     cfg, loaders, host_s = load_path(CFG, overrides)
     train_batch = loaders[0].batches(0)[0]
     n, d = train_batch.num_nodes, cfg.gnn.dim_inner
@@ -874,37 +1232,53 @@ def main() -> None:
     phase("kernel", n=n, d=d, chunks=int(dev_batch.packs["gcn"][0]
                                          .senders.shape[0]),
           host_data_s=host_s, **k1)
+    begin("model")
     phase("model", **check_model(cfg, loaders[1].batches(0)[0], device))
     # every layer's SpMM input (x W) needs a gradient: 2 per layer
+    begin("train")
     train = train_path(CFG, overrides, os.path.join(OUT, "idgcn"), loaders,
                        {k1_: (6, 3)})
     phase("train", **train)
-    phase("profile", **profile_steps(cfg, loaders, device))
+    begin("profile")
+    phase("profile", **profile_steps(cfg, loaders, device),
+          repeat=repeat_steps(cfg, loaders, device))
 
     # ---- ID-GAT Full / ws: kernels K3 and the SDDMM
+    begin("kernel_att")
     cfg, loaders, host_s = load_path(CFG_ATT, overrides)
     train_batch = loaders[0].batches(0)[0]
     n, d = train_batch.num_nodes, cfg.gnn.dim_inner
     dev_batch = train_batch.to(device)
     att_packs = dev_batch.packs["att"]
     k3 = check_attention_kernel(att_packs, n, d, device)
+    softmax = check_softmax(att_packs[0], n, device)
     phase("kernel_att", n=n, d=d, heads=cfg.gnn.att_heads,
           chunks=int(att_packs[0].senders.shape[0]), host_data_s=host_s,
-          **k3)
+          softmax=softmax, **k3)
+    begin("kernel_sddmm")
     sddmm = check_sddmm_kernel(att_packs[0], n, d, device)
     phase("kernel_sddmm", n=n, d=d, **sddmm)
+    begin("model_att")
     phase("model_att", **check_model(cfg, loaders[1].batches(0)[0],
                                      device))
-    # per layer: K3 forward, dv, dq, dk; SDDMM score, dalpha (layer 0's
-    # Wq, Wk, Wv train too); an eval batch runs the forwards
+    # per layer: K3 forward (the softmax's row sums, the aggregation) and
+    # backward (dv, the softmax's row sum, dq, dk); SDDMM score, dalpha
+    # (layer 0's Wq, Wk, Wv train too); an eval batch runs the forwards.
+    # The row sums run K3 at width 1 (one head).
+    begin("train_att")
     train_att = train_path(CFG_ATT, overrides, os.path.join(OUT, "idgat"),
-                           loaders, {k3_: (12, 3), sddmm_: (6, 3)})
+                           loaders, {k3_: (18, 6), sddmm_: (6, 3)},
+                           d1={k3_: (6, 3)})
     phase("train_att", **train_att)
+    begin("profile_att")
+    att_slots = att_packs[0].senders.numel()
     phase("profile_att", **profile_steps(
-        cfg, loaders, device, forbid_numel=att_packs[0].senders.numel() * d),
+        cfg, loaders, device, forbid_numel=att_slots * d,
+        forbid_index_add=att_slots),
         repeat=repeat_steps(cfg, loaders, device))
 
     # ---- ID-GIN Full / ws: kernel K1 on the 'plain' pack
+    begin("kernel_gin")
     cfg, loaders, host_s = load_path(CFG_GIN, overrides)
     gin_batch = loaders[0].batches(0)[0]
     n, d = gin_batch.num_nodes, cfg.gnn.dim_inner
@@ -914,83 +1288,124 @@ def main() -> None:
               for dd in (d, d_in)}
     phase("kernel_gin", n=n, chunks=int(plain_packs[0].senders.shape[0]),
           host_data_s=host_s, **k1_gin)
+    begin("model_gin")
     phase("model_gin", **check_model(cfg, loaders[1].batches(0)[0],
                                      device, random_features=True))
     # layer 0 aggregates the raw 1-wide features, which need no
     # gradient: 1 + 2 x 2 per train step, one of them at D = 1
+    begin("train_gin")
     train_gin = train_path(CFG_GIN, overrides, os.path.join(OUT, "idgin"),
-                           loaders, {k1_: (5, 3)}, k1_narrow=(1, 1))
+                           loaders, {k1_: (5, 3)}, d1={k1_: (1, 1)})
     phase("train_gin", **train_gin)
-    phase("profile_gin", **profile_steps(cfg, loaders, device))
+    begin("profile_gin")
+    phase("profile_gin", **profile_steps(cfg, loaders, device),
+          repeat=repeat_steps(cfg, loaders, device))
 
     # ---- ID-SAGE Full / ws: kernel K1 on the 'mean' pack
+    begin("kernel_sage")
     cfg, loaders, host_s = load_path(CFG_SAGE, overrides)
     sage_batch = loaders[0].batches(0)[0]
     mean_packs = sage_batch.to(device).packs["mean"]
     phase("kernel_sage", n=sage_batch.num_nodes, d=d_in,
           chunks=int(mean_packs[0].senders.shape[0]),
           **check_kernel(mean_packs, sage_batch.num_nodes, d_in, device))
+    begin("model_sage")
     phase("model_sage", host_data_s=host_s,
           **check_model(cfg, loaders[1].batches(0)[0], device,
                         random_features=True))
+    begin("train_sage")
     train_sage = train_path(CFG_SAGE, overrides,
                             os.path.join(OUT, "idsage"), loaders,
-                            {k1_: (5, 3)}, k1_narrow=(1, 1))
+                            {k1_: (5, 3)}, d1={k1_: (1, 1)})
     phase("train_sage", **train_sage)
-    phase("profile_sage", **profile_steps(cfg, loaders, device))
+    begin("profile_sage")
+    phase("profile_sage", **profile_steps(cfg, loaders, device),
+          repeat=repeat_steps(cfg, loaders, device))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
+    begin("kernel_seg")
     k2 = check_segment_kernel(gin_batch, plain_packs[0], gin_batch.num_nodes,
                               d, device)
     phase("kernel_seg", n=gin_batch.num_nodes, d=d, **k2)
+
+    # ---- the benchmark (graphgym_tpu_torch/bench.py): K1 and K3 on
+    # make_graph's packs, then its entry points
+    begin("bench")
+    bench_kernels = check_bench_kernels(device)
+    phase("bench", **bench_kernels)
+    begin("bench_runs")
+    bench_runs = check_bench_runs(device)
+    phase("bench_runs", **bench_runs)
 
     row = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     k1_paths = {"idgcn_ws": train, "idgin_ws": train_gin,
                 "idsage_ws": train_sage}
 
-    def path_launches(kernel, paths):
-        by_path = {p: t["launches"][kernel.__name__]
+    def launches(kernel, paths, width1=None):
+        """A kernel's launches on each path run: all of them, or with
+        ``width1`` those at width 1 (True) or at other widths (False)."""
+        name = kernel.__name__
+        by_path = {p: (t["launches"][name] if width1 is None
+                       else t["launches_at_width_1"][name] if width1
+                       else t["launches"][name]
+                       - t["launches_at_width_1"][name])
                    for p, t in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
-    def k1_launches(width):
-        by_path = {p: t["k1_launches_by_width"].get(width, 0)
-                   for p, t in k1_paths.items()}
-        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
-
-    # K1's rows: D = 128 at the ID-GCN 'gcn' fwd pack (its narrow walk's
-    # D = 1 at the ID-GIN 'plain' fwd pack); launches at that width
+    # K1's rows: D = 128 at the ID-GCN 'gcn' fwd pack, its narrow walk's
+    # D = 1 at the ID-GIN 'plain' fwd pack, and D = 128 at make_graph's
+    # fwd pack (the benchmark's chains); K3's: the aggregation at the
+    # ID-GAT 'att' pack, its softmax row sums at width 1 there, and the
+    # aggregation at H = 8 on make_graph's 'att' pack (bench_attention)
     k1_d1 = k1_gin[f"d{d_in}"]
+    bk = bench_kernels
+    bench_k1 = {"bench_spmm main": {"launches": bench_runs["main_launches"]},
+                "bench_spmm bf16": {"launches": bench_runs["bf16_launches"]}}
+    bench_att = {"bench_attention": {
+        "launches": bench_runs["attention_launches"]}}
+    k1_src = dict(route="cuda", source="graphgym_tpu_torch/csrc/"
+                  "packed_spmm.cu",
+                  replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:334")
+    k3_src = dict(route="cuda", source="graphgym_tpu_torch/csrc/"
+                  "packed_attention.cu",
+                  replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:537")
     print(json.dumps({"kernels": [
-        {"name": "packed_spmm", "route": "cuda",
-         "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
-         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
+        {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
          **{k: k1[k] for k in row + ("floor_ms",)},
-         **k1_launches(k1["width"])},
-        {"name": "packed_spmm_d1", "route": "cuda",
-         "source": "graphgym_tpu_torch/csrc/packed_spmm.cu",
-         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:334",
+         **launches(k1_, k1_paths, width1=False)},
+        {"name": "packed_spmm_d1", **k1_src,
          "path": "idgin_ws, idsage_ws", "width": k1_d1["width"],
          **{k: k1_d1[k] for k in row + ("floor_ms",)},
-         **k1_launches(k1_d1["width"])},
+         **launches(k1_, k1_paths, width1=True)},
+        {"name": "packed_spmm_make_graph", **k1_src,
+         "path": "bench_spmm", "width": bk["d"],
+         "max_abs_err": bk["k1_errs"]["fwd_float32"],
+         **{k: bk["k1_fwd"][k] for k in row[1:] + ("floor_ms",)},
+         **launches(k1_, bench_k1)},
         {"name": "packed_segment", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",
          "path": None, "launches": k2["launches"],
          **{k: k2[k] for k in row}},
-        {"name": "packed_attention", "route": "cuda",
-         "source": "graphgym_tpu_torch/csrc/packed_attention.cu",
-         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:537",
+        {"name": "packed_attention", **k3_src,
          "path": "idgat_ws", **{k: k3[k] for k in row},
-         **path_launches(k3_, {"idgat_ws": train_att})},
+         **launches(k3_, {"idgat_ws": train_att}, width1=False)},
+        {"name": "packed_attention_row_sums", **k3_src,
+         "path": "idgat_ws", **{k: softmax[k] for k in row},
+         **launches(k3_, {"idgat_ws": train_att}, width1=True)},
+        {"name": "packed_attention_make_graph", **k3_src,
+         "path": "bench_attention", "heads": BENCH_HEADS,
+         "max_abs_err": bk["k3_errs"]["h8"],
+         **{k: bk["k3_h8"][k] for k in row[1:]},
+         **launches(k3_, bench_att)},
         {"name": "packed_sddmm", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_sddmm.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
                      "graphgym_tpu/nn/layers.py:152",
-         "path": "idgat_ws", **{k: sddmm[k] for k in row},
-         **path_launches(sddmm_, {"idgat_ws": train_att})},
+         "path": "idgat_ws, bench_attention", **{k: sddmm[k] for k in row},
+         **launches(sddmm_, {"idgat_ws": train_att, **bench_att})},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -998,4 +1413,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception as exc:   # a phase's own error: name it on stdout
+        import traceback
+
+        traceback.print_exc()
+        fail(f"{type(exc).__name__}: {exc}")

@@ -15,9 +15,9 @@ from torch import nn
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
-from graphgym_tpu_torch.ops import segment as S
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
-    pack_rows, packed_scaled_dot, segment_matmul_headed_vjp, spmm_pack_vjp)
+    pack_rows, packed_node_scores, packed_scaled_dot, packed_segment_softmax,
+    segment_matmul_headed_vjp, spmm_pack_vjp, take_padded)
 
 
 def glorot(shape, generator: torch.Generator) -> nn.Parameter:
@@ -63,7 +63,9 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     per-edge scores and the softmax run on scalars in packed slot
     order, and the value aggregation runs through the per-head kernel
     K3 (``segment_matmul_headed_vjp``), which gathers v[senders]
-    itself.
+    itself.  The softmax's row sums (``packed_segment_softmax``) and
+    the node scores' gradients (``packed_node_scores``) are K3 row sums
+    too: no float atomics forward or backward.
 
     h_heads: [N, H, d] receiver-side (query) features; keys and values
     default to h_heads.  score_fn(h_i, h_j) -> [NC, C, H] raw scores of
@@ -87,20 +89,8 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     heads = h_heads.shape[1]
     v = values if values is not None else h_heads
     dv = v.shape[-1]
-    rows = pack_rows(fwd)                        # [NC, C]
-    # padding slots have local row 0, so their rows name a real row:
-    # without the mask each would add exp(0) to that row's denominator
-    valid = fwd.weights > 0
-
-    def take_padded(arr, idx):
-        # pack padding slots gather from index n: append a zero row
-        padded = torch.cat([arr, arr.new_zeros((1,) + arr.shape[1:])])
-        return padded.index_select(0, idx.reshape(-1).long()).view(
-            idx.shape + arr.shape[1:])
-
     if node_scores is not None:
-        s_dst, s_src = node_scores
-        alpha = take_padded(s_dst, rows) + take_padded(s_src, fwd.senders)
+        alpha = packed_node_scores(*node_scores, fwd, bwd, slot_map)
         if score_transform is not None:
             alpha = score_transform(alpha)
     else:
@@ -109,12 +99,12 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
             alpha = packed_scaled_dot(h_heads, k, fwd, bwd, slot_map,
                                       score_fn.scale)    # [NC, C, H]
         else:
-            alpha = score_fn(take_padded(h_heads, rows),
+            alpha = score_fn(take_padded(h_heads, pack_rows(fwd)),
                              take_padded(k, fwd.senders))
-    flat = alpha.reshape(-1, heads)
-    mask = valid.reshape(-1, 1).expand_as(flat)
-    alpha = S.segment_softmax(flat, rows.reshape(-1), n, mask=mask)
-    alpha = alpha.view(fwd.senders.shape + (heads,))
+    # masked to the slots of nonzero pack weight: padding slots have
+    # local row 0, so their rows name a real row
+    alpha = packed_segment_softmax(alpha.reshape(
+        fwd.senders.shape + (heads,)), fwd)
     if dropout_rate > 0.0 and generator is not None:
         keep = torch.rand(alpha.shape, generator=generator,
                           device=alpha.device) < 1.0 - dropout_rate

@@ -24,6 +24,12 @@ On a CUDA tensor the entry points (``spmm_packed``,
 ``packed_segment_matmul``, ``packed_segment_matmul_headed``,
 ``packed_sddmm``) launch the kernel or raise; on a CPU tensor they take
 the plain version, the same arithmetic in plain PyTorch.
+
+Around them: the autograd Functions of the layers (SpMM, attention
+aggregation, score, the attention softmax and the node-score gathers,
+whose sums all run on K3 or K1, so no float atomics), and the COO
+entries ``pack_bidir`` / ``spmm_bidir`` / ``spmm_pallas`` of the
+benchmark.
 """
 
 from __future__ import annotations
@@ -523,7 +529,9 @@ def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
     h*dv + k] = sum over the row's slots of alpha[s, h] * v[senders[s],
     h*dv + k], with v [num_nodes, H*dv] f32 or bf16 and alpha [NC, C, H]
     f32 on a CUDA device.  Adds one to
-    ``packed_segment_matmul_headed_cuda.launches`` per launch."""
+    ``packed_segment_matmul_headed_cuda.launches`` per launch, and to
+    the H*dv entry of its ``launches_by_width`` (the softmax's row sums
+    run it at dv = 1)."""
     name = "packed_segment_matmul_headed_cuda"
     _check_inputs(name, pack, v)
     _check(name, alpha.dim() == 3
@@ -544,10 +552,12 @@ def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
             pack.senders.data_ptr(), alpha.data_ptr(),
             pack.row_range.data_ptr(), out.data_ptr())
     packed_segment_matmul_headed_cuda.launches += 1
+    packed_segment_matmul_headed_cuda.launches_by_width[d] += 1
     return out
 
 
 packed_segment_matmul_headed_cuda.launches = 0
+packed_segment_matmul_headed_cuda.launches_by_width = collections.Counter()
 
 
 def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
@@ -703,6 +713,68 @@ def spmm_pack_vjp(fwd_pack: PackedCSR, bwd_pack: PackedCSR,
     return SpmmPackFn.apply(fwd_pack, bwd_pack, x)
 
 
+class BidirPack(NamedTuple):
+    """Forward (A) and transpose (A^T) packs of one COO graph, with its
+    int32 senders and receivers (spmm_kernel.py:466-472)."""
+    fwd: PackedCSR
+    bwd: PackedCSR
+    senders: Any
+    receivers: Any
+
+    def to(self, device) -> "BidirPack":
+        """A copy with every array as a tensor on ``device``."""
+        def move(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return BidirPack(PackedCSR(*map(move, self.fwd)),
+                         PackedCSR(*map(move, self.bwd)),
+                         move(self.senders), move(self.receivers))
+
+
+def pack_bidir(senders: np.ndarray, receivers: np.ndarray,
+               weights: Optional[np.ndarray], num_nodes: int) -> BidirPack:
+    """Both packs of an edge list, no chunk bucketing (spmm_kernel.py:
+    475-481): the fwd pack sums into receivers, the bwd pack into
+    senders, with the same weights."""
+    return BidirPack(pack_csr(senders, receivers, weights, num_nodes),
+                     pack_csr(receivers, senders, weights, num_nodes),
+                     np.asarray(senders, np.int32),
+                     np.asarray(receivers, np.int32))
+
+
+def spmm_bidir(pack: BidirPack, x: torch.Tensor,
+               num_nodes: int) -> torch.Tensor:
+    """out = A x, differentiable in x (spmm_kernel.py:484-502): K1 on the
+    fwd pack forward, K1 on the bwd pack for dx = A^T g.  x has
+    num_nodes rows: the pack's padding sender num_nodes reads as a zero
+    row in both the kernel and the plain version.  The weights are
+    constants."""
+    if x.shape[0] != num_nodes:
+        raise ValueError(f"spmm_bidir: x has {x.shape[0]} rows, the packs "
+                         f"{num_nodes}")
+    return SpmmPackFn.apply(pack.fwd, pack.bwd, x)
+
+
+def spmm_pallas(senders, receivers, edge_weight, x: torch.Tensor,
+                num_nodes: int) -> torch.Tensor:
+    """The COO entry of the packed SpMM (spmm_kernel.py:721-728): packs
+    the edges on the host, then K1 (the plain version for a CPU x).  x
+    has num_nodes rows, or one more, the padding row, which only slots
+    of weight 0 read; out has num_nodes rows.  Forward only, as in the
+    JAX package."""
+    if x.shape[0] not in (num_nodes, num_nodes + 1):
+        raise ValueError(f"spmm_pallas: x has {x.shape[0]} rows for "
+                         f"{num_nodes} nodes")
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+            np.asarray(a)
+    pack = pack_csr(host(senders), host(receivers),
+                    None if edge_weight is None else host(edge_weight),
+                    num_nodes)
+    pack = PackedCSR(*(torch.from_numpy(a).to(x.device) for a in pack))
+    return spmm_packed(pack, x[:num_nodes])
+
+
 def packed_segment_matmul_headed(pack: PackedCSR, v: torch.Tensor,
                                  alpha: torch.Tensor) -> torch.Tensor:
     """Per-head weighted aggregation from a packed layout
@@ -834,3 +906,124 @@ def packed_scaled_dot(q: torch.Tensor, k: torch.Tensor, fwd_pack: PackedCSR,
                       scale: float) -> torch.Tensor:
     """[NC, C, H] scores of the fwd pack's slots from q, k [N, H, dh]."""
     return PackedScoreFn.apply(q, k, fwd_pack, bwd_pack, slot_map, scale)
+
+
+def take_padded(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr[idx] with idx of any shape, where index num_nodes (the pack's
+    padding sender) reads an appended zero row."""
+    padded = torch.cat([arr, arr.new_zeros((1,) + arr.shape[1:])])
+    return padded.index_select(0, idx.reshape(-1).long()).view(
+        idx.shape + arr.shape[1:])
+
+
+def packed_row_sum(pack: PackedCSR, c: torch.Tensor) -> torch.Tensor:
+    """f32 [num_nodes, H] row sums of per-slot values c [NC, C, H] f32
+    over the slots of each row's row_range, in slot order: K3 with v =
+    ones [num_nodes, H] (dv = 1) for a CUDA tensor, its plain version for
+    a CPU one.  The slots outside the ranges are those of pack weight 0
+    after a row's last nonzero one; callers give them c = 0."""
+    n, heads = pack.row_range.shape[0], c.shape[-1]
+    ones = torch.ones(n, heads, dtype=torch.float32, device=c.device)
+    return packed_segment_matmul_headed(pack, ones, c)
+
+
+class PackedSoftmaxFn(torch.autograd.Function):
+    """The attention softmax over each row's slots of the 'att' fwd pack,
+    no float atomics forward or backward (the JAX package's
+    segment_softmax, graphgym_tpu/ops/segment.py:73-100, as
+    graphgym_tpu/nn/layers.py:157-160 calls it with the pack's rows and
+    validity mask).
+
+    Forward: logits of slots of pack weight 0 are masked to -1e30; the
+    row max by scatter_reduce (amax, order-free; no gradient: the
+    softmax does not depend on the shift); exp, 0 on masked slots; the
+    denominators denom[row, h] = sum of the row's exp by K3 (one owner
+    per row, slot order), clamped to 1e-16, so a fully masked row gives
+    all-zero probabilities; alpha = exp / denom[rows], a gather.
+
+    Backward: with s[row, h] = sum of the row's alpha * g (K3 again),
+    dlogit = alpha * (g - s[rows]), 0 on masked slots.  No [E, H]
+    scatter, no index_add.  The pack gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, pack: PackedCSR) -> torch.Tensor:
+        rows = pack_rows(pack).reshape(-1)
+        valid = (pack.weights > 0)[..., None]
+        x = torch.where(valid, logits.float(), -1e30)
+        flat = x.reshape(-1, x.shape[-1])
+        n = pack.row_range.shape[0]
+        seg_max = flat.new_full((n, flat.shape[1]), float("-inf"))
+        seg_max = seg_max.scatter_reduce(
+            0, rows[:, None].expand_as(flat), flat, "amax")
+        seg_max = torch.where(torch.isfinite(seg_max) & (seg_max > -5e29),
+                              seg_max, 0.0)
+        exp = torch.where(valid, torch.exp(
+            x - seg_max.index_select(0, rows).view(x.shape)), 0.0)
+        denom = packed_row_sum(pack, exp.contiguous()).clamp_min(1e-16)
+        alpha = exp / denom.index_select(0, rows).view(x.shape)
+        ctx.save_for_backward(alpha)
+        ctx.pack, ctx.in_dtype = pack, logits.dtype
+        return alpha.to(logits.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (alpha,) = ctx.saved_tensors
+        pack = ctx.pack
+        g = g.float()
+        s = packed_row_sum(pack, (alpha * g).contiguous())
+        rows = pack_rows(pack).reshape(-1)
+        dlogit = alpha * (g - s.index_select(0, rows).view(g.shape))
+        return dlogit.to(ctx.in_dtype), None
+
+
+def packed_segment_softmax(logits: torch.Tensor,
+                           pack: PackedCSR) -> torch.Tensor:
+    """[NC, C, H] softmax of per-slot logits over each row of the 'att'
+    fwd pack, masked to the slots of nonzero pack weight."""
+    return PackedSoftmaxFn.apply(logits, pack)
+
+
+class PackedNodeScoresFn(torch.autograd.Function):
+    """Per-slot scores from per-node ones (GAT's additive attention,
+    graphgym_tpu/nn/layers.py:146-149): score[s, h] = s_dst[row(s), h] +
+    s_src[sender(s), h] on the 'att' fwd pack, the padding sender
+    reading a zero row.
+
+    Forward is two gathers.  Their gradients are row sums on the row
+    walk (K3, dv = 1) instead of index_add: ds_dst over the fwd pack,
+    ds_src over the bwd pack with the slot gradient carried into bwd
+    order by ``slot_map``.  They are taken over the slots of nonzero
+    pack weight, the only slots the masked softmax passes a gradient to
+    (the JAX package's gather gradient also adds the padding slots'
+    gradients, which that softmax makes 0).  The packs and the map get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, s_dst: torch.Tensor, s_src: torch.Tensor,
+                fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                slot_map: torch.Tensor) -> torch.Tensor:
+        ctx.packs = (fwd_pack, bwd_pack, slot_map)
+        ctx.dtypes = (s_dst.dtype, s_src.dtype)
+        return (take_padded(s_dst, pack_rows(fwd_pack))
+                + take_padded(s_src, fwd_pack.senders))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        fwd_pack, bwd_pack, slot_map = ctx.packs
+        c = torch.where(fwd_pack.weights[..., None] != 0, g.float(),
+                        0.0).contiguous()
+        ds_dst = ds_src = None
+        if ctx.needs_input_grad[0]:
+            ds_dst = packed_row_sum(fwd_pack, c).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            ds_src = packed_row_sum(bwd_pack, alpha_to_bwd(
+                c, slot_map)).to(ctx.dtypes[1])
+        return ds_dst, ds_src, None, None, None
+
+
+def packed_node_scores(s_dst: torch.Tensor, s_src: torch.Tensor,
+                       fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                       slot_map: torch.Tensor) -> torch.Tensor:
+    """[NC, C, H] per-slot s_dst[row] + s_src[sender] from [N, H]."""
+    return PackedNodeScoresFn.apply(s_dst, s_src, fwd_pack, bwd_pack,
+                                    slot_map)

@@ -1,8 +1,12 @@
-"""Row scatter and the ID-GNN identity-colored projection.
+"""COO SpMM, row scatter and the ID-GNN identity-colored projection.
 
-The port of ``scatter_add_rows`` and ``apply_id_weights`` from
-graphgym_tpu/ops/sparse.py:128-152.  The JAX package leaves these to
-XLA outside Pallas; here they are ``index_add`` and ``torch.matmul``.
+The port of ``spmm``, ``scatter_add_rows`` and ``apply_id_weights`` from
+graphgym_tpu/ops/sparse.py:25-57 and 128-152.  The JAX package leaves
+the COO gather -> scale -> segment reduce and the row scatter to XLA;
+here they are ``index_select``, ``index_add`` and ``scatter_reduce``
+(``index_add`` adds with atomics on the card, in no fixed order).  The
+COO ``spmm`` with ``implementation="pallas"`` packs the edges on the
+host and runs the hand-written Hopper kernel K1 instead.
 """
 
 from __future__ import annotations
@@ -10,6 +14,37 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from graphgym_tpu_torch.ops import segment as S
+
+
+def spmm(senders: torch.Tensor, receivers: torch.Tensor,
+         edge_weight: Optional[torch.Tensor], x: torch.Tensor,
+         num_nodes: int, *, reduce: str = "sum",
+         edge_mask: Optional[torch.Tensor] = None,
+         implementation: str = "xla") -> torch.Tensor:
+    """out[r] = reduce over the edges (s, r) of edge_weight * x[s]
+    (graphgym_tpu/ops/sparse.py:25-57), reduce 'sum', 'mean' or 'max';
+    mean and max take an optional edge mask.
+
+    ``implementation`` keeps the JAX package's names, so that
+    ``cfg.tpu.spmm_impl`` and the benchmark's ``--impl`` read the same:
+    'xla' is the gather and segment reduce above; 'pallas' routes a sum
+    through ``spmm_pallas`` (a host pack, then the hand-written Hopper
+    kernel K1 on a CUDA x; there is no Pallas here)."""
+    if implementation == "pallas" and reduce == "sum":
+        from graphgym_tpu_torch.ops.cuda.spmm_kernel import spmm_pallas
+        return spmm_pallas(senders, receivers, edge_weight, x, num_nodes)
+    msg = x.index_select(0, senders)
+    if edge_weight is not None:
+        msg = msg * edge_weight[:, None]
+    if reduce == "sum":
+        return S.segment_sum(msg, receivers, num_nodes)
+    if reduce == "mean":
+        return S.segment_mean(msg, receivers, num_nodes, mask=edge_mask)
+    if reduce == "max":
+        return S.segment_max(msg, receivers, num_nodes, mask=edge_mask)
+    raise ValueError(f"Unknown reduce: {reduce}")
 
 
 def scatter_add_rows(x: torch.Tensor, index: torch.Tensor,

@@ -7,9 +7,10 @@ pack and the slot map, dalpha by the SDDMM) against
 packed_segment_matmul_headed / segment_matmul_headed_vjp run through
 the Pallas kernel in interpret mode, on inputs its bf16 hi/lo split
 represents exactly (bf16-valued alpha, v and g), so only the f32
-summation order differs: rtol 1e-4 / atol 1e-5.  Segment ops against
+summation order differs: rtol 1e-4 / atol 1e-5.  Segment ops, and the
+packed softmax whose row sums run on K3, against
 graphgym_tpu/ops/segment.py at 1e-6, and packed_attention against the
-JAX one in both score branches.  The CUDA kernel itself runs under the
+JAX one in both score branches and on the benchmark's graph.  The CUDA kernel itself runs under the
 ``cuda`` marker on a card; the JAX modules that need flax are imported
 inside the tests that use them, so the file collects where only jax is
 installed.
@@ -288,6 +289,72 @@ def test_segment_softmax_and_grad_match_jax(masked):
         assert (got.detach().numpy()[ids == 4] == 0).all()
 
 
+@pytest.mark.parametrize("fully_masked_rows", [True, False])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_packed_segment_softmax_matches_jax(heads, fully_masked_rows):
+    """packed_segment_softmax on the 'att' fwd pack against the JAX
+    segment_softmax as packed_attention calls it (rows, validity mask),
+    values and gradient at 1e-6.  With node_mask < 300 the rows of nodes
+    300..383 hold only weight-0 self-loops: fully masked, all-zero
+    probabilities; with every node real no row is fully masked."""
+    s, r, w, n = random_graph(30 + heads)
+    node_mask = (np.arange(n) < 300) if fully_masked_rows \
+        else np.ones(n, bool)
+    fwd, _, _ = packing.build_packs(s, r, w, node_mask, n,
+                                    kinds=("att",))["att"]
+    valid = fwd.weights > 0
+    rows = (fwd.tiles[:, None] * K.ROWS_PER_TILE
+            + fwd.local_rows).reshape(-1)
+    full = np.bincount(rows[valid.reshape(-1)], minlength=n) == 0
+    assert full[:n - 1].any() == fully_masked_rows
+    rng = np.random.default_rng(heads)
+    logits = (rng.normal(size=fwd.senders.shape + (heads,)) * 3).astype(
+        np.float32)
+    cot = rng.normal(size=logits.shape).astype(np.float32)
+
+    def jax_fn(x):
+        flat = x.reshape(-1, heads)
+        mask = valid.reshape(-1)[:, None] & jnp.ones_like(flat, bool)
+        return JS.segment_softmax(flat, jnp.asarray(rows), n,
+                                  mask=mask).reshape(x.shape)
+
+    want, vjp = jax.vjp(jax_fn, jnp.asarray(logits))
+    (want_grad,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    before = K.packed_segment_matmul_headed_cuda.launches
+    got = K.packed_segment_softmax(x, pack_tensors(fwd))
+    got.backward(torch.from_numpy(cot))
+    assert K.packed_segment_matmul_headed_cuda.launches == before
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-6, atol=1e-6)
+    alpha = got.detach().numpy()
+    assert (alpha[~valid] == 0).all() and np.isfinite(alpha).all()
+    assert (x.grad.numpy()[~valid] == 0).all()
+    sums = np.zeros((n, heads))
+    np.add.at(sums, rows, alpha.reshape(-1, heads))
+    np.testing.assert_allclose(sums[~full], 1.0, rtol=1e-5)
+    assert (sums[full] == 0).all()
+
+
+def test_packed_row_sum_matches_plain_sum():
+    """packed_row_sum (K3 at dv = 1; its plain version on the CPU) is the
+    per-row sum over the pack's slots of values that are 0 off the
+    valid slots."""
+    *_, (fwd, _, _), _ = att_packs(40)
+    rng = np.random.default_rng(40)
+    n = fwd.row_range.shape[0]
+    c = (rng.random(fwd.senders.shape + (3,))
+         * (fwd.weights > 0)[..., None]).astype(np.float32)
+    rows = (fwd.tiles[:, None] * K.ROWS_PER_TILE
+            + fwd.local_rows).reshape(-1)
+    want = np.zeros((n, 3), np.float32)
+    np.add.at(want, rows, c.reshape(-1, 3))
+    got = K.packed_row_sum(pack_tensors(fwd), torch.from_numpy(c))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
 # --------------------------------------------------------- activations
 
 
@@ -390,6 +457,41 @@ def test_packed_attention_matches_jax(att_graphs, branch):
                                    rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def test_packed_attention_node_scores_on_bench_graph_matches_jax():
+    """The benchmark's attention (graphgym_tpu_torch.bench at N = 2,048,
+    E = 32,768: row 0 of the 'att' pack takes ~720 slots) against the
+    JAX packed_attention's node_scores branch: the gradients in h, s_dst
+    and s_src at rtol 1e-4 and an atol of 1e-5 of each gradient's
+    largest magnitude (the TPU kernel's f32 path drops the lo*lo
+    product, ~2^-16 of each alpha * v; the gradients reach ~30)."""
+    from graphgym_tpu.nn import layers as jax_layers
+    from graphgym_tpu_torch import bench as B
+
+    heads, dv = 8, 2
+    step, inputs = B.attention_step(2048, 32768, heads, dv, "cpu")
+    batch, *arrays = B.attention_graph(2048, 32768, heads, dv)
+    jb = jax_container.build_graph_batch(batch.senders, batch.receivers,
+                                         batch.node_feat[:-1])
+    jb = jb.replace(packs=jax_packing.build_packs(
+        jb.senders, jb.receivers, jb.edge_weight, jb.node_mask,
+        jb.num_nodes, kinds=("att",)))
+    lengths = np.diff(batch.packs["att"][0].row_range, axis=1)
+    assert lengths.max() > 600
+
+    def loss(h, s_dst, s_src):
+        out = jax_layers.packed_attention(
+            jb, h, None, node_scores=(s_dst, s_src),
+            score_transform=lambda a: lrelu_j(a))
+        return jnp.sum(out ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrays))
+    got = step(*inputs)
+    for name, g, w in zip(("h", "s_dst", "s_src"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
 def test_packed_attention_dropout_rate_and_scale(att_graphs, monkeypatch):
     """Dropped coefficients are 0, kept ones scaled by 1/(1-p), and the
     drop rate over valid slots is p (masks cannot match the JAX ones
@@ -486,6 +588,46 @@ def test_cuda_headed_kernel_matches_plain(cuda_device, dtype, heads, width):
             pack_tensors(fwd), v.cpu(), alpha.cpu()), **tol)
     assert torch.equal(K.packed_segment_matmul_headed(fwd_t, v, alpha),
                        K.packed_segment_matmul_headed(fwd_t, v, alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 4])
+def test_cuda_softmax_and_node_scores_repeatable(cuda_device, heads):
+    """On a graph with a 2,500-slot row (the narrow walk's hub branch at
+    one head, the scalar walk at four): the softmax Function and the
+    node-score gathers, forward and backward, give the same bits on two
+    runs, and the CPU's result within rtol 1e-5 / atol 1e-6 (exp and the
+    sum order differ); K3 launches 2 (softmax) and 2 (gathers' backward)
+    times, and no index_add_ takes part."""
+    from test_torch_spmm import hub_graph
+
+    s, r, w, n = hub_graph(8)
+    fwd, bwd, slot_map = packing.build_packs(
+        s, r, w, np.arange(n) < 300, n, kinds=("att",))["att"]
+    assert np.diff(fwd.row_range, axis=1).max() > 2000
+    rng = np.random.default_rng(heads)
+    s_dst, s_src = (rng.normal(size=(n, heads)).astype(np.float32)
+                    for _ in range(2))
+    cot = rng.normal(size=fwd.senders.shape + (heads,)).astype(np.float32)
+
+    def run(device):
+        packs = (pack_tensors(fwd, device), pack_tensors(bwd, device),
+                 torch.from_numpy(slot_map).to(device))
+        xs = [torch.from_numpy(a).to(device).requires_grad_(True)
+              for a in (s_dst, s_src)]
+        score = K.packed_node_scores(*xs, *packs)
+        alpha = K.packed_segment_softmax(score, packs[0])
+        alpha.backward(torch.from_numpy(cot).to(device))
+        return [t.detach().cpu() for t in (alpha, *(x.grad for x in xs))]
+
+    before = K.packed_segment_matmul_headed_cuda.launches
+    first = run(cuda_device)
+    torch.cuda.synchronize()
+    assert K.packed_segment_matmul_headed_cuda.launches == before + 4
+    second = run(cuda_device)
+    for a, b, c in zip(first, second, run(torch.device("cpu"))):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ so a module that imports JAX fails it even when no entry point reaches
 that module.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -36,7 +37,8 @@ def test_port_imports_no_jax():
     assert line == ["BAD:"], out.stdout
     (mods,) = [ln[len("MODULES:"):].split(",") for ln in
                out.stdout.splitlines() if ln.startswith("MODULES:")]
-    for name in ("graphgym_tpu_torch.main", "graphgym_tpu_torch.ops.segment",
+    for name in ("graphgym_tpu_torch.main", "graphgym_tpu_torch.bench",
+                 "graphgym_tpu_torch.ops.segment",
                  "graphgym_tpu_torch.nn.act", "graphgym_tpu_torch.nn.norm",
                  "graphgym_tpu_torch.ops.cuda.spmm_kernel"):
         assert name in mods
@@ -58,10 +60,35 @@ def test_chip_smoke_imports_no_jax():
 
 def test_chip_smoke_without_card_fails_silently():
     """Without a CUDA device chip_smoke.py exits non-zero and prints no
-    result line."""
+    result line, only its reason as one JSON line on stdout."""
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+    (line,) = out.stdout.strip().splitlines()
+    reason = json.loads(line)
+    assert reason["phase"] == "device" and "CUDA" in reason["error"]
+
+
+def test_chip_smoke_alone_names_its_failure(tmp_path):
+    """chip_smoke.py copied into a directory that holds nothing else of
+    the repository fails (it cannot import the port), naming the reason
+    on stdout (a card made to look present, so the import is reached)."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    probe = ("import sys, runpy, torch; "
+             "torch.cuda.is_available = lambda: True; "
+             "sys.path[0] = sys.argv[1]; "
+             "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1
+    assert '"ok"' not in out.stdout
+    reason = json.loads(out.stdout.strip().splitlines()[-1])
+    assert reason["phase"] == "import"
+    assert "graphgym_tpu_torch" in reason["error"]
