@@ -92,18 +92,22 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    version (f32, bf16; a share of each row's sum of
                    |terms|), bitwise repeats, spmm_bidir's gradient,
                    times beside the bound, the launch floor and
-                   torch.sparse.mm, each pack's longest row; K3 on its
-                   'att' pack at H = 8, dv = 16 and its softmax row sums
-                   (H = 8 and 1), held and timed the same way;
+                   torch.sparse.mm, each pack's longest row; on its
+                   'att' packs, at bench_attention's shapes, K3's
+                   aggregation (fwd) and dv (bwd) at H = 8, dv = 16, its
+                   row sums on both packs (H = 8 and 1) and the SDDMM at
+                   H = 8, dh = 16, held and timed the same way;
  22. bench_runs  — the entry points with exact launch counts: bench.main
                    (K1 2 per fwd_bwd step, 1 per fwd step), the bf16 chain,
-                   bench_attention (K3 6 and SDDMM 1 per step; gradients
+                   bench_attention (K3 6 per step, 4 of them row sums
+                   at width 8, and SDDMM 1; gradients
                    of two calls bitwise equal; card vs CPU on a small
                    graph) and bench_train_epoch of the four ws paths,
                    rates and epoch times as median and IQR.
 Then the kernel table as one JSON line (K1 at D = 128, at D = 1 and on
-make_graph's pack; K3's aggregation, its softmax row sums and its H = 8
-aggregation on make_graph's 'att' pack), and last the result line
+make_graph's pack; K3's aggregation and its softmax row sums on ws and
+at H = 8 on make_graph's 'att' pack; the SDDMM on ws and on that pack),
+and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -146,7 +150,6 @@ try:
     from graphgym_tpu_torch.main import run_single
     from graphgym_tpu_torch.nn.model import build_model
     from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
-    from graphgym_tpu_torch.ops.segment import segment_softmax
     from graphgym_tpu_torch.train import checkpoint as ckpt
     from graphgym_tpu_torch.train.loop import Trainer
 except ImportError as exc:
@@ -361,13 +364,25 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
     card's memory rate, against 2 flops per slot and column over its f32
     rate."""
     n, d = x.shape
-    ranges = pack.row_range.long()
-    real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
+    real_slots = real_slots_of(pack)
     moved = (x.numel() * x.element_size()        # x read once
              + real_slots * slot_bytes
              + pack.row_range.numel() * 4
              + n * d * 4)                         # out written once
-    flops = 2 * real_slots * d
+    return dict(**bounded_times(calls, moved, 2 * real_slots * d),
+                slots=pack.senders.numel(), real_slots=real_slots)
+
+
+def real_slots_of(pack: K.PackedCSR) -> int:
+    """The slots the pack's row ranges span (the ones a row walk reads)."""
+    ranges = pack.row_range.long()
+    return int((ranges[:, 1] - ranges[:, 0]).sum().item())
+
+
+def bounded_times(calls: dict, moved: int, flops: int) -> dict:
+    """time_calls' times of the kernel, plain version and library call,
+    beside the bound of a function that moves ``moved`` bytes and does
+    ``flops`` f32 operations."""
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     ms, loop_ms, timed_by = time_calls(calls, bound_ms)
@@ -375,8 +390,33 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
                 library_ms=ms.get("library"), call_ms=loop_ms,
                 timed_by=timed_by, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=flops, slots=pack.senders.numel(),
+                bytes=moved, flops=flops)
+
+
+def row_sum_timings(calls: dict, pack: K.PackedCSR, heads: int) -> dict:
+    """Times of a row sum of per-slot values c [NC, C, H] f32 beside its
+    bound: the sum reads c on each slot of the row ranges (4 bytes a
+    head) and row_range, writes the f32 [N, H] output once, and adds
+    once per slot and head; it needs no sender and no v (K3 at dv = 1
+    reads both)."""
+    real_slots = real_slots_of(pack)
+    moved = (real_slots * 4 * heads + pack.row_range.numel() * 4
+             + pack.row_range.shape[0] * heads * 4)
+    return dict(**bounded_times(calls, moved, real_slots * heads),
                 real_slots=real_slots)
+
+
+def sddmm_bound(pack: K.PackedCSR, a: torch.Tensor) -> tuple:
+    """(bytes, flops) of the SDDMM on a pack with a and b like ``a``
+    [N, H, dh]: a and b read once, a sender and a weight on each slot of
+    the row ranges, row_range, the f32 [NC, C, H] output written on
+    every slot; 2 flops per real slot and column."""
+    n, heads, dh = a.shape
+    real_slots = real_slots_of(pack)
+    moved = (2 * a.numel() * a.element_size() + real_slots * 8
+             + pack.row_range.numel() * 4
+             + pack.senders.numel() * heads * 4)
+    return moved, 2 * real_slots * heads * dh
 
 
 def check_attention_kernel(packs, n: int, d: int, device) -> dict:
@@ -386,15 +426,11 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
     fwd, bwd, slot_map = packs
     gen = torch.Generator(device=device).manual_seed(1)
     v = torch.randn(n, d, generator=gen, device=device)
-    rows = K.pack_rows(fwd).reshape(-1)
-    valid = (fwd.weights > 0).reshape(-1, 1)
 
     def softmax_alpha(heads):
-        logits = torch.randn(rows.numel(), heads, generator=gen,
+        logits = torch.randn(fwd.senders.shape + (heads,), generator=gen,
                              device=device)
-        alpha = segment_softmax(logits, rows, n,
-                                mask=valid.expand(-1, heads))
-        return alpha.view(fwd.senders.shape + (heads,))
+        return K.packed_segment_softmax(logits, fwd)
 
     k3 = K.packed_segment_matmul_headed_cuda
     alphas = {heads: softmax_alpha(heads) for heads in (1, 4)}
@@ -497,8 +533,19 @@ def check_softmax(pack: K.PackedCSR, n: int, device) -> dict:
              "library": lambda: out_lib.index_add_(0, rows,
                                                    c1.view(-1, 1))}
     return dict(max_abs_err=errs["row_sum_h1"], errs=errs, width=1,
-                library="index_add_",
-                **timings(calls, pack, ones, slot_bytes=8))
+                library="index_add_", **row_sum_timings(calls, pack, 1))
+
+
+def valid_csr(pack: K.PackedCSR, n: int) -> torch.Tensor:
+    """The slots of nonzero pack weight as an [n, n] CSR pattern of ones
+    (the SDDMM library call's sampling matrix)."""
+    live = (pack.weights > 0).reshape(-1)
+    rows = K.pack_rows(pack).reshape(-1)[live]
+    cols = pack.senders.reshape(-1)[live].long()
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, cols]),
+        torch.ones(rows.numel(), device=rows.device),
+        (n, n)).coalesce().to_sparse_csr()
 
 
 def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
@@ -537,26 +584,9 @@ def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
             if not torch.equal(got, K.packed_sddmm(pack, ai, bi)):
                 fail(f"SDDMM {case}: two launches differ")
 
-    def bound(heads, real_slots):
-        moved = (2 * n * d * 4                      # a and b read once
-                 + real_slots * 8                   # sender, weight
-                 + pack.row_range.numel() * 4
-                 + pack.senders.numel() * heads * 4)  # out written once
-        flops = 2 * real_slots * d
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=moved, flops=flops)
-
-    ranges = pack.row_range.long()
-    real_slots = int((ranges[:, 1] - ranges[:, 0]).sum().item())
     # the library call: the valid slots as a CSR pattern, H = 1
     live = (pack.weights > 0).reshape(-1)
-    rows = K.pack_rows(pack).reshape(-1)[live]
-    cols = pack.senders.reshape(-1)[live].long()
-    csr = torch.sparse_coo_tensor(
-        torch.stack([rows, cols]), torch.ones(rows.numel(), device=device),
-        (n, n)).coalesce().to_sparse_csr()
+    csr = valid_csr(pack, n)
     a1, b1 = (t[:, 0] for t in inputs[1])
     b1t = b1.t()
 
@@ -576,16 +606,12 @@ def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
                  "plain": lambda: K.packed_sddmm_plain(pack, a, b)}
         if heads == 1:
             calls["library"] = library
-        bd = bound(heads, real_slots)
-        ms, loop_ms, timed_by = time_calls(calls, bd["bound_ms"])
-        out[f"h{heads}"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                                library_ms=ms.get("library"),
-                                call_ms=loop_ms, timed_by=timed_by, **bd)
+        out[f"h{heads}"] = bounded_times(calls, *sddmm_bound(pack, a))
     return dict(max_abs_err=max(e for k, e in errs.items()
                                 if k.endswith("float32")),
                 errs=errs, library_err=lib_err, slots=pack.senders.numel(),
-                real_slots=real_slots, csr_nnz=csr.values().numel(),
-                **out["h1"], h4=out["h4"])
+                real_slots=real_slots_of(pack),
+                csr_nnz=csr.values().numel(), **out["h1"], h4=out["h4"])
 
 
 def hold_sums(case: str, got: torch.Tensor, want: torch.Tensor,
@@ -726,9 +752,8 @@ def longest_rows(pack: K.PackedCSR) -> dict:
 
 
 def median_iqr(values) -> dict:
-    q1, med, q3 = (float(np.percentile(values, q)) for q in (25, 50, 75))
-    return dict(median=med, iqr=q3 - q1, n=len(values),
-                values=list(values))
+    """The benchmark's median and IQR, unrounded, and the values."""
+    return dict(**B._stats(values, ndigits=None), values=list(values))
 
 
 def check_bench_kernels(device) -> dict:
@@ -737,10 +762,12 @@ def check_bench_kernels(device) -> dict:
     against its plain version on the fwd and bwd packs, f32 and bf16,
     held by hold_sums' rule; bitwise-repeatable launches;
     spmm_bidir's gradient of sum(out^2) against the plain version's
-    (one unchained call: the benchmark's chain overflows); K3 on the
-    'att' pack at the attention workload's H = 8, dv = 16 and its
-    softmax row sums at dv = 1 (H = 8: the scalar walk; H = 1: the
-    narrow walk's hub rows), held the same way; times of the kernels,
+    (one unchained call: the benchmark's chain overflows); on the
+    attention workload's 'att' packs, K3 at H = 8, dv = 16 on the fwd
+    pack and (alpha through the slot map) the bwd pack, its row sums at
+    dv = 1 on both (H = 8: the scalar walk; H = 1: the narrow walk's hub
+    rows) and the SDDMM at H = 8 (``check_bench_sddmm``), held the same
+    way; times of the kernels,
     plain versions, library calls and K1's launch floor beside the
     bounds."""
     n, e, d = BENCH_DIMS
@@ -789,56 +816,109 @@ def check_bench_kernels(device) -> dict:
         slot_bytes=8)
     out["k1_errs"] = errs
 
-    # K3 on the attention workload's 'att' pack (edges + self-loops)
+    # K3 and the SDDMM on the attention workload's 'att' packs (edges +
+    # self-loops), at the shapes bench_attention gives them
     batch, h, *_ = B.attention_graph(n, e, BENCH_HEADS, BENCH_DV)
-    att, _, _ = batch.to(device).packs["att"]
+    att, att_bwd, slot_map = batch.to(device).packs["att"]
     na = batch.num_nodes
     gen = torch.Generator(device=device).manual_seed(6)
     valid = (att.weights > 0)[..., None]
-    rows = K.pack_rows(att).reshape(-1)
     v = torch.from_numpy(h).to(device).view(na, -1)
     logits = torch.randn(att.senders.shape + (BENCH_HEADS,), generator=gen,
                          device=device)
     alpha = K.packed_segment_softmax(logits, att)
     plain = K.packed_segment_matmul_headed_plain
     k3 = K.packed_segment_matmul_headed_cuda
-    got = k3(att, v, alpha)
-    errs = {"h8": hold_sums("K3 make_graph H = 8", got, plain(att, v, alpha),
-                            plain(att, v.abs(), alpha))}
-    if not torch.equal(got, k3(att, v, alpha)):
-        fail("K3 make_graph H = 8: two launches differ")
+    # the aggregation (fwd pack) and its dv (bwd pack, alpha carried by
+    # the slot map)
+    errs, k3_times = {}, {}
+    for name, p, a in (("fwd", att, alpha),
+                       ("bwd", att_bwd, K.alpha_to_bwd(alpha, slot_map))):
+        case = f"K3 make_graph {name} H = {BENCH_HEADS}"
+        got = k3(p, v, a)
+        errs[f"{name}_h{BENCH_HEADS}"] = hold_sums(
+            case, got, plain(p, v, a), plain(p, v.abs(), a))
+        if not torch.equal(got, k3(p, v, a)):
+            fail(f"{case}: two launches differ")
+        k3_times[name] = timings({"kernel": lambda: k3(p, v, a),
+                                  "plain": lambda: plain(p, v, a)},
+                                 p, v, slot_bytes=4 + 4 * BENCH_HEADS)
+    # the row sums: the softmax's and ds_dst's on the fwd pack, ds_src's
+    # on the bwd pack (c carried by the slot map); H = 8 takes the scalar
+    # walk, H = 1 the narrow walk's hub rows
     sums = {}
     for heads in (BENCH_HEADS, 1):
         c = torch.where(valid, torch.rand(att.senders.shape + (heads,),
                                           generator=gen, device=device), 0.0)
         ones = torch.ones(na, heads, device=device)
-        got = K.packed_row_sum(att, c)
-        want = plain(att, ones, c)
-        errs[f"row_sum_h{heads}"] = hold_sums(
-            f"K3 make_graph row sums H = {heads}", got, want, want)
-        if not torch.equal(got, K.packed_row_sum(att, c)):
-            fail(f"K3 make_graph row sums H = {heads}: two launches differ")
-        out_lib = torch.zeros(na, heads, device=device)
-        sums[heads] = timings(
-            {"kernel": lambda: k3(att, ones, c),
-             "plain": lambda: plain(att, ones, c),
-             "library": lambda: out_lib.index_add_(0, rows,
-                                                   c.view(-1, heads))},
-            att, ones, slot_bytes=4 + 4 * heads)
+        for name, p, cc in (("fwd", att, c),
+                            ("bwd", att_bwd, K.alpha_to_bwd(c, slot_map))):
+            case = f"K3 make_graph row sums {name} H = {heads}"
+            got = K.packed_row_sum(p, cc)
+            want = plain(p, ones, cc)
+            errs[f"row_sum_{name}_h{heads}"] = hold_sums(case, got, want,
+                                                         want)
+            if not torch.equal(got, K.packed_row_sum(p, cc)):
+                fail(f"{case}: two launches differ")
+            rows = K.pack_rows(p).reshape(-1)
+            out_lib = torch.zeros(na, heads, device=device)
+            sums[f"{name}_h{heads}"] = row_sum_timings(
+                {"kernel": lambda: k3(p, ones, cc),
+                 "plain": lambda: plain(p, ones, cc),
+                 "library": lambda: out_lib.index_add_(
+                     0, rows, cc.view(-1, heads))}, p, heads)
     alpha1 = alpha[..., :1].contiguous()
     a1 = csr_of(att, na, alpha1[..., 0])
     out.update(
-        att_rows=longest_rows(att), k3_errs=errs,
-        k3_h8=timings({"kernel": lambda: k3(att, v, alpha),
-                       "plain": lambda: plain(att, v, alpha)},
-                      att, v, slot_bytes=4 + 4 * BENCH_HEADS),
+        att_rows=longest_rows(att), att_bwd_rows=longest_rows(att_bwd),
+        k3_errs=errs, k3_h8=k3_times["fwd"], k3_h8_bwd=k3_times["bwd"],
         k3_h1=dict(**timings({"kernel": lambda: k3(att, v, alpha1),
                               "plain": lambda: plain(att, v, alpha1),
                               "library": lambda: torch.sparse.mm(a1, v)},
                              att, v, slot_bytes=8),
                    **floor_timings(att, v)),
-        row_sums_h8=sums[BENCH_HEADS], row_sums_h1=sums[1])
+        row_sums=sums, sddmm=check_bench_sddmm(att, na, gen))
     return out
+
+
+def check_bench_sddmm(att: K.PackedCSR, n: int, gen) -> dict:
+    """The SDDMM at bench_attention's dalpha (a = the output's gradient,
+    b = v, [N, 8, 16] f32) on make_graph's 'att' fwd pack: within
+    SEG_REL of each slot's sum of |a * b|, exact 0 on the slots of pack
+    weight 0, bitwise repeats; kernel, plain and library (a batched
+    torch.sparse.sampled_addmm, one CSR pattern of the valid slots per
+    head) times beside the bound."""
+    a, b = (torch.randn(n, BENCH_HEADS, BENCH_DV, generator=gen,
+                        device=att.senders.device) for _ in range(2))
+    got = K.packed_sddmm_cuda(att, a, b)
+    err = hold_sums(f"SDDMM make_graph H = {BENCH_HEADS}", got,
+                    K.packed_sddmm_plain(att, a, b),
+                    K.packed_sddmm_plain(att, a.abs(), b.abs()))
+    if (got[att.weights == 0] != 0).any():
+        fail("SDDMM make_graph: a slot of pack weight 0 is not 0")
+    if not torch.equal(got, K.packed_sddmm_cuda(att, a, b)):
+        fail("SDDMM make_graph: two launches differ")
+    csr = valid_csr(att, n)
+    nnz = csr.values().numel()
+    batched = torch.sparse_csr_tensor(
+        csr.crow_indices().expand(BENCH_HEADS, -1).contiguous(),
+        csr.col_indices().expand(BENCH_HEADS, -1).contiguous(),
+        torch.ones(BENCH_HEADS, nnz, device=a.device), (BENCH_HEADS, n, n))
+    ah = a.transpose(0, 1).contiguous()            # [H, N, dh]
+    bt = b.permute(1, 2, 0).contiguous()           # [H, dh, N]
+    calls = {"kernel": lambda: K.packed_sddmm_cuda(att, a, b),
+             "plain": lambda: K.packed_sddmm_plain(att, a, b),
+             "library": lambda: torch.sparse.sampled_addmm(
+                 batched, ah, bt, beta=0.0)}
+    live = (att.weights > 0).reshape(-1)
+    lib = calls["library"]().values()
+    kern = got.reshape(-1, BENCH_HEADS)[live].t()
+    # the CSR holds the valid slots in slot order unless an edge repeats
+    lib_err = ((lib - kern).abs().max().item()
+               if lib.shape == kern.shape else None)
+    return dict(max_abs_err=err, library_err=lib_err, csr_nnz=nnz,
+                heads=BENCH_HEADS, dh=BENCH_DV,
+                **bounded_times(calls, *sddmm_bound(att, a)))
 
 
 def check_bench_runs(device) -> dict:
@@ -848,7 +928,8 @@ def check_bench_runs(device) -> dict:
     twice per fwd_bwd step and once per fwd step), the bf16 fwd_bwd
     chain, ``bench_attention`` (K3 6 and the SDDMM 1 per step: forward
     the softmax sums and the aggregation; backward dv, the SDDMM's
-    dalpha, the softmax row sum and the two node-score gradients), the
+    dalpha, the softmax row sum and the two node-score gradients; the
+    four row sums at width H, the two aggregations at width H * dv), the
     attention gradients from two calls bitwise equal and, at a small
     graph, card against CPU, and ``bench_train_epoch`` of the four ws
     paths (one batch an epoch).  Rates and epoch times as median and
@@ -862,15 +943,21 @@ def check_bench_runs(device) -> dict:
                      K.packed_sddmm_cuda)
     chain = 1 + it * rep      # a warm-up step, then rep chains of it
 
-    def run(what, fn, want):
-        result, (launches, _) = counted(fn)
+    def run(what, fn, want, widths=()):
+        """fn's result and launches, held to ``want``; ``widths`` holds
+        the launches at each (width, {kernel: (count, how)}) given."""
+        result, (launches, by_width) = counted(fn)
         hold_counts(f"bench {what}", launches,
                     {k.__name__: v for k, v in want.items()})
-        return result, launches
+        for width, want_w in widths:
+            hold_counts(f"bench {what}, at width {width}",
+                        at_width(by_width, width),
+                        {k.__name__: v for k, v in want_w.items()})
+        return result, launches, by_width
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        line, main_launches = run("main", lambda: B.main(
+        line, main_launches, _ = run("main", lambda: B.main(
             ["--nodes", str(n), "--edges", str(e), "--dim", str(d),
              "--iters", str(it), "--repeats", str(rep), "--device",
              "cuda"]), {k1: (3 * chain, f"2 per fwd_bwd and 1 per fwd "
@@ -879,14 +966,20 @@ def check_bench_runs(device) -> dict:
     if len(lines) != 1 or json.loads(lines[0]) != line \
             or "vs_baseline" in line:
         fail(f"bench main printed {lines}")
-    bf16, bf16_launches = run("bf16", lambda: B.bench_spmm(
+    bf16, bf16_launches, _ = run("bf16", lambda: B.bench_spmm(
         n, e, d, it, "pallas", "bfloat16", "fwd_bwd", rep, device),
         {k1: (2 * chain, f"2 per fwd_bwd step, {chain} steps")})
     att_steps = (1 + it) * rep
-    att, att_launches = run("attention", lambda: [B.bench_attention(
+    # K3 per step: 4 row sums at width H (the softmax's two, ds_dst,
+    # ds_src) and 2 aggregations at width H * dv (forward, dv)
+    att, att_launches, att_by_width = run("attention", lambda: [B.bench_attention(
         n, e, BENCH_HEADS, BENCH_DV, it, device) for _ in range(rep)],
         {k3: (6 * att_steps, f"6 per step, {att_steps} steps"),
-         sddmm: (att_steps, f"1 per step, {att_steps} steps")})
+         sddmm: (att_steps, f"1 per step, {att_steps} steps")},
+        widths=[(BENCH_HEADS,
+                 {k3: (4 * att_steps, "4 row sums per step")}),
+                (BENCH_HEADS * BENCH_DV,
+                 {k3: (2 * att_steps, "2 aggregations per step")})])
     step, inputs = B.attention_step(n, e, BENCH_HEADS, BENCH_DV, device)
     g0, g1 = step(*inputs), step(*inputs)
     if not all(torch.isfinite(g).all() for g in g0):
@@ -908,7 +1001,7 @@ def check_bench_runs(device) -> dict:
                 "Tfg-idgin": {k1: 5}, "Tfg-idsage": {k1: 5}}
     epochs, steps = {}, (1 + EPOCHS) * rep
     for layer in B.TRAIN_LAYERS:
-        runs, launches = run(layer, lambda: [B.bench_train_epoch(
+        runs, launches, _ = run(layer, lambda: [B.bench_train_epoch(
             layer, "pallas", EPOCHS, device=device) for _ in range(rep)],
             {k: (c * steps, f"{c}/train step x {steps}")
              for k, c in per_step[layer].items()})
@@ -922,6 +1015,7 @@ def check_bench_runs(device) -> dict:
                 bf16_launches=bf16_launches,
                 attention_fwd_bwd_edges_per_s=median_iqr(att),
                 attention_launches=att_launches,
+                attention_launches_by_width=att_by_width,
                 attention_grads_bitwise_equal=True,
                 attention_small_card_vs_cpu_max_err=small_err,
                 train_epochs=epochs)
@@ -1123,7 +1217,7 @@ def by_width_kernels() -> tuple:
 def counted(fn):
     """fn's result and the launches of every kernel during it: each
     count set to 0 just before, read just after (launches, and K1's and
-    K3's launches at width 1)."""
+    K3's launches by width)."""
     for k in kernels():
         k.launches = 0
     for k in by_width_kernels():
@@ -1131,8 +1225,13 @@ def counted(fn):
     result = fn()
     torch.cuda.synchronize()
     return result, ({k.__name__: k.launches for k in kernels()},
-                    {k.__name__: k.launches_by_width.get(1, 0)
+                    {k.__name__: dict(k.launches_by_width)
                      for k in by_width_kernels()})
+
+
+def at_width(by_width: dict, width: int) -> dict:
+    """Each kernel's launches at one width, from counted's by-width map."""
+    return {k: counts.get(width, 0) for k, counts in by_width.items()}
 
 
 def hold_counts(what: str, launches: dict, want: dict) -> None:
@@ -1164,8 +1263,9 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
         return {k.__name__: (s * steps + e * evals,
                              f"{s}/train step x {steps} + {e}/eval batch "
                              f"x {evals}") for k, (s, e) in per.items()}
-    result, (launches, width1) = counted(
+    result, (launches, by_width) = counted(
         lambda: run_single(cfg, cfg.out_dir, cfg_file))
+    width1 = at_width(by_width, 1)
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
@@ -1355,21 +1455,25 @@ def main() -> None:
 
     # K1's rows: D = 128 at the ID-GCN 'gcn' fwd pack, its narrow walk's
     # D = 1 at the ID-GIN 'plain' fwd pack, and D = 128 at make_graph's
-    # fwd pack (the benchmark's chains); K3's: the aggregation at the
-    # ID-GAT 'att' pack, its softmax row sums at width 1 there, and the
-    # aggregation at H = 8 on make_graph's 'att' pack (bench_attention)
+    # fwd pack (the benchmark's chains); K3's and the SDDMM's: at the
+    # ID-GAT 'att' pack (the row sums at width 1 there), and at H = 8 on
+    # make_graph's 'att' pack (bench_attention: the row sums at width 8)
     k1_d1 = k1_gin[f"d{d_in}"]
     bk = bench_kernels
     bench_k1 = {"bench_spmm main": {"launches": bench_runs["main_launches"]},
                 "bench_spmm bf16": {"launches": bench_runs["bf16_launches"]}}
-    bench_att = {"bench_attention": {
-        "launches": bench_runs["attention_launches"]}}
+    att_launches = bench_runs["attention_launches"]
+    att_by_width = bench_runs["attention_launches_by_width"][k3_.__name__]
     k1_src = dict(route="cuda", source="graphgym_tpu_torch/csrc/"
                   "packed_spmm.cu",
                   replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:334")
     k3_src = dict(route="cuda", source="graphgym_tpu_torch/csrc/"
                   "packed_attention.cu",
                   replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:537")
+    sddmm_src = dict(route="cuda",
+                     source="graphgym_tpu_torch/csrc/packed_sddmm.cu",
+                     replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
+                              "graphgym_tpu/nn/layers.py:152")
     print(json.dumps({"kernels": [
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
@@ -1396,16 +1500,24 @@ def main() -> None:
          "path": "idgat_ws", **{k: softmax[k] for k in row},
          **launches(k3_, {"idgat_ws": train_att}, width1=True)},
         {"name": "packed_attention_make_graph", **k3_src,
-         "path": "bench_attention", "heads": BENCH_HEADS,
-         "max_abs_err": bk["k3_errs"]["h8"],
+         "path": "bench_attention", "width": BENCH_HEADS * BENCH_DV,
+         "heads": BENCH_HEADS,
+         "max_abs_err": bk["k3_errs"][f"fwd_h{BENCH_HEADS}"],
          **{k: bk["k3_h8"][k] for k in row[1:]},
-         **launches(k3_, bench_att)},
-        {"name": "packed_sddmm", "route": "cuda",
-         "source": "graphgym_tpu_torch/csrc/packed_sddmm.cu",
-         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
-                     "graphgym_tpu/nn/layers.py:152",
-         "path": "idgat_ws, bench_attention", **{k: sddmm[k] for k in row},
-         **launches(sddmm_, {"idgat_ws": train_att, **bench_att})},
+         "launches": att_by_width.get(BENCH_HEADS * BENCH_DV, 0)},
+        {"name": "packed_attention_row_sums_make_graph", **k3_src,
+         "path": "bench_attention", "width": BENCH_HEADS,
+         "heads": BENCH_HEADS, "library": "index_add_",
+         "max_abs_err": bk["k3_errs"][f"row_sum_fwd_h{BENCH_HEADS}"],
+         **{k: bk["row_sums"][f"fwd_h{BENCH_HEADS}"][k] for k in row[1:]},
+         "launches": att_by_width.get(BENCH_HEADS, 0)},
+        {"name": "packed_sddmm", **sddmm_src, "path": "idgat_ws",
+         **{k: sddmm[k] for k in row},
+         **launches(sddmm_, {"idgat_ws": train_att})},
+        {"name": "packed_sddmm_make_graph", **sddmm_src,
+         "path": "bench_attention", "heads": BENCH_HEADS, "dh": BENCH_DV,
+         **{k: bk["sddmm"][k] for k in row},
+         "launches": att_launches[sddmm_.__name__]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

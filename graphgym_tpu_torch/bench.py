@@ -250,11 +250,15 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
     return dt, edges / dt
 
 
-def _stats(rates):
+def _stats(rates, ndigits=1):
+    """Median, IQR and count of ``rates``, rounded to ``ndigits``
+    (None: unrounded)."""
     v = sorted(rates)
     q1, med, q3 = (float(np.percentile(v, q)) for q in (25, 50, 75))
-    return {"median": round(med, 1), "iqr": round(q3 - q1, 1),
-            "n": len(v)}
+    out = {"median": med, "iqr": q3 - q1}
+    if ndigits is not None:
+        out = {k: round(x, ndigits) for k, x in out.items()}
+    return {**out, "n": len(v)}
 
 
 def device_name(device) -> str:

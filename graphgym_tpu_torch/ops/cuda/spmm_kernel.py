@@ -992,11 +992,11 @@ class PackedNodeScoresFn(torch.autograd.Function):
     Forward is two gathers.  Their gradients are row sums on the row
     walk (K3, dv = 1) instead of index_add: ds_dst over the fwd pack,
     ds_src over the bwd pack with the slot gradient carried into bwd
-    order by ``slot_map``.  They are taken over the slots of nonzero
-    pack weight, the only slots the masked softmax passes a gradient to
-    (the JAX package's gather gradient also adds the padding slots'
-    gradients, which that softmax makes 0).  The packs and the map get
-    no gradient."""
+    order by ``slot_map``.  The sums read only the slots of the row
+    ranges, so the gradient is the gathers' own only where the slots of
+    pack weight 0 get a gradient of 0, as they do downstream of
+    ``packed_segment_softmax`` (masked there) in ``packed_attention``,
+    the one caller.  The packs and the map get no gradient."""
 
     @staticmethod
     def forward(ctx, s_dst: torch.Tensor, s_src: torch.Tensor,
@@ -1010,8 +1010,7 @@ class PackedNodeScoresFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         fwd_pack, bwd_pack, slot_map = ctx.packs
-        c = torch.where(fwd_pack.weights[..., None] != 0, g.float(),
-                        0.0).contiguous()
+        c = g.float().contiguous()
         ds_dst = ds_src = None
         if ctx.needs_input_grad[0]:
             ds_dst = packed_row_sum(fwd_pack, c).to(ctx.dtypes[0])
