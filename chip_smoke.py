@@ -24,14 +24,28 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                 against the same model on the CPU (plain versions), and
                 then its eval-mode logits;
   5. train    — the config through graphgym_tpu_torch.main for a few
-                epochs at full width (3 x 128, head 256): finite losses,
-                6 K1 launches per train step plus 3 per eval batch, none
-                at D = 1, no launch of another kernel;
-  6. profile  — torch.profiler over a few more train steps: device time
-                by kernel (and of the port's own kernels), the device's
-                idle share, the peak of device memory and the widest
-                tensor any op of a step takes; two trainers from one
-                seed must give bitwise-equal losses and parameters.
+                epochs at full width (3 x 128, head 256), its train and
+                eval steps captured CUDA graphs (train/graphed.py: step
+                0 eager, step 1 captured and replayed, then replays):
+                finite losses, 6 K1 launches per train step plus 3 per
+                eval batch, counted per replay, none at D = 1, no launch
+                of another kernel;
+  6. profile  — the captured train step beside the eager one (eager=True,
+                the same capturable Adam), each in a trainer of its own:
+                wall ms per step, torch.profiler's device time by kernel
+                (and of the port's own kernels), the device's idle
+                share, host operator calls and host ms per step, the
+                peak of device memory, the graphs captured and the time
+                of step 0 and of step 1 (the capture); the widest tensor
+                any op of the eager step takes; two captured trainers
+                from one seed must give bitwise-equal losses and
+                parameters;
+  6b. graphed — captured against eager (capturable Adam) over 5 train
+                steps and 2 eval steps: losses, parameters and buffers
+                bitwise equal, the same launches; and ID-GCN at
+                train.batch_size 8 (three shuffled batches an epoch, one
+                graph for them all), per-step losses and val accuracy
+                equal over two epochs.
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
@@ -58,7 +72,8 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    train step; 6 K3 (3 at width 1) and 3 SDDMM per eval
                    batch; no K1 or K2 launch;
  11. profile_att — as 6, no op taking a tensor as wide as [E, D] (E the
-                   pack's slots) and no index_add_ over the E slots.
+                   pack's slots) and no index_add_ over the E slots;
+                   graphed_att as 6b.
   ID-GIN Full / ws (configs/idgin_ws.yaml), kernel K1 on the 'plain'
   pack:
  12. kernel_gin  — as 3, at the train 'plain' packs, D = 128 and D = 1
@@ -71,10 +86,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
  14. train_gin   — as 5: 5 K1 launches per train step (layer 0's input
                    needs no gradient) plus 3 per eval batch, one of each
                    at D = 1, no other;
- 15. profile_gin — as 6.
+ 15. profile_gin — as 6; graphed_gin as 6b.
   ID-SAGE Full / ws (configs/idsage_ws.yaml), K1 on the 'mean' pack:
  16. kernel_sage — as 3, at the train 'mean' packs, D = 1;
- 17. model_sage, 18. train_sage, 19. profile_sage — as 13, 14 and 15.
+ 17. model_sage, 18. train_sage, 19. profile_sage, graphed_sage — as 13,
+     14, 15 and 6b.
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -102,8 +118,9 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    bench_attention (K3 6 per step, 4 of them row sums
                    at width 8, and SDDMM 1; gradients
                    of two calls bitwise equal; card vs CPU on a small
-                   graph) and bench_train_epoch of the four ws paths,
-                   rates and epoch times as median and IQR.
+                   graph) and bench_train_epoch of the four ws paths
+                   (captured steps after two warm-up epochs), rates and
+                   epoch times as median and IQR.
 Then the kernel table as one JSON line (K1 at D = 128, at D = 1 and on
 make_graph's pack; K3's aggregation and its softmax row sums on ws and
 at H = 8 on make_graph's 'att' pack; the SDDMM on ws and on that pack),
@@ -999,7 +1016,7 @@ def check_bench_runs(device) -> dict:
         small_err[name] = (x - y).abs().max().item()
     per_step = {"Tfg-idgcn": {k1: 6}, "Tfg-idgat": {k3: 18, sddmm: 6},
                 "Tfg-idgin": {k1: 5}, "Tfg-idsage": {k1: 5}}
-    epochs, steps = {}, (1 + EPOCHS) * rep
+    epochs, steps = {}, (2 + EPOCHS) * rep   # two warm-up epochs
     for layer in B.TRAIN_LAYERS:
         runs, launches, _ = run(layer, lambda: [B.bench_train_epoch(
             layer, "pallas", EPOCHS, device=device) for _ in range(rep)],
@@ -1108,25 +1125,29 @@ def widest_op_inputs(fn, top: int = 5) -> list:
             for name, (w, sh) in ranked], index_add
 
 
-def profile_steps(cfg, loaders, device, steps: int = 5,
-                  forbid_numel: int = 0, forbid_index_add: int = 0) -> dict:
-    """Device time by kernel over a few train steps (torch.profiler),
-    the device's busy share of the step's wall time, the peak of device
-    memory over the steps, the host time in operators' own code (the
-    rest of the host's step is Python and the launch path), and the ops
-    with the widest tensor arguments; with ``forbid_numel``, fails if an
-    op takes a tensor that large, or an index_add an index that long
-    (one entry per pack slot: a scatter of per-slot values)."""
-    trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
-    batch = trainer._place(loaders[0].batches(0)[0])
+def step_profile(trainer, batch, device, steps: int, base: int) -> dict:
+    """One trainer's train step on one batch: the wall ms of step 0 and
+    step 1 (on the card, eager and the capture), then over ``steps``
+    more: the wall ms per step, the device time by kernel
+    (torch.profiler), the device's busy share, the host time in
+    operators' own code and their calls per step, the CUDA-event time
+    of a loop of steps, and the peak of device memory from the
+    trainer's first step on, less ``base``, what was allocated before
+    the trainer was built."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    first = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        first.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     for _ in range(steps):
         trainer.train_step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
     events = profile_events(lambda: trainer.train_step(batch), steps)
     by_kernel = device_ms_by_kernel(None, steps, events)
     busy_ms = sum(by_kernel.values())
@@ -1137,7 +1158,59 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
                  key=lambda kv: -kv[1])
     by_op = host_ms_by_op(events, steps)
     host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
-    widest, index_add = widest_op_inputs(lambda: trainer.train_step(batch))
+    return dict(step0_ms=first[0], step1_ms=first[1], step_wall_ms=wall_ms,
+                event_loop_ms=call_ms(lambda: trainer.train_step(batch),
+                                      iters=4 * steps, warmup=1),
+                device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                peak_memory_bytes=peak,
+                graphs=trainer.train_step.captured,
+                top=[dict(name=k[:80], ms_per_step=v) for k, v in top],
+                port_kernels=[dict(name=k[:80], ms_per_step=v)
+                              for k, v in own],
+                host_ops_ms=sum(ms for ms, _ in by_op.values()),
+                host_op_calls=sum(c for _, c in by_op.values()),
+                host_top=[dict(name=k[:60], ms_per_step=ms,
+                               calls_per_step=c)
+                          for k, (ms, c) in host_top])
+
+
+def profile_steps(cfg, loaders, device, steps: int = 5,
+                  forbid_numel: int = 0, forbid_index_add: int = 0) -> dict:
+    """The captured train step (the port's) beside the eager one, each
+    in a trainer of its own built from the same seed, the eager one
+    first and freed before the other (``step_profile``); the captured
+    step's capture time and host operator calls, and the ops of the
+    eager step with the widest tensor arguments.  With ``forbid_numel``,
+    fails if an op of the step takes a tensor that large, or an
+    index_add an index that long (one entry per pack slot: a scatter of
+    per-slot values).  The captured graph runs the eager step's ops."""
+    import gc
+
+    out = {}
+    for mode in ("eager", "captured"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        trainer = Trainer(build_model(cfg, device), loaders, cfg, device,
+                          eager=mode == "eager")
+        batch = trainer._place(loaders[0].batches(0)[0])
+        out[mode] = step_profile(trainer, batch, device, steps, base)
+        out[mode]["allocated_before_bytes"] = base
+        if mode == "eager":
+            widest, index_add = widest_op_inputs(
+                lambda: trainer.train_step(batch))
+        else:
+            (prog,) = trainer.train_step.programs.values()
+            out[mode]["capture_s"] = prog.capture_s
+        del trainer, batch
+    if out["captured"]["graphs"] != 1:
+        fail(f"{cfg.gnn.layer_type}: {out['captured']['graphs']} train "
+             "graphs captured for one batch")
+    if out["captured"]["host_op_calls"] > 48:
+        fail(f"{cfg.gnn.layer_type}: the captured train step makes "
+             f"{out['captured']['host_op_calls']} host operator calls "
+             "(a few dozen at most: the lr fill and the graph launch)")
     if forbid_numel and widest[0]["numel"] >= forbid_numel:
         fail(f"an op of the train step takes a tensor of "
              f"{widest[0]['numel']} elements (>= {forbid_numel}): "
@@ -1146,22 +1219,81 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
         fail(f"an index_add of the train step takes an index of "
              f"{index_add} entries (>= {forbid_index_add}, the pack's "
              "slots)")
-    return dict(step_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-                peak_memory_bytes=peak,
-                top=[dict(name=k[:80], ms_per_step=v) for k, v in top],
-                port_kernels=[dict(name=k[:80], ms_per_step=v)
-                              for k, v in own],
-                host_ops_ms=sum(ms for ms, _ in by_op.values()),
-                host_op_calls=sum(c for _, c in by_op.values()),
-                host_top=[dict(name=k[:60], ms_per_step=ms,
-                               calls_per_step=c)
-                          for k, (ms, c) in host_top],
-                widest_op_inputs=widest, longest_index_add_index=index_add)
+    return dict(out, widest_op_inputs=widest,
+                longest_index_add_index=index_add)
+
+
+def graphed_check(cfg, loaders, device, steps: int = 5) -> dict:
+    """Captured against eager steps, both with capturable Adam, each
+    trainer from the same seed: ``steps`` train steps and 2 eval steps
+    on the first batches; fails unless losses, parameters and buffers
+    are bitwise equal and the launches (per replay) are the same."""
+    runs = {}
+    for mode in ("captured", "eager"):
+        trainer = Trainer(build_model(cfg, device), loaders, cfg, device,
+                          eager=mode == "eager")
+        batch = trainer._place(loaders[0].batches(0)[0])
+        vbatch = trainer._place(loaders[1].batches(0)[0])
+
+        def run():
+            return ([trainer.train_step(batch)[0].item()
+                     for _ in range(steps)],
+                    [trainer.eval_step(vbatch)[0].item() for _ in range(2)])
+        (losses, evals), (launches, _) = counted(run)
+        runs[mode] = (losses, evals, launches, trainer.model.state_dict(),
+                      trainer.train_step.captured
+                      + trainer.eval_step.captured)
+    (lc, ec, nc, sc, graphs), (le, ee, ne, se, _) = (runs["captured"],
+                                                     runs["eager"])
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(sc.values(), se.values()))
+    if lc != le or ec != ee or diff != 0.0 or nc != ne or graphs != 2:
+        fail(f"{cfg.gnn.layer_type}: captured vs eager: losses {lc} / "
+             f"{le}, eval {ec} / {ee}, state max diff {diff}, launches "
+             f"{nc} / {ne}, graphs {graphs}")
+    return dict(losses=lc, eval_losses=ec, launches=nc, graphs=graphs,
+                bitwise_equal=True)
+
+
+def graphed_batches(cfg_file: str, overrides, epochs: int = 2) -> dict:
+    """Captured against eager on a multi-batch loader (three shuffled
+    train batches an epoch at train.batch_size 8): per-step losses and
+    the val accuracy equal over ``epochs`` epochs, one train graph for
+    every batch."""
+    cfg = load_cfg(cfg_file, overrides)
+    splits = create_dataset(cfg)
+    device = resolve_device(cfg.device)
+    runs = {}
+    for mode in ("captured", "eager"):
+        rec = StepRecorder()
+        loaders = create_loader(splits, cfg)    # the same shuffles
+        trainer = Trainer(build_model(cfg, device), loaders, cfg, device,
+                          eager=mode == "eager")
+        for epoch in range(epochs):
+            trainer.train_epoch(rec, epoch)
+        runs[mode] = (rec.losses, trainer.eval_epoch(None, 1),
+                      len(trainer.train_step.programs))
+    (lc, ac, programs), (le, ae, _) = runs["captured"], runs["eager"]
+    if lc != le or ac != ae or programs != 1 or len(lc) != epochs * 3:
+        fail(f"{cfg_file} at batch 8: captured vs eager losses {lc} / "
+             f"{le}, val acc {ac} / {ae}, {programs} train programs")
+    return dict(batches_per_epoch=len(loaders[0]), losses=lc, val_acc=ac,
+                train_programs=programs, bitwise_equal=True)
+
+
+class StepRecorder:
+    """Duck-typed Logger: each step's loss."""
+
+    def __init__(self):
+        self.losses = []
+
+    def update_stats(self, loss, **kw):
+        self.losses.append(loss)
 
 
 def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
-    """Two trainers from the same seed on the same batch: fails unless
+    """Two trainers (captured steps) from the same seed on the same
+    batch: fails unless
     their losses, step for step, and their parameters after the last
     step are bitwise equal (the port's contract: no float atomics; the
     index_add_ left on the paths adds rows of unique ids, or exact
@@ -1205,8 +1337,7 @@ def read_stats(path: str):
 
 def kernels() -> tuple:
     """Every kernel wrapper of the port (each counts its launches)."""
-    return (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
-            K.packed_segment_matmul_headed_cuda, K.packed_sddmm_cuda)
+    return K.KERNELS
 
 
 def by_width_kernels() -> tuple:
@@ -1279,7 +1410,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     step_s = [s["time_iter"] for s in train]
     return dict(epochs=epochs, losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
-                step_s_median_after_first=float(np.median(step_s[1:])),
+                step_s_median_replays=float(np.median(step_s[2:])),
                 launches=launches, launches_at_width_1=width1,
                 launches_per_train_step_and_eval_batch={
                     k.__name__: v for k, v in expected.items()},
@@ -1342,6 +1473,10 @@ def main() -> None:
     begin("profile")
     phase("profile", **profile_steps(cfg, loaders, device),
           repeat=repeat_steps(cfg, loaders, device))
+    begin("graphed")
+    phase("graphed", **graphed_check(cfg, loaders, device),
+          batch_size_8=graphed_batches(CFG, overrides
+                                       + ["train.batch_size", "8"]))
 
     # ---- ID-GAT Full / ws: kernels K3 and the SDDMM
     begin("kernel_att")
@@ -1376,6 +1511,8 @@ def main() -> None:
         cfg, loaders, device, forbid_numel=att_slots * d,
         forbid_index_add=att_slots),
         repeat=repeat_steps(cfg, loaders, device))
+    begin("graphed_att")
+    phase("graphed_att", **graphed_check(cfg, loaders, device))
 
     # ---- ID-GIN Full / ws: kernel K1 on the 'plain' pack
     begin("kernel_gin")
@@ -1400,6 +1537,8 @@ def main() -> None:
     begin("profile_gin")
     phase("profile_gin", **profile_steps(cfg, loaders, device),
           repeat=repeat_steps(cfg, loaders, device))
+    begin("graphed_gin")
+    phase("graphed_gin", **graphed_check(cfg, loaders, device))
 
     # ---- ID-SAGE Full / ws: kernel K1 on the 'mean' pack
     begin("kernel_sage")
@@ -1421,6 +1560,8 @@ def main() -> None:
     begin("profile_sage")
     phase("profile_sage", **profile_steps(cfg, loaders, device),
           repeat=repeat_steps(cfg, loaders, device))
+    begin("graphed_sage")
+    phase("graphed_sage", **graphed_check(cfg, loaders, device))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")

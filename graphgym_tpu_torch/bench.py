@@ -207,7 +207,9 @@ def bench_attention(num_nodes=131072, num_edges=2_000_000, heads=8, dv=16,
 def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
                       dtype="float32", device="auto", dim_inner=128):
     """Steady-state train epoch time on the ID-GNN / ws workload (the
-    root bench.py:125-158): one epoch of warm-up, then ``epochs`` timed.
+    root bench.py:125-158): two epochs of warm-up (one step each on ws:
+    on the card the eager step 0 and the capture of step 1), then
+    ``epochs`` timed, replays of the captured step.
     Returns (seconds per epoch, real edges per second).  The port's
     layers run the packs (the hand-written kernels) only: impl 'xla',
     the JAX package's COO layer path, is not ported (ROADMAP A0), and
@@ -242,7 +244,8 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
     device = _device(cfg.device)
     tr = Trainer(build_model(cfg, device), loaders, cfg, device)
     edges = sum(int(b.count_real_edges()) for b in loaders[0].batches(0))
-    tr.train_epoch(Logger("warmup"), 0)
+    for ep in range(2):
+        tr.train_epoch(Logger("warmup"), ep)
     t0 = time.perf_counter()
     for ep in range(epochs):
         tr.train_epoch(Logger("t"), ep)

@@ -27,7 +27,8 @@ from graphgym_tpu_torch.data.hostgraph import HostGraph, from_networkx
 from graphgym_tpu_torch.data.transforms import ego_nets
 from graphgym_tpu_torch.graphs.container import (GraphBatch, bucket_size,
                                                  build_graph_batch)
-from graphgym_tpu_torch.graphs.packing import build_packs, kinds_for_layer
+from graphgym_tpu_torch.graphs.packing import (build_packs, kinds_for_layer,
+                                               pack_chunks, pad_packs)
 
 # the repository's own corpus directory, searched after cfg.dataset.dir
 _REPO_DATASETS = os.path.join(os.path.dirname(os.path.dirname(
@@ -205,9 +206,10 @@ def graph_to_arrays(g: HostGraph, cfg):
 class GraphLoader:
     """Batched loader producing static-shape GraphBatches (host numpy).
 
-    All batches share one padded (nodes, edges, labels) bucket; train
-    batches are re-partitioned each epoch when there is more than one
-    (the reference reshuffles via DataLoader, loader.py:247-251)."""
+    All batches share one padded (nodes, edges, labels) bucket, and
+    one chunk count per pack (``_share_pack_shapes``); train batches
+    are re-partitioned each epoch when there is more than one (the
+    reference reshuffles via DataLoader, loader.py:247-251)."""
 
     def __init__(self, graphs: Sequence[HostGraph], cfg, *,
                  batch_size: int, shuffle: bool,
@@ -222,6 +224,7 @@ class GraphLoader:
         self.shuffle = shuffle
         self.rng = rng or np.random.default_rng(cfg.seed)
         self._cached: Optional[List[GraphBatch]] = None
+        self._chunks: dict = {}     # pack kind -> (fwd, bwd) chunks
         self._plan_shapes()
 
     def _plan_shapes(self):
@@ -259,9 +262,27 @@ class GraphLoader:
         out = [self._collate([self.graphs[j]
                               for j in order[i:i + self.batch_size]])
                for i in range(0, len(order), self.batch_size)]
+        out = self._share_pack_shapes(out)
         if static:
             self._cached = out
         return out
+
+    def _share_pack_shapes(self, batches: List[GraphBatch]
+                           ) -> List[GraphBatch]:
+        """Pad each batch's packs to the loader's chunk counts, the most
+        each kind's fwd and bwd pack has needed so far: a pack's chunk
+        count is bucketed per batch, and the batches of one loader can
+        land in different buckets.  One shape for all of them is one
+        captured program on the card (train/graphed.py)."""
+        for b in batches:
+            for kind, counts in pack_chunks(b.packs or {}).items():
+                self._chunks[kind] = tuple(
+                    max(x, y) for x, y in zip(
+                        self._chunks.get(kind, (0, 0)), counts))
+        return [b if not b.packs or pack_chunks(b.packs) == self._chunks
+                else b.replace(packs=pad_packs(b.packs, self._chunks,
+                                               b.num_nodes))
+                for b in batches]
 
     def _collate(self, graphs: List[HostGraph]) -> GraphBatch:
         cfg = self.cfg

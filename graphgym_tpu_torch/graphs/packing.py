@@ -109,6 +109,33 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
     return out
 
 
+def pack_chunks(packs: Dict[str, tuple]) -> Dict[str, Tuple[int, int]]:
+    """kind -> (fwd chunks, bwd chunks) of a batch's packs."""
+    return {kind: (entry[0].senders.shape[0], entry[1].senders.shape[0])
+            for kind, entry in packs.items()}
+
+
+def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]],
+              num_nodes: int) -> Dict[str, tuple]:
+    """``packs`` with each kind's fwd and bwd pack padded with no-op
+    chunks (``pad_pack``) to ``chunks[kind]``; the 'att' slot map
+    grows with the bwd pack, and its padding slots point one past the
+    padded fwd slots."""
+    out = {}
+    for kind, entry in packs.items():
+        fwd = pad_pack(entry[0], chunks[kind][0], num_nodes)
+        bwd = pad_pack(entry[1], chunks[kind][1], num_nodes)
+        out[kind] = (fwd, bwd)
+        if kind == "att":
+            past = fwd.senders.size
+            slot_map = np.full(bwd.senders.shape, past, np.int32)
+            old = entry[2]
+            slot_map[:old.shape[0]] = np.where(
+                old == entry[0].senders.size, past, old)
+            out[kind] += (slot_map,)
+    return out
+
+
 def _slot_map(fwd: PackedCSR, bwd: PackedCSR, fwd_slot: np.ndarray,
               bwd_slot: np.ndarray) -> np.ndarray:
     """For each bwd slot, the fwd slot of the same edge.  Bwd padding

@@ -630,6 +630,41 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
 
 packed_segment_matmul_cuda.launches = 0
 
+# every kernel wrapper; each counts its launches, K1 and K3 also by width
+KERNELS = (packed_spmm_cuda, packed_segment_matmul_cuda,
+           packed_segment_matmul_headed_cuda, packed_sddmm_cuda)
+LaunchCounts = Dict[str, Tuple[int, collections.Counter]]
+
+
+def launch_counts() -> LaunchCounts:
+    """A snapshot of every wrapper's launches and launches by width."""
+    return {k.__name__: (k.launches, collections.Counter(
+        getattr(k, "launches_by_width", {}))) for k in KERNELS}
+
+
+def set_launch_counts(counts: LaunchCounts) -> None:
+    for k in KERNELS:
+        k.launches, by_width = counts[k.__name__]
+        if hasattr(k, "launches_by_width"):
+            k.launches_by_width.clear()
+            k.launches_by_width.update(by_width)
+
+
+def add_launch_counts(delta: LaunchCounts) -> None:
+    """Add ``delta`` (launches_between's) to the counters: a replayed
+    CUDA graph launches again the kernels counted at its capture."""
+    for k in KERNELS:
+        n, by_width = delta[k.__name__]
+        k.launches += n
+        if hasattr(k, "launches_by_width"):
+            k.launches_by_width.update(by_width)
+
+
+def launches_between(before: LaunchCounts,
+                     after: LaunchCounts) -> LaunchCounts:
+    return {name: (after[name][0] - n, after[name][1] - by_width)
+            for name, (n, by_width) in before.items()}
+
 
 # --------------------------------------------------------------------------
 # Entry points

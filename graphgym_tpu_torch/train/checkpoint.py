@@ -49,7 +49,19 @@ def load_ckpt(model, optimizer, scheduler, out_dir: str,
     state = torch.load(_ckpt_path(out_dir, epoch),
                        map_location=next(model.parameters()).device)
     model.load_state_dict(state["model"])
+    # the loaded groups bring the saving run's lr object and capturable
+    # flag: keep this run's (a tensor lr on the card), and Adam's step
+    # counts where a capturable Adam reads them, on the parameters'
+    # device; the schedule then sets the lr of the next step
+    kept = [(g["lr"], g.get("capturable", False))
+            for g in optimizer.param_groups]
     optimizer.load_state_dict(state["optimizer"])
+    for group, (lr, capturable) in zip(optimizer.param_groups, kept):
+        group["lr"], group["capturable"] = lr, capturable
+        for p in group["params"] if capturable else ():
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
     scheduler.load_state_dict(state["scheduler"])
     return epoch + 1
 

@@ -1,10 +1,11 @@
-"""Training loop: train/eval steps and the epoch driver.
+"""Training loop: the epoch driver around the train and eval steps.
 
 The port of graphgym_tpu/train/loop.py for one device (reference
-graphgym/train.py:15-155).  PyTorch runs eagerly, so a step is the
-forward, masked loss + kernel L2, backward, Adam update and one
-per-step learning-rate step; the epoch driver brings back the scalar
-loss and the supervised scores for logging.
+graphgym/train.py:15-155).  A train step is the forward, masked loss +
+kernel L2, backward and Adam update, one captured CUDA graph on the
+card (train/graphed.py), then one per-step learning-rate step; the
+epoch driver brings back the scalar loss and the supervised scores for
+logging.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import numpy as np
 import torch
 
 from graphgym_tpu_torch.train import checkpoint as ckpt
+from graphgym_tpu_torch.train.graphed import make_eval_step, make_train_step
 from graphgym_tpu_torch.train.logger import Logger
-from graphgym_tpu_torch.train.loss import LossOptions, compute_loss, kernel_l2
+from graphgym_tpu_torch.train.loss import LossOptions
 from graphgym_tpu_torch.train.optim import create_optimizer
 
 
@@ -50,10 +52,15 @@ def masked_accuracy(score: np.ndarray, label: np.ndarray) -> float:
 
 class Trainer:
     """Epoch driver (reference train(), train.py:116-154) on one
-    device: ``device`` holds the model and receives every batch."""
+    device: ``device`` holds the model and receives every batch.  The
+    train and eval steps are built here, as the JAX Trainer builds its
+    jit programs: on a CUDA device each runs as captured CUDA graphs,
+    on the CPU eagerly on the same static buffers.  ``eager=True`` runs
+    every step eagerly on the batch itself, on any device (the
+    comparisons of captured against eager steps)."""
 
     def __init__(self, model: torch.nn.Module, loaders, cfg,
-                 device: torch.device):
+                 device: torch.device, eager: bool = False):
         if cfg.view_emb:
             raise NotImplementedError(
                 "embedding views are not ported yet (ROADMAP A15)")
@@ -69,7 +76,7 @@ class Trainer:
         steps_per_epoch = max(len(loaders[0]), 1)
         self.optimizer, self.scheduler = create_optimizer(
             model.parameters(), cfg.optim, steps_per_epoch,
-            use_loss_l2=tfg)
+            use_loss_l2=tfg, device=device)
         self.task_type = cfg.dataset.task_type
         # the reference Trainer draws one batch list at construction for
         # its init example (train/loop.py:166); drawing it here as well
@@ -82,6 +89,16 @@ class Trainer:
         self._placed: collections.OrderedDict = collections.OrderedDict()
         self._place_cap = min(max(8, sum(len(ld) for ld in loaders) + 4),
                               64)
+        # train and eval graphs share one memory pool; each step keeps
+        # at most as many programs as there are placements
+        pool = (torch.cuda.graph_pool_handle()
+                if device.type == "cuda" and not eager else None)
+        self.train_step = make_train_step(
+            model, self.optimizer, self.loss_opts, self.scheduler,
+            max_programs=self._place_cap, pool=pool, eager=eager)
+        self.eval_step = make_eval_step(
+            model, self.loss_opts, max_programs=self._place_cap, pool=pool,
+            eager=eager)
 
     def _place(self, batch):
         hit = self._placed.get(id(batch))
@@ -94,31 +111,25 @@ class Trainer:
         self._placed[id(batch)] = (batch, placed)
         return placed
 
-    # ------------------------------------------------------------- steps
-    def train_step(self, batch) -> Tuple[torch.Tensor, ...]:
-        self.model.train()
-        pred, label, mask = self.model(batch)
-        loss, score = compute_loss(pred, label, mask, self.loss_opts)
-        loss = loss + kernel_l2(self.model, self.loss_opts.l2_kernel)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.scheduler.step()
-        return loss.detach(), score.detach(), label, mask
-
-    @torch.no_grad()
-    def eval_step(self, batch) -> Tuple[torch.Tensor, ...]:
-        self.model.eval()
-        pred, label, mask = self.model(batch)
-        loss, score = compute_loss(pred, label, mask, self.loss_opts)
-        return loss, score, label, mask
+    def load_checkpoint(self, epoch: int = -1) -> int:
+        """Restore the latest (or ``epoch``'s) checkpoint before any step
+        (ckpt.load_ckpt); returns the epoch to start from.  A captured
+        graph holds the parameters' and Adam's state tensors, which a
+        load would replace, so a load after a capture raises."""
+        if self.train_step.captured or self.eval_step.captured:
+            raise RuntimeError(
+                "a checkpoint load after the steps were captured would "
+                "replace state tensors the graphs read; load before the "
+                "first step")
+        return ckpt.load_ckpt(self.model, self.optimizer, self.scheduler,
+                              self.cfg.out_dir, epoch)
 
     # ------------------------------------------------------------ epochs
     def train_epoch(self, logger: Logger, epoch: int, batches=None):
         t0 = time.time()
         for batch in (batches if batches is not None
                       else self.loaders[0].batches(epoch)):
-            lr = self.scheduler.get_last_lr()[0]
+            lr = self.scheduler.lr()     # the host float of this step's lr
             loss, score, label, mask = self.train_step(self._place(batch))
             label_h, score_h = _to_host(score, label, mask)
             logger.update_stats(true=label_h, pred=score_h,
@@ -153,9 +164,7 @@ class Trainer:
         cfg = self.cfg
         start_epoch = 0
         if cfg.train.auto_resume:
-            start_epoch = ckpt.load_ckpt(self.model, self.optimizer,
-                                         self.scheduler, cfg.out_dir,
-                                         cfg.train.epoch_resume)
+            start_epoch = self.load_checkpoint(cfg.train.epoch_resume)
         logging.info("Start from epoch %d", start_epoch)
         val_curve: List[Tuple[int, float]] = []
         curve_path = None

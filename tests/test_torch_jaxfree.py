@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
     for name in ("graphgym_tpu_torch.main", "graphgym_tpu_torch.bench",
                  "graphgym_tpu_torch.ops.segment",
                  "graphgym_tpu_torch.nn.act", "graphgym_tpu_torch.nn.norm",
-                 "graphgym_tpu_torch.ops.cuda.spmm_kernel"):
+                 "graphgym_tpu_torch.ops.cuda.spmm_kernel",
+                 "graphgym_tpu_torch.train.graphed"):
         assert name in mods
 
 
