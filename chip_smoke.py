@@ -91,6 +91,33 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
  16. kernel_sage — as 3, at the train 'mean' packs, D = 1;
  17. model_sage, 18. train_sage, 19. profile_sage, graphed_sage — as 13,
      14, 15 and 6b.
+  ID-GNN Fast / ws (configs/{gcnconv,sageconv,ginconv,gatconv}Fast_ws.yaml:
+  identity features, diag(A^1..A^10) on the card, before the node
+  feature, dim_in 11; no ego transform, N = 1,536) and ID-GNN Full on
+  the regenerated ba corpus (configs/id{gcn,gin,gat}_ba.yaml), each
+  through drive_path's phases, named <phase>_<config>:
+    kernel_*   — as 3 (K1 at the model width and at each narrow width
+                 the path runs: D = 11 on the Fast 'mean' / 'plain' packs,
+                 K1's scalar walk; D = 1 on ba's 'plain' pack, the narrow
+                 walk's hub rows of up to 48 slots), or as 7 and 8 (K3,
+                 its softmax row sums and the SDDMM); the pack's longest
+                 rows;
+    model_*    — as 4 (on ID-GIN ba seeded random features, its own are
+                 constant, and each gradient held as a whole: its
+                 weight gradients sum over 98,304 rows, check_model);
+    train_*    — as 5: K1 6 per train step and 3 per eval batch
+                 (gcnconvFast, ID-GCN ba), 5 and 3 with 1 and 1 at D = 11
+                 (sageconvFast, ginconvFast) or at D = 1 (ID-GIN ba); K3
+                 18 and 6 (6 and 3 at width 1) and the SDDMM 6 and 3
+                 (gatconvFast, ID-GAT ba); no other launch;
+    profile_*  — as 6, with the peak of device memory (ID-GCN and ID-GAT
+                 on ba) and repeat_steps; graphed_* as 6b.
+  corpus       — before the ba paths: regenerates ba (256 asked, seed 0,
+                 no networkx) into the git-ignored build directory
+                 (CORPUS_DIR) through load_nx, timed; fails unless it is
+                 the corpus the CPU tests hold to the JAX package's (116
+                 graphs, BA_DIGEST); the longest rows of ID-GCN's 'gcn'
+                 and ID-GIN's 'plain' train packs.
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -123,7 +150,9 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    epoch times as median and IQR.
 Then the kernel table as one JSON line (K1 at D = 128, at D = 1 and on
 make_graph's pack; K3's aggregation and its softmax row sums on ws and
-at H = 8 on make_graph's 'att' pack; the SDDMM on ws and on that pack),
+at H = 8 on make_graph's 'att' pack; the SDDMM on ws and on that pack;
+K1 at D = 128 and D = 11 on the Fast packs and at D = 128 and D = 1 on
+ba's; K3, its row sums and the SDDMM on gatconvFast_ws and ID-GAT ba),
 and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -141,6 +170,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _PHASE = ["import"]   # the phase running now, named in a failure line
 
@@ -178,6 +208,13 @@ CFG = os.path.join(ROOT, "configs", "idgcn_ws.yaml")
 CFG_ATT = os.path.join(ROOT, "configs", "idgat_ws.yaml")
 CFG_GIN = os.path.join(ROOT, "configs", "idgin_ws.yaml")
 CFG_SAGE = os.path.join(ROOT, "configs", "idsage_ws.yaml")
+# the regenerated ba corpus (seed 0), cached under the git-ignored build
+# directory; tests/test_torch_fast.py holds the same count and digest
+CORPUS_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build",
+                          "corpus")
+BA_GRAPHS = 116
+BA_DIGEST = ("fc3beb9b7b0effd6f75f3110d5119f3d"
+             "570e40ab93423ced0554a58984554a40")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -310,29 +347,40 @@ def k1_floor(pack: K.PackedCSR, x: torch.Tensor, out: torch.Tensor):
 
 def check_kernel(packs, n: int, d: int, device) -> dict:
     """K1 against its plain version on the fwd and bwd packs, f32 and
-    bf16; bitwise-repeatable launches; the same bits as K3 at one head
-    with alpha = the pack's weights (the walk both run); times of the
-    kernel, the plain version, the library call and the launch floor on
-    both packs, and of the kernel in bf16 on the fwd pack."""
+    bf16 (at F32_TOL / BF16_TOL; in f32 on packs with rows of more than
+    32 slots by hold_sums' rule); bitwise-repeatable launches; the same
+    bits as K3 at one head with alpha = the pack's weights (the walk
+    both run); times of the kernel, the plain version, the library call
+    and the launch floor on both packs, and of the kernel in bf16 on the
+    fwd pack."""
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(n, d, generator=gen, device=device)
     fwd, bwd = packs
+    # rows of more than 32 slots (ba's hubs, up to 49 terms of weight 1):
+    # two f32 sums of them in different orders differ by a share of the
+    # row's sum of |terms|, as on make_graph's packs (check_bench_kernels)
+    long_rows = max(longest_rows(p)["longest_row_slots"]
+                    for p in packs) > 32
     errs = {}
     for name, pack in (("fwd", fwd), ("bwd", bwd)):
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             xin = x.to(dtype)
+            key = f"{name}_{str(dtype)[6:]}"
             got = K.spmm_packed(pack, xin)
             want = K.spmm_packed_plain(pack, xin)
             torch.cuda.synchronize()
             if got.shape != (n, d) or not torch.isfinite(got).all():
                 fail(f"{name}/{dtype}: bad output {tuple(got.shape)}")
-            if not torch.allclose(got.float(), want.float(), **tol):
+            if long_rows and dtype == torch.float32:
+                errs[key] = hold_sums(f"{name}/{dtype}", got, want,
+                                      K.spmm_packed_plain(pack, xin.abs()))
+            elif not torch.allclose(got.float(), want.float(), **tol):
                 err = (got.float() - want.float()).abs().max().item()
                 fail(f"{name}/{dtype}: kernel vs plain max err {err} "
                      f"beyond {tol}")
-            errs[f"{name}_{str(dtype)[6:]}"] = (
-                got.float() - want.float()).abs().max().item()
+            else:
+                errs[key] = (got.float() - want.float()).abs().max().item()
             again = K.spmm_packed(pack, xin)
             if not torch.equal(got, again):
                 fail(f"{name}/{dtype}: two launches differ")
@@ -1038,8 +1086,74 @@ def check_bench_runs(device) -> dict:
                 train_epochs=epochs)
 
 
-def check_model(cfg, batch, device, random_features: bool = False
-                ) -> dict:
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)   # card vs CPU, forward values
+
+
+class CardKinks(TorchDispatchMode):
+    """Records the input of every ReLU a forward runs, in call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.inputs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.relu.default:
+            self.inputs.append(args[0].detach().cpu())
+        return func(*args, **(kwargs or {}))
+
+
+class SameKinks(TorchDispatchMode):
+    """Runs the CPU reference with the card's ReLU decisions.  The i-th
+    ReLU input must match the card's i-th at LOGIT_TOL's rtol and its
+    atol times the call's largest |input| (else fail), so the two lie on
+    either side of 0 only where both are within that tolerance of it;
+    there the ReLU and its backward
+    (threshold_backward on the saved result) take the card's side.
+    ``flips`` counts those entries and ``flip_max_abs`` is the largest
+    |input| among them; ``input_max_err`` is the largest difference."""
+
+    def __init__(self, card_inputs: list):
+        super().__init__()
+        self.card = card_inputs
+        self.calls = self.flips = 0
+        self.flip_max_abs = self.input_max_err = 0.0
+        self.keep = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.relu.default:
+            if self.calls == len(self.card):
+                fail(f"the CPU ran more than the card's {self.calls} ReLUs")
+            y, yc = args[0], self.card[self.calls]
+            self.calls += 1
+            # atol scales with the call's largest input: a GEMM's or a
+            # BatchNorm's rounding does, where the entry itself cancels
+            atol = LOGIT_TOL["atol"] * max(1.0, yc.abs().max().item())
+            if y.shape != yc.shape or not torch.allclose(
+                    y, yc, rtol=LOGIT_TOL["rtol"], atol=atol):
+                fail(f"ReLU input {self.calls - 1} card vs CPU: shapes "
+                     f"{tuple(yc.shape)} / {tuple(y.shape)}, max err "
+                     f"{(y - yc).abs().max().item()} beyond rtol "
+                     f"{LOGIT_TOL['rtol']}, atol {atol}")
+            self.input_max_err = max(self.input_max_err,
+                                     (y - yc).abs().max().item())
+            keep = yc > 0
+            flipped = keep != (y > 0)
+            if flipped.any():
+                self.flips += int(flipped.sum())
+                self.flip_max_abs = max(self.flip_max_abs,
+                                        y[flipped].abs().max().item())
+            out = torch.where(keep, y, y.new_zeros(()))
+            self.keep[out.data_ptr()] = keep
+            return out
+        if func is torch.ops.aten.threshold_backward.default:
+            keep = self.keep.get(args[1].data_ptr())
+            if keep is not None:
+                return torch.where(keep, args[0], args[0].new_zeros(()))
+        return func(*args, **kwargs)
+
+
+def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     """Full-width logits, gradients and BatchNorm running statistics,
     card (kernel) vs CPU (plain), and then the eval-mode logits (which
     read those running statistics).  ``random_features`` replaces the
@@ -1048,7 +1162,15 @@ def check_model(cfg, batch, device, random_features: bool = False
     center, so its BatchNorm normalizes rounding noise and its gradients
     differ between any two f32 summation orders (on the CPU, f32 against
     float64 by more than their own size); with random features every
-    gradient holds at the tolerance below."""
+    gradient holds at the tolerance below.
+
+    The CPU runs with the card's ReLU decisions (SameKinks): every ReLU
+    input is held to the card's, and at an input within
+    rounding of 0 the two f32 programs may take either side of the kink.
+    There the gradient steps by that row's whole upstream gradient (ba's
+    98,304-row ID-GIN batch has such inputs, a few millionths from 0),
+    which is no difference of the programs; with the kinks shared, the
+    gradients are held elementwise."""
     if random_features:
         gen = torch.Generator().manual_seed(3)
         batch = batch.replace(node_feat=torch.randn(
@@ -1057,40 +1179,57 @@ def check_model(cfg, batch, device, random_features: bool = False
     model = build_model(cfg, device)
     ref = build_model(cfg, torch.device("cpu"))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    outs = []
-    for m, b in ((model, batch.to(device)),
-                 (ref, batch.to(torch.device("cpu")))):
-        pred, label, mask = m(b)
-        loss = torch.nn.functional.cross_entropy(pred[mask], label[mask])
-        loss.backward()
+    card_train, card_eval = CardKinks(), CardKinks()
+    outs, kinks = [], []
+    for m, b, train_mode, eval_mode in (
+            (model, batch.to(device), card_train, card_eval),
+            (ref, batch.to(torch.device("cpu")),
+             SameKinks(card_train.inputs), SameKinks(card_eval.inputs))):
+        with train_mode:
+            pred, label, mask = m(b)
+            loss = torch.nn.functional.cross_entropy(pred[mask],
+                                                     label[mask])
+            loss.backward()
         m.eval()
-        with torch.no_grad():
+        with torch.no_grad(), eval_mode:
             pred_eval = m(b)[0]
         outs.append((pred.detach().cpu(),
                      {k: p.grad.cpu() for k, p in m.named_parameters()},
                      {k: v.cpu() for k, v in m.named_buffers()},
                      pred_eval.cpu()))
+        kinks.append((train_mode, eval_mode))
     (p_gpu, g_gpu, b_gpu, e_gpu), (p_cpu, g_cpu, b_cpu, e_cpu) = outs
+    same = kinks[1]
+    for mode, card in zip(same, kinks[0]):
+        if mode.calls != len(card.inputs):
+            fail(f"the CPU ran {mode.calls} ReLUs, the card "
+                 f"{len(card.inputs)}")
     buf_err = 0.0
     for k in b_cpu:       # BatchNorm running statistics after the step
-        if not torch.allclose(b_gpu[k], b_cpu[k], rtol=1e-4, atol=1e-5):
+        if not torch.allclose(b_gpu[k], b_cpu[k], **LOGIT_TOL):
             fail(f"buffer {k} card vs CPU: max err "
                  f"{(b_gpu[k] - b_cpu[k]).abs().max().item()}")
         buf_err = max(buf_err, (b_gpu[k] - b_cpu[k]).abs().max().item())
     for name, got, want in (("train", p_gpu, p_cpu), ("eval", e_gpu, e_cpu)):
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        if not torch.allclose(got, want, **LOGIT_TOL):
             fail(f"model {name}-mode logits card vs CPU: max err "
                  f"{(got - want).abs().max().item()}")
     worst = 0.0
     for k in g_cpu:
+        err = (g_gpu[k] - g_cpu[k]).abs().max().item()
         if not torch.allclose(g_gpu[k], g_cpu[k], rtol=1e-3, atol=1e-5):
-            fail(f"gradient {k} card vs CPU: max err "
-                 f"{(g_gpu[k] - g_cpu[k]).abs().max().item()}")
-        worst = max(worst, (g_gpu[k] - g_cpu[k]).abs().max().item())
+            fail(f"gradient {k} card vs CPU: max err {err}")
+        worst = max(worst, err)
     return dict(logits_max_err=(p_gpu - p_cpu).abs().max().item(),
                 eval_logits_max_err=(e_gpu - e_cpu).abs().max().item(),
                 grad_max_err=worst, buffers=len(b_cpu),
-                buffers_max_err=buf_err)
+                buffers_max_err=buf_err,
+                relus=[mode.calls for mode in same],
+                relu_inputs_max_err=max(mode.input_max_err
+                                        for mode in same),
+                relu_kink_flips=[mode.flips for mode in same],
+                relu_kink_flip_max_abs=max(mode.flip_max_abs
+                                           for mode in same))
 
 
 def widest_op_inputs(fn, top: int = 5) -> list:
@@ -1188,13 +1327,14 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
     import gc
 
     out = {}
+    host_batch = loaders[0].batches(0)[0]   # one batch for both trainers
     for mode in ("eager", "captured"):
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(device)
         trainer = Trainer(build_model(cfg, device), loaders, cfg, device,
                           eager=mode == "eager")
-        batch = trainer._place(loaders[0].batches(0)[0])
+        batch = trainer._place(host_batch)
         out[mode] = step_profile(trainer, batch, device, steps, base)
         out[mode]["allocated_before_bytes"] = base
         if mode == "eager":
@@ -1229,11 +1369,14 @@ def graphed_check(cfg, loaders, device, steps: int = 5) -> dict:
     on the first batches; fails unless losses, parameters and buffers
     are bitwise equal and the launches (per replay) are the same."""
     runs = {}
+    # one batch for both trainers (a loader of several train batches
+    # re-partitions them at each call)
+    host_batch, host_vbatch = (ld.batches(0)[0] for ld in loaders[:2])
     for mode in ("captured", "eager"):
         trainer = Trainer(build_model(cfg, device), loaders, cfg, device,
                           eager=mode == "eager")
-        batch = trainer._place(loaders[0].batches(0)[0])
-        vbatch = trainer._place(loaders[1].batches(0)[0])
+        batch = trainer._place(host_batch)
+        vbatch = trainer._place(host_vbatch)
 
         def run():
             return ([trainer.train_step(batch)[0].item()
@@ -1299,9 +1442,10 @@ def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
     index_add_ left on the paths adds rows of unique ids, or exact
     zeros at the padding row)."""
     runs = []
+    host_batch = loaders[0].batches(0)[0]   # one batch for both trainers
     for _ in range(2):
         trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
-        batch = trainer._place(loaders[0].batches(0)[0])
+        batch = trainer._place(host_batch)
         losses = [trainer.train_step(batch)[0].item() for _ in range(steps)]
         runs.append((losses, [p.detach().clone()
                               for p in trainer.model.parameters()]))
@@ -1375,14 +1519,16 @@ def hold_counts(what: str, launches: dict, want: dict) -> None:
 
 
 def train_path(cfg_file: str, overrides, out: str, loaders,
-               expected: dict, d1=None) -> dict:
+               expected: dict, widths=None) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg), launches
     counted (``counted``).  ``expected`` maps a kernel wrapper to its
     launches (per train step, per eval batch), ``loaders`` give the
-    batch counts; every other kernel must not launch.  ``d1`` maps K1
-    or K3 to the share of those launches at width 1 (K1's narrow walk
-    of a 1-wide input, K3's softmax row sums at one head)."""
+    batch counts; every other kernel must not launch.  ``widths`` maps a
+    narrow width to the share of those launches at it, per kernel (K1's
+    narrow walk of a 1-wide input, its scalar walk of an 11-wide one,
+    K3's softmax row sums at one head); a width it does not name must
+    see no launch of K1 or K3 at width 1."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
@@ -1396,22 +1542,26 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                              f"x {evals}") for k, (s, e) in per.items()}
     result, (launches, by_width) = counted(
         lambda: run_single(cfg, cfg.out_dir, cfg_file))
-    width1 = at_width(by_width, 1)
+    widths = dict(widths or {})
+    widths.setdefault(1, {})
+    at = {w: at_width(by_width, w) for w in widths}
     train = read_stats(os.path.join(cfg.out_dir, "train", "stats.json"))
     val = read_stats(os.path.join(cfg.out_dir, "val", "stats.json"))
     losses = [s["loss"] for s in train]
     if len(losses) != epochs or not all(map(math.isfinite, losses)):
         fail(f"{cfg_file}: train losses {losses}")
     hold_counts(cfg_file, launches, totals(expected))
-    hold_counts(f"{cfg_file}, at width 1", width1, totals(d1 or {}))
+    for w, per in widths.items():
+        hold_counts(f"{cfg_file}, at width {w}", at[w], totals(per))
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
     step_s = [s["time_iter"] for s in train]
-    return dict(epochs=epochs, losses=losses, val_acc=accs,
+    return dict(epochs=epochs, steps_per_epoch=len(loaders[0]),
+                losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_replays=float(np.median(step_s[2:])),
-                launches=launches, launches_at_width_1=width1,
+                launches=launches, launches_at_width=at,
                 launches_per_train_step_and_eval_batch={
                     k.__name__: v for k, v in expected.items()},
                 params=cfg.params)
@@ -1425,6 +1575,168 @@ def load_path(cfg_file: str, overrides):
     loaders = create_loader(create_dataset(cfg), cfg)
     loaders[0].batches(0)
     return cfg, loaders, time.perf_counter() - t0
+
+
+def corpus_phase(overrides) -> dict:
+    """Regenerate the ba corpus (256 graphs of 64 nodes asked, seed 0)
+    into CORPUS_DIR through load_nx, as a config naming ba does when no
+    pickle holds it, and time it; fail unless it is the corpus the CPU
+    tests hold to the JAX package's (BA_GRAPHS graphs, BA_DIGEST over
+    their edges).  Then the longest rows of the train packs of ID-GCN
+    ('gcn') and ID-GIN ('plain') on it, read from the port's loader."""
+    import hashlib
+
+    from graphgym_tpu_torch.data.loaders import load_nx
+
+    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    graphs = load_nx("ba", CORPUS_DIR)
+    seconds = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for g in graphs:
+        digest.update(np.ascontiguousarray(g.edge_index, np.int32).tobytes())
+    if len(graphs) != BA_GRAPHS or digest.hexdigest() != BA_DIGEST:
+        fail(f"ba corpus: {len(graphs)} graphs, digest "
+             f"{digest.hexdigest()}; expected {BA_GRAPHS}, {BA_DIGEST}")
+    rows = {}
+    for tag, kind in (("idgcn_ba", "gcn"), ("idgin_ba", "plain")):
+        _, loaders, host_s = load_path(config(tag), overrides)
+        fwd, bwd = loaders[0].batches(0)[0].to(torch.device("cpu")) \
+            .packs[kind][:2]
+        rows[tag] = dict(pack=kind, host_data_s=host_s,
+                         fwd=longest_rows(fwd), bwd=longest_rows(bwd))
+    return dict(seconds=seconds, graphs=len(graphs),
+                nodes=sum(g.num_nodes for g in graphs),
+                edges=sum(g.num_edges for g in graphs),
+                cache=sorted(os.listdir(CORPUS_DIR)), rows=rows)
+
+
+def config(tag: str) -> str:
+    return os.path.join(ROOT, "configs", f"{tag}.yaml")
+
+
+def drive_path(tag: str, device, overrides, expected: dict, widths=None,
+               random_features: bool = False) -> dict:
+    """The phases of one more path, as the ws paths have them:
+    kernel_<tag> (its kernels at the train pack's shapes: K1 at the
+    model width and at each narrow width ``widths`` names, or K3, its
+    softmax row sums and the SDDMM; the pack's longest rows),
+    model_<tag> (``check_model``), train_<tag> (``train_path`` with
+    ``expected`` and ``widths``), profile_<tag> (with ``repeat_steps``) and
+    graphed_<tag>."""
+    from graphgym_tpu_torch.graphs.packing import kinds_for_layer
+
+    cfg_file = config(tag)
+    begin(f"kernel_{tag}")
+    cfg, loaders, host_s = load_path(cfg_file, overrides)
+    batch = loaders[0].batches(0)[0]
+    n, d = batch.num_nodes, cfg.gnn.dim_inner
+    (kind,) = kinds_for_layer(cfg.gnn.layer_type)
+    packs = batch.to(device).packs[kind]
+    if kind == "att":
+        checks = dict(k3=check_attention_kernel(packs, n, d, device),
+                      softmax=check_softmax(packs[0], n, device),
+                      sddmm=check_sddmm_kernel(packs[0], n, d, device))
+    else:
+        checks = {f"d{w}": check_kernel(packs, n, w, device)
+                  for w in [d] + sorted(widths or {})}
+    phase(f"kernel_{tag}", n=n, d=d, d_in=cfg.share.dim_in, pack=kind,
+          chunks=int(packs[0].senders.shape[0]), host_data_s=host_s,
+          batches=len(loaders[0]), fwd_rows=longest_rows(packs[0]),
+          bwd_rows=longest_rows(packs[1]), **checks)
+    begin(f"model_{tag}")
+    phase(f"model_{tag}", **check_model(cfg, loaders[1].batches(0)[0],
+                                        device, random_features))
+    begin(f"train_{tag}")
+    train = train_path(cfg_file, overrides, os.path.join(OUT, tag),
+                       loaders, expected, widths)
+    phase(f"train_{tag}", **train)
+    begin(f"profile_{tag}")
+    slots = packs[0].senders.numel() if kind == "att" else 0
+    profile = profile_steps(cfg, loaders, device, forbid_numel=slots * d,
+                            forbid_index_add=slots)
+    phase(f"profile_{tag}", **profile,
+          repeat=repeat_steps(cfg, loaders, device))
+    begin(f"graphed_{tag}")
+    phase(f"graphed_{tag}", **graphed_check(cfg, loaders, device))
+    return dict(width=d, checks=checks, train=train, profile=profile)
+
+
+def path_launches(kernel, trains: dict, width=None,
+                  other_than=()) -> dict:
+    """A kernel's launches on each path run (``train_path``'s results):
+    all of them, those at ``width``, or those at none of the widths
+    ``other_than``."""
+    name = kernel.__name__
+
+    def count(t):
+        at = t.get("launches_at_width", {})
+        if width is not None:
+            return at[width][name]
+        return t["launches"][name] - sum(at[w][name] for w in other_than
+                                         if w in at)
+    by_path = {p: count(t) for p, t in trains.items()}
+    return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
+
+def new_path_rows(fast: dict, ba: dict, row: tuple, srcs: tuple) -> list:
+    """The kernels line's rows of the Fast and ba paths (``drive_path``'s
+    results): K1 at D = 128 and at D = 11 on the Fast packs, K1 at
+    D = 128 and at D = 1 (the narrow walk's hub rows) on ba's; K3's
+    aggregation, its softmax row sums and the SDDMM on the
+    gatconvFast_ws and idgat_ba 'att' packs."""
+    k1_src, k3_src, sddmm_src = srcs
+    k1, k3, sddmm = (K.packed_spmm_cuda, K.packed_segment_matmul_headed_cuda,
+                     K.packed_sddmm_cuda)
+    k1_row = row + ("floor_ms",)
+
+    def pick(check, keys=row):
+        return {k: check[k] for k in keys}
+
+    def k1_at(path, width=None):   # width: the model's by default
+        return path["checks"][f"d{width or path['width']}"]
+
+    def trains(paths, tags):
+        return {t: paths[t]["train"] for t in tags}
+
+    fast_k1 = trains(fast, ("gcnconvFast_ws", "sageconvFast_ws",
+                            "ginconvFast_ws"))
+    d11 = trains(fast, ("sageconvFast_ws", "ginconvFast_ws"))
+    ba_k1 = trains(ba, ("idgcn_ba", "idgin_ba"))
+    rows = [
+        {"name": "packed_spmm_fast_ws", **k1_src, "path": ", ".join(fast_k1),
+         "pack": "gcn, gcnconvFast_ws",
+         "width": fast["gcnconvFast_ws"]["width"],
+         **pick(k1_at(fast["gcnconvFast_ws"]), k1_row),
+         **path_launches(k1, fast_k1, other_than=(11,))},
+        {"name": "packed_spmm_d11", **k1_src, "path": ", ".join(d11),
+         "pack": "mean, sageconvFast_ws", "width": 11,
+         **pick(k1_at(fast["sageconvFast_ws"], 11), k1_row),
+         "plain_pack_ms": k1_at(fast["ginconvFast_ws"], 11)["ms"],
+         **path_launches(k1, d11, width=11)},
+        {"name": "packed_spmm_ba", **k1_src, "path": ", ".join(ba_k1),
+         "pack": "gcn, idgcn_ba", "width": ba["idgcn_ba"]["width"],
+         **pick(k1_at(ba["idgcn_ba"]), k1_row),
+         **path_launches(k1, ba_k1, other_than=(1,))},
+        {"name": "packed_spmm_ba_d1", **k1_src, "path": "idgin_ba",
+         "pack": "plain, idgin_ba", "width": 1,
+         **pick(k1_at(ba["idgin_ba"], 1), k1_row),
+         **path_launches(k1, trains(ba, ("idgin_ba",)), width=1)},
+    ]
+    for tag, paths in (("fast_ws", fast), ("ba", ba)):
+        path = "gatconvFast_ws" if tag == "fast_ws" else "idgat_ba"
+        checks, att = paths[path]["checks"], trains(paths, (path,))
+        rows += [
+            {"name": f"packed_attention_{tag}", **k3_src, "path": path,
+             "width": paths[path]["width"], **pick(checks["k3"]),
+             **path_launches(k3, att, other_than=(1,))},
+            {"name": f"packed_attention_row_sums_{tag}", **k3_src,
+             "path": path, "width": 1, "library": "index_add_",
+             **pick(checks["softmax"]),
+             **path_launches(k3, att, width=1)},
+            {"name": f"packed_sddmm_{tag}", **sddmm_src, "path": path,
+             **pick(checks["sddmm"]), **path_launches(sddmm, att)}]
+    return rows
 
 
 def main() -> None:
@@ -1503,7 +1815,7 @@ def main() -> None:
     begin("train_att")
     train_att = train_path(CFG_ATT, overrides, os.path.join(OUT, "idgat"),
                            loaders, {k3_: (18, 6), sddmm_: (6, 3)},
-                           d1={k3_: (6, 3)})
+                           widths={1: {k3_: (6, 3)}})
     phase("train_att", **train_att)
     begin("profile_att")
     att_slots = att_packs[0].senders.numel()
@@ -1532,7 +1844,8 @@ def main() -> None:
     # gradient: 1 + 2 x 2 per train step, one of them at D = 1
     begin("train_gin")
     train_gin = train_path(CFG_GIN, overrides, os.path.join(OUT, "idgin"),
-                           loaders, {k1_: (5, 3)}, d1={k1_: (1, 1)})
+                           loaders, {k1_: (5, 3)},
+                           widths={1: {k1_: (1, 1)}})
     phase("train_gin", **train_gin)
     begin("profile_gin")
     phase("profile_gin", **profile_steps(cfg, loaders, device),
@@ -1555,13 +1868,52 @@ def main() -> None:
     begin("train_sage")
     train_sage = train_path(CFG_SAGE, overrides,
                             os.path.join(OUT, "idsage"), loaders,
-                            {k1_: (5, 3)}, d1={k1_: (1, 1)})
+                            {k1_: (5, 3)}, widths={1: {k1_: (1, 1)}})
     phase("train_sage", **train_sage)
     begin("profile_sage")
     phase("profile_sage", **profile_steps(cfg, loaders, device),
           repeat=repeat_steps(cfg, loaders, device))
     begin("graphed_sage")
     phase("graphed_sage", **graphed_check(cfg, loaders, device))
+
+    # ---- ID-GNN Fast / ws (identity features of width 10 before the
+    # node feature: dim_in 11; no ego transform): the plain Tfg layers.
+    # GCNConv aggregates x W (D = 128, 2 per layer); SAGEConv and GINConv
+    # aggregate layer 0's raw input at D = 11 (K1's scalar walk, forward
+    # only) and 128-wide hidden rows after it; GATConv as ID-GAT
+    fast = {
+        "gcnconvFast_ws": drive_path("gcnconvFast_ws", device, overrides,
+                                     {k1_: (6, 3)}),
+        "sageconvFast_ws": drive_path("sageconvFast_ws", device, overrides,
+                                      {k1_: (5, 3)},
+                                      widths={11: {k1_: (1, 1)}}),
+        "ginconvFast_ws": drive_path("ginconvFast_ws", device, overrides,
+                                     {k1_: (5, 3)},
+                                     widths={11: {k1_: (1, 1)}}),
+        "gatconvFast_ws": drive_path("gatconvFast_ws", device, overrides,
+                                     {k3_: (18, 6), sddmm_: (6, 3)},
+                                     widths={1: {k3_: (6, 3)}}),
+    }
+
+    # ---- ID-GNN Full on the ba corpus, regenerated here without
+    # networkx: ID-GCN (K1 at D = 128 on ba's 'gcn' packs), ID-GIN (K1's
+    # narrow walk at D = 1 on the 'plain' packs, rows of up to 48 slots
+    # walked by their warp; constant features, so seeded random ones in
+    # the model check, as on ws), ID-GAT (its peak memory)
+    begin("corpus")
+    ba_overrides = overrides + ["dataset.dir", CORPUS_DIR]
+    corpus = corpus_phase(ba_overrides)
+    phase("corpus", **corpus)
+    ba = {
+        "idgcn_ba": drive_path("idgcn_ba", device, ba_overrides,
+                               {k1_: (6, 3)}),
+        "idgin_ba": drive_path("idgin_ba", device, ba_overrides,
+                               {k1_: (5, 3)}, widths={1: {k1_: (1, 1)}},
+                               random_features=True),
+        "idgat_ba": drive_path("idgat_ba", device, ba_overrides,
+                               {k3_: (18, 6), sddmm_: (6, 3)},
+                               widths={1: {k3_: (6, 3)}}),
+    }
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")
@@ -1582,17 +1934,6 @@ def main() -> None:
            "library_ms")
     k1_paths = {"idgcn_ws": train, "idgin_ws": train_gin,
                 "idsage_ws": train_sage}
-
-    def launches(kernel, paths, width1=None):
-        """A kernel's launches on each path run: all of them, or with
-        ``width1`` those at width 1 (True) or at other widths (False)."""
-        name = kernel.__name__
-        by_path = {p: (t["launches"][name] if width1 is None
-                       else t["launches_at_width_1"][name] if width1
-                       else t["launches"][name]
-                       - t["launches_at_width_1"][name])
-                   for p, t in paths.items()}
-        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     # K1's rows: D = 128 at the ID-GCN 'gcn' fwd pack, its narrow walk's
     # D = 1 at the ID-GIN 'plain' fwd pack, and D = 128 at make_graph's
@@ -1619,16 +1960,16 @@ def main() -> None:
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
          **{k: k1[k] for k in row + ("floor_ms",)},
-         **launches(k1_, k1_paths, width1=False)},
+         **path_launches(k1_, k1_paths, other_than=(1,))},
         {"name": "packed_spmm_d1", **k1_src,
          "path": "idgin_ws, idsage_ws", "width": k1_d1["width"],
          **{k: k1_d1[k] for k in row + ("floor_ms",)},
-         **launches(k1_, k1_paths, width1=True)},
+         **path_launches(k1_, k1_paths, width=1)},
         {"name": "packed_spmm_make_graph", **k1_src,
          "path": "bench_spmm", "width": bk["d"],
          "max_abs_err": bk["k1_errs"]["fwd_float32"],
          **{k: bk["k1_fwd"][k] for k in row[1:] + ("floor_ms",)},
-         **launches(k1_, bench_k1)},
+         **path_launches(k1_, bench_k1)},
         {"name": "packed_segment", "route": "cuda",
          "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
          "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",
@@ -1636,10 +1977,11 @@ def main() -> None:
          **{k: k2[k] for k in row}},
         {"name": "packed_attention", **k3_src,
          "path": "idgat_ws", **{k: k3[k] for k in row},
-         **launches(k3_, {"idgat_ws": train_att}, width1=False)},
+         **path_launches(k3_, {"idgat_ws": train_att},
+                          other_than=(1,))},
         {"name": "packed_attention_row_sums", **k3_src,
          "path": "idgat_ws", **{k: softmax[k] for k in row},
-         **launches(k3_, {"idgat_ws": train_att}, width1=True)},
+         **path_launches(k3_, {"idgat_ws": train_att}, width=1)},
         {"name": "packed_attention_make_graph", **k3_src,
          "path": "bench_attention", "width": BENCH_HEADS * BENCH_DV,
          "heads": BENCH_HEADS,
@@ -1654,11 +1996,12 @@ def main() -> None:
          "launches": att_by_width.get(BENCH_HEADS, 0)},
         {"name": "packed_sddmm", **sddmm_src, "path": "idgat_ws",
          **{k: sddmm[k] for k in row},
-         **launches(sddmm_, {"idgat_ws": train_att})},
+         **path_launches(sddmm_, {"idgat_ws": train_att})},
         {"name": "packed_sddmm_make_graph", **sddmm_src,
          "path": "bench_attention", "heads": BENCH_HEADS, "dh": BENCH_DV,
          **{k: bk["sddmm"][k] for k in row},
          "launches": att_launches[sddmm_.__name__]},
+        *new_path_rows(fast, ba, row, (k1_src, k3_src, sddmm_src)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,11 @@
 """Dataset loading, splitting, transforms and GraphBatch batching.
 
-The port of graphgym_tpu/data/loaders.py for node tasks on pickled
-graph corpora (reference graphgym/loader.py:24-260):
-  load graphs -> label replacement -> split -> ego transform per split
-  -> padded GraphBatches with the packed SpMM layouts.
+The port of graphgym_tpu/data/loaders.py for node tasks on pickled or
+regenerated synthetic graph corpora (reference
+graphgym/loader.py:24-260):
+  load graphs -> feature augmentation -> label replacement -> split
+  -> ego transform per split -> padded GraphBatches with the packed
+  SpMM layouts.
 
 Batches always carry the packs their layer consumes, on CPU and CUDA
 alike (the port has no COO path).  What the slice does not need raises
@@ -54,17 +56,55 @@ class _CorpusUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+# Synthetic corpora regenerated from seed 0 when no pickle exists:
+# name -> (generator kind, nodes per graph), as in
+# graphgym_tpu/data/loaders.py:63-70.  scalefree / smallworld are the
+# ID-GNN paper's names for the ba / ws families, so they regenerate the
+# same graphs as ba / ws (not the shipped datasets/ws.pkl).
+_REGENERABLE = {
+    "ba": ("ba", 64), "ws": ("ws", 64),
+    "scalefree": ("ba", 64), "smallworld": ("ws", 64),
+    "ba500": ("ba", 500), "ws500": ("ws", 500),
+}
+_REGEN_GRAPHS = 256
+
+
+def _find(fname: str, dataset_dir: str) -> Optional[str]:
+    for d in (dataset_dir, _REPO_DATASETS):
+        path = os.path.join(d, fname)
+        if os.path.exists(path):
+            return path
+    return None
+
+
 def load_nx(name: str, dataset_dir: str) -> List[HostGraph]:
     """Pickled graph lists (reference load_nx, loader.py:78-92):
-    HostGraphs or networkx graphs."""
-    for d in (dataset_dir, _REPO_DATASETS):
-        path = os.path.join(d, f"{name}.pkl")
-        if os.path.exists(path):
-            break
-    else:
+    HostGraphs or networkx graphs, from ``<name>.pkl`` (shipped, or
+    written by the JAX package) under dataset_dir or the repository's
+    datasets/.  Failing that, a known synthetic corpus is read from the
+    port's own cache ``<name>.torch.pkl``, or regenerated without
+    networkx (data/synthetic.py, graph-identical to the JAX package's)
+    and cached there under dataset_dir: a file the JAX package never
+    opens, read back only from there."""
+    path = _find(f"{name}.pkl", dataset_dir)
+    cache = os.path.join(dataset_dir, f"{name}.torch.pkl")
+    if path is None and os.path.exists(cache):
+        path = cache
+    if path is None and name in _REGENERABLE:
+        from graphgym_tpu_torch.data.synthetic import (generate_syn_graphs,
+                                                       save_syn)
+        kind, n = _REGENERABLE[name]
+        logging.warning("%s.pkl not found; regenerating the %s synthetic "
+                        "corpus from seed 0", name, kind)
+        graphs = generate_syn_graphs(kind=kind, num_graphs=_REGEN_GRAPHS,
+                                     n=n)
+        os.makedirs(dataset_dir, exist_ok=True)
+        save_syn(cache + ".tmp", graphs)
+        os.replace(cache + ".tmp", cache)
+        return graphs
+    if path is None:
         raise FileNotFoundError(
-            f"{name}.pkl not found under {dataset_dir} or {_REPO_DATASETS}"
-            " (regenerating synthetic corpora is ROADMAP A13)")
+            f"{name}.pkl not found under {dataset_dir} or {_REPO_DATASETS}")
     with open(path, "rb") as f:
         graphs = _CorpusUnpickler(f).load()
     if not isinstance(graphs, list):
@@ -83,7 +123,7 @@ def load_dataset(cfg) -> List[HostGraph]:
             return graphs
     if fmt == "nx":
         return load_nx(cfg.dataset.name, cfg.dataset.dir)
-    raise _not_ported(f"dataset format {cfg.dataset.format!r}", "A13")
+    raise _not_ported(f"dataset format {cfg.dataset.format!r}", "A13b")
 
 
 # ----------------------------------------------------------------- splits
@@ -128,9 +168,9 @@ def create_dataset(cfg, rng: Optional[np.random.Generator] = None
                    ) -> List[List[HostGraph]]:
     """Full pipeline (reference create_dataset, loader.py:191-244)."""
     if cfg.dataset.task != "node":
-        raise _not_ported(f"task {cfg.dataset.task!r}", "A13")
+        raise _not_ported(f"task {cfg.dataset.task!r}", "A13b")
     if cfg.dataset.cache_load or cfg.dataset.cache_save:
-        raise _not_ported("the processed-dataset cache", "A13")
+        raise _not_ported("the processed-dataset cache", "A13b")
     rng = rng or np.random.default_rng(cfg.seed)
     t1 = time.time()
     graphs = load_dataset(cfg)
@@ -155,7 +195,7 @@ def create_dataset(cfg, rng: Optional[np.random.Generator] = None
         splits = [[ego_nets(g, radius=radius) for g in part]
                   for part in splits]
     elif cfg.dataset.transform != "none":
-        raise _not_ported(f"transform {cfg.dataset.transform!r}", "A13")
+        raise _not_ported(f"transform {cfg.dataset.transform!r}", "A13b")
     t5 = time.time()
     logging.info(
         "Load: %.4fs, Before split: %.4fs, Split: %.4fs, "
@@ -169,6 +209,8 @@ def set_dataset_info(splits, cfg) -> None:
     g0 = splits[0][0]
     dim_in = int(np.asarray(g0["node_feature"]).shape[-1]) \
         if "node_feature" in g0 else 1
+    for key in cfg.dataset.augment_feature:
+        dim_in += int(np.asarray(g0[key]).shape[-1])
     cfg.share.dim_in = dim_in
     labels = np.concatenate([np.asarray(g["node_label"]).reshape(-1)
                              for part in splits for g in part])
@@ -250,7 +292,7 @@ class GraphLoader:
     def batches(self, epoch: int = 0) -> List[GraphBatch]:
         sample_group = self.cfg.train if self.shuffle else self.cfg.val
         if sample_group.sample_node:
-            raise _not_ported("per-epoch node sampling", "A13")
+            raise _not_ported("per-epoch node sampling", "A13b")
         # with one batch per epoch shuffling cannot change its
         # composition: collate once and reuse
         static = not self.shuffle or len(self) == 1
@@ -350,7 +392,7 @@ def create_loader(splits: List[List[HostGraph]], cfg) -> List[GraphLoader]:
     loader.py:247-260).  Each loader gets its own seeded Generator, as
     in the JAX package."""
     if cfg.train.sampler != "full_batch" or cfg.val.sampler != "full_batch":
-        raise _not_ported("graph samplers", "A13")
+        raise _not_ported("graph samplers", "A13b")
     rngs = [np.random.default_rng([cfg.seed, i])
             for i in range(len(splits))]
     return [GraphLoader(part, cfg, batch_size=cfg.train.batch_size,

@@ -3,7 +3,7 @@
 The port of ``ego_nets`` from graphgym_tpu/data/transforms.py on its
 numpy path (reference models/transform.py:11-39).  The edge-net,
 path-length and negative-sampling transforms belong to other tasks
-(ROADMAP A13).
+(ROADMAP A13b).
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ Usage:
         [--repeat 3] [--mark_done] [gnn.dim_inner 64 ...]
 
 Runs on the first CUDA card unless the config says ``device: cpu``.
-Seed aggregation (``exp/agg``) is not ported yet (ROADMAP A15).
+A synthetic corpus that no pickle holds (ba, ws, scalefree, smallworld,
+ba500, ws500) is regenerated from seed 0 and cached as
+``<dataset.dir>/<name>.torch.pkl``.  Seed aggregation (``exp/agg``) is
+not ported yet (ROADMAP A15a).
 """
 
 from __future__ import annotations

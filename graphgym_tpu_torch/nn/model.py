@@ -73,7 +73,7 @@ def options_from_cfg(cfg) -> GNNOptions:
             "(ROADMAP A9-A11)")
     if cfg.dataset.task != "node":
         raise NotImplementedError(
-            f"task {cfg.dataset.task!r} is not ported yet (ROADMAP A13)")
+            f"task {cfg.dataset.task!r} is not ported yet (ROADMAP A13b)")
     return GNNOptions(layer_type=cfg.gnn.layer_type,
                       dim_in=cfg.share.dim_in, dim_out=cfg.share.dim_out,
                       layers_mp=cfg.gnn.layers_mp,

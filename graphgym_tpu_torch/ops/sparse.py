@@ -1,7 +1,9 @@
-"""COO SpMM, row scatter and the ID-GNN identity-colored projection.
+"""COO SpMM, GCN normalization, row scatter and the ID-GNN
+identity-colored projection.
 
-The port of ``spmm``, ``scatter_add_rows`` and ``apply_id_weights`` from
-graphgym_tpu/ops/sparse.py:25-57 and 128-152.  The JAX package leaves
+The port of ``spmm``, ``degree``, ``inv_sqrt_degree``, ``gcn_norm``,
+``scatter_add_rows`` and ``apply_id_weights`` from
+graphgym_tpu/ops/sparse.py:25-57 and 77-152.  The JAX package leaves
 the COO gather -> scale -> segment reduce and the row scatter to XLA;
 here they are ``index_select``, ``index_add`` and ``scatter_reduce``
 (``index_add`` adds with atomics on the card, in no fixed order).  The
@@ -45,6 +47,40 @@ def spmm(senders: torch.Tensor, receivers: torch.Tensor,
     if reduce == "max":
         return S.segment_max(msg, receivers, num_nodes, mask=edge_mask)
     raise ValueError(f"Unknown reduce: {reduce}")
+
+
+def degree(receivers: torch.Tensor, edge_weight: torch.Tensor,
+           num_nodes: int) -> torch.Tensor:
+    """Weighted in-degree (graphgym_tpu/ops/sparse.py:77-83)."""
+    return S.segment_sum(edge_weight, receivers, num_nodes)
+
+
+def inv_sqrt_degree(deg: torch.Tensor) -> torch.Tensor:
+    """deg^-1/2, 0 where that is not finite (reference
+    TfgIDLayer.py:550-555)."""
+    d = deg.pow(-0.5)
+    return torch.where(torch.isfinite(d), d, d.new_zeros(()))
+
+
+def gcn_norm(senders: torch.Tensor, receivers: torch.Tensor,
+             num_nodes: int):
+    """GCN renormalization D^-1/2 (A + I) D^-1/2 of a unit-weight graph
+    (graphgym_tpu/ops/sparse.py:95-125 at its defaults): one self-loop
+    of weight 1 is appended per node slot, never deduplicated, then each
+    edge weight is scaled by both endpoints' deg^-1/2.  The degrees add
+    with ``index_add``, which on the card adds in no fixed order; with
+    unit weights every partial sum is an exact integer.
+
+    Returns (senders, receivers, normed_edge_weight) with E + N entries
+    (E without the loops)."""
+    loop = torch.arange(num_nodes, dtype=senders.dtype,
+                        device=senders.device)
+    senders = torch.cat([senders, loop])
+    receivers = torch.cat([receivers, loop])
+    ones = torch.ones(senders.shape, dtype=torch.float32,
+                      device=senders.device)
+    dis = inv_sqrt_degree(degree(receivers, ones, num_nodes))
+    return senders, receivers, dis[receivers] * dis[senders]
 
 
 def scatter_add_rows(x: torch.Tensor, index: torch.Tensor,

@@ -34,7 +34,7 @@ def compute_loss(pred: torch.Tensor, true: torch.Tensor,
     if opts.loss_fun != "cross_entropy" or pred.dim() != 2 \
             or true.dim() != 1:
         raise NotImplementedError(
-            "only multi-class cross-entropy is ported (ROADMAP A13)")
+            "only multi-class cross-entropy is ported (ROADMAP A13b)")
     count = mask.float().sum().clamp_min(1.0)
     logp = torch.log_softmax(pred, dim=-1)
     nll = -logp.gather(1, true.long()[:, None])[:, 0]

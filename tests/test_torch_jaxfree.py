@@ -1,4 +1,5 @@
-"""The torch port imports neither jax, flax, optax nor the JAX package.
+"""The torch port imports neither jax, flax, optax, networkx nor the JAX
+package.
 
 Checked in a subprocess: tests/conftest.py imports jax into this one.
 The probe imports every module of the package (pkgutil.walk_packages),
@@ -23,7 +24,7 @@ for name in names:
 print("MODULES:" + ",".join(names))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "graphgym_tpu"))
+                                    "networkx", "graphgym_tpu"))
 print("BAD:" + ",".join(bad))
 """
 
@@ -41,7 +42,9 @@ def test_port_imports_no_jax():
                  "graphgym_tpu_torch.ops.segment",
                  "graphgym_tpu_torch.nn.act", "graphgym_tpu_torch.nn.norm",
                  "graphgym_tpu_torch.ops.cuda.spmm_kernel",
-                 "graphgym_tpu_torch.train.graphed"):
+                 "graphgym_tpu_torch.train.graphed",
+                 "graphgym_tpu_torch.data.synthetic",
+                 "graphgym_tpu_torch.ops.identity"):
         assert name in mods
 
 
