@@ -352,10 +352,16 @@ def dump_cfg(cfg: CfgNode) -> None:
         f.write(cfg.dump())
 
 
-def update_out_dir(cfg: CfgNode, out_dir: str, fname: str) -> None:
-    """results/<cfg-name>/<seed>/ layout (reference config.py:457-464)."""
+def get_parent_dir(out_dir: str, fname: str) -> str:
+    """results/<cfg-name>/, the parent of the seed directories."""
     fname = os.path.basename(fname)
     if fname.endswith(".yaml"):
         fname = fname[:-5]
-    cfg.out_dir = os.path.join(out_dir, fname, str(cfg.seed))
+    return os.path.join(out_dir, fname)
+
+
+def update_out_dir(cfg: CfgNode, out_dir: str, fname: str) -> None:
+    """results/<cfg-name>/<seed>/ layout (reference config.py:457-464)."""
+    cfg.out_dir = os.path.join(get_parent_dir(out_dir, fname),
+                               str(cfg.seed))
     os.makedirs(cfg.out_dir, exist_ok=True)

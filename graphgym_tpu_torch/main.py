@@ -7,8 +7,11 @@ Usage:
 Runs on the first CUDA card unless the config says ``device: cpu``.
 A synthetic corpus that no pickle holds (ba, ws, scalefree, smallworld,
 ba500, ws500) is regenerated from seed 0 and cached as
-``<dataset.dir>/<name>.torch.pkl``.  Seed aggregation (``exp/agg``) is
-not ported yet (ROADMAP A15a).
+``<dataset.dir>/<name>.torch.pkl``.  Every layer type of the packed
+paths runs, the torch path's (gcnidconv, ginconv, ...: pre-MP, the
+BatchNorm wrapper, the node head) and the Tfg one's (Tfg-idgcn, ...).
+After the seeds, ``exp/agg.agg_runs`` writes their aggregate under
+``<out_dir>/<cfg-name>/agg/``.
 """
 
 from __future__ import annotations
@@ -70,14 +73,24 @@ def run_single(cfg, out_dir_parent: str, cfg_file: str):
 
 
 def main(argv=None):
-    from graphgym_tpu_torch.config import load_cfg
+    from graphgym_tpu_torch.config import get_parent_dir, load_cfg
+    from graphgym_tpu_torch.exp.agg import agg_runs
 
     args = parse_args(argv)
     results = []
     for i in range(args.repeat):
         cfg = load_cfg(args.cfg_file, args.opts)
         cfg.seed = cfg.seed + i
-        results.append(run_single(cfg, cfg.out_dir, args.cfg_file))
+        out_dir_parent = cfg.out_dir
+        results.append(run_single(cfg, out_dir_parent, args.cfg_file))
+    # aggregate across seeds (reference main.py:60-61), with the metric
+    # rules of graphgym_tpu/main.py:90-100; the tensorboard copy
+    # (cfg.tensorboard_agg) is not ported (ROADMAP A15b)
+    metric = cfg.metric_best if cfg.metric_best != "auto" \
+        else ("accuracy" if "classification" in cfg.dataset.task_type
+              else "mae")
+    agg_runs(get_parent_dir(out_dir_parent, args.cfg_file), metric=metric,
+             metric_agg=cfg.metric_agg)
     if args.mark_done:
         os.rename(args.cfg_file, args.cfg_file + "_done")
     return results

@@ -1,9 +1,11 @@
 """Activation table (the port of graphgym_tpu/nn/act.py; reference
 graphgym/models/act.py:6-16).
 
-Every entry is a function.  The learnable PReLU is a module with its
-own parameter and is not ported yet (ROADMAP A11); ``prelu`` here is the
-JAX package's function fallback, a leaky ReLU of slope 0.25.
+Every entry is a function.  The learnable ``PReLU`` is a module with
+its own parameter, which ``GeneralLayer`` builds for act ``prelu``; the
+table's ``prelu`` is the JAX package's function fallback, a leaky ReLU
+of slope 0.25, which the skip stage applies after its merge
+(graphgym_tpu/nn/model.py:204,220).
 """
 
 from __future__ import annotations
@@ -12,12 +14,31 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from graphgym_tpu_torch import register
 
 
 def _lrelu(slope: float):
     return functools.partial(F.leaky_relu, negative_slope=slope)
+
+
+class PReLU(nn.Module):
+    """Learnable-slope PReLU (graphgym_tpu/nn/act.py:19-29; torch
+    nn.PReLU semantics): one shared slope, initialised to 0.25, the
+    parameter ``slope`` of shape [1] (flax ``PReLU_0/slope``).
+
+    x > 0 gives x, else slope * x: the JAX layer's values and slope
+    gradient.  At x == 0 exactly its input gradient is slope times the
+    upstream one, where the JAX ``where(x >= 0, ...)`` passes it whole;
+    where dropout zeroed an entry, its upstream gradient is 0 too."""
+
+    def __init__(self):
+        super().__init__()
+        self.slope = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.slope)
 
 
 class _ActDict(dict):

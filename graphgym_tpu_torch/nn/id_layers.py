@@ -3,8 +3,10 @@
 Each layer carries ``kernel``, applied to all nodes, and ``id_kernel``,
 applied additionally to the ego-net center rows in
 ``graph.node_id_index`` (reference contrib/layer/idconv.py:62-67).
-The port of graphgym_tpu/nn/id_layers.py: GCNIDConv, TfgIDSAGE,
-TfgIDGAT and GINIDConv on the packed path.
+The port of graphgym_tpu/nn/id_layers.py on the packed path: GCNIDConv,
+SAGEIDConv, GATIDConv and GINIDConv (the torch path's gcnidconv,
+sageidconv, gatidconv and ginidconv; GCNIDConv and GINIDConv also serve
+Tfg-idgcn and Tfg-idgin), TfgIDSAGE and TfgIDGAT.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import torch
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.nn.layers import (TfgGATConv, _gin_mlp, gin_mlp_init,
-                                          glorot, packed_spmm, zeros)
+from graphgym_tpu_torch.nn.layers import (GATConv, TfgGATConv, _gin_mlp,
+                                          gin_mlp_init, glorot, packed_spmm,
+                                          zeros)
 from graphgym_tpu_torch.ops import sparse as sp
 
 
@@ -47,6 +50,50 @@ class GCNIDConv(nn.Module):
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
+
+
+class SAGEIDConv(nn.Module):
+    """torch-style ID-SAGE (id_layers.py:108-142; reference
+    idconv.py:192-263): the neighbour mean concatenated with self, then
+    the id-colored projection of the concatenation:
+
+      a = [x || mean_nb(x)];  h = a W;  h[id] += a[id] W_id;  + b
+
+    (the JAX layer's concat_self=True, normalize=False, as make_conv
+    builds it).  The JAX layer takes the mean through the COO ``spmm``;
+    here it is K1 on the 'mean' pack, the same function (TfgIDSAGE's
+    packed mean, whose fallback is that COO mean), so the card adds no
+    float atomics.  A batch without the pack raises."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = True,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.kernel = glorot((2 * dim_in, dim_out), generator)
+        self.id_kernel = glorot((2 * dim_in, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        idx, id_mask = _id_index(graph)
+        a = torch.cat([x, packed_spmm(graph, "mean", x)], -1)
+        h = sp.apply_id_weights(a, idx, self.kernel, self.id_kernel,
+                                id_mask)
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
+class GATIDConv(GATConv):
+    """torch-style ID-GAT (id_layers.py:184-255; reference
+    idconv.py:266-347): GATConv's additive attention over id-colored
+    features, h = x W with h[id] += x[id] W_id."""
+
+    has_id_kernel = True
+
+    def project(self, graph: GraphBatch) -> torch.Tensor:
+        idx, id_mask = _id_index(graph)
+        return sp.apply_id_weights(graph.node_feat, idx, self.kernel,
+                                   self.id_kernel, id_mask)
 
 
 class TfgIDSAGE(nn.Module):
@@ -102,8 +149,10 @@ class GINIDConv(nn.Module):
       out = MLP(h);  out[id] += MLP_id(h[id])
 
     with eps = 0 (the JAX layer's default, which no model changes).
-    With ``mlp_bn`` each MLP ends in BN + ReLU: MLP's BN over the real
-    nodes (node_mask), MLP_id's over the real ego centers (id_mask)."""
+    With ``mlp_bn`` (Tfg-idgin) each MLP ends in BN + ReLU: MLP's BN
+    over the real nodes (node_mask), MLP_id's over the real ego centers
+    (id_mask).  The torch path's ginidconv has no BN and keeps gain 1
+    (graphgym_tpu/nn/model.py:79), unlike ginconv's sqrt(2)."""
 
     def __init__(self, dim_in: int, dim_out: int, mlp_bn: bool = False, *,
                  generator: torch.Generator):

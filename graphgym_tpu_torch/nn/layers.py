@@ -1,31 +1,50 @@
 """Layer building blocks of the port (graphgym_tpu/nn/layers.py subset):
-the glorot initializer, the packed SpMM and packed attention dispatch,
-the packed-branch GCN, SAGE and GIN convs with the GIN MLP, the Tfg
-dot-product GAT and the GeneralLayer wrapper.  Modules take and return
-a GraphBatch whose arrays are tensors.
+the glorot initializer with its gain, the packed SpMM and packed
+attention dispatch, ``Linear``, ``MLP`` and the ``GeneralLayer``
+wrapper (conv, BatchNorm, dropout, activation), the
+packed-branch GCN, SAGE and GIN convs with the GIN MLP, the additive
+``GATConv`` and the Tfg dot-product GAT.  Modules take and return a
+GraphBatch whose arrays are tensors.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.nn.act import act_dict
+from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
     pack_rows, packed_node_scores, packed_scaled_dot, packed_segment_softmax,
     segment_matmul_headed_vjp, spmm_pack_vjp, take_padded)
 
 
-def glorot(shape, generator: torch.Generator) -> nn.Parameter:
-    """TF/flax glorot: uniform in +-sqrt(6 / (fan_in + fan_out)) for a
-    [fan_in, fan_out] kernel (``variance_scaling(1, fan_avg, uniform)``,
-    graphgym_tpu/nn/layers.py:48)."""
+# xavier gain of the torch path's nn.Linear equivalents (Linear, MLP,
+# ginconv's MLP; reference init.py:6-16)
+LINEAR_GAIN = math.sqrt(2)
+
+
+def glorot(shape, generator: torch.Generator,
+           gain: float = 1.0) -> nn.Parameter:
+    """xavier_uniform with a gain: uniform in +-gain * sqrt(6 / (fan_in
+    + fan_out)), the fans of flax's ``variance_scaling(gain^2, fan_avg,
+    uniform)`` (graphgym_tpu/nn/layers.py:48-61): fan_in = shape[-2] and
+    fan_out = shape[-1], each times the product of the leading axes.
+    gain 1 is TF/flax glorot; the torch path's nn.Linear equivalents
+    take LINEAR_GAIN."""
     w = torch.empty(shape)
-    nn.init.xavier_uniform_(w, generator=generator)
+    if len(shape) == 2:
+        nn.init.xavier_uniform_(w, gain=gain, generator=generator)
+    else:
+        field = math.prod(shape[:-2])
+        bound = gain * math.sqrt(6.0 / ((shape[-2] + shape[-1]) * field))
+        w.uniform_(-bound, bound, generator=generator)
     return nn.Parameter(w)
 
 
@@ -155,7 +174,7 @@ class TfgGATConv(nn.Module):
             raise NotImplementedError(
                 f"{type(self).__name__}: {heads} heads do not divide "
                 f"{dim_out}; the non-packed attention branch is not "
-                "ported yet (ROADMAP A10)")
+                "ported yet (ROADMAP A10b)")
         if att_dropout > 0 and dropout_generator is None:
             raise ValueError("att_dropout > 0 needs a dropout_generator")
         self.heads = heads
@@ -184,6 +203,66 @@ class TfgGATConv(nn.Module):
             graph, q.view(n, self.heads, dh), scaled_dot(dh, x.dtype),
             values=v.view(n, self.heads, dh),
             keys=k.view(n, self.heads, dh),
+            dropout_rate=self.att_dropout if self.training else 0.0,
+            generator=self.dropout_generator).reshape(n, dim_out)
+        if self.bias is not None:
+            out = out + self.bias
+        return graph.replace(node_feat=out)
+
+
+class GATConv(nn.Module):
+    """PyG-style additive-attention GAT (layers.py:336-412; reference
+    layer.py:155-162):
+
+      h = x W (heads of dim_out / H columns)
+      e_ij = leakyrelu(a_l . h_i + a_r . h_j), alpha = edge softmax
+      out_i = sum_j alpha_ij h_j, heads concatenated; + b
+
+    The score decomposes per endpoint, so only the [N, H] node scores
+    are gathered per slot (``packed_attention``'s node_scores branch,
+    the JAX layer's packed branch): self-loops are those of the 'att'
+    pack, one per real node.  The non-packed branch, and heads that do
+    not divide dim_out, are ROADMAP A10b."""
+
+    has_id_kernel = False
+
+    def __init__(self, dim_in: int, dim_out: int, heads: int = 1,
+                 use_bias: bool = False, negative_slope: float = 0.2,
+                 att_dropout: float = 0.0, *, generator: torch.Generator,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if dim_out % heads != 0:
+            raise NotImplementedError(
+                f"{type(self).__name__}: {heads} heads do not divide "
+                f"{dim_out}; the non-packed attention branch is not "
+                "ported yet (ROADMAP A10b)")
+        if att_dropout > 0 and dropout_generator is None:
+            raise ValueError("att_dropout > 0 needs a dropout_generator")
+        self.heads = heads
+        self.negative_slope = negative_slope
+        self.att_dropout = att_dropout
+        self.dropout_generator = dropout_generator
+        per_head = dim_out // heads
+        self.kernel = glorot((dim_in, dim_out), generator)
+        if self.has_id_kernel:
+            self.id_kernel = glorot((dim_in, dim_out), generator)
+        self.att = glorot((1, heads, 2 * per_head), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def project(self, graph: GraphBatch) -> torch.Tensor:
+        return graph.node_feat @ self.kernel
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        h = self.project(graph)
+        n, dim_out = h.shape
+        per_head = dim_out // self.heads
+        h = h.view(n, self.heads, per_head)
+        s_dst = (h * self.att[:, :, :per_head]).sum(-1)     # [N, H]
+        s_src = (h * self.att[:, :, per_head:]).sum(-1)
+        out = packed_attention(
+            graph, h, node_scores=(s_dst, s_src),
+            score_transform=functools.partial(
+                F.leaky_relu, negative_slope=self.negative_slope),
             dropout_rate=self.att_dropout if self.training else 0.0,
             generator=self.dropout_generator).reshape(n, dim_out)
         if self.bias is not None:
@@ -245,14 +324,19 @@ class SAGEConv(nn.Module):
 
 
 def gin_mlp_init(mod: nn.Module, prefix: str, dim_in: int, dim_out: int,
-                 with_bn: bool, generator: torch.Generator) -> None:
+                 with_bn: bool, generator: torch.Generator,
+                 gain: float = 1.0) -> None:
     """Register the GIN MLP's parameters on ``mod`` under the flax
-    names: <prefix>_kernel1/_bias1/_kernel2/_bias2 and, with BN, the
-    submodule <prefix>_bn (its eps and momentum are the JAX layer's
-    defaults, not cfg.bn's, as at layers.py:568)."""
-    setattr(mod, f"{prefix}_kernel1", glorot((dim_in, dim_out), generator))
+    names: <prefix>_kernel1/_bias1/_kernel2/_bias2 (kernels drawn at
+    ``gain``: LINEAR_GAIN for the torch path's ginconv, whose MLP is
+    nn.Linear, layers.py:551-562) and, with BN, the submodule
+    <prefix>_bn (its eps and momentum are the JAX layer's defaults, not
+    cfg.bn's, as at layers.py:568)."""
+    setattr(mod, f"{prefix}_kernel1",
+            glorot((dim_in, dim_out), generator, gain))
     setattr(mod, f"{prefix}_bias1", zeros((dim_out,)))
-    setattr(mod, f"{prefix}_kernel2", glorot((dim_out, dim_out), generator))
+    setattr(mod, f"{prefix}_kernel2",
+            glorot((dim_out, dim_out), generator, gain))
     setattr(mod, f"{prefix}_bias2", zeros((dim_out,)))
     if with_bn:
         setattr(mod, f"{prefix}_bn", MaskedBatchNorm(dim_out))
@@ -282,13 +366,15 @@ class GINConv(nn.Module):
     other cfg.gnn.gin_agg ablations take the COO SpMM (ROADMAP A0)."""
 
     def __init__(self, dim_in: int, dim_out: int, mlp_bn: bool = False,
-                 agg: str = "sum", *, generator: torch.Generator):
+                 agg: str = "sum", mlp_gain: float = 1.0, *,
+                 generator: torch.Generator):
         super().__init__()
         if agg != "sum":
             raise NotImplementedError(
                 f"GINConv agg {agg!r} needs the COO SpMM, which is not "
                 "ported yet (ROADMAP A0)")
-        gin_mlp_init(self, "mlp", dim_in, dim_out, mlp_bn, generator)
+        gin_mlp_init(self, "mlp", dim_in, dim_out, mlp_bn, generator,
+                     mlp_gain)
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
@@ -297,21 +383,99 @@ class GINConv(nn.Module):
                                                 graph.node_mask))
 
 
-class GeneralLayer(nn.Module):
-    """conv + act wrapper (reference layer.py:16-47) for the Tfg path,
-    which has no BatchNorm, dropout or L2 norm (nn/model.py:347-371)."""
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax nn.Dropout in train mode: each entry kept with probability
+    1 - rate, from a uniform draw of ``generator``, and scaled by 1 /
+    (1 - rate); dropped entries are 0."""
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
-    def __init__(self, layer: nn.Module, has_act: bool = True,
-                 act: str = "relu"):
+
+class GeneralLayer(nn.Module):
+    """conv + BatchNorm + dropout + act wrapper
+    (graphgym_tpu/nn/layers.py:204-234; reference layer.py:16-47):
+    ``layer``, then ``bn`` (MaskedBatchNorm over the real nodes), then
+    dropout (train mode only, masks from ``dropout_generator``), then
+    the activation (act ``prelu`` is the learnable ``PReLU`` module
+    ``act``).  The JAX wrapper's own L2 norm is set by no caller: the
+    stages apply theirs.  The Tfg path's wrapper is a conv and its
+    activation."""
+
+    def __init__(self, layer: nn.Module, dim_out: Optional[int] = None,
+                 has_act: bool = True, has_bn: bool = False,
+                 dropout: float = 0.0, act: str = "relu",
+                 bn_eps: float = 1e-5, bn_mom: float = 0.1,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
-        if act == "prelu":
-            raise NotImplementedError(
-                "the learnable PReLU is not ported yet (ROADMAP A11)")
+        if dropout > 0 and dropout_generator is None:
+            raise ValueError("dropout > 0 needs a dropout_generator")
         self.layer = layer
-        self.act = act_dict[act] if has_act else None
+        self.bn = (MaskedBatchNorm(dim_out, eps=bn_eps, momentum=bn_mom)
+                   if has_bn else None)
+        self.dropout = dropout
+        self.dropout_generator = dropout_generator
+        if has_act and act == "prelu":
+            self.act = PReLU()
+        else:
+            self.act = act_dict[act] if has_act else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         graph = self.layer(graph)
+        x = graph.node_feat
+        if self.bn is not None:
+            x = self.bn(x, graph.node_mask)
+        if self.dropout > 0 and self.training:
+            x = dropout(x, self.dropout, self.dropout_generator)
         if self.act is not None:
-            graph = graph.replace(node_feat=self.act(graph.node_feat))
+            x = self.act(x)
+        return graph.replace(node_feat=x)
+
+
+class Linear(nn.Module):
+    """Linear layer on node features (graphgym_tpu/nn/layers.py:183-201;
+    reference layer.py:72-82), its kernel drawn at LINEAR_GAIN."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.kernel = glorot((dim_in, dim_out), generator, LINEAR_GAIN)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        h = graph.node_feat @ self.kernel
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
+class MLP(nn.Module):
+    """MLP on node features (graphgym_tpu/nn/layers.py:237-259;
+    reference layer.py:109-132): num_layers - 1 hidden Linear + BN +
+    act blocks (width ``dim_inner``, else the input's), then a plain
+    Linear; no dropout, as no caller of the JAX MLP sets it.
+    ``layers`` holds them all, each a GeneralLayer around its Linear
+    (the last with no BN or act), as flax names them: ``Linear_<j>``
+    and ``GeneralLayer_<j>``."""
+
+    def __init__(self, dim_in: int, dim_out: int, num_layers: int = 2,
+                 dim_inner: Optional[int] = None, use_bias: bool = True,
+                 act: str = "relu", *, generator: torch.Generator):
+        super().__init__()
+        layers = []
+        for _ in range(num_layers - 1):
+            d = dim_inner if dim_inner is not None else dim_in
+            layers.append(GeneralLayer(
+                Linear(dim_in, d, generator=generator), d, has_act=True,
+                has_bn=True, act=act))
+            dim_in = d
+        layers.append(GeneralLayer(
+            Linear(dim_in, dim_out, use_bias=use_bias, generator=generator),
+            has_act=False))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        for layer in self.layers:
+            graph = layer(graph)
         return graph

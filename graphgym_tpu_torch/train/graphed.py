@@ -134,7 +134,8 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def _cuda_generators(model: torch.nn.Module) -> tuple:
-    """The CUDA generators the model's modules hold (att-dropout)."""
+    """The CUDA generators the model's modules hold (dropout and
+    att-dropout)."""
     found = {}
     for mod in model.modules():
         for v in vars(mod).values():
@@ -276,14 +277,16 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_opts: LossOptions, scheduler=None, *,
                     max_programs: int = 8, pool=None,
                     eager: bool = False) -> GraphedStep:
-    """The train step: forward, masked loss + kernel L2, backward and
-    the Adam update as one program; the lr schedule steps after it, on
-    the host."""
+    """The train step: forward, masked loss (+ kernel L2 on the Tfg
+    path), backward and the Adam update (BatchNorm running statistics
+    updated in place) as one program; the lr schedule steps after it,
+    on the host."""
     @_quiet_capturable
     def program(batch: GraphBatch) -> StepOut:
         pred, label, mask = model(batch)
         loss, score = compute_loss(pred, label, mask, loss_opts)
-        loss = loss + kernel_l2(model, loss_opts.l2_kernel)
+        if loss_opts.l2_kernel:                 # the Tfg path's term
+            loss = loss + kernel_l2(model, loss_opts.l2_kernel)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -1,8 +1,9 @@
 """Training loop: the epoch driver around the train and eval steps.
 
 The port of graphgym_tpu/train/loop.py for one device (reference
-graphgym/train.py:15-155).  A train step is the forward, masked loss +
-kernel L2, backward and Adam update, one captured CUDA graph on the
+graphgym/train.py:15-155).  A train step is the forward, masked loss
+(+ kernel L2 on the Tfg path; Adam's weight decay on the torch path),
+backward and Adam update, one captured CUDA graph on the
 card (train/graphed.py), then one per-step learning-rate step; the
 epoch driver brings back the scalar loss and the supervised scores for
 logging.

@@ -44,7 +44,9 @@ def test_port_imports_no_jax():
                  "graphgym_tpu_torch.ops.cuda.spmm_kernel",
                  "graphgym_tpu_torch.train.graphed",
                  "graphgym_tpu_torch.data.synthetic",
-                 "graphgym_tpu_torch.ops.identity"):
+                 "graphgym_tpu_torch.ops.identity",
+                 "graphgym_tpu_torch.exp.agg",
+                 "graphgym_tpu_torch.nn.heads"):
         assert name in mods
 
 
