@@ -7,8 +7,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   1. device   — nvidia-smi name and power limit;
   2. build    — nvcc builds the kernels, one library per source
                 (csrc/packed_spmm.cu, csrc/packed_segment.cu,
-                csrc/packed_attention.cu, csrc/packed_sddmm.cu), side by
-                side;
+                csrc/packed_attention.cu, csrc/packed_sddmm.cu,
+                csrc/packed_max.cu), side by side; then three processes
+                start regenerating the synthetic corpora (ba, and the
+                design grid's scalefree and smallworld), beside the
+                phases up to the ba paths;
   ID-GCN Full / ws (configs/idgcn_ws.yaml), kernel K1:
   3. kernel   — at the shapes of the train batch (the real 'gcn' packs
                 from the port's loader, D = 128): kernel vs its plain
@@ -112,9 +115,10 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                  (gatconvFast, ID-GAT ba); no other launch;
     profile_*  — as 6, with the peak of device memory (ID-GCN and ID-GAT
                  on ba) and repeat_steps; graphed_* as 6b.
-  corpus       — before the ba paths: regenerates ba (256 asked, seed 0,
-                 no networkx) into the git-ignored build directory
-                 (CORPUS_DIR) through load_nx, timed; fails unless it is
+  corpus       — before the ba paths: waits for ba (256 asked, seed 0,
+                 no networkx), regenerated into the git-ignored build
+                 directory (CORPUS_DIR) through load_nx by its process,
+                 and reports its seconds there; fails unless it is
                  the corpus the CPU tests hold to the JAX package's (116
                  graphs, BA_DIGEST); the longest rows of ID-GCN's 'gcn'
                  and ID-GIN's 'plain' train packs.
@@ -139,6 +143,34 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   rule against 0.99375 +- 0.0006;
   full_gcnid_ws — the same for gnn.layer_type gcnidconv, reported only
                   (no reference number).
+  kernel_max    — the segmented max (csrc/packed_max.cu; XLA's
+                  segment_max in the JAX package, no Pallas kernel),
+                  forward and backward, against its plain version on the
+                  CPU (out and tie counts bitwise, dx at F32_TOL), on
+                  seeded normal x and on x rounded to three levels (ties
+                  in most columns), on ID-GIN's ws ego 'plain' pack
+                  (49,152 rows) and ba's (rows of up to 48 slots), at
+                  D = 128 and 256; times beside the bound, the launch
+                  floor and scatter_reduce(amax) over gathered messages.
+  design_corpus — waits for the scalefree and smallworld corpora their
+                  processes regenerated (DESIGN_CORPUS_DIR); fails unless
+                  they are the ba corpus and datasets/ws.pkl, edge for
+                  edge.
+  The design space (grids/design/round1.txt's synthetic node chunks) on
+  GraphGym's default conv generalconv at dim_inner 256, the aggregation
+  after the projection: design_sf (results/design_v1_grid_round1's
+  point: scalefree, pagerank feature, batch 64, 3 pre-MP and 8 MP
+  layers, PReLU, agg add: K1 16 per train step and 8 per eval batch, all
+  at D = 256, 'plain' pack), design_sw_mean (smallworld, one-hot
+  feature, skipconcat, no BN, the contrib example's swish, dropout 0.3,
+  agg mean, SGD: K1 8 and 4 at D = 256, 'mean' pack), design_sf_max
+  (scalefree, constant feature, skipsum, dropout 0.6, agg max: the
+  max's forward 6 and backward 6 per train step, forward 6 per eval
+  batch, no K1), and idconv_ws (idgcn_ws with gnn.layer_type idconv,
+  the fifth ID-GNN Full variant: K1 6 and 3 at D = 128); each through
+  drive_path's phases (kernel_design_sf_max holds the max on its train
+  pack; the model check gives the CPU the card's max choices, SameMax).
+  full_design_sf — design_sf for its 100 epochs, 3 seeds, reported.
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -175,14 +207,18 @@ at H = 8 on make_graph's 'att' pack; the SDDMM on ws and on that pack;
 K1 at D = 128 and D = 11 on the Fast packs and at D = 128 and D = 1 on
 ba's; K3, its row sums and the SDDMM on gatconvFast_ws and ID-GAT ba;
 K1 on each torch-path K1 grid point's pack, K3, its row sums and the
-SDDMM on gatid_ba's),
+SDDMM on gatid_ba's; K1 at D = 256 on design_sf's and design_sw_mean's
+packs and at D = 128 on idconv_ws's, the max forward and backward on
+design_sf_max's pack and on kernel_max's),
 and last the result line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -196,6 +232,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 _PHASE = ["import"]   # the phase running now, named in a failure line
+T0 = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -238,6 +275,22 @@ CORPUS_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build",
 BA_GRAPHS = 116
 BA_DIGEST = ("fc3beb9b7b0effd6f75f3110d5119f3d"
              "570e40ab93423ced0554a58984554a40")
+# the design grid's corpora (scalefree and smallworld: the ba and ws
+# generators under other names), regenerated beside the earlier phases
+DESIGN_CORPUS_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc",
+                                 "build", "design_corpus")
+CHILDREN = []   # processes this script starts, killed at its exit
+# the design_v1 point of results/design_v1_grid_round1 (scalefree, node
+# task, generalconv at 256): design_sf's and full_design_sf's overrides
+DESIGN_SF = ("dataset.format", "nx", "dataset.name", "scalefree",
+             "dataset.task", "node", "dataset.transductive", "True",
+             "dataset.augment_feature", "['node_pagerank']",
+             "dataset.augment_label", "node_clustering_coefficient",
+             "train.batch_size", "64", "gnn.layers_pre_mp", "3",
+             "gnn.layers_mp", "8", "gnn.layers_post_mp", "1",
+             "gnn.stage_type", "stack", "gnn.batchnorm", "True", "gnn.act",
+             "prelu", "gnn.dropout", "0.0", "gnn.agg", "add",
+             "optim.optimizer", "adam", "optim.base_lr", "0.01")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -261,9 +314,11 @@ def begin(name: str) -> None:
 
 
 def phase(name: str, **kw) -> None:
-    """One phase's line, on stdout and appended to OUT/phases.jsonl (the
-    full-length runs' logs push early lines out of a short tail)."""
-    line = json.dumps({"phase": name, **kw})
+    """One phase's line, with the seconds since the script started, on
+    stdout and appended to OUT/phases.jsonl (the full-length runs' logs
+    push early lines out of a short tail)."""
+    line = json.dumps({"phase": name,
+                       "at_s": round(time.perf_counter() - T0, 1), **kw})
     print(line, flush=True)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "phases.jsonl"), "a") as f:
@@ -914,6 +969,105 @@ def longest_rows(pack: K.PackedCSR) -> dict:
                 rows_over_32_slots=int((lengths > 32).sum()))
 
 
+def max_floor(n: int):
+    """The launch floor under the segmented max (csrc/packed_max.cu,
+    packed_max_floor): an empty kernel over the grid the max's forward
+    and backward take for n rows.  Counts no launch."""
+    fn = K.library("packed_max").packed_max_floor
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(n, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"max floor launch: CUDA error {err}")
+    return launch
+
+
+def max_messages(pack: K.PackedCSR, x: torch.Tensor):
+    """The segmented max's messages w * x[sender] on the slots it takes
+    (weight != 0, sender a row of x), and their rows."""
+    senders, w = pack.senders.reshape(-1).long(), pack.weights.reshape(-1)
+    live = (w != 0) & (senders < x.shape[0])
+    return (x.index_select(0, senders[live]) * w[live][:, None],
+            K.pack_rows(pack).reshape(-1)[live])
+
+
+def check_max_kernel(packs, n: int, d: int, device) -> dict:
+    """The segmented max (csrc/packed_max.cu) against its plain version
+    on the CPU, f32, at width d on the fwd pack and its backward on the
+    bwd pack: on seeded normal x and on x rounded to three levels
+    (-1, 0, 1: ties in most columns, which a model check on random
+    features never sees).  The forward's out and tie counts bitwise (a
+    max is exact), dx at F32_TOL (the CPU's index_add_ sums in slot
+    order too; ``bwd_bitwise`` says whether it was exact); two launches
+    bitwise equal.  Times of both kernels, the plain versions and, for
+    the forward, scatter_reduce(amax) over messages gathered before the
+    timing (one library call, the gather not timed), beside the bound
+    and the launch floor: the forward reads x, the pack's 8 bytes on
+    each slot of the row ranges and row_range, and writes out and the
+    tie counts; the backward reads x, g, out and the counts, the bwd
+    pack and its row_range, and writes dx."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    fwd, bwd = packs
+    cpu_fwd, cpu_bwd = (K.PackedCSR(*(a.cpu() for a in p)) for p in packs)
+    x = torch.randn(n, d, generator=gen, device=device)
+    g = torch.randn(n, d, generator=gen, device=device)
+    errs, fwd_errs, ties = {}, {}, {}
+    for case, xin in (("random", x), ("tied", x.round().clamp(-1, 1))):
+        out, cnt = K.packed_max(fwd, xin)
+        dx = K.packed_max_bwd(bwd, xin, g, out, cnt)
+        torch.cuda.synchronize()
+        want, want_cnt = K.packed_max_plain(cpu_fwd, xin.cpu())
+        want_dx = K.packed_max_bwd_plain(cpu_bwd, xin.cpu(), g.cpu(), want,
+                                         want_cnt)
+        if not (torch.equal(out.cpu(), want)
+                and torch.equal(cnt.cpu(), want_cnt)):
+            fail(f"max {case} d={d}: forward differs from the plain "
+                 f"version by {(out.cpu() - want).abs().max().item()}, "
+                 f"tie counts by {(cnt.cpu() - want_cnt).abs().max()}")
+        if not torch.allclose(dx.cpu(), want_dx, **F32_TOL):
+            fail(f"max {case} d={d}: backward vs plain max err "
+                 f"{(dx.cpu() - want_dx).abs().max().item()}")
+        again = K.packed_max(fwd, xin)
+        if not (torch.equal(again[0], out) and torch.equal(again[1], cnt)
+                and torch.equal(K.packed_max_bwd(bwd, xin, g, out, cnt),
+                                dx)):
+            fail(f"max {case} d={d}: two launches differ")
+        errs[case] = (dx.cpu() - want_dx).abs().max().item()
+        fwd_errs[case] = (out.cpu() - want).abs().max().item()
+        ties[case] = dict(tied_entries=int((cnt > 1).sum()),
+                          most_tied=int(cnt.max()),
+                          bwd_bitwise=torch.equal(dx.cpu(), want_dx))
+    out, cnt = K.packed_max(fwd, x)
+    msg, rows = max_messages(fwd, x)
+    index = rows[:, None].expand(-1, d)
+
+    def library():
+        return torch.zeros(n, d, device=device).scatter_reduce_(
+            0, index, msg, "amax", include_self=False)
+    if not torch.equal(library(), out):
+        fail(f"max d={d}: scatter_reduce(amax) differs from the kernel")
+    floor = time_calls({"floor": max_floor(n)}, bound_ms=1e-9)[0]["floor"]
+    nd4 = n * d * 4
+    ranges = fwd.row_range.numel() * 4
+    f_slots, b_slots = real_slots_of(fwd), real_slots_of(bwd)
+    fwd_t = bounded_times(
+        {"kernel": lambda: K.packed_max_cuda(fwd, x),
+         "plain": lambda: K.packed_max_plain(fwd, x), "library": library},
+        moved=3 * nd4 + f_slots * 8 + ranges, flops=2 * f_slots * d)
+    bwd_t = bounded_times(
+        {"kernel": lambda: K.packed_max_bwd_cuda(bwd, x, g, out, cnt),
+         "plain": lambda: K.packed_max_bwd_plain(bwd, x, g, out, cnt)},
+        moved=5 * nd4 + b_slots * 8 + ranges, flops=4 * b_slots * d)
+    return dict(width=d, ties=ties, slots=f_slots,
+                fwd=dict(max_abs_err=max(fwd_errs.values()), floor_ms=floor,
+                         library="scatter_reduce amax, messages gathered "
+                                 "before", **fwd_t),
+                bwd=dict(max_abs_err=max(errs.values()), floor_ms=floor,
+                         errs=errs, **bwd_t))
+
+
 def median_iqr(values) -> dict:
     """The benchmark's median and IQR, unrounded, and the values."""
     return dict(**B._stats(values, ndigits=None), values=list(values))
@@ -1290,6 +1444,79 @@ class SameKinks(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+class CardMax:
+    """Records each segmented max the card runs (``K.packed_max``, which
+    PackedMaxFn calls), in call order: its input, out and tie counts."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.real = K.packed_max
+
+        def record(pack, x):
+            out, cnt = self.real(pack, x)
+            self.calls.append((x.detach().cpu(), out.cpu(), cnt.cpu()))
+            return out, cnt
+        K.packed_max = record
+        return self
+
+    def __exit__(self, *exc):
+        K.packed_max = self.real
+
+
+class SameMax:
+    """Runs the CPU reference's segmented maxes with the card's
+    decisions, the max's kinks as SameKinks shares ReLU's: the i-th
+    max's out must match the card's i-th at LOGIT_TOL's rtol and its
+    atol times the call's largest |out| (else fail), and its backward
+    takes the card's input, out and tie counts, so it credits the slots
+    the card's max took.  Two f32 programs may break a near tie (two
+    messages within rounding of each other) differently, and there the
+    gradient moves a whole upstream entry from one sender to another,
+    which is no difference of the programs.  ``flips`` counts the
+    (slot, column) pairs where the CPU's own choice differs."""
+
+    def __init__(self, card_calls: list):
+        self.card = card_calls
+        self.calls = self.flips = 0
+        self.out_max_err = 0.0
+        self.by_out = {}
+
+    def __enter__(self):
+        self.real_max, self.real_bwd = K.packed_max, K.packed_max_bwd
+
+        def same_max(pack, x):
+            if self.calls == len(self.card):
+                fail(f"the CPU ran more than the card's {self.calls} maxes")
+            xc, oc, cc = self.card[self.calls]
+            self.calls += 1
+            out, cnt = self.real_max(pack, x)
+            atol = LOGIT_TOL["atol"] * max(1.0, oc.abs().max().item())
+            if out.shape != oc.shape or not torch.allclose(
+                    out, oc, rtol=LOGIT_TOL["rtol"], atol=atol):
+                fail(f"max {self.calls - 1} card vs CPU: max err "
+                     f"{(out - oc).abs().max().item()}")
+            self.out_max_err = max(self.out_max_err,
+                                   (out - oc).abs().max().item())
+            (msg, rows), (msg_c, _) = (max_messages(pack, v)
+                                       for v in (x, xc))
+            self.flips += int(((msg == out.index_select(0, rows))
+                               != (msg_c == oc.index_select(0, rows)))
+                              .sum())
+            self.by_out[out.data_ptr()] = (xc, oc, cc)
+            return out, cnt
+
+        def same_bwd(bwd_pack, x, g, out, cnt):
+            xc, oc, cc = self.by_out[out.data_ptr()]
+            return self.real_bwd(bwd_pack, xc, g, oc, cc)
+        K.packed_max, K.packed_max_bwd = same_max, same_bwd
+        return self
+
+    def __exit__(self, *exc):
+        K.packed_max, K.packed_max_bwd = self.real_max, self.real_bwd
+
+
 def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     """Full-width logits, gradients and BatchNorm running statistics,
     card (kernel) vs CPU (plain), and then the eval-mode logits (which
@@ -1301,7 +1528,8 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     float64 by more than their own size); with random features every
     gradient holds at the tolerance below.
 
-    The CPU runs with the card's kink decisions (SameKinks): every ReLU,
+    The CPU runs with the card's kink decisions (SameKinks; SameMax for
+    the segmented max's choices): every ReLU,
     leaky ReLU and PReLU input is held to the card's,
     and at an input within rounding of 0 the two f32 programs may take
     either side of the kink.  There the gradient steps by that row's
@@ -1327,18 +1555,22 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     ref = build_model(cfg, torch.device("cpu"))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     card_train, card_eval = CardKinks(), CardKinks()
+    max_train, max_eval = CardMax(), CardMax()
+    same_max = (SameMax(max_train.calls), SameMax(max_eval.calls))
     outs, kinks = [], []
-    for m, b, train_mode, eval_mode in (
-            (model, batch.to(device), card_train, card_eval),
+    for m, b, train_mode, eval_mode, maxes in (
+            (model, batch.to(device), card_train, card_eval,
+             (max_train, max_eval)),
             (ref, batch.to(torch.device("cpu")),
-             SameKinks(card_train.inputs), SameKinks(card_eval.inputs))):
-        with train_mode:
+             SameKinks(card_train.inputs), SameKinks(card_eval.inputs),
+             same_max)):
+        with train_mode, maxes[0]:
             pred, label, mask = m(b)
             loss = torch.nn.functional.cross_entropy(pred[mask],
                                                      label[mask])
             loss.backward()
         m.eval()
-        with torch.no_grad(), eval_mode:
+        with torch.no_grad(), eval_mode, maxes[1]:
             pred_eval = m(b)[0]
         outs.append((pred.detach().cpu(),
                      {k: p.grad.cpu() for k, p in m.named_parameters()},
@@ -1351,6 +1583,10 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
         if mode.calls != len(card.inputs):
             fail(f"the CPU ran {mode.calls} ReLUs, the card "
                  f"{len(card.inputs)}")
+    for mode in same_max:
+        if mode.calls != len(mode.card):
+            fail(f"the CPU ran {mode.calls} maxes, the card "
+                 f"{len(mode.card)}")
     buf_err = 0.0
     for k in b_cpu:       # BatchNorm running statistics after the step
         if not torch.allclose(b_gpu[k], b_cpu[k], **LOGIT_TOL):
@@ -1377,6 +1613,9 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
                 relu_kink_flips=[mode.flips for mode in same],
                 relu_kink_flip_max_abs=max(mode.flip_max_abs
                                            for mode in same),
+                maxes=[mode.calls for mode in same_max],
+                max_out_max_err=max(mode.out_max_err for mode in same_max),
+                max_choice_flips=[mode.flips for mode in same_max],
                 **dropout)
 
 
@@ -1767,27 +2006,88 @@ def load_path(cfg_file: str, overrides):
     return cfg, loaders, time.perf_counter() - t0
 
 
-def corpus_phase(overrides) -> dict:
-    """Regenerate the ba corpus (256 graphs of 64 nodes asked, seed 0)
-    into CORPUS_DIR through load_nx, as a config naming ba does when no
-    pickle holds it, and time it; fail unless it is the corpus the CPU
-    tests hold to the JAX package's (BA_GRAPHS graphs, BA_DIGEST over
-    their edges).  Then the longest rows of the train packs of ID-GCN
-    ('gcn') and ID-GIN ('plain') on it, read from the port's loader."""
-    import hashlib
-
-    from graphgym_tpu_torch.data.loaders import load_nx
-
-    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
-    t0 = time.perf_counter()
-    graphs = load_nx("ba", CORPUS_DIR)
-    seconds = time.perf_counter() - t0
+def corpus_digest(graphs) -> str:
+    """sha256 over the graphs' edge lists (int32), in order."""
     digest = hashlib.sha256()
     for g in graphs:
         digest.update(np.ascontiguousarray(g.edge_index, np.int32).tobytes())
-    if len(graphs) != BA_GRAPHS or digest.hexdigest() != BA_DIGEST:
-        fail(f"ba corpus: {len(graphs)} graphs, digest "
-             f"{digest.hexdigest()}; expected {BA_GRAPHS}, {BA_DIGEST}")
+    return digest.hexdigest()
+
+
+# the corpora regenerated beside the first phases, one process each:
+# ba (the ba paths) and the design grid's scalefree and smallworld
+CORPORA = {"ba": CORPUS_DIR, "scalefree": DESIGN_CORPUS_DIR,
+           "smallworld": DESIGN_CORPUS_DIR}
+
+
+def start_corpora() -> dict:
+    """Regenerate the synthetic corpora of CORPORA (256 graphs asked,
+    seed 0, no networkx) through load_nx into their directories, one
+    process each, while the ws phases run; ``wait_corpus`` takes each
+    one's seconds."""
+    for d in set(CORPORA.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    code = ("import sys, time\n"
+            "from graphgym_tpu_torch.data.loaders import load_nx\n"
+            "t0 = time.perf_counter()\n"
+            "load_nx(sys.argv[1], sys.argv[2])\n"
+            "print(time.perf_counter() - t0)\n")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", code, name, d], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, d in CORPORA.items()}
+    CHILDREN.extend(procs.values())
+    return procs
+
+
+def wait_corpus(procs: dict, name: str) -> float:
+    """Seconds ``start_corpora``'s process took to regenerate ``name``;
+    fails if it did not end well."""
+    out, err = procs[name].communicate(timeout=900)
+    if procs[name].returncode != 0:
+        fail(f"regenerating {name}: exit {procs[name].returncode}: "
+             f"{err[-2000:]}")
+    return float(out.split()[-1])
+
+
+def design_corpus_phase(procs: dict) -> dict:
+    """Wait for the design grid's corpora and hold them: scalefree must
+    be the ba corpus (BA_GRAPHS graphs, BA_DIGEST), smallworld the ws
+    corpus the repository ships (datasets/ws.pkl), edge for edge."""
+    from graphgym_tpu_torch.data.loaders import load_nx
+
+    seconds = {name: wait_corpus(procs, name)
+               for name in ("scalefree", "smallworld")}
+    sf = load_nx("scalefree", DESIGN_CORPUS_DIR)
+    sw = load_nx("smallworld", DESIGN_CORPUS_DIR)
+    ws = load_nx("ws", os.path.join(ROOT, "datasets"))
+    if len(sf) != BA_GRAPHS or corpus_digest(sf) != BA_DIGEST:
+        fail(f"scalefree: {len(sf)} graphs, digest {corpus_digest(sf)}; "
+             f"expected the ba corpus ({BA_GRAPHS}, {BA_DIGEST})")
+    if corpus_digest(sw) != corpus_digest(ws):
+        fail(f"smallworld ({len(sw)} graphs) is not datasets/ws.pkl "
+             f"({len(ws)})")
+    return dict(seconds=seconds, graphs={"scalefree": len(sf),
+                                         "smallworld": len(sw)},
+                cache=sorted(os.listdir(DESIGN_CORPUS_DIR)))
+
+
+def corpus_phase(overrides, procs: dict) -> dict:
+    """The ba corpus (256 graphs of 64 nodes asked, seed 0), regenerated
+    into CORPUS_DIR through load_nx by ``start_corpora``'s process, as a
+    config naming ba does when no pickle holds it, and its seconds
+    there; fail unless it is the corpus the CPU tests hold to the JAX
+    package's (BA_GRAPHS graphs, BA_DIGEST over their edges).  Then the
+    longest rows of the train packs of ID-GCN ('gcn') and ID-GIN
+    ('plain') on it, read from the port's loader."""
+    from graphgym_tpu_torch.data.loaders import load_nx
+
+    seconds = wait_corpus(procs, "ba")
+    graphs = load_nx("ba", CORPUS_DIR)
+    digest = corpus_digest(graphs)
+    if len(graphs) != BA_GRAPHS or digest != BA_DIGEST:
+        fail(f"ba corpus: {len(graphs)} graphs, digest {digest}; "
+             f"expected {BA_GRAPHS}, {BA_DIGEST}")
     rows = {}
     for tag, kind in (("idgcn_ba", "gcn"), ("idgin_ba", "plain")):
         _, loaders, host_s = load_path(config(tag), overrides)
@@ -1811,7 +2111,9 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     """The phases of one more path, as the ws paths have them:
     kernel_<tag> (its kernels at the train pack's shapes: K1 at the
     model width and at each narrow width ``widths`` names, or K3, its
-    softmax row sums and the SDDMM; the pack's longest rows),
+    softmax row sums and the SDDMM, or the segmented max forward and
+    backward (a generalconv / idconv with gnn.agg max); the pack's
+    longest rows),
     model_<tag> (``check_model``), train_<tag> (``train_path`` with
     ``expected`` and ``widths``), profile_<tag> (with ``repeat_steps``;
     no op of the eager step takes a tensor of the pack's slots times the
@@ -1819,26 +2121,42 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     graphed_<tag>.  The config is configs/<base or tag>.yaml with
     ``extra`` overrides (a grid point)."""
     from graphgym_tpu_torch.graphs.packing import kinds_for_layer
+    from graphgym_tpu_torch.train.graphed import signature
 
     cfg_file = config(base or tag)
     overrides = list(overrides) + list(extra)
     begin(f"kernel_{tag}")
     cfg, loaders, host_s = load_path(cfg_file, overrides)
     batch = loaders[0].batches(0)[0]
+    # one captured program per signature: over the epochs a training
+    # re-collates (its packs padded to the loader's running chunk counts)
+    signatures = len({signature(b.to(torch.device("cpu")))
+                      for e in range(cfg.optim.max_epoch)
+                      for b in loaders[0].batches(e)})
     n, d = batch.num_nodes, cfg.gnn.dim_inner
-    (kind,) = kinds_for_layer(cfg.gnn.layer_type)
+    (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
+                              cfg.gnn.normalize_adj)
     packs = batch.to(device).packs[kind]
     if kind == "att":
         checks = dict(k3=check_attention_kernel(packs, n, d, device),
                       softmax=check_softmax(packs[0], n, device),
                       sddmm=check_sddmm_kernel(packs[0], n, d, device))
+    elif cfg.gnn.layer_type in ("generalconv", "idconv") \
+            and cfg.gnn.agg == "max":
+        checks = dict(max=check_max_kernel(packs, n, d, device))
     else:
         checks = {f"d{w}": check_kernel(packs, n, w, device)
-                  for w in [d] + sorted(widths or {})}
-    phase(f"kernel_{tag}", n=n, d=d, d_in=cfg.share.dim_in, pack=kind,
-          layer_type=cfg.gnn.layer_type,
+                  for w in sorted({d, *(widths or {})})}
+    phase(f"kernel_{tag}", n=n, d=d, d_in=cfg.share.dim_in,
+          d_out=cfg.share.dim_out, pack=kind,
+          layer_type=cfg.gnn.layer_type, graphs=int(batch.num_graphs) - 1,
+          real_nodes=int(np.sum(batch.node_mask)),
+          edge_slots=len(batch.senders),
+          real_edges=int(np.sum(batch.edge_mask)),
           chunks=int(packs[0].senders.shape[0]), host_data_s=host_s,
-          batches=len(loaders[0]), fwd_rows=longest_rows(packs[0]),
+          batches=len(loaders[0]), train_signatures=signatures,
+          slots=int(packs[0].senders.numel()),
+          fwd_rows=longest_rows(packs[0]),
           bwd_rows=longest_rows(packs[1]), **checks)
     begin(f"model_{tag}")
     phase(f"model_{tag}", **check_model(cfg, loaders[1].batches(0)[0],
@@ -2005,16 +2323,27 @@ def new_path_rows(fast: dict, ba: dict, row: tuple, srcs: tuple) -> list:
 
 def torch_path_rows(paths: dict, row: tuple, srcs: tuple) -> list:
     """The kernels line's rows of the torch-path grid points
-    (``drive_path``'s results): K1 at D = 128 on each K1 path's pack,
+    (``drive_path``'s results): K1 at the model width on each K1 path's
+    pack, the segmented max forward and backward on each max path's,
     and K3's aggregation, its softmax row sums and the SDDMM on
     gatid_ba's 'att' pack."""
-    k1_src, k3_src, sddmm_src = srcs
+    k1_src, k3_src, sddmm_src, max_src = srcs
     k1, k3, sddmm = (K.packed_spmm_cuda, K.packed_segment_matmul_headed_cuda,
                      K.packed_sddmm_cuda)
     rows = []
     for tag, path in paths.items():
         train = {tag: path["train"]}
         checks = path["checks"]
+        if "max" in checks:
+            rows += [{"name": f"{kernel.__name__[:-5]}_{tag}", **max_src,
+                      "path": tag, "pack": path["pack"],
+                      "width": path["width"],
+                      **{k: checks["max"][half][k]
+                         for k in row + ("floor_ms",)},
+                      **path_launches(kernel, train)}
+                     for half, kernel in (("fwd", K.packed_max_cuda),
+                                          ("bwd", K.packed_max_bwd_cuda))]
+            continue
         if "k3" not in checks:
             check = checks[f"d{path['width']}"]
             rows.append({"name": f"packed_spmm_{tag}", **k1_src,
@@ -2056,6 +2385,9 @@ def main() -> None:
         K.library(name)
     phase("build", seconds=max(b.seconds for b in info.values()),
           ptxas={name: ptxas_report(b.log) for name, b in info.items()})
+    atexit.register(lambda: [p.kill() for p in CHILDREN
+                             if p.poll() is None])
+    corpora = start_corpora()
 
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
@@ -2063,6 +2395,7 @@ def main() -> None:
     k1_, k3_, sddmm_ = (K.packed_spmm_cuda,
                         K.packed_segment_matmul_headed_cuda,
                         K.packed_sddmm_cuda)
+    max_, max_bwd_ = K.packed_max_cuda, K.packed_max_bwd_cuda
 
     # ---- ID-GCN Full / ws: kernel K1
     begin("kernel")
@@ -2201,7 +2534,7 @@ def main() -> None:
     # the model check, as on ws), ID-GAT (its peak memory)
     begin("corpus")
     ba_overrides = overrides + ["dataset.dir", CORPUS_DIR]
-    corpus = corpus_phase(ba_overrides)
+    corpus = corpus_phase(ba_overrides, corpora)
     phase("corpus", **corpus)
     ba = {
         "idgcn_ba": drive_path("idgcn_ba", device, ba_overrides,
@@ -2254,6 +2587,68 @@ def main() -> None:
                                 random_features=True),
     }
 
+    # ---- the segmented max (csrc/packed_max.cu), no Pallas counterpart:
+    # forward and backward on the ws ego 'plain' pack (ID-GIN's, 49,152
+    # rows) and on the ba ego 'plain' pack (rows of up to 48 slots), at
+    # the widths the ID and design paths run
+    begin("kernel_max")
+    _, ba_loaders, _ = load_path(config("idgin_ba"), ba_overrides)
+    ba_batch = ba_loaders[0].batches(0)[0]
+    ba_plain = ba_batch.to(device).packs["plain"]
+    del ba_loaders
+    kmax = {f"{tag}_d{w}": check_max_kernel(packs, nn_, w, device)
+            for tag, packs, nn_ in (
+                ("ws", plain_packs, gin_batch.num_nodes),
+                ("ba", ba_plain, ba_batch.num_nodes))
+            for w in (128, 256)}
+    phase("kernel_max", ws_rows=longest_rows(plain_packs[0]),
+          ba_rows=longest_rows(ba_plain[0]), **kmax)
+    del ba_plain
+
+    # ---- the design space (grids/design/round1.txt's synthetic node
+    # chunks) on GraphGym's default conv: configs/design/design_v1.yaml
+    # plus a grid point's overrides, at its width (dim_inner 256), on the
+    # corpora regenerated beside the earlier phases; and idconv, the
+    # fifth ID-GNN Full variant, at gcnid_ws's point.  The aggregation
+    # runs after the projection, at 256: K1 2 per layer (add on 'plain',
+    # mean on 'mean'), or the segmented max forward per layer and its
+    # backward (pre-MP hands layer 0 an input that needs a gradient)
+    begin("design_corpus")
+    phase("design_corpus", **design_corpus_phase(corpora))
+    dz = overrides + ["dataset.dir", DESIGN_CORPUS_DIR]
+    node = ("dataset.format", "nx", "dataset.task", "node",
+            "dataset.transductive", "True")
+    design = {
+        "design_sf": grid_point(
+            "design_sf", "design/design_v1", *DESIGN_SF, ovr=dz,
+            expected={k1_: (16, 8)}, widths={256: {k1_: (16, 8)}}),
+        "design_sw_mean": grid_point(
+            "design_sw_mean", "design/design_v1", *node, "dataset.name",
+            "smallworld", "dataset.augment_feature", "['node_onehot']",
+            "dataset.augment_label", "node_pagerank", "train.batch_size",
+            "32", "gnn.layers_pre_mp", "2", "gnn.layers_mp", "4",
+            "gnn.layers_post_mp", "2", "gnn.stage_type", "skipconcat",
+            "gnn.batchnorm", "False", "gnn.act", "swish", "gnn.dropout",
+            "0.3", "gnn.agg", "mean", "optim.optimizer", "sgd",
+            "optim.base_lr", "0.1", ovr=dz, expected={k1_: (8, 4)},
+            widths={256: {k1_: (8, 4)}}),
+        "design_sf_max": grid_point(
+            "design_sf_max", "design/design_v1", *node, "dataset.name",
+            "scalefree", "dataset.augment_feature", "['node_const']",
+            "dataset.augment_label", "node_clustering_coefficient",
+            "train.batch_size", "16", "gnn.layers_pre_mp", "1",
+            "gnn.layers_mp", "6", "gnn.layers_post_mp", "3",
+            "gnn.stage_type", "skipsum", "gnn.batchnorm", "True",
+            "gnn.act", "relu", "gnn.dropout", "0.6", "gnn.agg", "max",
+            "optim.optimizer", "adam", "optim.base_lr", "0.001", ovr=dz,
+            expected={max_: (6, 6), max_bwd_: (6, 0)},
+            random_features=True),
+        "idconv_ws": grid_point("idconv_ws", "idgcn_ws", "gnn.layer_type",
+                                "idconv", expected={k1_: (6, 3)},
+                                widths={128: {k1_: (6, 3)}},
+                                random_features=True),
+    }
+
     # ---- full-length runs: the configs' 1000 epochs, 3 seeds each,
     # through the entry point and its seed aggregate (the logs to the
     # run directories only)
@@ -2265,6 +2660,13 @@ def main() -> None:
     phase("full_gcnid_ws", **full_run(
         "full_gcnid_ws", CFG,
         full_overrides + ["gnn.layer_type", "gcnidconv"]))
+    # the design point of results/design_v1_grid_round1 for its 100
+    # epochs (reported: no reference number for the port to meet)
+    begin("full_design_sf")
+    phase("full_design_sf", **full_run(
+        "full_design_sf", config("design/design_v1"),
+        full_overrides + ["dataset.dir", DESIGN_CORPUS_DIR, *DESIGN_SF,
+                          "optim.max_epoch", "100"]))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")
@@ -2313,6 +2715,11 @@ def main() -> None:
                      source="graphgym_tpu_torch/csrc/packed_sddmm.cu",
                      replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
                               "graphgym_tpu/nn/layers.py:152")
+    max_src = dict(route="cuda",
+                   source="graphgym_tpu_torch/csrc/packed_max.cu",
+                   replaces="graphgym_tpu/ops/segment.py:50 (XLA's "
+                            "segment_max; no Pallas kernel)")
+    srcs = (k1_src, k3_src, sddmm_src, max_src)
     print(json.dumps({"kernels": [
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
@@ -2358,8 +2765,16 @@ def main() -> None:
          "path": "bench_attention", "heads": BENCH_HEADS, "dh": BENCH_DV,
          **{k: bk["sddmm"][k] for k in row},
          "launches": att_launches[sddmm_.__name__]},
-        *new_path_rows(fast, ba, row, (k1_src, k3_src, sddmm_src)),
-        *torch_path_rows(torch_paths, row, (k1_src, k3_src, sddmm_src)),
+        *new_path_rows(fast, ba, row, srcs[:3]),
+        *torch_path_rows(torch_paths, row, srcs),
+        *torch_path_rows(design, row, srcs),
+        *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
+           "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
+           "width": check["width"],
+           **{k: check[half][k] for k in row + ("floor_ms",)},
+           "launches": 0}
+          for key, check in kmax.items()
+          for half, kernel in (("fwd", max_), ("bwd", max_bwd_))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

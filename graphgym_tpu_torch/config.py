@@ -3,11 +3,11 @@ overrides.
 
 The port's copy of graphgym_tpu/config.py, with the same defaults and
 the same merge and assert semantics, so every YAML under configs/ and
-grids/ merges identically.  Two differences:
-
-  * ``cfg.device`` takes ``auto | cuda | cpu`` (``auto`` means cuda);
-  * the contrib auto-import is dropped (the JAX package's contrib
-    example imports jax).
+grids/ merges identically.  ``set_cfg`` imports the port's own contrib
+package (graphgym_tpu_torch.contrib, the copy of the JAX one) and then
+applies every registered config group, as graphgym_tpu/config.py:327-335
+does.  One difference: ``cfg.device`` takes ``auto | cuda | cpu``
+(``auto`` means cuda).
 
 The ``tpu.*`` group stays readable so that configs naming it merge; the
 port reads ``tpu.pad_buckets`` from it and nothing else.
@@ -297,7 +297,13 @@ def set_cfg(cfg: CfgNode) -> CfgNode:
     cfg.tpu.remat = False
     cfg.tpu.max_host_rss_gb = 48.0
 
-    # user-registered extensions (reference config.py:422-424)
+    # contrib auto-import (reference config.py:7 `from
+    # graphgym.contrib.config import *`) then user-registered
+    # extensions (reference config.py:422-424)
+    try:
+        import graphgym_tpu_torch.contrib  # noqa: F401
+    except Exception as exc:  # contrib must never break core
+        logging.warning("contrib import failed: %s", exc)
     for func in register.config_dict.values():
         func(cfg)
     return cfg

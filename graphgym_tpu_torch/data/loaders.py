@@ -359,7 +359,8 @@ class GraphLoader:
             node_id_index=(np.concatenate(id_idx) if id_idx else None),
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges)
-        kinds = kinds_for_layer(cfg.gnn.layer_type)
+        kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
+                                cfg.gnn.normalize_adj)
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,

@@ -7,8 +7,13 @@ graph structure) and the packed chunk layouts of A and A^T:
   'gcn'   — D^-1/2 (A + I) D^-1/2 with the reference's inf guard
             (TfgIDLayer.py:528-566); self-loops only on real nodes.
   'plain' — raw A (GIN sum aggregation).
-  'mean'  — D^-1 A (SAGE mean aggregation), the degree counting edges
-            of nonzero weight.
+  'mean'  — D^-1 A (SAGE mean aggregation; GeneralConv's agg 'mean'),
+            the degree counting edges of nonzero weight.
+  'gcn_mean' — the 'gcn' weights over each receiver's count of slots of
+            nonzero weight, its real in-edges and its self-loop
+            (GeneralConv's agg 'mean' with normalize_adj: segment_mean
+            over the mask concat(edge_mask, node_mask),
+            graphgym_tpu/nn/layers.py:631-641).
   'att'   — A + self-loops on real nodes, weights a validity indicator
             (1 real, 0 padding); the attention coefficients are computed
             in the layer (packing.py:71-79 of the JAX package).
@@ -59,6 +64,19 @@ def _mean_weights(senders: np.ndarray, receivers: np.ndarray,
         np.float32)
 
 
+def _gcn_mean_weights(senders: np.ndarray, receivers: np.ndarray,
+                      edge_weight: np.ndarray, node_mask: np.ndarray,
+                      num_nodes: int):
+    """The 'gcn' edges and weights, each weight over its receiver's count
+    of nonzero-weight slots (real in-edges plus the real node's
+    self-loop; padding nodes have none and keep weight 0)."""
+    s, r, w = _gcn_weights(senders, receivers, edge_weight, node_mask,
+                           num_nodes)
+    count = np.bincount(r, weights=(w != 0).astype(np.float64),
+                        minlength=num_nodes)
+    return s, r, (w / np.maximum(count, 1)[r]).astype(np.float32)
+
+
 def _att_edges(senders: np.ndarray, receivers: np.ndarray,
                edge_weight: np.ndarray, node_mask: np.ndarray,
                num_nodes: int):
@@ -93,6 +111,9 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
         elif kind == "mean":
             s, r, w = _mean_weights(senders, receivers, edge_weight,
                                     num_nodes)
+        elif kind == "gcn_mean":
+            s, r, w = _gcn_mean_weights(senders, receivers, edge_weight,
+                                        node_mask, num_nodes)
         elif kind == "att":
             s, r, w = _att_edges(senders, receivers, edge_weight,
                                  node_mask, num_nodes)
@@ -150,12 +171,29 @@ def _pad_to_bucket(pack: PackedCSR, num_nodes: int) -> PackedCSR:
     return pad_pack(pack, bucket_size(pack.senders.shape[0]), num_nodes)
 
 
-def kinds_for_layer(layer_type: str) -> Tuple[str, ...]:
-    """Which precomputed packs a layer type consumes."""
+def agg_kind(agg: str, normalize_adj: bool) -> str:
+    """The pack of GeneralConv's / GeneralIDConv's aggregation: 'add' and
+    'max' take A ('plain') or D^-1/2 (A + I) D^-1/2 ('gcn'), 'mean' the
+    same weights over each receiver's count of real slots ('mean',
+    'gcn_mean'); 'max' takes the max of its weighted messages."""
+    if agg not in ("add", "mean", "max"):
+        raise ValueError(f"Unknown agg: {agg}")
+    if agg == "mean":
+        return "gcn_mean" if normalize_adj else "mean"
+    return "gcn" if normalize_adj else "plain"
+
+
+def kinds_for_layer(layer_type: str, agg: str = "add",
+                    normalize_adj: bool = False) -> Tuple[str, ...]:
+    """Which precomputed packs a layer type consumes (``agg`` and
+    ``normalize_adj``: cfg.gnn's, read by generalconv and idconv)."""
     lt = layer_type.replace("Tfg-", "")
+    if lt in ("generalconv", "idconv"):
+        return (agg_kind(agg, normalize_adj),)
     if lt in ("gcnconv", "gcnidconv", "idgcn"):
         return ("gcn",)
-    if lt in ("ginconv", "ginidconv", "idgin"):
+    if lt in ("ginconv", "ginidconv", "idgin", "exampleconv1",
+              "exampleconv2", "contrib_example"):
         return ("plain",)
     if lt in ("sageconv", "idsage", "sageidconv", "sageinitconv"):
         return ("mean",)

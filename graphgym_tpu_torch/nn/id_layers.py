@@ -3,10 +3,11 @@
 Each layer carries ``kernel``, applied to all nodes, and ``id_kernel``,
 applied additionally to the ego-net center rows in
 ``graph.node_id_index`` (reference contrib/layer/idconv.py:62-67).
-The port of graphgym_tpu/nn/id_layers.py on the packed path: GCNIDConv,
-SAGEIDConv, GATIDConv and GINIDConv (the torch path's gcnidconv,
-sageidconv, gatidconv and ginidconv; GCNIDConv and GINIDConv also serve
-Tfg-idgcn and Tfg-idgin), TfgIDSAGE and TfgIDGAT.
+The port of graphgym_tpu/nn/id_layers.py on the packed path:
+GeneralIDConv, GCNIDConv, SAGEIDConv, GATIDConv and GINIDConv (the torch
+path's idconv, gcnidconv, sageidconv, gatidconv and ginidconv; GCNIDConv
+and GINIDConv also serve Tfg-idgcn and Tfg-idgin), TfgIDSAGE and
+TfgIDGAT.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import torch
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
+from graphgym_tpu_torch.graphs.packing import agg_kind
 from graphgym_tpu_torch.nn.layers import (GATConv, TfgGATConv, _gin_mlp,
-                                          gin_mlp_init, glorot, packed_spmm,
+                                          gin_mlp_init, glorot,
+                                          packed_aggregate, packed_spmm,
                                           zeros)
 from graphgym_tpu_torch.ops import sparse as sp
 
@@ -47,6 +50,34 @@ class GCNIDConv(nn.Module):
         h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
                                 self.id_kernel, id_mask)
         h = packed_spmm(graph, "gcn", h)
+        if self.bias is not None:
+            h = h + self.bias
+        return graph.replace(node_feat=h)
+
+
+class GeneralIDConv(nn.Module):
+    """ID version of GeneralConv (id_layers.py:75-105; reference
+    idconv.py:16-101), the fifth ID-GNN Full variant: the id-colored
+    projection h = x W, h[id] += x[id] W_id, then GeneralConv's
+    aggregation (agg 'add', 'mean' or 'max', on A or, with
+    normalize_adj, the GCN sym-norm; ``packed_aggregate``), then + b.
+    No self message."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 agg: str = "add", normalize_adj: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        agg_kind(agg, normalize_adj)
+        self.agg, self.normalize_adj = agg, normalize_adj
+        self.kernel = glorot((dim_in, dim_out), generator)
+        self.id_kernel = glorot((dim_in, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        idx, id_mask = _id_index(graph)
+        h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
+                                self.id_kernel, id_mask)
+        h = packed_aggregate(graph, h, self.agg, self.normalize_adj)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)

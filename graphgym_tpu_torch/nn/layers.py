@@ -1,10 +1,10 @@
 """Layer building blocks of the port (graphgym_tpu/nn/layers.py subset):
-the glorot initializer with its gain, the packed SpMM and packed
+the glorot initializer with its gain, the packed SpMM, aggregation and
 attention dispatch, ``Linear``, ``MLP`` and the ``GeneralLayer``
-wrapper (conv, BatchNorm, dropout, activation), the
-packed-branch GCN, SAGE and GIN convs with the GIN MLP, the additive
-``GATConv`` and the Tfg dot-product GAT.  Modules take and return a
-GraphBatch whose arrays are tensors.
+wrapper (conv, BatchNorm, dropout, activation), the packed-branch GCN,
+SAGE and GIN convs with the GIN MLP, GraphGym's ``GeneralConv``, the
+additive ``GATConv`` and the Tfg dot-product GAT.  Modules take and
+return a GraphBatch whose arrays are tensors.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
+from graphgym_tpu_torch.graphs.packing import agg_kind
 from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
-    pack_rows, packed_node_scores, packed_scaled_dot, packed_segment_softmax,
-    segment_matmul_headed_vjp, spmm_pack_vjp, take_padded)
+    pack_rows, packed_max_vjp, packed_node_scores, packed_scaled_dot,
+    packed_segment_softmax, segment_matmul_headed_vjp, spmm_pack_vjp,
+    take_padded)
 
 
 # xavier gain of the torch path's nn.Linear equivalents (Linear, MLP,
@@ -65,6 +67,19 @@ def packed_spmm(graph: GraphBatch, kind: str,
     """SpMM over the batch-carried packs of ``kind`` (layers.py:63-84,
     single-device branch)."""
     fwd, bwd = _packs(graph, kind)
+    return spmm_pack_vjp(fwd, bwd, h)
+
+
+def packed_aggregate(graph: GraphBatch, h: torch.Tensor, agg: str,
+                     normalize_adj: bool) -> torch.Tensor:
+    """GeneralConv's aggregation of the messages h over the receivers
+    (graphgym_tpu/ops/sparse.py:25-57 as layers.py:626-642 calls it):
+    'add' and 'mean' are K1 on the pack ``agg_kind`` names (the mean's
+    division is in its weights), 'max' the segmented max on it, each
+    with its backward on the transpose pack: no float atomics."""
+    fwd, bwd = _packs(graph, agg_kind(agg, normalize_adj))
+    if agg == "max":
+        return packed_max_vjp(fwd, bwd, h)
     return spmm_pack_vjp(fwd, bwd, h)
 
 
@@ -321,6 +336,46 @@ class SAGEConv(nn.Module):
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
+
+
+class GeneralConv(nn.Module):
+    """GraphGym's configurable conv (layers.py:606-652; reference
+    contrib/layer/generalconv.py:12-114), the default gnn.layer_type:
+
+      h = x W;  h_msg = agg over receivers of w * h[senders] (+ b)
+      self_msg 'none': h_msg;  'add': h_msg + h;  'concat': h_msg + x W_self
+
+    w is the edge weight, or the GCN sym-norm weight with self-loops if
+    normalize_adj; agg is 'add', 'mean' or 'max' (``packed_aggregate``),
+    taken after the projection, at dim_out.  The JAX layer's
+    ``improved`` is set by no config (as in ``gcn_norm``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 agg: str = "add", self_msg: str = "concat",
+                 normalize_adj: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if self_msg not in ("none", "add", "concat"):
+            raise ValueError(f"self_msg {self_msg} not defined")
+        agg_kind(agg, normalize_adj)
+        self.agg, self.self_msg = agg, self_msg
+        self.normalize_adj = normalize_adj
+        self.kernel = glorot((dim_in, dim_out), generator)
+        if self_msg == "concat":
+            self.self_kernel = glorot((dim_in, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        h = x @ self.kernel
+        out = packed_aggregate(graph, h, self.agg, self.normalize_adj)
+        if self.bias is not None:
+            out = out + self.bias
+        if self.self_msg == "add":
+            out = out + h
+        elif self.self_msg == "concat":
+            out = out + x @ self.self_kernel
+        return graph.replace(node_feat=out)
 
 
 def gin_mlp_init(mod: nn.Module, prefix: str, dim_in: int, dim_out: int,

@@ -10,8 +10,10 @@ Two model families, as in the JAX package:
     act stacks with a Dense(256) -> Dense(C) head, no pre-MP, no
     BatchNorm wrapper and no L2 norm (the GIN layers keep the BatchNorm
     inside their MLP).
-The layer table holds the layer types of the packed paths; the others
-raise naming their ROADMAP item.
+The layer table holds the layer types of the packed paths, and a
+layer registered in register.layer_dict (the contrib 'contrib_example')
+takes precedence, as in the JAX make_conv; the others raise naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,13 +24,16 @@ from typing import Optional
 import torch
 from torch import nn
 
+from graphgym_tpu_torch import register
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
+from graphgym_tpu_torch.nn.att_layers import ExampleConv
 from graphgym_tpu_torch.nn.heads import GNNNodeHead, HeadOut, gather_supervised
 from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
-                                          GeneralLayer, GINConv, Linear,
-                                          SAGEConv, TfgGATConv, glorot, zeros)
+                                          GeneralConv, GeneralLayer, GINConv,
+                                          Linear, SAGEConv, TfgGATConv,
+                                          glorot, zeros)
 from graphgym_tpu_torch.nn.norm import l2_normalize
 
 # layer type -> conv(dim_in, dim_out, opts, init generator, dropout
@@ -52,6 +57,13 @@ LAYERS = {
     "ginconv": lambda dim_in, dim_out, opts, gen, _: GINConv(
         dim_in, dim_out, agg=opts.gin_agg, mlp_gain=LINEAR_GAIN,
         generator=gen),
+    "generalconv": lambda dim_in, dim_out, opts, gen, _: GeneralConv(
+        dim_in, dim_out, use_bias=not opts.batchnorm, agg=opts.agg,
+        self_msg=opts.self_msg, normalize_adj=opts.normalize_adj,
+        generator=gen),
+    "idconv": lambda dim_in, dim_out, opts, gen, _: idl.GeneralIDConv(
+        dim_in, dim_out, use_bias=not opts.batchnorm, agg=opts.agg,
+        normalize_adj=opts.normalize_adj, generator=gen),
     "gcnidconv": lambda dim_in, dim_out, opts, gen, _: idl.GCNIDConv(
         dim_in, dim_out, use_bias=not opts.batchnorm, generator=gen),
     "sageidconv": lambda dim_in, dim_out, opts, gen, _: idl.SAGEIDConv(
@@ -63,6 +75,11 @@ LAYERS = {
     # no BN in its MLP and gain 1 (nn/model.py:79)
     "ginidconv": lambda dim_in, dim_out, opts, gen, _: idl.GINIDConv(
         dim_in, dim_out, generator=gen),
+    # a bias whatever the BatchNorm, and none (nn/model.py:98-99)
+    "exampleconv1": lambda dim_in, dim_out, opts, gen, _: ExampleConv(
+        dim_in, dim_out, generator=gen),
+    "exampleconv2": lambda dim_in, dim_out, opts, gen, _: ExampleConv(
+        dim_in, dim_out, use_bias=False, generator=gen),
     "Tfg-gcnconv": lambda dim_in, dim_out, opts, gen, _: GCNConv(
         dim_in, dim_out, use_bias=True, generator=gen),
     "Tfg-sageconv": lambda dim_in, dim_out, opts, gen, _: SAGEConv(
@@ -83,14 +100,15 @@ LAYERS = {
         generator=gen, dropout_generator=drop_gen),
 }
 
-# layer types of the JAX package not ported yet, by ROADMAP item
+# layer types of the JAX package not ported yet, by ROADMAP item (the
+# edge-feature convs wait for the loaders that give edge features)
 NOT_PORTED = {
-    **dict.fromkeys(("idconv", "generalconv", "generaledgeconv",
-                     "generalsampleedgeconv", "splineconv"), "A9b"),
+    **dict.fromkeys(("generaledgeconv", "generalsampleedgeconv",
+                     "splineconv"), "A9b, with the edge features of A13b"),
     **dict.fromkeys(("gaddconv", "gmulconv", "generaledgeattconvv1",
                      "generaledgeattconvv2", "generalconv_v2",
-                     "sageinitconv", "generalogbconv", "exampleconv1",
-                     "exampleconv2", "Tfg-appnp"), "A10b"),
+                     "sageinitconv", "generalogbconv", "Tfg-appnp"),
+                    "A10b"),
 }
 
 
@@ -112,6 +130,9 @@ class GNNOptions:
     att_heads: int = 1
     att_dropout: float = 0.0
     gin_agg: str = "sum"
+    agg: str = "add"           # GeneralConv / GeneralIDConv
+    self_msg: str = "concat"   # GeneralConv
+    normalize_adj: bool = False
     l2norm: bool = True
     bn_eps: float = 1e-5       # the BN wrapper's; the Tfg GIN MLP's BN
     bn_mom: float = 0.1        # keeps the defaults, as in the JAX layer
@@ -128,7 +149,7 @@ def options_from_cfg(cfg) -> GNNOptions:
         raise NotImplementedError(
             f"layer type {name!r} is not ported yet (ROADMAP "
             f"{NOT_PORTED[name]})")
-    if name not in LAYERS:
+    if name not in LAYERS and name not in register.layer_dict:
         raise ValueError(f"Unknown layer type: {name}")
     if cfg.dataset.task != "node":
         raise NotImplementedError(
@@ -138,6 +159,8 @@ def options_from_cfg(cfg) -> GNNOptions:
                   dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act,
                   att_heads=cfg.gnn.att_heads,
                   att_dropout=cfg.gnn.att_dropout, gin_agg=cfg.gnn.gin_agg,
+                  agg=cfg.gnn.agg, self_msg=cfg.gnn.self_msg,
+                  normalize_adj=cfg.gnn.normalize_adj,
                   bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom)
     if name.startswith("Tfg-"):
         return GNNOptions(**common, batchnorm=False, l2norm=False,
@@ -160,9 +183,16 @@ def options_from_cfg(cfg) -> GNNOptions:
 def _gnn_layer(opts: GNNOptions, dim_in: int, gen: torch.Generator,
                drop_gen: Optional[torch.Generator],
                has_act: bool = True) -> GeneralLayer:
-    """GeneralLayer(conv) of the MP stage (nn/model.py:165-176)."""
-    conv = LAYERS[opts.layer_type](dim_in, opts.dim_inner, opts, gen,
-                                   drop_gen)
+    """GeneralLayer(conv) of the MP stage (nn/model.py:165-176); a
+    registered layer is called as the JAX make_conv calls it, with the
+    port's input width and init generator."""
+    if opts.layer_type in register.layer_dict:
+        conv = register.layer_dict[opts.layer_type](
+            dim_in, opts.dim_inner, use_bias=not opts.batchnorm, opts=opts,
+            generator=gen)
+    else:
+        conv = LAYERS[opts.layer_type](dim_in, opts.dim_inner, opts, gen,
+                                       drop_gen)
     return GeneralLayer(conv, opts.dim_inner, has_act=has_act,
                         has_bn=opts.batchnorm, dropout=opts.dropout,
                         act=opts.act, bn_eps=opts.bn_eps,

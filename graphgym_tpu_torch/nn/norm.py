@@ -64,7 +64,13 @@ class MaskedBatchNorm(nn.Module):
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """F.normalize(p=2) (reference gnn.py:79-80), the norm taken in
-    f32."""
+    f32.  The sum of squares is clamped at eps^2 before its square root,
+    so a row of norm below eps (an all-zero padding row, which a model
+    without BatchNorm keeps at 0) divides by eps and passes no gradient
+    to its norm, as F.normalize's does.  The JAX package clamps after
+    the root (graphgym_tpu/nn/norm.py:68-74), whose gradient at a zero
+    row is 0 * inf = NaN (ROADMAP C5); on every other row the two are
+    the same function."""
     xs = x.float()
-    norm = torch.sqrt((xs * xs).sum(dim, keepdim=True))
-    return (xs / norm.clamp_min(eps)).to(x.dtype)
+    norm = torch.sqrt((xs * xs).sum(dim, keepdim=True).clamp_min(eps * eps))
+    return (xs / norm).to(x.dtype)

@@ -12,7 +12,10 @@ ran as XLA gathers:
       -> ``csrc/packed_attention.cu`` (K1 is its one-head case: both
       run the row walk of ``csrc/row_walk.cuh``);
   the per-slot, per-head dot products (``_segmm_headed_bwd``'s d_w,
-      graphgym_tpu/nn/layers.py's score) -> ``csrc/packed_sddmm.cu``.
+      graphgym_tpu/nn/layers.py's score) -> ``csrc/packed_sddmm.cu``;
+  the segmented max of the 'max' aggregation (XLA's segment_max in the
+      JAX package, graphgym_tpu/ops/segment.py:50-60), forward and
+      backward -> ``csrc/packed_max.cu``.
 
 Host side, ``pack_csr`` sorts edges by receiver and cuts them into
 chunks of C slots, each owned by one R-row output tile; the layout is
@@ -22,12 +25,14 @@ kernel; K2 sums messages it is given, every slot of the pack.
 
 On a CUDA tensor the entry points (``spmm_packed``,
 ``packed_segment_matmul``, ``packed_segment_matmul_headed``,
-``packed_sddmm``) launch the kernel or raise; on a CPU tensor they take
-the plain version, the same arithmetic in plain PyTorch.
+``packed_sddmm``, ``packed_max``, ``packed_max_bwd``) launch the kernel
+or raise; on a CPU tensor they take the plain version, the same
+arithmetic in plain PyTorch.
 
 Around them: the autograd Functions of the layers (SpMM, attention
 aggregation, score, the attention softmax and the node-score gathers,
-whose sums all run on K3 or K1, so no float atomics), and the COO
+whose sums all run on K3 or K1, and the segmented max, so no float
+atomics), and the COO
 entries ``pack_bidir`` / ``spmm_bidir`` / ``spmm_pallas`` of the
 benchmark.
 """
@@ -56,7 +61,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 # one shared library per source, csrc/<name>.cu
 SOURCES = ("packed_spmm", "packed_segment", "packed_attention",
-           "packed_sddmm")
+           "packed_sddmm", "packed_max")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -282,6 +287,66 @@ def packed_segment_matmul_plain(msg: torch.Tensor, local_rows: torch.Tensor,
     return out
 
 
+def _live(pack: PackedCSR, n: int) -> torch.Tensor:
+    """[NC * C] bool: the slots a max takes, those of nonzero weight
+    whose sender is a row of x (not the padding sender n)."""
+    senders = pack.senders.reshape(-1)
+    return (pack.weights.reshape(-1) != 0) & (senders >= 0) & (senders < n)
+
+
+def packed_max_plain(pack: PackedCSR, x: torch.Tensor):
+    """f32 (out, cnt) [num_nodes, D]: out[r, c] = the max of w * x[s, c]
+    over the slots of row r with weight w != 0 and a live sender s, cnt
+    how many slots reach it; 0 and 0 for a row with none.  Gather,
+    multiply in f32, -inf on every other slot, scatter_reduce(amax) into
+    f32 tiles and -inf -> 0 (the JAX -inf mask and isfinite -> 0), then
+    the ties counted by index_add_ (exact small integers).  No
+    data-dependent shape, so nothing waits for the card."""
+    n, d = x.shape
+    live = _live(pack, n)[:, None]
+    xp = torch.cat([x, x.new_zeros(1, d)]).float()
+    msg = torch.where(live, xp.index_select(
+        0, pack.senders.reshape(-1).long()) * pack.weights.reshape(-1, 1),
+        float("-inf"))
+    rows = pack_rows(pack).reshape(-1)
+    out = torch.full((num_tiles_of(n) * ROWS_PER_TILE, d), float("-inf"),
+                     device=x.device)
+    out.scatter_reduce_(0, rows[:, None].expand(-1, d), msg, "amax")
+    out = torch.where(torch.isfinite(out), out, 0.0)
+    cnt = torch.zeros_like(out)
+    cnt.index_add_(0, rows, (live & (msg == out.index_select(0, rows)))
+                   .float())
+    return out[:n], cnt[:n]
+
+
+def packed_max_bwd_plain(bwd_pack: PackedCSR, x: torch.Tensor,
+                         g: torch.Tensor, out: torch.Tensor,
+                         cnt: torch.Tensor) -> torch.Tensor:
+    """f32 dx [num_nodes, D] of packed_max_plain's out on the transpose
+    pack (its rows are the senders s, its senders the receivers r):
+    dx[s, c] = the sum over row s's slots of weight w != 0, in slot
+    order, of [w * x[s, c] == out[r, c]] * (g[r, c] * (1 / cnt[r, c]))
+    * w, a tie split evenly between the slots that reach the max, as
+    jax.ops.segment_max's gradient splits it.  Gathers and index_add_
+    into f32 tiles over every slot (0 on the others; sequential, so in
+    slot order, on the CPU)."""
+    n, d = x.shape
+    live = _live(bwd_pack, n)[:, None]
+    rows = pack_rows(bwd_pack).reshape(-1)
+    receivers = bwd_pack.senders.reshape(-1).long()
+    w = bwd_pack.weights.reshape(-1, 1)
+
+    def take(a):   # a[receivers], the padding sender n reading row n
+        return torch.cat([a.float(), a.new_zeros(1, d).float()]) \
+            .index_select(0, receivers)
+    xs = x.float().index_select(0, rows.clamp_max(n - 1))
+    hit = live & (xs * w == take(out))
+    term = torch.where(hit, take(g) * (1.0 / take(cnt)) * w, 0.0)
+    dx = torch.zeros(num_tiles_of(n) * ROWS_PER_TILE, d, device=x.device)
+    dx.index_add_(0, rows, term)
+    return dx[:n]
+
+
 # --------------------------------------------------------------------------
 # K2's row -> slots index (host-built, once per pack)
 # --------------------------------------------------------------------------
@@ -450,18 +515,25 @@ _ARGTYPES = {
     # a, b, n_rows, d, heads, senders, weights, row_range, n_slots, out,
     # stream
     "packed_sddmm": [_P, _P, _LL, _I, _I, _P, _P, _P, _LL, _P, _P],
+    # x, n_rows, d, senders, weights, row_range, out, cnt, stream
+    "packed_max": [_P, _LL, _I, _P, _P, _P, _P, _P, _P],
+    # x, g, out, cnt, n_rows, d, senders, weights, row_range, dx, stream
+    "packed_max_bwd": [_P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P],
 }
+# the entry points of each library beyond csrc/<name>.cu's own <name>
+_ENTRIES = {"packed_max": ("packed_max", "packed_max_bwd")}
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, with its f32 and bf16 entry
-    points bound."""
+    """The built library of csrc/<name>.cu, with the f32 and bf16
+    versions of each of its entry points bound."""
     lib = ctypes.CDLL(build()[name].path)
-    for suffix in ("f32", "bf16"):
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+    for entry in _ENTRIES.get(name, (name,)):
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"{entry}_{suffix}")
+            fn.argtypes = _ARGTYPES[entry]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -489,14 +561,17 @@ def _check_inputs(name: str, pack: PackedCSR, x: torch.Tensor) -> None:
            "pack arrays disagree in shape")
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
+def _launch(name: str, x: torch.Tensor, *args, entry: str = "") -> None:
+    """Launch entry point ``entry`` (default ``name``) of csrc/<name>.cu
+    in x's dtype on the current stream; raise on a refused launch."""
+    entry = entry or name
     lib = library(name)
-    fn = getattr(lib, f"{name}_f32" if x.dtype == torch.float32
-                 else f"{name}_bf16")
+    fn = getattr(lib, f"{entry}_f32" if x.dtype == torch.float32
+                 else f"{entry}_bf16")
     err = fn(x.data_ptr(), *args,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
 def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
@@ -630,9 +705,63 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
 
 packed_segment_matmul_cuda.launches = 0
 
+
+def packed_max_cuda(pack: PackedCSR, x: torch.Tensor):
+    """Launch the Hopper segmented max (csrc/packed_max.cu, forward): f32
+    (out, cnt) [num_nodes, D] as ``packed_max_plain``, x [num_nodes, D]
+    f32 or bf16 on a CUDA device.  Adds one to
+    ``packed_max_cuda.launches`` per launch."""
+    _check_inputs("packed_max_cuda", pack, x)
+    x = x.contiguous()
+    n, d = x.shape
+    out = torch.empty(n, d, dtype=torch.float32, device=x.device)
+    cnt = torch.empty(n, d, dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        return out, cnt
+    _launch("packed_max", x, n, d, pack.senders.data_ptr(),
+            pack.weights.data_ptr(), pack.row_range.data_ptr(),
+            out.data_ptr(), cnt.data_ptr())
+    packed_max_cuda.launches += 1
+    return out, cnt
+
+
+packed_max_cuda.launches = 0
+
+
+def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
+                        g: torch.Tensor, out: torch.Tensor,
+                        cnt: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper segmented max's backward (csrc/packed_max.cu) on
+    the transpose pack: f32 dx [num_nodes, D] as
+    ``packed_max_bwd_plain``, from x (f32 or bf16) and the f32 g, out
+    and cnt [num_nodes, D] on a CUDA device.  Adds one to
+    ``packed_max_bwd_cuda.launches`` per launch."""
+    name = "packed_max_bwd_cuda"
+    _check_inputs(name, bwd_pack, x)
+    for field, a in (("g", g), ("out", out), ("cnt", cnt)):
+        _check(name, a.shape == x.shape and a.dtype == torch.float32
+               and a.device == x.device,
+               f"{field} must be a float32 {tuple(x.shape)} tensor on "
+               f"{x.device}")
+    x, g, out, cnt = (a.contiguous() for a in (x, g, out, cnt))
+    n, d = x.shape
+    dx = torch.empty(n, d, dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        return dx
+    _launch("packed_max", x, g.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+            n, d, bwd_pack.senders.data_ptr(), bwd_pack.weights.data_ptr(),
+            bwd_pack.row_range.data_ptr(), dx.data_ptr(),
+            entry="packed_max_bwd")
+    packed_max_bwd_cuda.launches += 1
+    return dx
+
+
+packed_max_bwd_cuda.launches = 0
+
 # every kernel wrapper; each counts its launches, K1 and K3 also by width
 KERNELS = (packed_spmm_cuda, packed_segment_matmul_cuda,
-           packed_segment_matmul_headed_cuda, packed_sddmm_cuda)
+           packed_segment_matmul_headed_cuda, packed_sddmm_cuda,
+           packed_max_cuda, packed_max_bwd_cuda)
 LaunchCounts = Dict[str, Tuple[int, collections.Counter]]
 
 
@@ -746,6 +875,51 @@ class SpmmPackFn(torch.autograd.Function):
 def spmm_pack_vjp(fwd_pack: PackedCSR, bwd_pack: PackedCSR,
                   x: torch.Tensor) -> torch.Tensor:
     return SpmmPackFn.apply(fwd_pack, bwd_pack, x)
+
+
+def packed_max(pack: PackedCSR, x: torch.Tensor):
+    """Segmented max from a packed layout, f32 (out, cnt): the kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if x.is_cuda:
+        return packed_max_cuda(pack, x)
+    return packed_max_plain(pack, x)
+
+
+def packed_max_bwd(bwd_pack: PackedCSR, x: torch.Tensor, g: torch.Tensor,
+                   out: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The segmented max's f32 dx on the transpose pack: the kernel for a
+    CUDA tensor, the plain version for a CPU one."""
+    if x.is_cuda:
+        return packed_max_bwd_cuda(bwd_pack, x, g, out, cnt)
+    return packed_max_bwd_plain(bwd_pack, x, g, out, cnt)
+
+
+class PackedMaxFn(torch.autograd.Function):
+    """Differentiable segmented max over batch-carried packs (the
+    'max' aggregation: graphgym_tpu/ops/sparse.py:25-57 with reduce
+    'max', segment_max masked to the slots of nonzero pack weight): out
+    = the max of w * x[sender] over each row's slots on the fwd pack;
+    dx by ``packed_max_bwd`` on the bwd pack from the forward's out and
+    tie counts, no scatter, no atomics.  The packs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                x: torch.Tensor) -> torch.Tensor:
+        out, cnt = packed_max(fwd_pack, x)
+        ctx.save_for_backward(x, out, cnt)
+        ctx.bwd_pack = bwd_pack
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, out, cnt = ctx.saved_tensors
+        dx = packed_max_bwd(ctx.bwd_pack, x, g.float(), out, cnt)
+        return None, None, dx.to(x.dtype)
+
+
+def packed_max_vjp(fwd_pack: PackedCSR, bwd_pack: PackedCSR,
+                   x: torch.Tensor) -> torch.Tensor:
+    return PackedMaxFn.apply(fwd_pack, bwd_pack, x)
 
 
 class BidirPack(NamedTuple):

@@ -17,6 +17,10 @@ are siblings:
     post_mp/MLP_0/<as a stage>         ->  post_mp.mlp.layers...
     post_mp/<leaf> (the Tfg head)      ->  post_mp.<leaf>
 
+A conv's own leaves keep their flax names: ``kernel``, ``self_kernel``
+(GeneralConv with self_msg 'concat'), ``id_kernel`` (the ID convs,
+GeneralIDConv among them) and ``bias``, e.g.
+``mp/GeneralConv_2/self_kernel`` -> ``mp.layers.2.layer.self_kernel``.
 A conv that is itself an MLP (layer type 'mlp') nests a stage:
 ``mp/MLP_<i>/Linear_<j>/...`` -> ``mp.layers.<i>.layer.layers.<j>.
 layer...``.  Inside a conv the path keeps its names with dots, for

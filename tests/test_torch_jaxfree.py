@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                  "graphgym_tpu_torch.data.synthetic",
                  "graphgym_tpu_torch.ops.identity",
                  "graphgym_tpu_torch.exp.agg",
-                 "graphgym_tpu_torch.nn.heads"):
+                 "graphgym_tpu_torch.nn.heads",
+                 "graphgym_tpu_torch.contrib",
+                 "graphgym_tpu_torch.contrib.example",
+                 "graphgym_tpu_torch.nn.att_layers"):
         assert name in mods
 
 

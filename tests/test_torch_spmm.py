@@ -224,12 +224,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 64, 128, 130])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 64, 128, 130, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, d):
     """K1's walks by width (row_walk.cuh): a thread per row with a warp
-    per hub row (D <= 8), row groups with 16-byte loads (64, 128), a warp
-    per row (130); fwd and bwd packs of a graph with a hub row.  The
+    per hub row (D <= 8), row groups with 16-byte loads (64, 128, and
+    256, two passes a row, the design grid's width), a warp per row
+    (130); fwd and bwd packs of a graph with a hub row.  The
     reference is the plain version on the CPU, which sums each row in
     slot order as the kernel does (on the card its index_add_ sums with
     atomics, in no fixed order)."""
