@@ -48,7 +48,7 @@ extern "C" int packed_attention_f32(const void* v, long long n_rows, int d,
                                     const void* alpha, const void* row_range,
                                     void* out, void* stream) {
   return ggt::launch_row_walk<float>(
-      (const float*)v, n_rows, d, heads, (const int*)senders,
+      (const float*)v, n_rows, n_rows, d, heads, (const int*)senders,
       (const float*)alpha, (const int*)row_range, (float*)out,
       (cudaStream_t)stream);
 }
@@ -58,7 +58,7 @@ extern "C" int packed_attention_bf16(const void* v, long long n_rows, int d,
                                      const void* alpha, const void* row_range,
                                      void* out, void* stream) {
   return ggt::launch_row_walk<__nv_bfloat16>(
-      (const __nv_bfloat16*)v, n_rows, d, heads, (const int*)senders,
+      (const __nv_bfloat16*)v, n_rows, n_rows, d, heads, (const int*)senders,
       (const float*)alpha, (const int*)row_range, (float*)out,
       (cudaStream_t)stream);
 }

@@ -23,10 +23,17 @@
 // backward's equality test sees the forward's values.
 //
 // Zero is not neutral for a max: a slot of weight 0 (pack padding, a
-// padding node's self-loop in the 'gcn' pack, trailing padded edges)
-// and a sender outside [0, n_rows) are skipped explicitly, so such a row
-// comes out 0 with no gradient, as the JAX -inf mask and isfinite -> 0
-// give.
+// padding node's self-loop in the 'gcn' pack, trailing padded edges, a
+// padding node or padding ego center in a pooling pack) and a sender
+// outside [0, x_rows) are skipped explicitly, so such a row comes out 0
+// with no gradient, as the JAX -inf mask and isfinite -> 0 give.
+//
+// Rectangular packs: the forward's out has n_rows rows and x has x_rows;
+// the backward's dx has the rows of x and of its pack, and g, out and
+// cnt have g_rows.  They differ on graph max pooling (out [graphs, D]
+// from x [nodes, D]; the backward on the transpose pack, a node's slots
+// naming its graph slot); a layer's square pack passes one count
+// twice.
 //
 // Bound: bytes.  The forward reads 8 bytes of pack per slot and one row
 // of x per slot (from L2 after its first read), writes out and cnt once;
@@ -112,8 +119,8 @@ __device__ __forceinline__ void store_cols(float* __restrict__ p, int d,
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(32 * kWarps)
-packed_max_fwd(const T* __restrict__ x, long long n_rows, int d,
-               const int* __restrict__ senders,
+packed_max_fwd(const T* __restrict__ x, long long x_rows,
+               long long n_rows, int d, const int* __restrict__ senders,
                const float* __restrict__ weights,
                const int* __restrict__ row_range, float* __restrict__ out,
                float* __restrict__ cnt) {
@@ -134,7 +141,7 @@ packed_max_fwd(const T* __restrict__ x, long long n_rows, int d,
       for (int i = 0; i < nb; ++i) {
         const int s = __shfl_sync(kAll, my_s, i);
         const float w = __shfl_sync(kAll, my_w, i);
-        if (w == 0.f || s < 0 || s >= n_rows) continue;  // whole warp
+        if (w == 0.f || s < 0 || s >= x_rows) continue;  // whole warp
         float v[kCols];
         load_cols<T, VEC>(x + (long long)s * d, d, c0, lane, v);
 #pragma unroll
@@ -158,7 +165,8 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(32 * kWarps)
 packed_max_bwd(const T* __restrict__ x, const float* __restrict__ g,
                const float* __restrict__ out, const float* __restrict__ cnt,
-               long long n_rows, int d, const int* __restrict__ senders,
+               long long n_rows, long long g_rows, int d,
+               const int* __restrict__ senders,
                const float* __restrict__ weights,
                const int* __restrict__ row_range, float* __restrict__ dx) {
   constexpr unsigned kAll = 0xffffffffu;
@@ -179,7 +187,7 @@ packed_max_bwd(const T* __restrict__ x, const float* __restrict__ g,
       for (int i = 0; i < nb; ++i) {
         const int r = __shfl_sync(kAll, my_r, i);
         const float w = __shfl_sync(kAll, my_w, i);
-        if (w == 0.f || r < 0 || r >= n_rows) continue;  // whole warp
+        if (w == 0.f || r < 0 || r >= g_rows) continue;  // whole warp
         float o[kCols], c[kCols], gr[kCols];
         load_cols<float, VEC>(out + (long long)r * d, d, c0, lane, o);
         load_cols<float, VEC>(cnt + (long long)r * d, d, c0, lane, c);
@@ -215,32 +223,35 @@ inline unsigned row_blocks(long long n_rows) {
 __global__ void empty_rows() {}
 
 template <typename T>
-int launch_fwd(const T* x, long long n_rows, int d, const int* senders,
-               const float* weights, const int* row_range, float* out,
-               float* cnt, cudaStream_t st) {
+int launch_fwd(const T* x, long long x_rows, long long n_rows, int d,
+               const int* senders, const float* weights,
+               const int* row_range, float* out, float* cnt,
+               cudaStream_t st) {
   const unsigned blocks = row_blocks(n_rows);
   if (vec_ok(d, x, out, cnt, out, cnt)) {
     packed_max_fwd<T, true><<<blocks, 32 * kWarps, 0, st>>>(
-        x, n_rows, d, senders, weights, row_range, out, cnt);
+        x, x_rows, n_rows, d, senders, weights, row_range, out, cnt);
   } else {
     packed_max_fwd<T, false><<<blocks, 32 * kWarps, 0, st>>>(
-        x, n_rows, d, senders, weights, row_range, out, cnt);
+        x, x_rows, n_rows, d, senders, weights, row_range, out, cnt);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const T* x, const float* g, const float* out,
-               const float* cnt, long long n_rows, int d,
-               const int* senders, const float* weights,
+               const float* cnt, long long n_rows, long long g_rows,
+               int d, const int* senders, const float* weights,
                const int* row_range, float* dx, cudaStream_t st) {
   const unsigned blocks = row_blocks(n_rows);
   if (vec_ok(d, x, g, out, cnt, dx)) {
     packed_max_bwd<T, true><<<blocks, 32 * kWarps, 0, st>>>(
-        x, g, out, cnt, n_rows, d, senders, weights, row_range, dx);
+        x, g, out, cnt, n_rows, g_rows, d, senders, weights, row_range,
+        dx);
   } else {
     packed_max_bwd<T, false><<<blocks, 32 * kWarps, 0, st>>>(
-        x, g, out, cnt, n_rows, d, senders, weights, row_range, dx);
+        x, g, out, cnt, n_rows, g_rows, d, senders, weights, row_range,
+        dx);
   }
   return (int)cudaGetLastError();
 }
@@ -248,27 +259,28 @@ int launch_bwd(const T* x, const float* g, const float* out,
 }  // namespace
 }  // namespace ggt
 
-// Plain C entry points (bound with ctypes).  x is [n_rows, d] row-major
-// (f32 or bf16); senders / weights are a pack's [num_chunks, chunk]
-// arrays and row_range its [n_rows, 2]; out, cnt, g and dx are
-// [n_rows, d] f32.  The backward takes the transpose pack.  Each returns
-// cudaGetLastError() after the launch.
-extern "C" int packed_max_f32(const void* x, long long n_rows, int d,
+// Plain C entry points (bound with ctypes).  The forward: x is
+// [x_rows, d] row-major (f32 or bf16), senders / weights are a pack's
+// [num_chunks, chunk] arrays and row_range its [n_rows, 2], out and cnt
+// [n_rows, d] f32.  The backward takes the transpose pack: x and dx are
+// [n_rows, d], row_range [n_rows, 2], g, out and cnt [g_rows, d] f32.
+// Each returns cudaGetLastError() after the launch.
+extern "C" int packed_max_f32(const void* x, long long x_rows, int d,
                               const void* senders, const void* weights,
-                              const void* row_range, void* out, void* cnt,
-                              void* stream) {
-  return ggt::launch_fwd<float>((const float*)x, n_rows, d,
+                              const void* row_range, long long n_rows,
+                              void* out, void* cnt, void* stream) {
+  return ggt::launch_fwd<float>((const float*)x, x_rows, n_rows, d,
                                 (const int*)senders, (const float*)weights,
                                 (const int*)row_range, (float*)out,
                                 (float*)cnt, (cudaStream_t)stream);
 }
 
-extern "C" int packed_max_bf16(const void* x, long long n_rows, int d,
+extern "C" int packed_max_bf16(const void* x, long long x_rows, int d,
                                const void* senders, const void* weights,
-                               const void* row_range, void* out, void* cnt,
-                               void* stream) {
+                               const void* row_range, long long n_rows,
+                               void* out, void* cnt, void* stream) {
   return ggt::launch_fwd<__nv_bfloat16>(
-      (const __nv_bfloat16*)x, n_rows, d, (const int*)senders,
+      (const __nv_bfloat16*)x, x_rows, n_rows, d, (const int*)senders,
       (const float*)weights, (const int*)row_range, (float*)out,
       (float*)cnt, (cudaStream_t)stream);
 }
@@ -277,11 +289,11 @@ extern "C" int packed_max_bwd_f32(const void* x, const void* g,
                                   const void* out, const void* cnt,
                                   long long n_rows, int d,
                                   const void* senders, const void* weights,
-                                  const void* row_range, void* dx,
-                                  void* stream) {
+                                  const void* row_range, long long g_rows,
+                                  void* dx, void* stream) {
   return ggt::launch_bwd<float>(
       (const float*)x, (const float*)g, (const float*)out,
-      (const float*)cnt, n_rows, d, (const int*)senders,
+      (const float*)cnt, n_rows, g_rows, d, (const int*)senders,
       (const float*)weights, (const int*)row_range, (float*)dx,
       (cudaStream_t)stream);
 }
@@ -290,11 +302,11 @@ extern "C" int packed_max_bwd_bf16(const void* x, const void* g,
                                    const void* out, const void* cnt,
                                    long long n_rows, int d,
                                    const void* senders, const void* weights,
-                                   const void* row_range, void* dx,
-                                   void* stream) {
+                                   const void* row_range, long long g_rows,
+                                   void* dx, void* stream) {
   return ggt::launch_bwd<__nv_bfloat16>(
       (const __nv_bfloat16*)x, (const float*)g, (const float*)out,
-      (const float*)cnt, n_rows, d, (const int*)senders,
+      (const float*)cnt, n_rows, g_rows, d, (const int*)senders,
       (const float*)weights, (const int*)row_range, (float*)dx,
       (cudaStream_t)stream);
 }

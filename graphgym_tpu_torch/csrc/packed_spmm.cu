@@ -32,47 +32,56 @@
 // are bitwise repeatable (the determinism contract of
 // tests/test_determinism.py:54-67), and writes each output row once.
 //
-// Padding: a sender outside [0, n_rows) reads as zero (pack padding
-// slots carry sender == n_rows, one past the last row of x).
+// Padding: a sender outside [0, x_rows) reads as zero (pack padding
+// slots carry sender == x_rows, one past the last row of x).
+//
+// Rectangular packs: out has n_rows rows and x has x_rows, which differ
+// on a graph-pooling pack (rows the graph slots, senders the nodes or
+// ego centers: out [graphs, D] from x [nodes, D]) and on its transpose
+// (the pooling's backward).  A square pack, every layer's, passes one
+// count twice.  The grid covers the out rows only, so a pool of 93 graph
+// slots launches for 93 rows, whatever x holds.
 
 #include "row_walk.cuh"
 
-// Plain C entry points (bound with ctypes).  x is [n_rows, d] row-major,
+// Plain C entry points (bound with ctypes).  x is [x_rows, d] row-major,
 // senders / weights are the pack's [num_chunks, chunk] arrays, row_range
 // is [n_rows, 2], out is [n_rows, d] f32.  Returns cudaGetLastError()
 // after the launch.
-extern "C" int packed_spmm_f32(const void* x, long long n_rows, int d,
+extern "C" int packed_spmm_f32(const void* x, long long x_rows, int d,
                                const void* senders, const void* weights,
-                               const void* row_range, void* out,
-                               void* stream) {
+                               const void* row_range, long long n_rows,
+                               void* out, void* stream) {
   return ggt::launch_row_walk<float>(
-      (const float*)x, n_rows, d, 1, (const int*)senders,
+      (const float*)x, x_rows, n_rows, d, 1, (const int*)senders,
       (const float*)weights, (const int*)row_range, (float*)out,
       (cudaStream_t)stream);
 }
 
-extern "C" int packed_spmm_bf16(const void* x, long long n_rows, int d,
+extern "C" int packed_spmm_bf16(const void* x, long long x_rows, int d,
                                 const void* senders, const void* weights,
-                                const void* row_range, void* out,
-                                void* stream) {
+                                const void* row_range, long long n_rows,
+                                void* out, void* stream) {
   return ggt::launch_row_walk<__nv_bfloat16>(
-      (const __nv_bfloat16*)x, n_rows, d, 1, (const int*)senders,
+      (const __nv_bfloat16*)x, x_rows, n_rows, d, 1, (const int*)senders,
       (const float*)weights, (const int*)row_range, (float*)out,
       (cudaStream_t)stream);
 }
 
 // The launch floor under packed_spmm_f32 / _bf16, for measurement: the
 // same arguments, an empty kernel over the grid that call would take.
-extern "C" int packed_spmm_floor_f32(const void* x, long long n_rows, int d,
+extern "C" int packed_spmm_floor_f32(const void* x, long long, int d,
                                      const void*, const void*, const void*,
-                                     void* out, void* stream) {
+                                     long long n_rows, void* out,
+                                     void* stream) {
   return ggt::launch_floor<float>((const float*)x, n_rows, d, 1,
                                   (const float*)out, (cudaStream_t)stream);
 }
 
-extern "C" int packed_spmm_floor_bf16(const void* x, long long n_rows, int d,
+extern "C" int packed_spmm_floor_bf16(const void* x, long long, int d,
                                       const void*, const void*, const void*,
-                                      void* out, void* stream) {
+                                      long long n_rows, void* out,
+                                      void* stream) {
   return ggt::launch_floor<__nv_bfloat16>((const __nv_bfloat16*)x, n_rows,
                                           d, 1, (const float*)out,
                                           (cudaStream_t)stream);

@@ -19,9 +19,12 @@
 //
 // Every path: no atomics, the sum order is the slot order (products
 // rounded, then summed, as in the plain versions), launches are bitwise
-// repeatable, and each output row is written once.  A sender outside
-// [0, n_rows) reads as zero: it adds nothing (pack padding slots carry
-// sender == n_rows, one past the last row of v).
+// repeatable, and each output row is written once.  v has n_src rows
+// and out n_rows: the same count on a square pack (a layer's A), two on
+// a rectangular one (graph pooling: graph slots from node rows, and its
+// transpose).  A sender outside [0, n_src) reads as zero: it adds
+// nothing (pack padding slots carry sender == n_src, one past the last
+// row of v).
 //
 // Three paths, picked by width (pick_walk):
 //
@@ -75,8 +78,8 @@ constexpr int kHubBatches = 4;   // slots per lane per trip of a hub row
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(32 * kWarps)
-row_walk_narrow(const T* __restrict__ v, long long n_rows, int d,
-                const int* __restrict__ senders,
+row_walk_narrow(const T* __restrict__ v, long long n_src,
+                long long n_rows, int d, const int* __restrict__ senders,
                 const float* __restrict__ alpha,
                 const int* __restrict__ row_range,
                 float* __restrict__ out) {
@@ -91,7 +94,7 @@ row_walk_narrow(const T* __restrict__ v, long long n_rows, int d,
     begin = row_range[2 * row];
     end = row_range[2 * row + 1];
   }
-  auto live = [n_rows](int s) { return s >= 0 && s < n_rows; };
+  auto live = [n_src](int s) { return s >= 0 && s < n_src; };
   const bool hub = end - begin > kLongRow;
   if (!hub && row < n_rows) {
     float acc[NC];
@@ -175,8 +178,8 @@ row_walk_narrow(const T* __restrict__ v, long long n_rows, int d,
 
 template <typename T, int LANES, bool ONE_HEAD>
 __global__ void __launch_bounds__(32 * kWarps)
-row_walk_vec(const T* __restrict__ v, long long n_rows, int d,
-             int heads_arg, const int* __restrict__ senders,
+row_walk_vec(const T* __restrict__ v, long long n_src, long long n_rows,
+             int d, int heads_arg, const int* __restrict__ senders,
              const float* __restrict__ alpha,
              const int* __restrict__ row_range, float* __restrict__ out) {
   constexpr int VW = Vec<T>::kN;
@@ -229,7 +232,7 @@ row_walk_vec(const T* __restrict__ v, long long n_rows, int d,
           for (int j = 0; j < kInFlight; ++j) {
             s[j] = __shfl_sync(mask, my_s, i + j, LANES);
             a[j] = __shfl_sync(mask, my_a, (i + j) * heads + head, LANES);
-            if (i + j >= nb || s[j] < 0 || s[j] >= n_rows) s[j] = -1;
+            if (i + j >= nb || s[j] < 0 || s[j] >= n_src) s[j] = -1;
             raw[j] = (s[j] >= 0 && has_col)
                          ? load16(v + (long long)s[j] * d + col)
                          : make_uint4(0u, 0u, 0u, 0u);
@@ -257,8 +260,8 @@ row_walk_vec(const T* __restrict__ v, long long n_rows, int d,
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-row_walk_scalar(const T* __restrict__ v, long long n_rows, int d, int heads,
-                const int* __restrict__ senders,
+row_walk_scalar(const T* __restrict__ v, long long n_src, long long n_rows,
+                int d, int heads, const int* __restrict__ senders,
                 const float* __restrict__ alpha,
                 const int* __restrict__ row_range,
                 float* __restrict__ out) {
@@ -280,7 +283,7 @@ row_walk_scalar(const T* __restrict__ v, long long n_rows, int d, int heads,
 #pragma unroll 4
     for (int k = begin; k < end; ++k) {
       const long long s = senders[k];
-      if (s < 0 || s >= n_rows) continue;  // the same for the whole warp
+      if (s < 0 || s >= n_src) continue;  // the same for the whole warp
       const float* a = alpha + (long long)k * heads;
       const T* vs = v + s * d;
 #pragma unroll
@@ -326,10 +329,11 @@ inline unsigned walk_blocks(Walk walk, long long n_rows) {
   return (unsigned)((n_rows + rows - 1) / rows);
 }
 
-// Launch the walk on stream; returns cudaGetLastError() after it.
+// Launch the walk on stream: out [n_rows, d] from v [n_src, d]; returns
+// cudaGetLastError() after it.
 template <typename T>
-int launch_row_walk(const T* v, long long n_rows, int d, int heads,
-                    const int* senders, const float* alpha,
+int launch_row_walk(const T* v, long long n_src, long long n_rows, int d,
+                    int heads, const int* senders, const float* alpha,
                     const int* row_range, float* out, cudaStream_t st) {
   const Walk walk = pick_walk(v, d, heads, out);
   const unsigned blocks = walk_blocks(walk, n_rows);
@@ -338,31 +342,31 @@ int launch_row_walk(const T* v, long long n_rows, int d, int heads,
     case kNarrow:
       if (d == 1) {
         row_walk_narrow<T, 1><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, senders, alpha, row_range, out);
       } else {
         row_walk_narrow<T, kNarrowCols><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, senders, alpha, row_range, out);
       }
       break;
     case kVec16:
     case kVec32:
       if (walk == kVec16 && heads == 1) {
         row_walk_vec<T, 16, true><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, heads, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, heads, senders, alpha, row_range, out);
       } else if (walk == kVec16) {
         row_walk_vec<T, 16, false><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, heads, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, heads, senders, alpha, row_range, out);
       } else if (heads == 1) {
         row_walk_vec<T, 32, true><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, heads, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, heads, senders, alpha, row_range, out);
       } else {
         row_walk_vec<T, 32, false><<<blocks, threads, 0, st>>>(
-            v, n_rows, d, heads, senders, alpha, row_range, out);
+            v, n_src, n_rows, d, heads, senders, alpha, row_range, out);
       }
       break;
     case kScalar:
       row_walk_scalar<T><<<blocks, threads, 0, st>>>(
-          v, n_rows, d, heads, senders, alpha, row_range, out);
+          v, n_src, n_rows, d, heads, senders, alpha, row_range, out);
       break;
   }
   return (int)cudaGetLastError();

@@ -1,16 +1,17 @@
 """Dataset loading, splitting, transforms and GraphBatch batching.
 
-The port of graphgym_tpu/data/loaders.py for node tasks on pickled or
-regenerated synthetic graph corpora (reference
+The port of graphgym_tpu/data/loaders.py for node and graph tasks on
+pickled or regenerated synthetic graph corpora (reference
 graphgym/loader.py:24-260):
   load graphs -> feature augmentation -> label replacement -> split
   -> ego transform per split -> padded GraphBatches with the packed
   SpMM layouts.
 
 Batches always carry the packs their layer consumes, on CPU and CUDA
-alike (the port has no COO path).  What the slice does not need raises
-NotImplementedError naming its ROADMAP item: other formats, link and
-graph tasks, samplers, dataset caches, mesh plans.
+alike (the port has no COO path), and a graph task's batches the pack
+of its head's pooling.  What the slice does not need raises
+NotImplementedError naming its ROADMAP item: other formats, the link
+and edge tasks, samplers, dataset caches, mesh plans.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from graphgym_tpu_torch.data.hostgraph import HostGraph, from_networkx
 from graphgym_tpu_torch.data.transforms import ego_nets
 from graphgym_tpu_torch.graphs.container import (GraphBatch, bucket_size,
                                                  build_graph_batch)
-from graphgym_tpu_torch.graphs.packing import (build_packs, kinds_for_layer,
-                                               pack_chunks, pad_packs)
+from graphgym_tpu_torch.graphs.packing import (build_packs, build_pool_packs,
+                                               kinds_for_layer, pack_chunks,
+                                               pad_packs)
 
 # the repository's own corpus directory, searched after cfg.dataset.dir
 _REPO_DATASETS = os.path.join(os.path.dirname(os.path.dirname(
@@ -130,23 +132,26 @@ def load_dataset(cfg) -> List[HostGraph]:
 
 def split_dataset(graphs: List[HostGraph], cfg,
                   rng: np.random.Generator) -> List[List[HostGraph]]:
-    """DeepSNAP-style random split (reference loader.py:227-230).
+    """DeepSNAP-style random split (reference loader.py:227-230;
+    graphgym_tpu/data/loaders.py:451-495).
 
     Transductive: each split shares the graphs; node_label_index is
-    partitioned by ratio.  Inductive: the list of graphs is partitioned
-    and every node is supervised."""
+    partitioned by ratio.  Inductive: the list of graphs is partitioned;
+    on a node task every node is supervised.  A graph task is always
+    inductive, whatever cfg.dataset.transductive says."""
     ratios = list(cfg.dataset.split)
-    if not cfg.dataset.transductive:
+    if not cfg.dataset.transductive or cfg.dataset.task == "graph":
         idx = np.arange(len(graphs))
         if cfg.dataset.shuffle_split:
             rng.shuffle(idx)
         bounds = np.cumsum([int(r * len(graphs)) for r in ratios[:-1]])
         splits = [[graphs[i] for i in part]
                   for part in np.split(idx, bounds)]
-        for part in splits:
-            for g in part:
-                if "node_label_index" not in g:
-                    g["node_label_index"] = np.arange(g.num_nodes)
+        if cfg.dataset.task == "node":
+            for part in splits:
+                for g in part:
+                    if "node_label_index" not in g:
+                        g["node_label_index"] = np.arange(g.num_nodes)
         return splits
 
     splits = [[] for _ in ratios]
@@ -166,16 +171,18 @@ def split_dataset(graphs: List[HostGraph], cfg,
 
 def create_dataset(cfg, rng: Optional[np.random.Generator] = None
                    ) -> List[List[HostGraph]]:
-    """Full pipeline (reference create_dataset, loader.py:191-244)."""
-    if cfg.dataset.task != "node":
+    """Full pipeline (reference create_dataset, loader.py:191-244), for
+    the node and graph tasks."""
+    if cfg.dataset.task not in ("node", "graph"):
         raise _not_ported(f"task {cfg.dataset.task!r}", "A13b")
     if cfg.dataset.cache_load or cfg.dataset.cache_save:
         raise _not_ported("the processed-dataset cache", "A13b")
     rng = rng or np.random.default_rng(cfg.seed)
     t1 = time.time()
     graphs = load_dataset(cfg)
-    # min-node filter (loader.py:129-138)
-    graphs = [g for g in graphs if g.num_nodes > 5]
+    # min-node filter (loader.py:129-138), none on a graph task
+    min_node = 0 if cfg.dataset.task == "graph" else 5
+    graphs = [g for g in graphs if g.num_nodes > min_node]
 
     t2 = time.time()
     if cfg.dataset.remove_feature:
@@ -205,17 +212,22 @@ def create_dataset(cfg, rng: Optional[np.random.Generator] = None
 
 
 def set_dataset_info(splits, cfg) -> None:
-    """Fill cfg.share dims (reference loader_pyg.py:165-191)."""
+    """Fill cfg.share dims (reference loader_pyg.py:165-191): a graph
+    task's classes are its graph labels'."""
     g0 = splits[0][0]
     dim_in = int(np.asarray(g0["node_feature"]).shape[-1]) \
         if "node_feature" in g0 else 1
     for key in cfg.dataset.augment_feature:
         dim_in += int(np.asarray(g0[key]).shape[-1])
     cfg.share.dim_in = dim_in
-    labels = np.concatenate([np.asarray(g["node_label"]).reshape(-1)
+    key = "graph_label" if cfg.dataset.task == "graph" else "node_label"
+    labels = np.concatenate([np.asarray(g[key]).reshape(-1)
                              for part in splits for g in part])
-    nl = np.asarray(g0["node_label"])
-    label_width = int(nl.shape[-1]) if nl.ndim > 1 else 1
+    if cfg.dataset.task == "graph":
+        label_width = int(np.asarray(g0["graph_label"]).reshape(-1).size)
+    else:
+        nl = np.asarray(g0["node_label"])
+        label_width = int(nl.shape[-1]) if nl.ndim > 1 else 1
     if "classification" in cfg.dataset.task_type:
         if label_width > 1:
             cfg.share.dim_out = label_width
@@ -322,14 +334,13 @@ class GraphLoader:
                     max(x, y) for x, y in zip(
                         self._chunks.get(kind, (0, 0)), counts))
         return [b if not b.packs or pack_chunks(b.packs) == self._chunks
-                else b.replace(packs=pad_packs(b.packs, self._chunks,
-                                               b.num_nodes))
+                else b.replace(packs=pad_packs(b.packs, self._chunks))
                 for b in batches]
 
     def _collate(self, graphs: List[HostGraph]) -> GraphBatch:
         cfg = self.cfg
         xs, ss, rs, gids = [], [], [], []
-        node_labels, label_idx, id_idx = [], [], []
+        node_labels, label_idx, id_idx, graph_labels = [], [], [], []
         offset = 0
         for gi, g in enumerate(graphs):
             xs.append(graph_to_arrays(g, cfg))
@@ -343,19 +354,29 @@ class GraphLoader:
                 label_idx.append(np.asarray(g["node_label_index"]) + offset)
             if "node_id_index" in g:
                 id_idx.append(np.asarray(g["node_id_index"]) + offset)
+            if "graph_label" in g:
+                graph_labels.append(np.asarray(g["graph_label"]).reshape(-1))
             offset += g.num_nodes
 
-        node_label = None
+        node_label = graph_label = None
         if node_labels:
             nl = np.concatenate(node_labels, axis=0)
             node_label = nl.squeeze(-1) if nl.shape[-1] == 1 else nl
+        if graph_labels:
+            gl = np.stack(graph_labels)       # [G, 1] or [G, T]
+            graph_label = gl[:, 0] if gl.shape[-1] == 1 else gl
+        label_index = None
+        if label_idx:
+            label_index = np.concatenate(label_idx)
+        elif cfg.dataset.task == "node":
+            label_index = np.arange(offset)
         batch = build_graph_batch(
             np.concatenate(ss), np.concatenate(rs), np.concatenate(xs),
             graph_ids=np.concatenate(gids),
             num_graphs=len(graphs) + 1,   # + padding graph slot
             node_label=node_label,
-            node_label_index=(np.concatenate(label_idx) if label_idx
-                              else np.arange(offset)),
+            node_label_index=label_index,
+            graph_label=graph_label,
             node_id_index=(np.concatenate(id_idx) if id_idx else None),
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges)
@@ -366,11 +387,22 @@ class GraphLoader:
                 batch.senders, batch.receivers, batch.edge_weight,
                 batch.node_mask, batch.num_nodes, kinds=kinds))
         # re-pad the variable-length index lists to the split-wide bucket
-        batch = _repad_index(batch, "node_label_index", "label_mask",
-                             self.pad_labels)
+        if batch.node_label_index is not None:
+            batch = _repad_index(batch, "node_label_index", "label_mask",
+                                 self.pad_labels)
         if batch.node_id_index is not None:
             batch = _repad_index(batch, "node_id_index", "id_mask",
                                  self.pad_ids)
+        if cfg.dataset.task == "graph" \
+                and cfg.model.graph_pooling not in register.pooling_dict:
+            ego = cfg.dataset.transform == "ego"
+            batch = batch.replace(packs={
+                **(batch.packs or {}),
+                **build_pool_packs(
+                    batch.graph_ids, batch.node_mask, batch.num_graphs,
+                    cfg.model.graph_pooling,
+                    batch.node_id_index if ego else None,
+                    batch.id_mask if ego else None)})
         return batch
 
 

@@ -1,6 +1,7 @@
 """Static-shape graph batches for the torch port.
 
-The port of graphgym_tpu/graphs/container.py for node tasks.  A loader
+The port of graphgym_tpu/graphs/container.py for node and graph
+tasks.  A loader
 builds a ``GraphBatch`` on the host with numpy leaves and moves it to
 the device in one call, ``batch.to(device)``.
 
@@ -41,11 +42,15 @@ class GraphBatch:
       node_label: [N] labels aligned with node slots.
       node_label_index: [L] padded index list of supervised nodes.
       label_mask: [L] bool mask over node_label_index slots.
+      graph_label: [G] labels of the graph slots (graph tasks), 0 on the
+                  padding graph slot.
+      graph_mask: [G] bool, True for the real graph slots.
       node_id_index: [K] ego-net center slots (ID-GNN Full).
       id_mask:    [K] bool mask over node_id_index slots.
       packs:      dict kind -> (fwd PackedCSR, bwd PackedCSR), the packed
                   SpMM layouts of A and A^T, and for 'att' also the
-                  fwd->bwd slot map (graphs/packing.py).
+                  fwd->bwd slot map; a graph task's pooling pack maps
+                  node rows to graph slots and back (graphs/packing.py).
 
     Host batches hold numpy arrays.  ``to(device)`` gives torch tensors;
     index arrays become int64 there, except the packs, whose int32
@@ -63,6 +68,8 @@ class GraphBatch:
     node_label: Any = None
     node_label_index: Any = None
     label_mask: Any = None
+    graph_label: Any = None
+    graph_mask: Any = None
     node_id_index: Any = None
     id_mask: Any = None
     packs: Optional[dict] = None
@@ -112,6 +119,8 @@ class GraphBatch:
             node_label=move(self.node_label, True),
             node_label_index=move(self.node_label_index, True),
             label_mask=move(self.label_mask),
+            graph_label=move(self.graph_label, True),
+            graph_mask=move(self.graph_mask),
             node_id_index=move(self.node_id_index, True),
             id_mask=move(self.id_mask),
             packs=packs)
@@ -157,6 +166,7 @@ def build_graph_batch(
     num_graphs: int = 1,
     node_label: Optional[np.ndarray] = None,
     node_label_index: Optional[np.ndarray] = None,
+    graph_label: Optional[np.ndarray] = None,
     node_id_index: Optional[np.ndarray] = None,
     pad_nodes_to: Optional[int] = None,
     pad_edges_to: Optional[int] = None,
@@ -199,6 +209,11 @@ def build_graph_batch(
         l_pad = max(pad_nodes_to, len(li))
         kw["node_label_index"] = pad_to(li, l_pad, pad_node)
         kw["label_mask"] = pad_to(np.ones((len(li),), bool), l_pad, False)
+    if graph_label is not None:
+        g_real = int(np.asarray(graph_label).shape[0])
+        kw["graph_label"] = pad_to(np.asarray(graph_label), num_graphs, 0)
+        kw["graph_mask"] = pad_to(np.ones((g_real,), bool), num_graphs,
+                                  False)
     if node_id_index is not None:
         ii = np.asarray(node_id_index, np.int32)
         i_pad = max(len(ii), 1)

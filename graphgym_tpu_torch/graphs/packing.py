@@ -22,11 +22,20 @@ The bwd layout packs the transpose with the same weights, giving
 dx = A^T g.  The 'att' entry carries a third array, the slot map: for
 each bwd slot the fwd slot of the same edge, so the backward carries
 the per-slot coefficients into bwd order.
+
+A graph task adds the pooling pack of its head (``pool_kind``): the
+graph head's global add / mean / max pooling (graphgym_tpu/nn/heads.py:
+23-46, XLA segment reductions in the JAX package) as a rectangular
+pack, rows the graph slots and senders the nodes (the ego centers
+under the ego transform), weights the node mask (over each graph's
+count for mean).  Its bwd pack maps the graph slots back to the node
+rows, one slot a node.  A graph's nodes, and under ego its centers,
+are contiguous in a batch, so a row's slots are one graph's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -122,8 +131,8 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
         fwd, fwd_slot = pack_csr_with_slots(s, r, w, num_nodes)
         bwd, bwd_slot = pack_csr_with_slots(r, s, w, num_nodes)
         # bucket chunk counts so multi-batch loaders share shapes
-        fwd = _pad_to_bucket(fwd, num_nodes)
-        bwd = _pad_to_bucket(bwd, num_nodes)
+        fwd = _pad_to_bucket(fwd, num_nodes, num_nodes)
+        bwd = _pad_to_bucket(bwd, num_nodes, num_nodes)
         out[kind] = (fwd, bwd)
         if kind == "att":
             out[kind] += (_slot_map(fwd, bwd, fwd_slot, bwd_slot),)
@@ -136,16 +145,19 @@ def pack_chunks(packs: Dict[str, tuple]) -> Dict[str, Tuple[int, int]]:
             for kind, entry in packs.items()}
 
 
-def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]],
-              num_nodes: int) -> Dict[str, tuple]:
+def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
+              ) -> Dict[str, tuple]:
     """``packs`` with each kind's fwd and bwd pack padded with no-op
-    chunks (``pad_pack``) to ``chunks[kind]``; the 'att' slot map
+    chunks (``pad_pack``) to ``chunks[kind]``, each pack's rows its
+    row_range's and its padding sender the other pack's row count (the
+    node count, or a pooling pack's graph slots); the 'att' slot map
     grows with the bwd pack, and its padding slots point one past the
     padded fwd slots."""
     out = {}
     for kind, entry in packs.items():
-        fwd = pad_pack(entry[0], chunks[kind][0], num_nodes)
-        bwd = pad_pack(entry[1], chunks[kind][1], num_nodes)
+        fwd_rows, bwd_rows = (p.row_range.shape[0] for p in entry[:2])
+        fwd = pad_pack(entry[0], chunks[kind][0], fwd_rows, bwd_rows)
+        bwd = pad_pack(entry[1], chunks[kind][1], bwd_rows, fwd_rows)
         out[kind] = (fwd, bwd)
         if kind == "att":
             past = fwd.senders.size
@@ -167,8 +179,57 @@ def _slot_map(fwd: PackedCSR, bwd: PackedCSR, fwd_slot: np.ndarray,
     return slot_map.reshape(bwd.senders.shape)
 
 
-def _pad_to_bucket(pack: PackedCSR, num_nodes: int) -> PackedCSR:
-    return pad_pack(pack, bucket_size(pack.senders.shape[0]), num_nodes)
+def _pad_to_bucket(pack: PackedCSR, num_rows: int,
+                   num_senders: int) -> PackedCSR:
+    return pad_pack(pack, bucket_size(pack.senders.shape[0]), num_rows,
+                    num_senders)
+
+
+POOLINGS = ("add", "mean", "max")
+
+
+def pool_kind(pooling: str, ego: bool = False) -> str:
+    """The pack kind of a graph head's pooling: 'pool_add', 'pool_mean'
+    or 'pool_max', with '_ego' where it pools the ego centers."""
+    if pooling not in POOLINGS:
+        raise ValueError(f"Unknown pooling {pooling}")
+    return f"pool_{pooling}" + ("_ego" if ego else "")
+
+
+def build_pool_packs(graph_ids: np.ndarray, node_mask: np.ndarray,
+                     num_graphs: int, pooling: str,
+                     id_index: Optional[np.ndarray] = None,
+                     id_mask: Optional[np.ndarray] = None
+                     ) -> Dict[str, tuple]:
+    """{pool_kind: (fwd, bwd)}: the pooling of ``global_pool``
+    (graphgym_tpu/nn/heads.py:23-46) as packs.  The fwd pack has a row
+    per graph slot and reads the node rows: a slot per node, or per
+    entry of ``id_index`` (the ego centers) under the ego transform,
+    weighted by ``node_mask`` (``id_mask``), so padding nodes and
+    padding centers have weight 0; for 'mean' each weight is over its
+    graph's count of real slots (segment_mean's division, taken on the
+    host as the 'gcn_mean' pack takes it).  The padding graph slot's row
+    holds only weight-0 slots: an empty row, 0 in the sum and in the
+    max.  The bwd pack has a row per node and reads the graph slots.
+    graph_ids and node_mask are the padded batch's (num_nodes long)."""
+    graph_ids = np.asarray(graph_ids, np.int64)
+    num_nodes = len(graph_ids)
+    if id_index is None:
+        senders, mask = np.arange(num_nodes), node_mask
+    else:
+        senders, mask = np.asarray(id_index, np.int64), id_mask
+    w = np.asarray(mask, np.float32)
+    receivers = graph_ids[senders]
+    if pooling == "mean":
+        count = np.bincount(receivers, weights=w, minlength=num_graphs)
+        w = (w / np.maximum(count, 1)[receivers]).astype(np.float32)
+    kind = pool_kind(pooling, id_index is not None)
+    fwd, _ = pack_csr_with_slots(senders, receivers, w, num_graphs,
+                                 num_senders=num_nodes)
+    bwd, _ = pack_csr_with_slots(receivers, senders, w, num_nodes,
+                                 num_senders=num_graphs)
+    return {kind: (_pad_to_bucket(fwd, num_graphs, num_nodes),
+                   _pad_to_bucket(bwd, num_nodes, num_graphs))}
 
 
 def agg_kind(agg: str, normalize_adj: bool) -> str:

@@ -5,11 +5,13 @@ Two model families, as in the JAX package:
   * the torch path (GraphGym's, reference gnn.py:123-168): pre-MP
     Linear + BN + dropout + act layers, a stack or skip stage of
     GeneralLayer(conv) with BN, dropout and act, the L2 norm after the
-    stage, and the node head's MLP; its linear kernels at LINEAR_GAIN;
+    stage, and the head of the task: the node head's MLP, or the graph
+    head's global pooling and MLP; its linear kernels at LINEAR_GAIN;
   * the Tfg path (main_zd.py:28-257, layer types 'Tfg-*'): plain conv +
     act stacks with a Dense(256) -> Dense(C) head, no pre-MP, no
     BatchNorm wrapper and no L2 norm (the GIN layers keep the BatchNorm
-    inside their MLP).
+    inside their MLP); node tasks only, as in the JAX package, whose Tfg
+    head gathers node slots whatever the task.
 The layer table holds the layer types of the packed paths, and a
 layer registered in register.layer_dict (the contrib 'contrib_example')
 takes precedence, as in the JAX make_conv; the others raise naming
@@ -29,7 +31,8 @@ from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.att_layers import ExampleConv
-from graphgym_tpu_torch.nn.heads import GNNNodeHead, HeadOut, gather_supervised
+from graphgym_tpu_torch.nn.heads import (GNNGraphHead, GNNNodeHead, HeadOut,
+                                         gather_supervised)
 from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
                                           GeneralConv, GeneralLayer, GINConv,
                                           Linear, SAGEConv, TfgGATConv,
@@ -136,6 +139,9 @@ class GNNOptions:
     l2norm: bool = True
     bn_eps: float = 1e-5       # the BN wrapper's; the Tfg GIN MLP's BN
     bn_mom: float = 0.1        # keeps the defaults, as in the JAX layer
+    task: str = "node"         # node | graph
+    graph_pooling: str = "add"  # the graph head's: add | mean | max
+    ego: bool = False          # the graph head pools the ego centers
     tfg_head: bool = False
 
 
@@ -151,9 +157,12 @@ def options_from_cfg(cfg) -> GNNOptions:
             f"{NOT_PORTED[name]})")
     if name not in LAYERS and name not in register.layer_dict:
         raise ValueError(f"Unknown layer type: {name}")
-    if cfg.dataset.task != "node":
+    task = cfg.dataset.task
+    if task not in ("node", "graph") or (task != "node"
+                                         and name.startswith("Tfg-")):
         raise NotImplementedError(
-            f"task {cfg.dataset.task!r} is not ported yet (ROADMAP A13b)")
+            f"task {task!r} is not ported yet for {name!r} (ROADMAP "
+            "A13b; the Tfg models are node models)")
     common = dict(layer_type=name, dim_in=cfg.share.dim_in,
                   dim_out=cfg.share.dim_out, layers_mp=cfg.gnn.layers_mp,
                   dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act,
@@ -161,7 +170,9 @@ def options_from_cfg(cfg) -> GNNOptions:
                   att_dropout=cfg.gnn.att_dropout, gin_agg=cfg.gnn.gin_agg,
                   agg=cfg.gnn.agg, self_msg=cfg.gnn.self_msg,
                   normalize_adj=cfg.gnn.normalize_adj,
-                  bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom)
+                  bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom, task=task,
+                  graph_pooling=cfg.model.graph_pooling,
+                  ego=cfg.dataset.transform == "ego")
     if name.startswith("Tfg-"):
         return GNNOptions(**common, batchnorm=False, l2norm=False,
                           tfg_head=True)
@@ -297,8 +308,9 @@ class TfgMLPHead(nn.Module):
 
 class GNN(nn.Module):
     """Full model (nn/model.py:227-336; reference gnn.py:123-168):
-    pre-MP layers -> MP stage -> head.  ``forward`` returns (pred,
-    label, mask) at the supervised slots.  ``pre_mp`` holds
+    pre-MP layers -> MP stage -> head (the Tfg head, or the node or
+    graph head by task, nn/model.py:314-335).  ``forward`` returns
+    (pred, label, mask) at the supervised slots.  ``pre_mp`` holds
     GeneralLayer(Linear) blocks, each Linear + BN + dropout + act
     (GNNPreMP, nn/model.py:291-308)."""
 
@@ -324,6 +336,12 @@ class GNN(nn.Module):
             dim = self.mp.dim_out
         if opts.tfg_head:
             self.post_mp = TfgMLPHead(dim, opts.dim_out, generator)
+        elif opts.task == "graph":
+            self.post_mp = GNNGraphHead(
+                dim, opts.dim_out, pooling=opts.graph_pooling,
+                ego=opts.ego, layers_post_mp=opts.layers_post_mp,
+                dim_inner=opts.dim_inner, act=opts.act,
+                generator=generator)
         else:
             self.post_mp = GNNNodeHead(
                 dim, opts.dim_out, layers_post_mp=opts.layers_post_mp,

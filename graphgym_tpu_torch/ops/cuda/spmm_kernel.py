@@ -93,7 +93,8 @@ class PackedCSR(NamedTuple):
 def pack_csr(senders: np.ndarray, receivers: np.ndarray,
              weights: Optional[np.ndarray], num_nodes: int,
              pad_chunks_to: Optional[int] = None,
-             group: int = 1) -> PackedCSR:
+             group: int = 1,
+             num_senders: Optional[int] = None) -> PackedCSR:
     """Host-side packing (the numpy path of the JAX package's
     ``pack_csr``, spmm_kernel.py:74-179).
 
@@ -101,18 +102,22 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
     in a fixed order.  Each row's span is padded to a multiple of
     ``group`` (G) slots, which keep the row's local index and weight 0,
     so aligned groups of G slots belong to one row.  Every tile gets at
-    least one chunk; the other padding slots carry sender ``num_nodes``,
-    weight 0 and local row 0."""
+    least one chunk; the other padding slots carry sender
+    ``num_senders``, weight 0 and local row 0.  The pack has
+    ``num_nodes`` rows and reads ``num_senders`` rows (by default as
+    many: a square pack; a graph-pooling pack maps node rows to graph
+    slots), so its padding sender is the zero row after the input's."""
     pack, _ = pack_csr_with_slots(senders, receivers, weights, num_nodes,
-                                  group)
+                                  group, num_senders)
     if pad_chunks_to is not None:
-        pack = pad_pack(pack, pad_chunks_to, num_nodes)
+        pack = pad_pack(pack, pad_chunks_to, num_nodes, num_senders)
     return pack
 
 
 def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
                         weights: Optional[np.ndarray], num_nodes: int,
-                        group: int = 1) -> Tuple[PackedCSR, np.ndarray]:
+                        group: int = 1, num_senders: Optional[int] = None
+                        ) -> Tuple[PackedCSR, np.ndarray]:
     """``pack_csr`` without chunk padding, and the flat slot [E] that
     each input edge landed in (the attention path maps its fwd slots to
     its bwd slots with it)."""
@@ -152,7 +157,8 @@ def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
     slot = (chunk_start[tile_of_row[r_s]] * C
             + row_off_in_tile[r_s] + rank)
 
-    out_s = np.full(nc * C, num_nodes, np.int32)
+    out_s = np.full(nc * C, num_nodes if num_senders is None
+                    else num_senders, np.int32)
     out_w = np.zeros(nc * C, np.float32)
     out_l = np.zeros(nc * C, np.int32)
     out_s[slot] = s_s
@@ -185,18 +191,21 @@ def pack_csr_with_slots(senders: np.ndarray, receivers: np.ndarray,
     return pack, edge_slot
 
 
-def pad_pack(pack: PackedCSR, pad_chunks_to: int,
-             num_nodes: int) -> PackedCSR:
-    """Pad a pack with no-op chunks (zero weight, last tile) up to
-    ``pad_chunks_to`` chunks (spmm_kernel.py:182-201)."""
+def pad_pack(pack: PackedCSR, pad_chunks_to: int, num_nodes: int,
+             num_senders: Optional[int] = None) -> PackedCSR:
+    """Pad a pack of ``num_nodes`` rows with no-op chunks (zero weight,
+    last tile, the padding sender ``num_senders``, by default
+    ``num_nodes``) up to ``pad_chunks_to`` chunks
+    (spmm_kernel.py:182-201)."""
     nc, c = pack.senders.shape
     if pad_chunks_to <= nc:
         return pack
     extra = pad_chunks_to - nc
     num_tiles = (num_nodes + ROWS_PER_TILE - 1) // ROWS_PER_TILE
+    pad_sender = num_nodes if num_senders is None else num_senders
     cat = np.concatenate
     return PackedCSR(
-        cat([pack.senders, np.full((extra, c), num_nodes, np.int32)]),
+        cat([pack.senders, np.full((extra, c), pad_sender, np.int32)]),
         cat([pack.weights, np.zeros((extra, c), np.float32)]),
         cat([pack.local_rows, np.zeros((extra, c), np.int32)]),
         cat([pack.tiles, np.full((extra,), num_tiles - 1, np.int32)]),
@@ -229,15 +238,17 @@ def _f32_tiles(n: int, d: int, device) -> torch.Tensor:
 
 def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x from the packed layout: gather, weight, index_add_
-    into f32 tiles, cast to x.dtype.  x has num_nodes rows; the padding
-    sender num_nodes reads an appended zero row."""
-    n, d = x.shape
+    into f32 tiles, cast to x.dtype.  out has the pack's rows (x's on a
+    square pack); the padding sender, x's row count, reads an appended
+    zero row."""
+    d = x.shape[1]
+    rows = pack.row_range.shape[0]
     xp = torch.cat([x, x.new_zeros(1, d)]).float()
     msg = xp.index_select(0, pack.senders.reshape(-1).long())
     msg = msg * pack.weights.reshape(-1, 1)
-    out = _f32_tiles(n, d, x.device)
+    out = _f32_tiles(rows, d, x.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg)
-    return out[:n].to(x.dtype)
+    return out[:rows].to(x.dtype)
 
 
 def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
@@ -295,35 +306,38 @@ def _live(pack: PackedCSR, n: int) -> torch.Tensor:
 
 
 def packed_max_plain(pack: PackedCSR, x: torch.Tensor):
-    """f32 (out, cnt) [num_nodes, D]: out[r, c] = the max of w * x[s, c]
-    over the slots of row r with weight w != 0 and a live sender s, cnt
-    how many slots reach it; 0 and 0 for a row with none.  Gather,
-    multiply in f32, -inf on every other slot, scatter_reduce(amax) into
-    f32 tiles and -inf -> 0 (the JAX -inf mask and isfinite -> 0), then
-    the ties counted by index_add_ (exact small integers).  No
-    data-dependent shape, so nothing waits for the card."""
+    """f32 (out, cnt) [rows, D], the pack's rows (x's on a square pack):
+    out[r, c] = the max of w * x[s, c] over the slots of row r
+    with weight w != 0 and a live sender s (a row of x), cnt how many
+    slots reach it; 0 and 0 for a row with none.  Gather, multiply in
+    f32, -inf on every other slot, scatter_reduce(amax) into f32 tiles
+    and -inf -> 0 (the JAX -inf mask and isfinite -> 0), then the ties
+    counted by index_add_ (exact small integers).  No data-dependent
+    shape, so nothing waits for the card."""
     n, d = x.shape
+    rows_out = pack.row_range.shape[0]
     live = _live(pack, n)[:, None]
     xp = torch.cat([x, x.new_zeros(1, d)]).float()
     msg = torch.where(live, xp.index_select(
         0, pack.senders.reshape(-1).long()) * pack.weights.reshape(-1, 1),
         float("-inf"))
     rows = pack_rows(pack).reshape(-1)
-    out = torch.full((num_tiles_of(n) * ROWS_PER_TILE, d), float("-inf"),
-                     device=x.device)
+    out = torch.full((num_tiles_of(rows_out) * ROWS_PER_TILE, d),
+                     float("-inf"), device=x.device)
     out.scatter_reduce_(0, rows[:, None].expand(-1, d), msg, "amax")
     out = torch.where(torch.isfinite(out), out, 0.0)
     cnt = torch.zeros_like(out)
     cnt.index_add_(0, rows, (live & (msg == out.index_select(0, rows)))
                    .float())
-    return out[:n], cnt[:n]
+    return out[:rows_out], cnt[:rows_out]
 
 
 def packed_max_bwd_plain(bwd_pack: PackedCSR, x: torch.Tensor,
                          g: torch.Tensor, out: torch.Tensor,
                          cnt: torch.Tensor) -> torch.Tensor:
-    """f32 dx [num_nodes, D] of packed_max_plain's out on the transpose
-    pack (its rows are the senders s, its senders the receivers r):
+    """f32 dx [num_nodes, D], x's rows, of packed_max_plain's out on the
+    transpose pack (its rows are the senders s, its senders the
+    receivers r, rows of g, out and cnt):
     dx[s, c] = the sum over row s's slots of weight w != 0, in slot
     order, of [w * x[s, c] == out[r, c]] * (g[r, c] * (1 / cnt[r, c]))
     * w, a tie split evenly between the slots that reach the max, as
@@ -331,12 +345,13 @@ def packed_max_bwd_plain(bwd_pack: PackedCSR, x: torch.Tensor,
     into f32 tiles over every slot (0 on the others; sequential, so in
     slot order, on the CPU)."""
     n, d = x.shape
-    live = _live(bwd_pack, n)[:, None]
+    live = _live(bwd_pack, out.shape[0])[:, None]
     rows = pack_rows(bwd_pack).reshape(-1)
     receivers = bwd_pack.senders.reshape(-1).long()
     w = bwd_pack.weights.reshape(-1, 1)
 
-    def take(a):   # a[receivers], the padding sender n reading row n
+    def take(a):   # a[receivers], the padding sender (a's rows) reading
+        # an appended zero row
         return torch.cat([a.float(), a.new_zeros(1, d).float()]) \
             .index_select(0, receivers)
     xs = x.float().index_select(0, rows.clamp_max(n - 1))
@@ -505,8 +520,8 @@ def build() -> Dict[str, BuildInfo]:
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    # x, n_rows, d, senders, weights, row_range, out, stream
-    "packed_spmm": [_P, _LL, _I, _P, _P, _P, _P, _P],
+    # x, x_rows, d, senders, weights, row_range, n_rows, out, stream
+    "packed_spmm": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P],
     # msg, d, n_runs, run_start, run_out, n_comb, comb_rows, comb_ptr,
     # partial, out, stream
     "packed_segment": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
@@ -515,10 +530,11 @@ _ARGTYPES = {
     # a, b, n_rows, d, heads, senders, weights, row_range, n_slots, out,
     # stream
     "packed_sddmm": [_P, _P, _LL, _I, _I, _P, _P, _P, _LL, _P, _P],
-    # x, n_rows, d, senders, weights, row_range, out, cnt, stream
-    "packed_max": [_P, _LL, _I, _P, _P, _P, _P, _P, _P],
-    # x, g, out, cnt, n_rows, d, senders, weights, row_range, dx, stream
-    "packed_max_bwd": [_P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P],
+    # x, x_rows, d, senders, weights, row_range, n_rows, out, cnt, stream
+    "packed_max": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P],
+    # x, g, out, cnt, n_rows, d, senders, weights, row_range, g_rows, dx,
+    # stream
+    "packed_max_bwd": [_P, _P, _P, _P, _LL, _I, _P, _P, _P, _LL, _P, _P],
 }
 # the entry points of each library beyond csrc/<name>.cu's own <name>
 _ENTRIES = {"packed_max": ("packed_max", "packed_max_bwd")}
@@ -542,13 +558,15 @@ def _check(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_inputs(name: str, pack: PackedCSR, x: torch.Tensor) -> None:
-    """What both kernels take: a 2-D f32 or bf16 CUDA x of num_nodes
-    rows, and the pack's int32 / f32 arrays contiguous on x's device."""
+def _check_inputs(name: str, pack: PackedCSR, x: torch.Tensor,
+                  square: bool = True) -> None:
+    """What the kernels take: a 2-D f32 or bf16 CUDA x, a pack of x's
+    rows (of any rows where not ``square``: K1 and the max on a pooling
+    pack), and the pack's int32 / f32 arrays contiguous on x's device."""
     _check(name, x.is_cuda and x.dim() == 2, "x must be a 2-D CUDA tensor")
     _check(name, x.dtype in (torch.float32, torch.bfloat16),
            f"x dtype {x.dtype} not supported (float32, bfloat16)")
-    n = x.shape[0]
+    n = x.shape[0] if square else pack.row_range.shape[0]
     _check(name, tuple(pack.row_range.shape) == (n, 2),
            f"row_range {tuple(pack.row_range.shape)} for {n} rows")
     for field, a, dtype in (("senders", pack.senders, torch.int32),
@@ -575,27 +593,33 @@ def _launch(name: str, x: torch.Tensor, *args, entry: str = "") -> None:
 
 
 def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel K1: f32 out [num_nodes, D] = A @ x, with
-    x [num_nodes, D] f32 or bf16 on a CUDA device.  Adds one to
-    ``packed_spmm_cuda.launches`` per launch, and to its D's entry of
-    ``packed_spmm_cuda.launches_by_width`` (the kernel picks its walk by
-    width)."""
-    _check_inputs("packed_spmm_cuda", pack, x)
+    """Launch the Hopper kernel K1: f32 out [rows, D] = A @ x, with x
+    [x_rows, D] f32 or bf16 on a CUDA device; rows are the pack's, x's
+    on a square pack (a pooling pack maps node rows to graph slots, its
+    transpose back).  Adds one to ``packed_spmm_cuda.launches`` per
+    launch, and to its D's entry of ``packed_spmm_cuda.launches_by_width``
+    (the kernel picks its walk by width) and, where rows differ from
+    x_rows, of ``packed_spmm_cuda.launches_rectangular``."""
+    _check_inputs("packed_spmm_cuda", pack, x, square=False)
     x = x.contiguous()
-    n, d = x.shape
+    x_rows, d = x.shape
+    n = pack.row_range.shape[0]
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return out
-    _launch("packed_spmm", x, n, d, pack.senders.data_ptr(),
-            pack.weights.data_ptr(), pack.row_range.data_ptr(),
+    _launch("packed_spmm", x, x_rows, d, pack.senders.data_ptr(),
+            pack.weights.data_ptr(), pack.row_range.data_ptr(), n,
             out.data_ptr())
     packed_spmm_cuda.launches += 1
     packed_spmm_cuda.launches_by_width[d] += 1
+    if n != x_rows:
+        packed_spmm_cuda.launches_rectangular[d] += 1
     return out
 
 
 packed_spmm_cuda.launches = 0
 packed_spmm_cuda.launches_by_width = collections.Counter()
+packed_spmm_cuda.launches_rectangular = collections.Counter()
 
 
 def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
@@ -708,18 +732,19 @@ packed_segment_matmul_cuda.launches = 0
 
 def packed_max_cuda(pack: PackedCSR, x: torch.Tensor):
     """Launch the Hopper segmented max (csrc/packed_max.cu, forward): f32
-    (out, cnt) [num_nodes, D] as ``packed_max_plain``, x [num_nodes, D]
-    f32 or bf16 on a CUDA device.  Adds one to
+    (out, cnt) [rows, D] as ``packed_max_plain``, the pack's rows, x
+    [x_rows, D] f32 or bf16 on a CUDA device.  Adds one to
     ``packed_max_cuda.launches`` per launch."""
-    _check_inputs("packed_max_cuda", pack, x)
+    _check_inputs("packed_max_cuda", pack, x, square=False)
     x = x.contiguous()
-    n, d = x.shape
+    x_rows, d = x.shape
+    n = pack.row_range.shape[0]
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     cnt = torch.empty(n, d, dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return out, cnt
-    _launch("packed_max", x, n, d, pack.senders.data_ptr(),
-            pack.weights.data_ptr(), pack.row_range.data_ptr(),
+    _launch("packed_max", x, x_rows, d, pack.senders.data_ptr(),
+            pack.weights.data_ptr(), pack.row_range.data_ptr(), n,
             out.data_ptr(), cnt.data_ptr())
     packed_max_cuda.launches += 1
     return out, cnt
@@ -732,17 +757,19 @@ def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
                         g: torch.Tensor, out: torch.Tensor,
                         cnt: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper segmented max's backward (csrc/packed_max.cu) on
-    the transpose pack: f32 dx [num_nodes, D] as
+    the transpose pack: f32 dx [num_nodes, D], x's rows, as
     ``packed_max_bwd_plain``, from x (f32 or bf16) and the f32 g, out
-    and cnt [num_nodes, D] on a CUDA device.  Adds one to
-    ``packed_max_bwd_cuda.launches`` per launch."""
+    and cnt [out rows, D] (the forward's rows: x's on a square pack) on
+    a CUDA device.  Adds one to ``packed_max_bwd_cuda.launches`` per
+    launch."""
     name = "packed_max_bwd_cuda"
     _check_inputs(name, bwd_pack, x)
     for field, a in (("g", g), ("out", out), ("cnt", cnt)):
-        _check(name, a.shape == x.shape and a.dtype == torch.float32
+        _check(name, a.dim() == 2 and a.shape == out.shape
+               and a.shape[1] == x.shape[1] and a.dtype == torch.float32
                and a.device == x.device,
-               f"{field} must be a float32 {tuple(x.shape)} tensor on "
-               f"{x.device}")
+               f"{field} must be a float32 [rows, {x.shape[1]}] tensor "
+               f"of out's shape {tuple(out.shape)} on {x.device}")
     x, g, out, cnt = (a.contiguous() for a in (x, g, out, cnt))
     n, d = x.shape
     dx = torch.empty(n, d, dtype=torch.float32, device=x.device)
@@ -750,7 +777,7 @@ def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
         return dx
     _launch("packed_max", x, g.data_ptr(), out.data_ptr(), cnt.data_ptr(),
             n, d, bwd_pack.senders.data_ptr(), bwd_pack.weights.data_ptr(),
-            bwd_pack.row_range.data_ptr(), dx.data_ptr(),
+            bwd_pack.row_range.data_ptr(), out.shape[0], dx.data_ptr(),
             entry="packed_max_bwd")
     packed_max_bwd_cuda.launches += 1
     return dx
@@ -758,41 +785,52 @@ def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
 
 packed_max_bwd_cuda.launches = 0
 
-# every kernel wrapper; each counts its launches, K1 and K3 also by width
+# every kernel wrapper; each counts its launches, K1 and K3 also by width,
+# K1 also its rectangular launches by width
 KERNELS = (packed_spmm_cuda, packed_segment_matmul_cuda,
            packed_segment_matmul_headed_cuda, packed_sddmm_cuda,
            packed_max_cuda, packed_max_bwd_cuda)
-LaunchCounts = Dict[str, Tuple[int, collections.Counter]]
+_KEYED = ("launches_by_width", "launches_rectangular")
+# per wrapper: launches, then a Counter per _KEYED name (empty where the
+# wrapper has no such counter; a snapshot given fewer reads them empty)
+LaunchCounts = Dict[str, Tuple[Any, ...]]
 
 
 def launch_counts() -> LaunchCounts:
-    """A snapshot of every wrapper's launches and launches by width."""
-    return {k.__name__: (k.launches, collections.Counter(
-        getattr(k, "launches_by_width", {}))) for k in KERNELS}
+    """A snapshot of every wrapper's launches and keyed counters."""
+    return {k.__name__: (k.launches, *(collections.Counter(
+        getattr(k, a, {})) for a in _KEYED)) for k in KERNELS}
+
+
+def _keyed(counts: Tuple[Any, ...]) -> list:
+    return list(counts[1:]) + [{}] * (1 + len(_KEYED) - len(counts))
 
 
 def set_launch_counts(counts: LaunchCounts) -> None:
     for k in KERNELS:
-        k.launches, by_width = counts[k.__name__]
-        if hasattr(k, "launches_by_width"):
-            k.launches_by_width.clear()
-            k.launches_by_width.update(by_width)
+        k.launches = counts[k.__name__][0]
+        for a, c in zip(_KEYED, _keyed(counts[k.__name__])):
+            if hasattr(k, a):
+                getattr(k, a).clear()
+                getattr(k, a).update(c)
 
 
 def add_launch_counts(delta: LaunchCounts) -> None:
     """Add ``delta`` (launches_between's) to the counters: a replayed
     CUDA graph launches again the kernels counted at its capture."""
     for k in KERNELS:
-        n, by_width = delta[k.__name__]
-        k.launches += n
-        if hasattr(k, "launches_by_width"):
-            k.launches_by_width.update(by_width)
+        k.launches += delta[k.__name__][0]
+        for a, c in zip(_KEYED, _keyed(delta[k.__name__])):
+            if hasattr(k, a):
+                getattr(k, a).update(c)
 
 
 def launches_between(before: LaunchCounts,
                      after: LaunchCounts) -> LaunchCounts:
-    return {name: (after[name][0] - n, after[name][1] - by_width)
-            for name, (n, by_width) in before.items()}
+    return {name: (after[name][0] - b[0],
+                   *(a - collections.Counter(c) for a, c in
+                     zip(_keyed(after[name]), _keyed(b))))
+            for name, b in before.items()}
 
 
 # --------------------------------------------------------------------------
@@ -801,7 +839,8 @@ def launches_between(before: LaunchCounts,
 
 def spmm_packed(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     """Forward SpMM from a packed layout (spmm_kernel.py:441-459):
-    the kernel for a CUDA tensor, the plain version for a CPU one."""
+    the kernel for a CUDA tensor, the plain version for a CPU one; out
+    has the pack's rows."""
     if x.is_cuda:
         return packed_spmm_cuda(pack, x).to(x.dtype)
     return spmm_packed_plain(pack, x)
@@ -859,7 +898,9 @@ def segment_matmul_vjp(msg: torch.Tensor, local_rows: torch.Tensor,
 class SpmmPackFn(torch.autograd.Function):
     """Differentiable SpMM over batch-carried packs (the port of
     ``spmm_pack_vjp``, spmm_kernel.py:681-710): out = A x on the fwd
-    pack, dx = A^T g on the bwd pack.  The packs get no gradient."""
+    pack, dx = A^T g on the bwd pack.  On a rectangular pack (graph
+    pooling) out has the fwd pack's rows and dx the bwd pack's, x's.
+    The packs get no gradient."""
 
     @staticmethod
     def forward(ctx, fwd_pack: PackedCSR, bwd_pack: PackedCSR,
@@ -878,8 +919,9 @@ def spmm_pack_vjp(fwd_pack: PackedCSR, bwd_pack: PackedCSR,
 
 
 def packed_max(pack: PackedCSR, x: torch.Tensor):
-    """Segmented max from a packed layout, f32 (out, cnt): the kernel for
-    a CUDA tensor, the plain version for a CPU one."""
+    """Segmented max from a packed layout, f32 (out, cnt) of the pack's
+    rows: the kernel for a CUDA tensor, the plain version for a CPU
+    one."""
     if x.is_cuda:
         return packed_max_cuda(pack, x)
     return packed_max_plain(pack, x)
@@ -900,7 +942,9 @@ class PackedMaxFn(torch.autograd.Function):
     'max', segment_max masked to the slots of nonzero pack weight): out
     = the max of w * x[sender] over each row's slots on the fwd pack;
     dx by ``packed_max_bwd`` on the bwd pack from the forward's out and
-    tie counts, no scatter, no atomics.  The packs get no gradient."""
+    tie counts, no scatter, no atomics.  On a rectangular pack (graph
+    max pooling) out has the fwd pack's rows and dx x's.  The packs get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, fwd_pack: PackedCSR, bwd_pack: PackedCSR,

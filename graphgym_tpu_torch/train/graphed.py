@@ -25,14 +25,18 @@ For each signature a program holds:
 Capture runs nothing, so the kernel wrappers' launch counters are
 restored after it.  Each graph keeps the launches its capture counted
 and adds them to the counters on every replay.  A capture or replay
-that fails raises, naming the step and the signature.  There is no
-eager fallback on the card; ``eager=True`` asks for eager steps on any
-device, for comparisons against the captured ones.
+that fails raises, naming the step and the signature.  A failed capture
+first leaves the process as it found it (``_abandon_capture``): the
+capture ended, the stream and the default generator's state restored,
+so the card draws and captures again.  There is no eager fallback on
+the card; ``eager=True`` asks for eager steps on any device, for
+comparisons against the captured ones.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import time
@@ -241,13 +245,20 @@ class GraphedStep:
         if self.before_capture is not None:
             self.before_capture()
         before = K.launch_counts()
+        device = prog.static.node_feat.device
+        stream = torch.cuda.current_stream(device)
+        # the default generator joins every capture: its state as it
+        # was, for a failed one
+        default = torch.cuda.default_generators[device.index]
+        state = default.clone_state()
+        graph = torch.cuda.CUDAGraph()
         try:
-            graph = torch.cuda.CUDAGraph()
             for gen in self.generators:
                 graph.register_generator_state(gen)
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.program(prog.static)
         except Exception as exc:
+            _abandon_capture(graph, device, stream, default, state)
             raise RuntimeError(
                 f"{self.name} step: capture at step {prog.steps} failed for "
                 f"batch signature {describe(prog.key)}: {exc}") from exc
@@ -260,6 +271,30 @@ class GraphedStep:
         # allocated, so no later capture in the shared pool takes them
         prog.keep = tuple(p.grad for p in self.params)
         prog.capture_s = time.perf_counter() - t0
+
+
+def _abandon_capture(graph: torch.cuda.CUDAGraph, device: torch.device,
+                     stream: torch.cuda.Stream, default: torch.Generator,
+                     state: torch.Generator) -> None:
+    """After a capture failed inside ``torch.cuda.graph``: end the
+    capture if its stream still captures, end the allocator's capture
+    into the graph's pool, make ``stream`` current again, and give the
+    default CUDA generator ``default`` its state from before the
+    capture (``state``, a clone).  Where the capture was invalidated (a
+    host read of a device value, say), the context's ``capture_end``
+    raised before it ended the allocator's pool capture, restored the
+    stream or took the generators out of capture mode, and a generator
+    left in capture mode refuses every later draw outside a capture
+    ("Offset increment outside graph capture").  The model's own
+    generators, registered with the failed graph, stay as they are: the
+    step that failed raises and takes no other step."""
+    if torch.cuda.is_current_stream_capturing():
+        with contextlib.suppress(RuntimeError):
+            graph.capture_end()
+    with contextlib.suppress(RuntimeError):    # ended by a capture_end
+        torch._C._cuda_endAllocateToPool(device.index, graph.pool())
+    torch.cuda.set_stream(stream)
+    default.graphsafe_set_state(state)
 
 
 def _quiet_capturable(fn):

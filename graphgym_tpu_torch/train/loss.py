@@ -26,7 +26,8 @@ def compute_loss(pred: torch.Tensor, true: torch.Tensor,
                  mask: Optional[torch.Tensor], opts: LossOptions
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (loss, softmax score).  pred: [L, C] logits; true: [L]
-    int labels; mask: [L] bool over supervised slots."""
+    int labels; mask: [L] bool over the supervised slots (node slots, or
+    a graph task's graph slots, its binned labels classes too)."""
     pred = pred.float()
     if mask is None:
         mask = torch.ones(pred.shape[:1], dtype=torch.bool,

@@ -295,16 +295,20 @@ def test_checkpoint_keeps_tensor_lr_and_forbids_load_after_capture(tmp_path):
 
 
 def test_launch_count_snapshots():
-    """The counters a capture restores and a replay adds to."""
+    """The counters a capture restores and a replay adds to (K1's
+    rectangular launches too, and a snapshot that names fewer counters
+    reads the others as empty)."""
     k1 = K.packed_spmm_cuda
     saved = K.launch_counts()
     try:
         before = K.launch_counts()
         k1.launches += 2
         k1.launches_by_width[128] += 2
+        k1.launches_rectangular[768] += 1
         delta = K.launches_between(before, K.launch_counts())
         assert delta[k1.__name__][0] == 2
         assert delta[k1.__name__][1] == {128: 2}
+        assert delta[k1.__name__][2] == {768: 1}
         K.set_launch_counts(before)
         assert K.launch_counts() == before
         K.add_launch_counts(delta)
@@ -312,6 +316,10 @@ def test_launch_count_snapshots():
         assert k1.launches == before[k1.__name__][0] + 4
         assert k1.launches_by_width[128] == \
             before[k1.__name__][1][128] + 4
+        assert k1.launches_rectangular[768] == \
+            before[k1.__name__][2][768] + 2
+        K.set_launch_counts({k: (0, {}) for k in K.launch_counts()})
+        assert k1.launches == 0 and not k1.launches_rectangular
     finally:
         K.set_launch_counts(saved)
 
@@ -356,7 +364,7 @@ def test_cuda_captured_matches_eager(cuda_device, path):
                     tr_e.model.state_dict().values()):
         assert torch.equal(a, b)
     assert counts == counts_e
-    assert sum(n for n, _ in counts.values()) > 0
+    assert sum(c[0] for c in counts.values()) > 0
 
 
 @pytest.mark.cuda
@@ -426,7 +434,9 @@ def test_cuda_att_dropout_draws_fresh_masks(cuda_device):
 def test_cuda_failed_capture_raises(cuda_device):
     """A program that reads a value back to the host cannot be captured:
     the step raises, naming the step and the batch signature, and takes
-    no eager step instead."""
+    no eager step instead.  The process stays usable (ROADMAP C7): the
+    card draws from the default generator again, and another step
+    captures, its replays drawing fresh numbers from that generator."""
     cfg = path_cfg("idgcn_ws", "cuda", "gnn.layers_mp", "1")
     batch = create_loader(small_splits(cfg), cfg)[0].batches(0)[0].to(
         cuda_device)
@@ -443,3 +453,15 @@ def test_cuda_failed_capture_raises(cuda_device):
         step(batch)
     assert step.captured == 0
     torch.cuda.synchronize()
+    assert torch.isfinite(torch.randn(64, device=cuda_device)).all()
+
+    def drawing(b):
+        x = b.node_feat.sum()
+        return x, torch.rand(16, device=x.device), x, x
+
+    again = graphed.GraphedStep("after", drawing, lambda: None)
+    draws = [again(batch)[1].clone() for _ in range(4)]   # eager, 3 replays
+    torch.cuda.synchronize()
+    assert again.captured == 1
+    assert all(not torch.equal(a, b) for a, b in zip(draws, draws[1:]))
+    torch.testing.assert_close(again(batch)[0], batch.node_feat.sum())

@@ -24,7 +24,8 @@ from graphgym_tpu.graphs import container as jax_container
 from graphgym_tpu.ops import segment as jax_segment
 from graphgym_tpu.ops import sparse as jax_sparse
 from graphgym_tpu_torch.graphs.container import build_graph_batch
-from graphgym_tpu_torch.graphs.packing import build_packs, kinds_for_layer
+from graphgym_tpu_torch.graphs.packing import (build_packs, build_pool_packs,
+                                               kinds_for_layer, pool_kind)
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
 
 CPU = torch.device("cpu")
@@ -220,3 +221,64 @@ def test_cuda_packed_max_matches_plain(cuda_device, kind, dtype, d):
     again = K.packed_max(dfwd, xd)
     assert torch.equal(again[0], out) and torch.equal(
         K.packed_max_bwd(dbwd, xd, gd, out, cnt), dx)
+
+
+def pool_packs(kind, ego):
+    """A graph task's pooling packs (build_pool_packs) over 12 graphs of
+    40-70 nodes, padded to 896 nodes and 13 graph slots (the last the
+    padding one), under ego over 30 centers a graph and 4 padding
+    centers at the padding node: the fwd pack (13 rows, 896 senders),
+    the bwd pack (896 rows, 13 senders), the slot count and node count."""
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(40, 71, 12)
+    n, g = 896, 13
+    gids = np.full(n, g - 1)
+    gids[:sizes.sum()] = np.repeat(np.arange(12), sizes)
+    mask = np.arange(n) < sizes.sum()
+    id_index = id_mask = None
+    if ego:
+        starts = np.cumsum(sizes) - sizes
+        ids = np.concatenate([st + np.arange(30) for st in starts])
+        id_index = np.concatenate([ids, np.full(4, n - 1)])
+        id_mask = np.arange(len(id_index)) < len(ids)
+    fwd, bwd = build_pool_packs(gids, mask, g, kind, id_index,
+                                id_mask)[pool_kind(kind, ego)]
+    return (K.PackedCSR(*map(torch.from_numpy, fwd)),
+            K.PackedCSR(*map(torch.from_numpy, bwd)), g, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 128, 130, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ego", [False, True])
+def test_cuda_pool_max_matches_plain(cuda_device, ego, dtype, d):
+    """Graph max pooling on the card: the max kernel on a rectangular
+    pooling pack (13 graph slots from 896 node rows) and its backward on
+    the transpose (896 rows from 13), through PackedMaxFn, against the
+    plain versions on the CPU: out and tie counts bitwise, dx at F32
+    tolerance; padding nodes, padding centers and the padding slot
+    (nonzero x on the padding rows) take no part; one launch each."""
+    fwd, bwd, g, n = pool_packs("max", ego)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(np.round(rng.normal(size=(n, d)) * 2) / 2).float()
+    x = x.to(dtype)
+    cot = torch.randn(g, d, generator=torch.Generator().manual_seed(2))
+    want, want_cnt = K.packed_max_plain(fwd, x)
+    want_dx = K.packed_max_bwd_plain(bwd, x, cot, want, want_cnt)
+    dfwd, dbwd = (K.PackedCSR(*(a.to(cuda_device) for a in p))
+                  for p in (fwd, bwd))
+    xd = x.to(cuda_device).requires_grad_(True)
+    K.packed_max_cuda.launches = K.packed_max_bwd_cuda.launches = 0
+    out = K.PackedMaxFn.apply(dfwd, dbwd, xd)
+    out.backward(cot.to(cuda_device).to(dtype))
+    torch.cuda.synchronize()
+    assert K.packed_max_cuda.launches == K.packed_max_bwd_cuda.launches == 1
+    assert out.shape == (g, d) and xd.grad.shape == (n, d)
+    assert torch.equal(out.float().cpu(), want.to(dtype).float())
+    assert not out[g - 1].any()
+    out32, cnt = K.packed_max(dfwd, x.to(cuda_device))
+    assert torch.equal(out32.cpu(), want) and torch.equal(cnt.cpu(), want_cnt)
+    torch.testing.assert_close(
+        K.packed_max_bwd(dbwd, x.to(cuda_device), cot.to(cuda_device),
+                         out32, cnt).cpu(), want_dx, rtol=1e-5, atol=1e-6)
+

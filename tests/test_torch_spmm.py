@@ -276,6 +276,45 @@ def test_cuda_kernel_equals_headed_one_head(cuda_device, dtype, d):
                                                 pack.weights[..., None]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 128, 130, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,ego", [("add", False), ("mean", False),
+                                      ("add", True)])
+def test_cuda_pool_kernel_matches_plain(cuda_device, kind, ego, dtype, d):
+    """Graph add / mean pooling on the card: K1 on a rectangular pooling
+    pack (13 graph slots from 896 node rows; rows of 30-70 slots, the
+    vector walk's and at D <= 8 the narrow walk's hub rows) and on its
+    transpose (896 rows from 13) through SpmmPackFn, against the plain
+    version on the CPU; the padding sender is the input's row count, so
+    padding nodes, centers and slots add nothing; 2 launches at D, both
+    counted as rectangular."""
+    from test_torch_max import pool_packs
+
+    fwd, bwd, g, n = pool_packs(kind, ego)
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(d))
+    cot = torch.randn(g, d, generator=torch.Generator().manual_seed(1))
+    x, cot = x.to(dtype), cot.to(dtype)
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-3))
+    dfwd, dbwd = (pack_tensors(p, cuda_device) for p in (fwd, bwd))
+    before = K.packed_spmm_cuda.launches_by_width[d]
+    rect = K.packed_spmm_cuda.launches_rectangular[d]
+    xg = x.to(cuda_device).requires_grad_(True)
+    out = K.spmm_pack_vjp(dfwd, dbwd, xg)
+    out.backward(cot.to(cuda_device))
+    torch.cuda.synchronize()
+    assert K.packed_spmm_cuda.launches_by_width[d] == before + 2
+    assert out.shape == (g, d) and xg.grad.shape == (n, d)
+    torch.testing.assert_close(out.cpu(), K.spmm_packed_plain(fwd, x),
+                               **tol)
+    torch.testing.assert_close(xg.grad.cpu(),
+                               K.spmm_packed_plain(bwd, cot), **tol)
+    assert K.packed_spmm_cuda.launches_rectangular[d] == rect + 2
+    assert torch.equal(K.packed_spmm_cuda(dfwd, xg.detach()),
+                       K.packed_spmm_cuda(dfwd, xg.detach()))
+
+
 def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
     """A library's name changes with its source, with any csrc header
     and with the flags, so an edit never loads a stale build."""
