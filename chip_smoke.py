@@ -220,7 +220,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    'att' packs, at bench_attention's shapes, K3's
                    aggregation (fwd) and dv (bwd) at H = 8, dv = 16, its
                    row sums on both packs (H = 8 and 1) and the SDDMM at
-                   H = 8, dh = 16, held and timed the same way;
+                   H = 8, dh = 16, held and timed the same way; the
+                   segmented max forward on the fwd pack and its
+                   backward on the bwd pack at D = 128, held and timed
+                   as in kernel_max (no path runs it there: the case of
+                   ws500 / ba500's 500-slot pooling rows, and longer);
  22. bench_runs  — the entry points with exact launch counts: bench.main
                    (K1 2 per fwd_bwd step, 1 per fwd step), the bf16 chain,
                    bench_attention (K3 6 per step, 4 of them row sums
@@ -238,9 +242,10 @@ ba's; K3, its row sums and the SDDMM on gatconvFast_ws and ID-GAT ba;
 K1 on each torch-path K1 grid point's pack, K3, its row sums and the
 SDDMM on gatid_ba's; K1 at D = 256 on design_sf's and design_sw_mean's
 packs and at D = 128 on idconv_ws's, the max forward and backward on
-design_sf_max's pack and on kernel_max's; K1 on the graph paths'
-layer packs, K1's add and mean pooling and the max's pooling forward
-and backward on their pooling packs), and last the result line
+design_sf_max's pack, on kernel_max's and on make_graph's; K1 on the
+graph paths' layer packs, K1's add and mean pooling and the max's
+pooling forward and backward on their pooling packs), and last the
+result line
 {"ok": true, "device": {...}}.
 """
 
@@ -1027,16 +1032,19 @@ def longest_rows(pack: K.PackedCSR) -> dict:
                 rows_over_32_slots=int((lengths > 32).sum()))
 
 
-def max_floor(n: int):
+def max_floor(n: int, d: int, backward: bool):
     """The launch floor under the segmented max (csrc/packed_max.cu,
     packed_max_floor): an empty kernel over the grid the max's forward
-    and backward take for n rows.  Counts no launch."""
+    (or backward) takes for n rows of d f32 columns.  Counts no
+    launch."""
     fn = K.library("packed_max").packed_max_floor
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def launch():
-        err = fn(n, torch.cuda.current_stream().cuda_stream)
+        err = fn(n, d, 0, int(backward),
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             fail(f"max floor launch: CUDA error {err}")
     return launch
@@ -1130,7 +1138,7 @@ def check_max_kernel(packs, n: int, d: int, device) -> dict:
         return torch.autograd.grad(lib_out, msg, g, retain_graph=True)[0]
     if not torch.equal(library(), out):
         fail(f"max d={d}: scatter_reduce(amax) differs from the kernel")
-    floors = {name: time_calls({"floor": max_floor(r)},
+    floors = {name: time_calls({"floor": max_floor(r, d, name == "bwd")},
                                bound_ms=1e-9)[0]["floor"]
               for name, r in (("fwd", rows), ("bwd", n))}
     rd4 = rows * d * 4
@@ -1215,8 +1223,9 @@ def median_iqr(values) -> dict:
 
 
 def check_bench_kernels(device) -> dict:
-    """K1 and K3 on the benchmark's graph (make_graph at the root
-    bench.py's defaults: row 0 of each pack takes ~5,500 slots): K1
+    """K1, K3 and the segmented max on the benchmark's graph (make_graph
+    at the root bench.py's defaults: row 0 of each pack takes ~5,500
+    slots): K1
     against its plain version on the fwd and bwd packs, f32 and bf16,
     held by hold_sums' rule; bitwise-repeatable launches;
     spmm_bidir's gradient of sum(out^2) against the plain version's
@@ -1225,9 +1234,10 @@ def check_bench_kernels(device) -> dict:
     pack and (alpha through the slot map) the bwd pack, its row sums at
     dv = 1 on both (H = 8: the scalar walk; H = 1: the narrow walk's hub
     rows) and the SDDMM at H = 8 (``check_bench_sddmm``), held the same
-    way; times of the kernels,
-    plain versions, library calls and K1's launch floor beside the
-    bounds."""
+    way; the max's forward and backward on the fwd and bwd packs at
+    D = 128 (``check_max_kernel``); times of the kernels, plain
+    versions, library calls and K1's and the max's launch floors beside
+    the bounds."""
     n, e, d = BENCH_DIMS
     t0 = time.perf_counter()
     *_, x_host, host_pack = B.bidir_graph(n, e, d)
@@ -1336,6 +1346,10 @@ def check_bench_kernels(device) -> dict:
                              att, v, slot_bytes=8),
                    **floor_timings(att, v)),
         row_sums=sums, sddmm=check_bench_sddmm(att, na, gen))
+    # the segmented max forward on the fwd pack and its backward on the
+    # bwd pack (row 0 ~5,400 slots: the forward splits it over a block,
+    # the backward's one owner walks its hubs)
+    out["max"] = check_max_kernel((pack.fwd, pack.bwd), n, d, device)
     return out
 
 
@@ -3146,6 +3160,12 @@ def main() -> None:
            **{k: check[half][k] for k in row + ("floor_ms",)},
            "launches": 0}
           for key, check in kmax.items()
+          for half, kernel in (("fwd", max_), ("bwd", max_bwd_))),
+        *({"name": f"{kernel.__name__[:-5]}_make_graph", **max_src,
+           "path": None, "pack": f"{half}, make_graph",
+           "width": bk["max"]["width"],
+           **{k: bk["max"][half][k] for k in row + ("floor_ms",)},
+           "launches": 0}
           for half, kernel in (("fwd", max_), ("bwd", max_bwd_))),
     ]})
     with open(os.path.join(OUT, "kernels.json"), "w") as f:

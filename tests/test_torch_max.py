@@ -182,21 +182,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (hub slots into row 3, rows, width): one row of 34 (design_sf_max's),
+# 45, 64 (a pooling row), 300 and 2,500 slots (make_graph's hubs), which
+# the forward splits over the groups of a block, at every column layout
+# (strided lanes at 1, 3, 5, 130; one vector a lane on a half-warp at 8
+# or a warp at 128, 256, 768); and 20,000 rows, where a block takes a
+# tile of several rows
+MAX_CASES = ([(hub, 96, d) for hub in (34, 45, 64, 300, 2500)
+              for d in (1, 3, 5, 8, 128, 130, 256, 768)]
+             + [(hub, 20_000, d) for hub in (45, 2500) for d in (8, 128, 256)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 5, 128, 130, 256])
+@pytest.mark.parametrize("hub,n,d", MAX_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["plain", "gcn"])
-def test_cuda_packed_max_matches_plain(cuda_device, kind, dtype, d):
+def test_cuda_packed_max_matches_plain(cuda_device, kind, dtype, hub, n, d):
     """The max kernel (csrc/packed_max.cu) against its plain version on
     the CPU: out and the tie counts bitwise (a max is exact), dx on the
-    transpose pack at F32 tolerance (the CPU sums in slot order too);
-    hub rows of 45 slots, weight-0 slots, ties; two launches bitwise
-    equal; each wrapper counts its launch."""
-    rng = np.random.default_rng(0)
-    n, real = 96, 80
-    s = np.concatenate([rng.integers(0, real, 400),
-                        rng.integers(0, real, 45)])
-    r = np.concatenate([rng.integers(0, real, 400), np.full(45, 3)])
+    transpose pack at F32 tolerance and bitwise (one owner adds a row's
+    slots in slot order, as the CPU's index_add_ does); a hub row of
+    ``hub`` slots, weight-0 slots, ties, padding rows; two launches
+    bitwise equal; each wrapper counts one launch a call."""
+    rng = np.random.default_rng(hub + n + d)
+    real = n * 5 // 6
+    e = 400 if n < 1000 else 3 * n
+    s = np.concatenate([rng.integers(0, real, e),
+                        rng.integers(0, real, hub)])
+    r = np.concatenate([rng.integers(0, real, e), np.full(hub, 3)])
     w = np.ones(len(s), np.float32)
     w[::17] = 0
     mask = np.arange(n) < real
@@ -218,27 +231,33 @@ def test_cuda_packed_max_matches_plain(cuda_device, kind, dtype, d):
     assert K.packed_max_cuda.launches == K.packed_max_bwd_cuda.launches == 1
     assert torch.equal(out.cpu(), want) and torch.equal(cnt.cpu(), want_cnt)
     torch.testing.assert_close(dx.cpu(), want_dx, rtol=1e-5, atol=1e-6)
+    assert torch.equal(dx.cpu(), want_dx)
     again = K.packed_max(dfwd, xd)
-    assert torch.equal(again[0], out) and torch.equal(
-        K.packed_max_bwd(dbwd, xd, gd, out, cnt), dx)
+    assert torch.equal(again[0], out) and torch.equal(again[1], cnt)
+    assert torch.equal(K.packed_max_bwd(dbwd, xd, gd, out, cnt), dx)
+    assert K.packed_max_cuda.launches == K.packed_max_bwd_cuda.launches == 2
 
 
-def pool_packs(kind, ego):
+def pool_packs(kind, ego, sizes=None, centers=30):
     """A graph task's pooling packs (build_pool_packs) over 12 graphs of
-    40-70 nodes, padded to 896 nodes and 13 graph slots (the last the
-    padding one), under ego over 30 centers a graph and 4 padding
-    centers at the padding node: the fwd pack (13 rows, 896 senders),
-    the bwd pack (896 rows, 13 senders), the slot count and node count."""
-    rng = np.random.default_rng(3)
-    sizes = rng.integers(40, 71, 12)
-    n, g = 896, 13
+    40-70 nodes (or of ``sizes``), padded to 896 nodes (or the next
+    multiple of 128) and one padding graph slot, the last; under ego
+    over the first ``centers`` nodes of each graph and 4 padding
+    centers at the padding node: the fwd pack (a row a graph slot), the
+    bwd pack (a row a node), the slot count and node count."""
+    if sizes is None:
+        sizes = np.random.default_rng(3).integers(40, 71, 12)
+    sizes = np.asarray(sizes)
+    g = len(sizes) + 1
+    n = max(896, -(-(int(sizes.sum()) + 1) // 128) * 128)
     gids = np.full(n, g - 1)
-    gids[:sizes.sum()] = np.repeat(np.arange(12), sizes)
+    gids[:sizes.sum()] = np.repeat(np.arange(g - 1), sizes)
     mask = np.arange(n) < sizes.sum()
     id_index = id_mask = None
     if ego:
         starts = np.cumsum(sizes) - sizes
-        ids = np.concatenate([st + np.arange(30) for st in starts])
+        ids = np.concatenate([st + np.arange(min(centers, sz))
+                              for st, sz in zip(starts, sizes)])
         id_index = np.concatenate([ids, np.full(4, n - 1)])
         id_mask = np.arange(len(id_index)) < len(ids)
     fwd, bwd = build_pool_packs(gids, mask, g, kind, id_index,
@@ -247,18 +266,30 @@ def pool_packs(kind, ego):
             K.PackedCSR(*map(torch.from_numpy, bwd)), g, n)
 
 
+# (graphs, ego centers a graph): 12 graphs of 40-70 nodes; 17 graphs of
+# 64 (design_graph_sf's shape: 17 rows of 64 slots, a block each); 2
+# centers a graph under ego, so most rows of the transpose pack have no
+# live slot
+POOLS = {"mixed": (None, 30), "17x64": ((64,) * 17, 64),
+         "sparse": (None, 2)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 128, 130, 768])
+@pytest.mark.parametrize("pool,ego", [("mixed", False), ("mixed", True),
+                                      ("17x64", False), ("17x64", True),
+                                      ("sparse", True)])
+@pytest.mark.parametrize("d", [1, 3, 8, 128, 130, 256, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ego", [False, True])
-def test_cuda_pool_max_matches_plain(cuda_device, ego, dtype, d):
+def test_cuda_pool_max_matches_plain(cuda_device, dtype, d, pool, ego):
     """Graph max pooling on the card: the max kernel on a rectangular
-    pooling pack (13 graph slots from 896 node rows) and its backward on
-    the transpose (896 rows from 13), through PackedMaxFn, against the
-    plain versions on the CPU: out and tie counts bitwise, dx at F32
-    tolerance; padding nodes, padding centers and the padding slot
-    (nonzero x on the padding rows) take no part; one launch each."""
-    fwd, bwd, g, n = pool_packs("max", ego)
+    pooling pack (graph slots from node rows) and its backward on the
+    transpose (node rows from graph slots), through PackedMaxFn,
+    against the plain versions on the CPU: out and tie counts bitwise,
+    dx at F32 tolerance and bitwise; padding nodes, padding centers and
+    the padding slot (nonzero x on the padding rows) take no part; one
+    launch each a call, two launches bitwise equal."""
+    sizes, centers = POOLS[pool]
+    fwd, bwd, g, n = pool_packs("max", ego, sizes, centers)
     rng = np.random.default_rng(d)
     x = torch.from_numpy(np.round(rng.normal(size=(n, d)) * 2) / 2).float()
     x = x.to(dtype)
@@ -276,9 +307,13 @@ def test_cuda_pool_max_matches_plain(cuda_device, ego, dtype, d):
     assert out.shape == (g, d) and xd.grad.shape == (n, d)
     assert torch.equal(out.float().cpu(), want.to(dtype).float())
     assert not out[g - 1].any()
-    out32, cnt = K.packed_max(dfwd, x.to(cuda_device))
+    x_dev, cot_dev = x.to(cuda_device), cot.to(cuda_device)
+    out32, cnt = K.packed_max(dfwd, x_dev)
     assert torch.equal(out32.cpu(), want) and torch.equal(cnt.cpu(), want_cnt)
-    torch.testing.assert_close(
-        K.packed_max_bwd(dbwd, x.to(cuda_device), cot.to(cuda_device),
-                         out32, cnt).cpu(), want_dx, rtol=1e-5, atol=1e-6)
-
+    dx = K.packed_max_bwd(dbwd, x_dev, cot_dev, out32, cnt)
+    torch.testing.assert_close(dx.cpu(), want_dx, rtol=1e-5, atol=1e-6)
+    assert torch.equal(dx.cpu(), want_dx)
+    again = K.packed_max(dfwd, x_dev)
+    assert torch.equal(again[0], out32) and torch.equal(again[1], cnt)
+    assert torch.equal(K.packed_max_bwd(dbwd, x_dev, cot_dev, out32, cnt), dx)
+    assert K.packed_max_cuda.launches == K.packed_max_bwd_cuda.launches == 3
