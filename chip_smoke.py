@@ -199,6 +199,26 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   and its backward).
   full_design_graph_sf — design_graph_sf for its 200 epochs, 3 seeds,
                   reported.
+  The link-prediction and edge tasks, each through drive_path's phases:
+  linkid_ws (grids/IDGNN/link.txt:21-34 on configs/idgcn_ws.yaml:
+  gcnidconv, 5 layers, the edge transform, so a node task on the
+  64-copy edge-net union of 90,112 nodes; the disjoint protocol of
+  results/parity/LINK_PARITY.md: K1 10 per train step and 5 per eval
+  batch at D = 128), edgeid_ws (path.txt:21-34: path-length labels of
+  1,000 pairs a graph drawn with replacement, 5 classes; the node head
+  gathers its repeated supervised nodes on the 'labels' gather pack: K1
+  12 and 6, of them its forward and backward, 2 and 1, at D = 5) and
+  link_ba (link.txt:5-18 on configs/idgcn_ba.yaml: gcnconv,
+  node_identity features, the disjoint protocol, concat decoding; 92
+  train graphs in 3 batches re-collated each epoch; the edge head
+  gathers both ends of each pair on the 'pairs' gather pack: K1 12 and
+  6, of them 2 and 1 on the pack, all at D = 128); the kernel phase
+  also holds K1 on the gather packs (check_gather_k1); seeded random
+  features in the model check.
+  full_linkid_ws — linkid_ws for its 100 epochs (link.txt:33), 3 seeds,
+                  reported beside the JAX package's CPU result at the
+                  same point and seeds (JAX_LINKID_WS) and
+                  LINK_PARITY.md's row (context, another protocol).
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -244,7 +264,8 @@ SDDMM on gatid_ba's; K1 at D = 256 on design_sf's and design_sw_mean's
 packs and at D = 128 on idconv_ws's, the max forward and backward on
 design_sf_max's pack, on kernel_max's and on make_graph's; K1 on the
 graph paths' layer packs, K1's add and mean pooling and the max's
-pooling forward and backward on their pooling packs), and last the
+pooling forward and backward on their pooling packs; K1 on the link
+and edge paths' layer packs and on their gather packs), and last the
 result line
 {"ok": true, "device": {...}}.
 """
@@ -289,7 +310,8 @@ try:
     from graphgym_tpu_torch.config import load_cfg
     from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
     from graphgym_tpu_torch.device import resolve_device
-    from graphgym_tpu_torch.graphs.packing import (POOLINGS, build_pool_packs,
+    from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS, POOLINGS,
+                                                   build_pool_packs,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
     from graphgym_tpu_torch.nn.model import build_model
@@ -344,6 +366,39 @@ DESIGN_GRAPH_SF = ("dataset.format", "nx", "dataset.name", "scalefree",
                    "gnn.act", "prelu", "gnn.dropout", "0.0", "gnn.agg",
                    "mean", "optim.optimizer", "adam", "optim.base_lr",
                    "0.001")
+# grids/IDGNN/link.txt:21-34 and path.txt:21-34 (the ID chunks on ws,
+# gcnidconv; the link point with the disjoint protocol of
+# results/parity/LINK_PARITY.md) on configs/idgcn_ws.yaml, and
+# link.txt:5-18 (the plain chunk on ba, gcnconv, node_identity) on
+# configs/idgcn_ba.yaml with the disjoint protocol and the reference
+# base's concat decoding (tools/run_parity.py:360-363); the grid's 100
+# epochs only in full_linkid_ws
+LINK_GRID = ("dataset.format", "nx", "dataset.transductive", "False",
+             "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
+             "gnn.layers_mp", "5", "gnn.layers_post_mp", "1",
+             "train.batch_size", "32")
+LINKID_WS = LINK_GRID + ("dataset.transform", "edge", "dataset.task",
+                         "link_pred", "dataset.augment_feature", "[]",
+                         "gnn.layer_type", "gcnidconv",
+                         "dataset.edge_train_mode", "disjoint")
+EDGEID_WS = LINK_GRID + ("dataset.transform", "edge", "dataset.task", "edge",
+                         "dataset.augment_feature", "[]",
+                         "gnn.layer_type", "gcnidconv")
+LINK_BA = LINK_GRID + ("dataset.transform", "none", "dataset.task",
+                       "link_pred", "dataset.augment_feature",
+                       "['node_identity']", "gnn.layer_type", "gcnconv",
+                       "dataset.edge_train_mode", "disjoint",
+                       "model.edge_decoding", "concat")
+# full_linkid_ws's point on the JAX package, the same seeds (1-3), on a
+# CPU: python -m graphgym_tpu.main --cfg configs/idgcn_ws.yaml --repeat 3
+# <LINKID_WS> optim.max_epoch 100 tpu.spmm_impl xla: each seed's best val
+# accuracy and agg/val/best.json's mean and std
+JAX_LINKID_WS = dict(best_val_acc_per_seed=[0.5897, 0.5, 0.5449],
+                     mean=0.5449, std=0.0366)
+# results/parity/LINK_PARITY.md:16, gcnidconv on ws: the JAX package and
+# the reference on the reference's edge.yaml base at a matched parameter
+# budget (tools/run_parity.py:333-355), another protocol
+LINK_PARITY_WS = dict(jax=(0.6949, 0.0194), reference=(0.7982, 0.0273))
 IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
               "dataset.transform", "ego", "dataset.augment_feature", "[]",
               "dataset.augment_label", "graph_clustering_coefficient",
@@ -1172,13 +1227,50 @@ def check_max_kernel(packs, n: int, d: int, device) -> dict:
 def check_pool_k1(packs, n: int, d: int, device) -> dict:
     """K1 on a graph task's add or mean pooling packs (graphs/packing.
     build_pool_packs): the fwd pack's graph slots (its rows) from x
-    [n, d], the bwd pack's n rows from g [graph slots, d], against the plain versions
-    on the CPU (slot order, as the kernel) at F32_TOL, bitwise repeats;
-    times of the kernel, the plain version on the card, the library
-    call (torch.sparse.mm of the pooling matrix and of its transpose)
-    and the launch floor beside the bound: each direction reads the
-    input rows its live slots name, 8 bytes of pack a slot of the row
-    ranges and row_range, and writes its f32 output once."""
+    [n, d], the bwd pack's n rows from g [graph slots, d]; the library
+    call torch.sparse.mm of the pooling matrix and of its transpose
+    (``check_rect_k1``)."""
+    def library(name, pack, xin, out_rows):
+        a = csr_of(pack, out_rows, cols_n=xin.shape[0])
+        return lambda: torch.sparse.mm(a, xin)
+    return check_rect_k1(packs, n, d, device, library, "pool")
+
+
+def check_gather_k1(packs, index: np.ndarray, mask: np.ndarray, n: int,
+                    d: int, device) -> dict:
+    """K1 on a head's gather packs (graphs/packing.build_gather_packs):
+    the fwd pack's rows x[index] from x [n, d] (zero rows at padding
+    entries), the bwd pack's n rows from g [entries, d], each node's
+    entries summed in index order; the library calls the gather's own,
+    index_select and, for its gradient, index_add_ into zeros, whose
+    error is taken where they compute the same function (the real
+    entries forward; every node but the padding one, which the padding
+    entries name, backward) (``check_rect_k1``)."""
+    idx = torch.from_numpy(np.asarray(index, np.int64)).to(device)
+    live = torch.from_numpy(np.asarray(mask, bool)).to(device)
+    keep = {"fwd": live,
+            "bwd": torch.arange(n, device=device) != n - 1}
+
+    def library(name, pack, xin, out_rows):
+        if name == "fwd":
+            return lambda: xin.index_select(0, idx)
+        return lambda: torch.zeros(n, d, device=device).index_add_(
+            0, idx, xin)
+    return check_rect_k1(packs, n, d, device, library, "gather", keep)
+
+
+def check_rect_k1(packs, n: int, d: int, device, library, what: str,
+                  keep=None) -> dict:
+    """K1 on a rectangular pack pair (a pooling or gather pack and its
+    transpose): the fwd pack's rows from x [n, d], the bwd pack's n rows
+    from g [fwd rows, d], against the plain versions on the CPU (slot
+    order, as the kernel) at F32_TOL, bitwise repeats; times of the
+    kernel, the plain version on the card, the library call
+    (``library(name, pack, input, out_rows)`` gives it; its error where
+    ``keep[name]`` marks the output rows it shares with K1) and the
+    launch floor beside the bound: each direction reads the input rows
+    its live slots name, 8 bytes of pack a slot of the row ranges and
+    row_range, and writes its f32 output once."""
     gen = torch.Generator(device=device).manual_seed(0)
     fwd, bwd = packs
     rows = fwd.row_range.shape[0]
@@ -1192,24 +1284,25 @@ def check_pool_k1(packs, n: int, d: int, device) -> dict:
         want = K.spmm_packed_plain(cpu_pack, xin.cpu())
         torch.cuda.synchronize()
         if got.shape != (out_rows, d) or not torch.isfinite(got).all():
-            fail(f"pool {name}: bad output {tuple(got.shape)}")
+            fail(f"{what} {name}: bad output {tuple(got.shape)}")
         err = (got.cpu() - want).abs().max().item()
         if not torch.allclose(got.cpu(), want, **F32_TOL):
-            fail(f"pool {name}: kernel vs plain max err {err} beyond "
+            fail(f"{what} {name}: kernel vs plain max err {err} beyond "
                  f"{F32_TOL}")
         if not torch.equal(K.spmm_packed(pack, xin), got):
-            fail(f"pool {name}: two launches differ")
-        a = csr_of(pack, out_rows, cols_n=xin.shape[0])
+            fail(f"{what} {name}: two launches differ")
+        lib = library(name, pack, xin, out_rows)
+        shared = (slice(None) if keep is None else keep[name])
         real_slots = real_slots_of(pack)
         calls = {"kernel": lambda: K.packed_spmm_cuda(pack, xin),
                  "plain": lambda: K.spmm_packed_plain(pack, xin),
-                 "library": lambda: torch.sparse.mm(a, xin)}
+                 "library": lib}
         moved = (live_rows(pack, xin.shape[0]) * d * 4 + real_slots * 8
                  + pack.row_range.numel() * 4 + out_rows * d * 4)
         out[name] = dict(max_abs_err=err,
                          bitwise=torch.equal(got.cpu(), want),
-                         library_err=(torch.sparse.mm(a, xin)
-                                      - got).abs().max().item(),
+                         library_err=(lib()[shared]
+                                      - got[shared]).abs().max().item(),
                          rows=out_rows, real_slots=real_slots,
                          longest=longest_rows(pack),
                          **bounded_times(calls, moved, 2 * real_slots * d),
@@ -2169,7 +2262,7 @@ def counted(fn):
     """fn's result and the launches of every kernel during it: each
     count set to 0 just before, read just after (launches, K1's and
     K3's launches by width, and K1's rectangular launches by width:
-    those on a pooling pack or its transpose)."""
+    those on a pooling or gather pack or its transpose)."""
     for k in kernels():
         k.launches = 0
     for k in by_width_kernels():
@@ -2198,7 +2291,7 @@ def hold_counts(what: str, launches: dict, want: dict) -> None:
 
 
 def train_path(cfg_file: str, overrides, out: str, loaders,
-               expected: dict, widths=None, pooling=(0, 0)) -> dict:
+               expected: dict, widths=None, rect=(0, 0)) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg), launches
     counted (``counted``).  ``expected`` maps a kernel wrapper to its
@@ -2207,8 +2300,8 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     narrow width to the share of those launches at it, per kernel (K1's
     narrow walk of a 1-wide input, its scalar walk of an 11-wide one,
     K3's softmax row sums at one head); a width it does not name must
-    see no launch of K1 or K3 at width 1.  ``pooling`` is K1's
-    rectangular launches (the graph head's pooling, forward and
+    see no launch of K1 or K3 at width 1.  ``rect`` is K1's rectangular
+    launches (the graph head's pooling, or a head's gather, forward and
     backward) per train step and eval batch, of those ``expected``
     counts; the result reports them and the rest, the layers', as
     measured."""
@@ -2226,7 +2319,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     result, (launches, by_width, rectangular) = counted(
         lambda: run_single(cfg, cfg.out_dir, cfg_file))
     k1 = K.packed_spmm_cuda.__name__
-    pool_launches = sum(rectangular.values())
+    rect_launches = sum(rectangular.values())
     drop_checkpoints(out)
     widths = dict(widths or {})
     widths.setdefault(1, {})
@@ -2239,8 +2332,8 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     hold_counts(cfg_file, launches, totals(expected))
     for w, per in widths.items():
         hold_counts(f"{cfg_file}, at width {w}", at[w], totals(per))
-    hold_counts(f"{cfg_file}, on pooling packs", {k1: pool_launches},
-                totals({K.packed_spmm_cuda: pooling}))
+    hold_counts(f"{cfg_file}, on rectangular packs", {k1: rect_launches},
+                totals({K.packed_spmm_cuda: rect}))
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -2251,9 +2344,9 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_replays=float(np.median(step_s[2:])),
                 launches=launches, launches_at_width=at,
-                k1_pool_launches=pool_launches,
-                k1_layer_launches=launches[k1] - pool_launches,
-                k1_pool_launches_by_width=rectangular,
+                k1_rect_launches=rect_launches,
+                k1_layer_launches=launches[k1] - rect_launches,
+                k1_rect_launches_by_width=rectangular,
                 launches_per_train_step_and_eval_batch={
                     k.__name__: v for k, v in expected.items()},
                 params=cfg.params)
@@ -2400,7 +2493,7 @@ def config(tag: str) -> str:
 
 def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                random_features: bool = False, base: str = "",
-               extra=(), pool_width=None, pooling=(0, 0)) -> dict:
+               extra=(), rect_width=None, rect=(0, 0)) -> dict:
     """The phases of one more path, as the ws paths have them:
     kernel_<tag> (its kernels at the train pack's shapes: K1 at the
     model width and at each narrow width ``widths`` names, or K3, its
@@ -2408,14 +2501,19 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     backward (a generalconv / idconv with gnn.agg max); the pack's
     longest rows),
     model_<tag> (``check_model``), train_<tag> (``train_path`` with
-    ``expected``, ``widths`` and ``pooling``), profile_<tag> (with ``repeat_steps``;
+    ``expected``, ``widths`` and ``rect``), profile_<tag> (with ``repeat_steps``;
     no op of the eager step takes a tensor of the pack's slots times the
     width, and no index_add an index of the pack's slots) and
     graphed_<tag>.  The config is configs/<base or tag>.yaml with
     ``extra`` overrides (a grid point).  On a graph task the kernel
-    phase names the pooling pack's rows and slots; ``pool_width`` is the
-    pooling's width where it is none of the layers' (kernel_pool holds
-    the pooling's kernels, check_kernel the layers')."""
+    phase names the pooling pack's rows and slots; on a batch with a
+    head's gather pack ('pairs' of the edge head, 'labels' of the node
+    head where supervised nodes repeat) it holds K1 on it
+    (``check_gather_k1``) at the width the head gathers (the stage's
+    for pairs, dim_out for labels) and names the supervised pairs or
+    nodes.  ``rect_width`` is the width of the head's rectangular packs
+    where it is none of the layers' (kernel_pool and the gather check
+    hold those packs' kernels, check_kernel the layers')."""
     from graphgym_tpu_torch.graphs.packing import kinds_for_layer
     from graphgym_tpu_torch.train.graphed import signature
 
@@ -2442,7 +2540,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
         checks = dict(max=check_max_kernel(packs, n, d, device))
     else:
         checks = {f"d{w}": check_kernel(packs, n, w, device)
-                  for w in sorted({d, *(widths or {})} - {pool_width})}
+                  for w in sorted({d, *(widths or {})} - {rect_width})}
     pool = {}
     if cfg.dataset.task == "graph":
         name = next(k for k in batch.packs if k.startswith("pool_"))
@@ -2453,6 +2551,24 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                     bwd_rows=longest_rows(bwd_pool),
                     centers=(None if batch.node_id_index is None
                              else int(np.sum(batch.id_mask))))
+    gathers = {}
+    for name, index, mask, width in (
+            (PAIRS, lambda: batch.edge_label_index.reshape(-1),
+             lambda: np.tile(batch.edge_label_mask, 2), d),
+            (LABELS, lambda: batch.node_label_index,
+             lambda: batch.label_mask, cfg.share.dim_out)):
+        if name in batch.packs:
+            gathers[name] = check_gather_k1(
+                batch.to(device).packs[name], index(), mask(), n, width,
+                device)
+    supervised = {}
+    if batch.edge_label_mask is not None:
+        supervised["pairs"] = int(np.sum(batch.edge_label_mask))
+        supervised["pair_slots"] = len(batch.edge_label_mask)
+    if batch.label_mask is not None:
+        real = batch.node_label_index[batch.label_mask]
+        supervised.update(nodes=len(real), unique_nodes=len(np.unique(real)),
+                          label_slots=len(batch.label_mask))
     phase(f"kernel_{tag}", n=n, d=d, d_in=cfg.share.dim_in,
           d_out=cfg.share.dim_out, pack=kind,
           layer_type=cfg.gnn.layer_type, graphs=int(batch.num_graphs) - 1,
@@ -2463,13 +2579,14 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           batches=len(loaders[0]), train_signatures=signatures,
           slots=int(packs[0].senders.numel()),
           fwd_rows=longest_rows(packs[0]),
-          bwd_rows=longest_rows(packs[1]), pool=pool, **checks)
+          bwd_rows=longest_rows(packs[1]), pool=pool, gathers=gathers,
+          supervised=supervised, **checks)
     begin(f"model_{tag}")
     phase(f"model_{tag}", **check_model(cfg, loaders[1].batches(0)[0],
                                         device, random_features))
     begin(f"train_{tag}")
     train = train_path(cfg_file, overrides, os.path.join(OUT, tag),
-                       loaders, expected, widths, pooling)
+                       loaders, expected, widths, rect)
     phase(f"train_{tag}", **train)
     begin(f"profile_{tag}")
     slots = packs[0].senders.numel()
@@ -2480,7 +2597,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     begin(f"graphed_{tag}")
     phase(f"graphed_{tag}", **graphed_check(cfg, loaders, device))
     return dict(width=d, pack=f"{kind}, {base or tag}", checks=checks,
-                train=train, profile=profile)
+                gathers=gathers, train=train, profile=profile)
 
 
 # results/parity/PARITY.md:29: ID-GCN Full on ws, the reference's mean
@@ -2688,7 +2805,7 @@ def graph_rows(paths: dict, pools: dict, row: tuple, srcs: tuple) -> list:
     for tag, path in paths.items():
         t, pool = path["train"], pools[tag]
         count = {"layers": t["k1_layer_launches"],
-                 "pool": t["k1_pool_launches"]}
+                 "pool": t["k1_rect_launches"]}
         check = path["checks"][f"d{path['width']}"]
         rows.append({"name": f"packed_spmm_{tag}", **k1_src, "path": tag,
                      "pack": path["pack"], "width": path["width"],
@@ -2712,6 +2829,35 @@ def graph_rows(paths: dict, pools: dict, row: tuple, srcs: tuple) -> list:
                   "launches": 0}
                  for half, kernel in (("fwd", K.packed_max_cuda),
                                       ("bwd", K.packed_max_bwd_cuda))]
+    return rows
+
+
+def link_rows(paths: dict, row: tuple, k1_src: dict) -> list:
+    """The kernels line's rows of the link and edge paths
+    (``drive_path``'s results): K1 on each path's layer pack, and on
+    each gather pack a path has (the forward timed, the backward
+    beside it).  The launches are train_path's counts of the path's run:
+    K1's rectangular ones (the gather pack and its transpose) for the
+    gather, the rest for the layers."""
+    keys = row + ("floor_ms",)
+    rows = []
+    for tag, path in paths.items():
+        t = path["train"]
+        count = {"layers": t["k1_layer_launches"],
+                 "gather": t["k1_rect_launches"]}
+        check = path["checks"][f"d{path['width']}"]
+        rows.append({"name": f"packed_spmm_{tag}", **k1_src, "path": tag,
+                     "pack": path["pack"], "width": path["width"],
+                     **{k: check[k] for k in keys},
+                     "launches": count["layers"], "launch_split": count})
+        for kind, gather in path["gathers"].items():
+            rows.append({
+                "name": f"packed_spmm_{kind}_{tag}", **k1_src, "path": tag,
+                "pack": f"{kind}, {tag}", "width": gather["width"],
+                "library": "index_select (backward: index_add_)",
+                **{k: gather["fwd"][k] for k in keys},
+                "bwd": {k: gather["bwd"][k] for k in keys},
+                "launches": count["gather"], "launch_split": count})
     return rows
 
 
@@ -3005,7 +3151,7 @@ def main() -> None:
     # and the add pooling's forward and backward at the skipconcat
     # stage's 768 columns; per eval batch 2 and 1.  idgraph_ba: K1 2 per
     # gcnidconv layer and the pooling of the ego centers, all at 128; 3
-    # and 1 per eval batch.  ``pooling``: the pooling's share, which
+    # and 1 per eval batch.  ``rect``: the pooling's share, which
     # train_path counts apart (K1's rectangular launches).  Constant
     # features: seeded random ones in the model check.
     graph_paths = {
@@ -3013,11 +3159,33 @@ def main() -> None:
             "design_graph_sf", "design/design_v1", *DESIGN_GRAPH_SF,
             ovr=dz, expected={k1_: (6, 3)},
             widths={256: {k1_: (4, 2)}, 768: {k1_: (2, 1)}},
-            pool_width=768, pooling=(2, 1), random_features=True),
+            rect_width=768, rect=(2, 1), random_features=True),
         "idgraph_ba": grid_point(
             "idgraph_ba", "idgcn_ba", *IDGRAPH_BA, ovr=ba_overrides,
             expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
-            pooling=(2, 1), random_features=True),
+            rect=(2, 1), random_features=True),
+    }
+    # ---- the link-prediction and edge tasks (grids/IDGNN/link.txt and
+    # path.txt's synthetic chunks): per train step K1 2 per layer at 128
+    # (pre-MP gives layer 0 an input that needs a gradient), 5 layers,
+    # and 1 per layer per eval batch; edgeid_ws's node head gathers its
+    # repeated supervised nodes on the 'labels' pack at dim_out 5 (K1
+    # forward and backward, 2 per train step, 1 per eval batch), link_ba's
+    # edge head both ends of each pair on the 'pairs' pack at 128 (the
+    # same counts); ``rect``: that share.  Constant ws features and ba's
+    # constant column: seeded random ones in the model check.
+    link_paths = {
+        "linkid_ws": grid_point(
+            "linkid_ws", "idgcn_ws", *LINKID_WS, expected={k1_: (10, 5)},
+            widths={128: {k1_: (10, 5)}}, random_features=True),
+        "edgeid_ws": grid_point(
+            "edgeid_ws", "idgcn_ws", *EDGEID_WS, expected={k1_: (12, 6)},
+            widths={128: {k1_: (10, 5)}, 5: {k1_: (2, 1)}}, rect_width=5,
+            rect=(2, 1), random_features=True),
+        "link_ba": grid_point(
+            "link_ba", "idgcn_ba", *LINK_BA, ovr=ba_overrides,
+            expected={k1_: (12, 6)}, widths={128: {k1_: (12, 6)}},
+            rect=(2, 1), random_features=True),
     }
     begin("kernel_pool")
     pools = pool_phase({
@@ -3052,6 +3220,14 @@ def main() -> None:
         "full_design_graph_sf", config("design/design_v1"),
         full_overrides + ["dataset.dir", DESIGN_CORPUS_DIR,
                           *DESIGN_GRAPH_SF, "optim.max_epoch", "200"]))
+
+    # the ID link point for the grid's 100 epochs (link.txt:33), beside
+    # the JAX package's CPU run at the same point and seeds (reported)
+    begin("full_linkid_ws")
+    phase("full_linkid_ws", jax_cpu=JAX_LINKID_WS,
+          link_parity_ws=LINK_PARITY_WS, **full_run(
+              "full_linkid_ws", CFG, full_overrides + list(LINKID_WS)
+              + ["optim.max_epoch", "100"]))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")
@@ -3154,6 +3330,7 @@ def main() -> None:
         *torch_path_rows(torch_paths, row, srcs),
         *torch_path_rows(design, row, srcs),
         *graph_rows(graph_paths, pools, row, (k1_src, max_src)),
+        *link_rows(link_paths, row, k1_src),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
            "width": check["width"],

@@ -299,10 +299,10 @@ def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
              "(ROADMAP A0)"),
             ("idgcn_ws_epoch_s_pallas_bf16", "tpu.dtype bfloat16 is not "
              "ported (ROADMAP A14)"),
-            ("tu_enzymes_epoch_s_xla", "graph tasks and the TU loader are "
-             "not ported (ROADMAP A13b)"),
-            ("tu_enzymes_epoch_s_pallas", "graph tasks and the TU loader "
-             "are not ported (ROADMAP A13b)")):
+            ("tu_enzymes_epoch_s_xla", "the TU loader is not ported "
+             "(ROADMAP A13c)"),
+            ("tu_enzymes_epoch_s_pallas", "the TU loader is not ported "
+             "(ROADMAP A13c)")):
         details[key] = None
         reasons[key] = why
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)

@@ -1,7 +1,7 @@
 """Static-shape graph batches for the torch port.
 
-The port of graphgym_tpu/graphs/container.py for node and graph
-tasks.  A loader
+The port of graphgym_tpu/graphs/container.py for node, graph, edge
+and link tasks.  A loader
 builds a ``GraphBatch`` on the host with numpy leaves and moves it to
 the device in one call, ``batch.to(device)``.
 
@@ -42,6 +42,11 @@ class GraphBatch:
       node_label: [N] labels aligned with node slots.
       node_label_index: [L] padded index list of supervised nodes.
       label_mask: [L] bool mask over node_label_index slots.
+      edge_label: [P] labels of the supervised node pairs (edge and
+                  link tasks), 0 on padding pairs.
+      edge_label_index: [2, P] the supervised node pairs; padding pairs
+                  at the padding node.
+      edge_label_mask: [P] bool, True for the real pairs.
       graph_label: [G] labels of the graph slots (graph tasks), 0 on the
                   padding graph slot.
       graph_mask: [G] bool, True for the real graph slots.
@@ -50,7 +55,9 @@ class GraphBatch:
       packs:      dict kind -> (fwd PackedCSR, bwd PackedCSR), the packed
                   SpMM layouts of A and A^T, and for 'att' also the
                   fwd->bwd slot map; a graph task's pooling pack maps
-                  node rows to graph slots and back (graphs/packing.py).
+                  node rows to graph slots and back, and the gather
+                  packs map node rows to supervised pairs or nodes and
+                  back (graphs/packing.py).
 
     Host batches hold numpy arrays.  ``to(device)`` gives torch tensors;
     index arrays become int64 there, except the packs, whose int32
@@ -68,6 +75,9 @@ class GraphBatch:
     node_label: Any = None
     node_label_index: Any = None
     label_mask: Any = None
+    edge_label: Any = None
+    edge_label_index: Any = None
+    edge_label_mask: Any = None
     graph_label: Any = None
     graph_mask: Any = None
     node_id_index: Any = None
@@ -119,6 +129,9 @@ class GraphBatch:
             node_label=move(self.node_label, True),
             node_label_index=move(self.node_label_index, True),
             label_mask=move(self.label_mask),
+            edge_label=move(self.edge_label, True),
+            edge_label_index=move(self.edge_label_index, True),
+            edge_label_mask=move(self.edge_label_mask),
             graph_label=move(self.graph_label, True),
             graph_mask=move(self.graph_mask),
             node_id_index=move(self.node_id_index, True),
@@ -166,6 +179,9 @@ def build_graph_batch(
     num_graphs: int = 1,
     node_label: Optional[np.ndarray] = None,
     node_label_index: Optional[np.ndarray] = None,
+    edge_label: Optional[np.ndarray] = None,
+    edge_label_index: Optional[np.ndarray] = None,
+    edge_label_mask: Optional[np.ndarray] = None,
     graph_label: Optional[np.ndarray] = None,
     node_id_index: Optional[np.ndarray] = None,
     pad_nodes_to: Optional[int] = None,
@@ -175,6 +191,7 @@ def build_graph_batch(
 
     One extra padding node slot is always reserved (the scatter target for
     padded edges), so ``pad_nodes_to`` must exceed the real node count.
+    The edge supervision arrays are kept as given (the loader pads them).
     """
     n_real = int(node_feat.shape[0])
     e_real = int(senders.shape[0])
@@ -209,6 +226,12 @@ def build_graph_batch(
         l_pad = max(pad_nodes_to, len(li))
         kw["node_label_index"] = pad_to(li, l_pad, pad_node)
         kw["label_mask"] = pad_to(np.ones((len(li),), bool), l_pad, False)
+    if edge_label is not None:
+        kw["edge_label"] = np.asarray(edge_label)
+    if edge_label_index is not None:
+        kw["edge_label_index"] = np.asarray(edge_label_index, np.int32)
+    if edge_label_mask is not None:
+        kw["edge_label_mask"] = np.asarray(edge_label_mask, bool)
     if graph_label is not None:
         g_real = int(np.asarray(graph_label).shape[0])
         kw["graph_label"] = pad_to(np.asarray(graph_label), num_graphs, 0)

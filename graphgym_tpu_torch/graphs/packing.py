@@ -31,6 +31,18 @@ under the ego transform), weights the node mask (over each graph's
 count for mean).  Its bwd pack maps the graph slots back to the node
 rows, one slot a node.  A graph's nodes, and under ego its centers,
 are contiguous in a batch, so a row's slots are one graph's.
+
+The heads' gathers of node rows at an index with repeats run on gather
+packs (``build_gather_packs``): 'pairs', the edge head's rows of both
+nodes of each supervised pair, and 'labels', the node head's supervised
+nodes where a node is supervised more than once (the edge task's
+path-length pairs are drawn with replacement).  The fwd pack has a row
+per index entry holding one slot, its node, weight 1 (0 on padding
+entries: an empty row); the bwd pack a row per node holding the entries
+that read it, in index order.  So the gather's gradient sums a node's
+entries on K1 in a fixed order: the gradient of ``index_select`` is
+an ``index_add_`` whose float atomics sum a repeated node's entries in
+no fixed order.
 """
 
 from __future__ import annotations
@@ -261,3 +273,24 @@ def kinds_for_layer(layer_type: str, agg: str = "add",
     if lt in ("gatconv", "idgat", "gatidconv", "gaddconv", "gmulconv"):
         return ("att",)
     return ()
+
+
+PAIRS, LABELS = "pairs", "labels"
+
+
+def build_gather_packs(index: np.ndarray, mask: np.ndarray,
+                       num_nodes: int) -> tuple:
+    """(fwd, bwd): the gather x[index] of ``num_nodes`` node rows as a
+    rectangular pack pair (module docstring).  The fwd pack has
+    len(index) rows, each the one slot of its entry, weight ``mask``;
+    the bwd pack has num_nodes rows, a node's slots the entries that
+    read it, in index order, with the same weights."""
+    index = np.asarray(index, np.int64)
+    rows = np.arange(len(index))
+    w = np.asarray(mask, np.float32)
+    fwd, _ = pack_csr_with_slots(index, rows, w, len(index),
+                                 num_senders=num_nodes)
+    bwd, _ = pack_csr_with_slots(rows, index, w, num_nodes,
+                                 num_senders=len(index))
+    return (_pad_to_bucket(fwd, len(index), num_nodes),
+            _pad_to_bucket(bwd, num_nodes, len(index)))

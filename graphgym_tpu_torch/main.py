@@ -9,8 +9,10 @@ A synthetic corpus that no pickle holds (ba, ws, scalefree, smallworld,
 ba500, ws500) is regenerated from seed 0 and cached as
 ``<dataset.dir>/<name>.torch.pkl``.  Every layer type of the packed
 paths runs, the torch path's (gcnidconv, ginconv, ...: pre-MP, the
-BatchNorm wrapper, the node head, or on ``dataset.task graph`` the graph
-head's pooling and MLP) and the Tfg one's (Tfg-idgcn, ...: node tasks).
+BatchNorm wrapper, the node head, on ``dataset.task graph`` the graph
+head's pooling and MLP, on ``link_pred`` / ``edge`` the edge head's pair
+decoding, or with ``dataset.transform edge`` the node head on the
+edge-net union) and the Tfg one's (Tfg-idgcn, ...: node tasks).
 After the seeds, ``exp/agg.agg_runs`` writes their aggregate under
 ``<out_dir>/<cfg-name>/agg/``.
 """

@@ -1,10 +1,9 @@
 """Task heads and global pooling (the port of graphgym_tpu/nn/heads.py;
-reference graphgym/models/head.py:19-37, 93-119 and
-models/pooling.py:12-42).
+reference graphgym/models/head.py:19-119 and models/pooling.py:12-42).
 
 A head maps a GraphBatch to ``(pred, label, mask)``, the mask marking
-the real prediction slots.  The node and graph heads are ported; the
-edge head is ROADMAP A13b.
+the real prediction slots: the node head's supervised nodes, the edge
+head's supervised node pairs, the graph head's graph slots.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from torch import nn
 
 from graphgym_tpu_torch import register
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.graphs.packing import pool_kind
+from graphgym_tpu_torch.graphs.packing import LABELS, PAIRS, pool_kind
 from graphgym_tpu_torch.nn.layers import MLP
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
 
@@ -24,10 +23,27 @@ HeadOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def gather_supervised(graph: GraphBatch, h: torch.Tensor) -> HeadOut:
-    """Predictions and labels at the supervised node slots."""
+    """Predictions and labels at the supervised node slots.  Where the
+    index repeats a node, the loader gives the batch the 'labels' gather
+    pack and the rows are gathered on it (``gather_rows``); else by
+    ``index_select``, whose gradient adds one row to each node."""
     idx = graph.node_label_index
-    return (h.index_select(0, idx), graph.node_label.index_select(0, idx),
-            graph.label_mask)
+    pred = (gather_rows(graph, LABELS, h)
+            if graph.packs and LABELS in graph.packs
+            else h.index_select(0, idx))
+    return pred, graph.node_label.index_select(0, idx), graph.label_mask
+
+
+def gather_rows(graph: GraphBatch, kind: str, h: torch.Tensor
+                ) -> torch.Tensor:
+    """h's rows at a head's index, on the batch's gather pack ``kind``
+    (graphs/packing.build_gather_packs): K1 on the pack, its gradient K1
+    on the transpose, which sums each node's entries in index order.  A
+    padding entry gives a zero row."""
+    if not graph.packs or kind not in graph.packs:
+        raise ValueError(f"the batch carries no {kind!r} gather pack")
+    fwd, bwd = graph.packs[kind]
+    return K.SpmmPackFn.apply(fwd, bwd, h)
 
 
 def global_pool(graph: GraphBatch, x: torch.Tensor, kind: str = "add",
@@ -74,6 +90,50 @@ class GNNNodeHead(nn.Module):
 
     def forward(self, graph: GraphBatch) -> HeadOut:
         return gather_supervised(graph, self.mlp(graph).node_feat)
+
+
+class GNNEdgeHead(nn.Module):
+    """Edge / link prediction head (heads.py:71-117; reference
+    head.py:40-90): the node rows of each supervised pair, gathered on
+    the batch's 'pairs' pack (both ends at once), decoded by
+    ``decoding``:
+
+    - 'dot' / 'cosine_similarity': the post-MP MLP (as wide as its
+      input) over the nodes, then each pair's dot product, or its
+      cosine with the norms' product clamped at 1e-8;
+    - 'concat': the two rows concatenated, then the MLP over the pair
+      slots, its BatchNorm masked by edge_label_mask.
+
+    Returns the predictions, labels and mask of every pair slot."""
+
+    def __init__(self, dim_in: int, dim_out: int, decoding: str = "dot",
+                 layers_post_mp: int = 1, dim_inner: Optional[int] = None,
+                 act: str = "relu", *, generator: torch.Generator):
+        super().__init__()
+        if decoding not in ("dot", "cosine_similarity", "concat"):
+            raise ValueError(f"Unknown edge decoding {decoding}")
+        self.decoding = decoding
+        concat = decoding == "concat"
+        self.mlp = MLP(2 * dim_in if concat else dim_in,
+                       dim_out if concat else dim_in,
+                       num_layers=layers_post_mp, dim_inner=dim_inner,
+                       use_bias=True, act=act, generator=generator)
+
+    def forward(self, graph: GraphBatch) -> HeadOut:
+        mask = graph.edge_label_mask
+        if self.decoding == "concat":
+            v1, v2 = gather_rows(graph, PAIRS, graph.node_feat).chunk(2)
+            pair = graph.replace(node_feat=torch.cat([v1, v2], -1),
+                                 node_mask=mask)
+            pred = self.mlp(pair).node_feat
+        else:
+            h = self.mlp(graph).node_feat
+            v1, v2 = gather_rows(graph, PAIRS, h).chunk(2)
+            pred = (v1 * v2).sum(-1)
+            if self.decoding == "cosine_similarity":
+                pred = pred / (v1.norm(dim=-1)
+                               * v2.norm(dim=-1)).clamp_min(1e-8)
+        return pred, graph.edge_label, mask
 
 
 class GNNGraphHead(nn.Module):

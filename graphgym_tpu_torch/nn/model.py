@@ -5,8 +5,10 @@ Two model families, as in the JAX package:
   * the torch path (GraphGym's, reference gnn.py:123-168): pre-MP
     Linear + BN + dropout + act layers, a stack or skip stage of
     GeneralLayer(conv) with BN, dropout and act, the L2 norm after the
-    stage, and the head of the task: the node head's MLP, or the graph
-    head's global pooling and MLP; its linear kernels at LINEAR_GAIN;
+    stage, and the head of the task (a head registered for the task in
+    register.head_dict first): the node head's MLP, the edge head's
+    pair decoding, or the graph head's global pooling and MLP; its
+    linear kernels at LINEAR_GAIN;
   * the Tfg path (main_zd.py:28-257, layer types 'Tfg-*'): plain conv +
     act stacks with a Dense(256) -> Dense(C) head, no pre-MP, no
     BatchNorm wrapper and no L2 norm (the GIN layers keep the BatchNorm
@@ -31,7 +33,8 @@ from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.att_layers import ExampleConv
-from graphgym_tpu_torch.nn.heads import (GNNGraphHead, GNNNodeHead, HeadOut,
+from graphgym_tpu_torch.nn.heads import (GNNEdgeHead, GNNGraphHead,
+                                         GNNNodeHead, HeadOut,
                                          gather_supervised)
 from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
                                           GeneralConv, GeneralLayer, GINConv,
@@ -107,7 +110,7 @@ LAYERS = {
 # edge-feature convs wait for the loaders that give edge features)
 NOT_PORTED = {
     **dict.fromkeys(("generaledgeconv", "generalsampleedgeconv",
-                     "splineconv"), "A9b, with the edge features of A13b"),
+                     "splineconv"), "A9b, with the edge features of A13c"),
     **dict.fromkeys(("gaddconv", "gmulconv", "generaledgeattconvv1",
                      "generaledgeattconvv2", "generalconv_v2",
                      "sageinitconv", "generalogbconv", "Tfg-appnp"),
@@ -139,8 +142,10 @@ class GNNOptions:
     l2norm: bool = True
     bn_eps: float = 1e-5       # the BN wrapper's; the Tfg GIN MLP's BN
     bn_mom: float = 0.1        # keeps the defaults, as in the JAX layer
-    task: str = "node"         # node | graph
+    task: str = "node"         # node | graph | edge | link_pred
     graph_pooling: str = "add"  # the graph head's: add | mean | max
+    edge_decoding: str = "dot"  # the edge head's: dot | cosine_similarity
+    #                             | concat
     ego: bool = False          # the graph head pools the ego centers
     tfg_head: bool = False
 
@@ -158,11 +163,13 @@ def options_from_cfg(cfg) -> GNNOptions:
     if name not in LAYERS and name not in register.layer_dict:
         raise ValueError(f"Unknown layer type: {name}")
     task = cfg.dataset.task
-    if task not in ("node", "graph") or (task != "node"
-                                         and name.startswith("Tfg-")):
+    if task not in ("node", "graph", "edge", "link_pred"):
+        raise ValueError(f"Unknown task {task}")
+    if task != "node" and name.startswith("Tfg-"):
         raise NotImplementedError(
-            f"task {task!r} is not ported yet for {name!r} (ROADMAP "
-            "A13b; the Tfg models are node models)")
+            f"task {task!r} with {name!r}: the Tfg models are node "
+            "models, as in the JAX package, whose Tfg head gathers node "
+            "slots")
     common = dict(layer_type=name, dim_in=cfg.share.dim_in,
                   dim_out=cfg.share.dim_out, layers_mp=cfg.gnn.layers_mp,
                   dim_inner=cfg.gnn.dim_inner, act=cfg.gnn.act,
@@ -172,6 +179,7 @@ def options_from_cfg(cfg) -> GNNOptions:
                   normalize_adj=cfg.gnn.normalize_adj,
                   bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom, task=task,
                   graph_pooling=cfg.model.graph_pooling,
+                  edge_decoding=cfg.model.edge_decoding,
                   ego=cfg.dataset.transform == "ego")
     if name.startswith("Tfg-"):
         return GNNOptions(**common, batchnorm=False, l2norm=False,
@@ -182,7 +190,7 @@ def options_from_cfg(cfg) -> GNNOptions:
             "(ROADMAP A0)")
     if cfg.dataset.node_encoder or cfg.dataset.edge_encoder:
         raise NotImplementedError(
-            "node and edge encoders are not ported yet (ROADMAP A13b)")
+            "node and edge encoders are not ported yet (ROADMAP A13c)")
     return GNNOptions(**common, stage_type=cfg.gnn.stage_type,
                       layers_pre_mp=cfg.gnn.layers_pre_mp,
                       layers_post_mp=max(cfg.gnn.layers_post_mp, 1),
@@ -308,8 +316,10 @@ class TfgMLPHead(nn.Module):
 
 class GNN(nn.Module):
     """Full model (nn/model.py:227-336; reference gnn.py:123-168):
-    pre-MP layers -> MP stage -> head (the Tfg head, or the node or
-    graph head by task, nn/model.py:314-335).  ``forward`` returns
+    pre-MP layers -> MP stage -> head (nn/model.py:314-335: a head
+    registered for the task, called as the JAX model calls it with the
+    options and, here, the head's input width and init generator; else
+    the Tfg head, or the node, edge or graph head by task).  ``forward`` returns
     (pred, label, mask) at the supervised slots.  ``pre_mp`` holds
     GeneralLayer(Linear) blocks, each Linear + BN + dropout + act
     (GNNPreMP, nn/model.py:291-308)."""
@@ -334,8 +344,17 @@ class GNN(nn.Module):
             self.mp = STAGES[opts.stage_type](opts, dim, generator,
                                               dropout_generator)
             dim = self.mp.dim_out
-        if opts.tfg_head:
+        if opts.task in register.head_dict:
+            self.post_mp = register.head_dict[opts.task](
+                opts, dim_in=dim, generator=generator)
+        elif opts.tfg_head:
             self.post_mp = TfgMLPHead(dim, opts.dim_out, generator)
+        elif opts.task in ("edge", "link_pred"):
+            self.post_mp = GNNEdgeHead(
+                dim, opts.dim_out, decoding=opts.edge_decoding,
+                layers_post_mp=opts.layers_post_mp,
+                dim_inner=opts.dim_inner, act=opts.act,
+                generator=generator)
         elif opts.task == "graph":
             self.post_mp = GNNGraphHead(
                 dim, opts.dim_out, pooling=opts.graph_pooling,

@@ -73,7 +73,7 @@ class Trainer:
         self.loss_opts = LossOptions(
             loss_fun=cfg.model.loss_fun,
             size_average=cfg.model.size_average,
-            l2_kernel=5e-4 if tfg else 0.0)
+            l2_kernel=5e-4 if tfg else 0.0, thresh=cfg.model.thresh)
         steps_per_epoch = max(len(loaders[0]), 1)
         self.optimizer, self.scheduler = create_optimizer(
             model.parameters(), cfg.optim, steps_per_epoch,
@@ -140,15 +140,25 @@ class Trainer:
             t0 = time.time()
 
     def eval_epoch(self, logger: Optional[Logger], split: int) -> float:
-        """The epoch's model-selection score: accuracy, size-weighted
-        over the split or (cfg.val.accuracy_average 'batch') the mean
-        of per-batch accuracies (reference train.py:107)."""
+        """The epoch's model-selection score: accuracy for
+        classification, negative MSE for regression (so the best epoch
+        is the largest either way), size-weighted over the split or
+        (cfg.val.accuracy_average 'batch') the mean of per-batch scores
+        (reference train.py:107).  A score is 1-D (a binary task's
+        sigmoid) or [L, C] (softmax)."""
         accs, counts = [], []
         t0 = time.time()
+        regression = self.task_type == "regression"
         for batch in self.loaders[split].batches(0):
             loss, score, label, mask = self.eval_step(self._place(batch))
             label_h, score_h = _to_host(score, label, mask)
-            accs.append(masked_accuracy(score_h, label_h))
+            if regression:
+                accs.append(-float(np.mean(
+                    (score_h.astype(np.float64)
+                     - label_h.astype(np.float64)) ** 2))
+                    if len(label_h) else 0.0)
+            else:
+                accs.append(masked_accuracy(score_h, label_h))
             counts.append(len(label_h))
             if logger is not None:
                 logger.update_stats(

@@ -15,8 +15,11 @@ are siblings:
                                        ->  pre_mp.<i>.layer.kernel
     pre_mp_<i>/<wrapper path>          ->  pre_mp.<i>.<bn|act>...
     post_mp/MLP_0/<as a stage>         ->  post_mp.mlp.layers...
-                                           (the node head, and the graph
-                                           head: its pooling has none)
+                                           (the node head, the edge
+                                           head with any decoding, and
+                                           the graph head: its pooling
+                                           and the pair decoding have
+                                           none)
     post_mp/<leaf> (the Tfg head)      ->  post_mp.<leaf>
 
 A conv's own leaves keep their flax names: ``kernel``, ``self_kernel``

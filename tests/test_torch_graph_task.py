@@ -490,12 +490,15 @@ def test_pre_mp_kernel_gradient_cancels_in_f32(corpus_dirs):
 
 
 def test_tfg_models_and_other_tasks_raise():
-    """The Tfg models stay node models, as in the JAX package, and the
-    link and edge tasks wait: both raise naming ROADMAP A13b."""
+    """The Tfg models stay node models, as in the JAX package, and raise
+    on the graph, link and edge tasks; the torch path takes all three."""
     for cfg_name, task in (("idgcn_ws", "graph"), ("idgcn_ws", "link_pred"),
                            ("design/design_v1", "edge")):
         cfg = load_cfg(os.path.join(ROOT, "configs", f"{cfg_name}.yaml"),
-                       ["device", "cpu", "dataset.task", task])
+                       ["device", "cpu", "dataset.task", task,
+                        "gnn.layer_type", "Tfg-idgcn"])
         cfg.share.dim_in, cfg.share.dim_out = 1, 2
-        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+        with pytest.raises(NotImplementedError, match="node models"):
             options_from_cfg(cfg)
+        cfg.gnn.layer_type = "gcnidconv"
+        assert options_from_cfg(cfg).task == task

@@ -315,6 +315,47 @@ def test_cuda_pool_kernel_matches_plain(cuda_device, kind, ego, dtype, d):
                        K.packed_spmm_cuda(dfwd, xg.detach()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_kernel_matches_plain(cuda_device, dtype, d):
+    """A head's gather of node rows at an index with repeats (the edge
+    head's pairs, the edge task's supervised nodes) on the card: K1 on
+    the rectangular gather pack (600 entries from 257 node rows, one
+    node named 60 times, 40 padding entries at the padding node) and on
+    its transpose through SpmmPackFn, against the plain version on the
+    CPU; the forward is x's rows exactly (zero at padding entries), the
+    backward each node's entries summed; 2 launches at D, both counted
+    as rectangular."""
+    rng = np.random.default_rng(d)
+    n = 257
+    index = np.concatenate([rng.integers(0, n - 1, 500), np.full(60, 7),
+                            np.full(40, n - 1)])
+    mask = np.arange(len(index)) < 560
+    fwd, bwd = packing.build_gather_packs(index, mask, n)
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(d))
+    cot = torch.randn(len(index), d,
+                      generator=torch.Generator().manual_seed(1))
+    x, cot = x.to(dtype), cot.to(dtype)
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-3))
+    dfwd, dbwd = (pack_tensors(p, cuda_device) for p in (fwd, bwd))
+    rect = K.packed_spmm_cuda.launches_rectangular[d]
+    xg = x.to(cuda_device).requires_grad_(True)
+    out = K.spmm_pack_vjp(dfwd, dbwd, xg)
+    out.backward(cot.to(cuda_device))
+    torch.cuda.synchronize()
+    want = K.spmm_packed_plain(pack_tensors(fwd), x)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(want[~torch.from_numpy(mask)],
+                       torch.zeros(40, d, dtype=dtype))
+    torch.testing.assert_close(
+        xg.grad.cpu(), K.spmm_packed_plain(pack_tensors(bwd), cot), **tol)
+    assert K.packed_spmm_cuda.launches_rectangular[d] == rect + 2
+    assert torch.equal(K.packed_spmm_cuda(dbwd, cot.to(cuda_device)),
+                       K.packed_spmm_cuda(dbwd, cot.to(cuda_device)))
+
+
 def test_library_hash_covers_sources_and_headers(tmp_path, monkeypatch):
     """A library's name changes with its source, with any csrc header
     and with the flags, so an edit never loads a stale build."""
