@@ -138,9 +138,12 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   full_idgcn_ws — configs/idgcn_ws.yaml for its 1000 epochs, 3 seeds,
                   through graphgym_tpu_torch.main.main --repeat 3 and its
                   aggregate (exp/agg): each seed's best val accuracy,
-                  mean and std, seconds per run, median time_iter; fails
-                  unless the mean meets results/parity/PARITY.md's pass
-                  rule against 0.99375 +- 0.0006;
+                  mean and std, seconds per run, median time_iter
+                  (graphgym_tpu_torch/exp/parity.py's run_config, the
+                  port's parity tool); fails unless the mean meets
+                  results/parity/PARITY.md's pass rule (the tool's
+                  pass_rule) against parity.json's row (0.99375 +-
+                  0.0006);
   full_gcnid_ws — the same for gnn.layer_type gcnidconv, reported only
                   (no reference number).
   kernel_max    — the segmented max (csrc/packed_max.cu; XLA's
@@ -218,7 +221,24 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   full_linkid_ws — linkid_ws for its 100 epochs (link.txt:33), 3 seeds,
                   reported beside the JAX package's CPU result at the
                   same point and seeds (JAX_LINKID_WS) and
-                  LINK_PARITY.md's row (context, another protocol).
+                  LINK_PARITY.md's row (context, another protocol; read
+                  from link_parity.json by the parity tool).
+  prefetch_idgin_ba — ID-GIN ba's train loader (2 batches of 48 graphs
+                  re-collated each epoch): the run with cfg.tpu.prefetch
+                  off and on (train_path, 10 epochs, the launches of
+                  train_idgin_ba): every batches() call's arrays and
+                  every loss bitwise equal, the epochs past the first
+                  collated on the prefetch thread; each run's median
+                  time_iter and train seconds per epoch; and on the
+                  first train batch each pack's build time, native
+                  (graphgym_tpu_torch/native, g++) against the numpy
+                  packer, the packs equal array for array, and an
+                  epoch's collation with each.  prefetch_design_graph_sf
+                  and prefetch_link_ba (after the link paths): the same
+                  on 6 and 3 small batches an epoch, without the packs.
+  full_idgin_ba — configs/idgin_ba.yaml for its 1000 epochs, 3 seeds,
+                  as full_idgcn_ws, reported against parity.json's row
+                  (0.6596 +- 0.0297) by the pass rule, not gated.
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -281,6 +301,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -310,6 +331,7 @@ try:
     from graphgym_tpu_torch.config import load_cfg
     from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
     from graphgym_tpu_torch.device import resolve_device
+    from graphgym_tpu_torch.exp import parity
     from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS, POOLINGS,
                                                    build_pool_packs,
                                                    pool_kind)
@@ -398,7 +420,10 @@ JAX_LINKID_WS = dict(best_val_acc_per_seed=[0.5897, 0.5, 0.5449],
 # results/parity/LINK_PARITY.md:16, gcnidconv on ws: the JAX package and
 # the reference on the reference's edge.yaml base at a matched parameter
 # budget (tools/run_parity.py:333-355), another protocol
-LINK_PARITY_WS = dict(jax=(0.6949, 0.0194), reference=(0.7982, 0.0273))
+_LINK_WS = parity.link_reference("gcnidconv", "ws")
+LINK_PARITY_WS = dict(jax=(_LINK_WS["ours"], _LINK_WS["ours_std"]),
+                      reference=(_LINK_WS["reference"],
+                                 _LINK_WS["reference_std"]))
 IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
               "dataset.transform", "ego", "dataset.augment_feature", "[]",
               "dataset.augment_label", "graph_clustering_coefficient",
@@ -2233,16 +2258,6 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def drop_checkpoints(root: str) -> None:
-    """Delete the checkpoint directories a run wrote under ``root``: the
-    full-width models' checkpoints of every path would grow OUT, which
-    keeps the run's phase lines and kernel table, past 64 MiB."""
-    for parent, dirs, _ in os.walk(root):
-        if "ckpt" in dirs:
-            shutil.rmtree(os.path.join(parent, "ckpt"))
-            dirs.remove("ckpt")
-
-
 def read_stats(path: str):
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -2316,11 +2331,12 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
         return {k.__name__: (s * steps + e * evals,
                              f"{s}/train step x {steps} + {e}/eval batch "
                              f"x {evals}") for k, (s, e) in per.items()}
-    result, (launches, by_width, rectangular) = counted(
-        lambda: run_single(cfg, cfg.out_dir, cfg_file))
+    with LoaderCalls(keep=False) as calls:
+        result, (launches, by_width, rectangular) = counted(
+            lambda: run_single(cfg, cfg.out_dir, cfg_file))
     k1 = K.packed_spmm_cuda.__name__
     rect_launches = sum(rectangular.values())
-    drop_checkpoints(out)
+    parity.drop_checkpoints(out)
     widths = dict(widths or {})
     widths.setdefault(1, {})
     at = {w: at_width(by_width, w) for w in widths}
@@ -2343,6 +2359,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                 losses=losses, val_acc=accs,
                 best_val_acc=result["best_val_acc"], step_s=step_s,
                 step_s_median_replays=float(np.median(step_s[2:])),
+                train_s_per_epoch=calls.run_s[0] / epochs,
                 launches=launches, launches_at_width=at,
                 k1_rect_launches=rect_launches,
                 k1_layer_launches=launches[k1] - rect_launches,
@@ -2600,69 +2617,190 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                 gathers=gathers, train=train, profile=profile)
 
 
-# results/parity/PARITY.md:29: ID-GCN Full on ws, the reference's mean
-# best val accuracy over its seeds and their spread, and the pass rule
-# of PARITY.md:1: |delta| <= max(2 sqrt(sigma_ref^2 + sigma_ours^2), 0.03)
-IDGCN_WS_REF = (0.993749996026357, 0.0006)
+def reference_of(model: str, dataset: str) -> tuple:
+    """results/parity/parity.json's reference mean best val accuracy
+    over the reference's seeds, and their spread (the parity tool's
+    reader)."""
+    row = parity.reference(model, dataset)
+    return row["reference"], row["reference_std"]
+
+
+class LoaderCalls:
+    """While installed, the seconds of each ``Trainer.run`` and, where
+    ``keep``, every ``GraphLoader.batches`` call of a train loader
+    (shuffled): its epoch, the thread that made it and the batches it
+    gave, hashed when read (``digests``) so the hashing stays off the
+    timed run."""
+
+    def __init__(self, keep: bool = True):
+        self.keep = keep
+
+    def __enter__(self):
+        from graphgym_tpu_torch.data import loaders as L
+
+        self.calls, self.run_s = [], []
+        self.real_batches, self.real_run = L.GraphLoader.batches, Trainer.run
+
+        def batches(loader, epoch=0):
+            out = self.real_batches(loader, epoch)
+            if self.keep and loader.shuffle:
+                self.calls.append((epoch, threading.current_thread().name,
+                                   out))
+            return out
+
+        def run(trainer, *args, **kw):
+            t0 = time.perf_counter()
+            result = self.real_run(trainer, *args, **kw)
+            self.run_s.append(time.perf_counter() - t0)
+            return result
+        L.GraphLoader.batches, Trainer.run = batches, run
+        return self
+
+    def __exit__(self, *exc):
+        from graphgym_tpu_torch.data import loaders as L
+
+        L.GraphLoader.batches, Trainer.run = self.real_batches, self.real_run
+
+    def digests(self) -> list:
+        out = []
+        for epoch, thread, batches in self.calls:
+            h = hashlib.sha256()
+            for b in batches:
+                for a in b.leaves():
+                    h.update(np.ascontiguousarray(a).tobytes())
+            out.append((epoch, thread, h.hexdigest()))
+        return out
+
+
+def numpy_pack(s, r, w, rows, senders, least=0, slots=False):
+    """The numpy packer (the plain version of packing._pack): the pack,
+    its chunks padded to max(bucket, least)."""
+    from graphgym_tpu_torch.graphs.container import bucket_size
+
+    pack, slot = K.pack_csr_with_slots(s, r, w, rows, num_senders=senders)
+    pack = K.pad_pack(pack, max(bucket_size(pack.senders.shape[0]), least),
+                      rows, senders)
+    return pack, (slot if slots else None)
+
+
+def median_s(fn, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def prefetch_phase(cfg_file: str, overrides, expected: dict,
+                   widths=None, rect=(0, 0), packs: str = "") -> dict:
+    """prefetch_<path>: the path's training (``train_path``, 10 epochs,
+    ``expected`` launches) with cfg.tpu.prefetch off and on: the train
+    loader's batches of every call and every loss bitwise equal, the
+    calls after the first three (the constructor's, the edge count's,
+    epoch 0's) made on the prefetch thread; each run's median time_iter
+    of the replays and train seconds per epoch.  With ``packs`` (a pack
+    kind that takes the batch's edges as they are), on the first train
+    batch its fwd and bwd packs built natively (packing._pack:
+    graphgym_tpu_torch/native) and by the numpy packer, array for array
+    equal, each build's median seconds, and the median seconds of an
+    epoch's collation with each packer (the card machine's CPU)."""
+    from graphgym_tpu_torch.graphs import packing
+
+    epochs = ["optim.max_epoch", "10"]
+    _, loaders, _ = load_path(cfg_file, overrides + epochs)
+    runs = {}
+    for prefetch in ("False", "True"):
+        with LoaderCalls() as calls:
+            train = train_path(cfg_file, overrides + epochs
+                               + ["tpu.prefetch", prefetch],
+                               os.path.join(OUT, f"prefetch_{prefetch}"),
+                               loaders, expected, widths, rect)
+        runs[prefetch] = dict(train=train, calls=calls.digests())
+    serial, ahead = runs["False"], runs["True"]
+    if [c[::2] for c in serial["calls"]] != [c[::2] for c in ahead["calls"]]:
+        fail("prefetched batches differ from the serial ones")
+    threads = [c[1] for c in ahead["calls"]]
+    if any(t.startswith("prefetch") for t in threads[:3]) \
+            or not all(t.startswith("prefetch") for t in threads[3:]):
+        fail(f"prefetch threads {threads}")
+    if serial["train"]["losses"] != ahead["train"]["losses"] \
+            or serial["train"]["val_acc"] != ahead["train"]["val_acc"]:
+        fail("prefetched losses or val accuracies differ from the serial "
+             "ones")
+    both = (("serial", serial), ("prefetch", ahead))
+    out = dict(
+        batches=len(loaders[0]), calls=len(serial["calls"]),
+        threads=threads, losses_equal=True,
+        time_iter_median_s={k: v["train"]["step_s_median_replays"]
+                            for k, v in both},
+        train_s_per_epoch={k: v["train"]["train_s_per_epoch"]
+                           for k, v in both},
+        launches=ahead["train"]["launches"], host_cpus=os.cpu_count())
+    if not packs:
+        return out
+    batch = loaders[0].batches(0)[0]
+    n = batch.num_nodes
+    s, r, w = batch.senders, batch.receivers, batch.edge_weight
+    builds = {}
+    for half, (a, b) in (("fwd", (s, r)), ("bwd", (r, s))):
+        got, _ = packing._pack(a, b, w, n, n)
+        want, _ = numpy_pack(a, b, w, n, n)
+        if any(not np.array_equal(x, y) for x, y in zip(got, want)):
+            fail(f"native {half} {packs} pack differs from the numpy "
+                 "packer's")
+        builds[half] = dict(
+            native_s=median_s(lambda: packing._pack(a, b, w, n, n)),
+            numpy_s=median_s(lambda: numpy_pack(a, b, w, n, n)),
+            slots=int(got.senders.size))
+    epoch_s = {"native": median_s(lambda: loaders[0].batches(1), 3)}
+    real_pack = packing._pack
+    packing._pack = numpy_pack
+    try:
+        epoch_s["numpy"] = median_s(lambda: loaders[0].batches(1), 3)
+    finally:
+        packing._pack = real_pack
+    return dict(out, pack=packs, packs=builds, epoch_collation_s=epoch_s)
+
+
+# results/parity/PARITY.md:29 and :30: ID-GCN Full on ws, ID-GIN Full
+# on ba
+IDGCN_WS_REF = reference_of("idgcn", "ws")
+IDGIN_BA_REF = reference_of("idgin", "ba")
 
 
 def full_run(tag: str, cfg_file: str, overrides, seeds: int = 3,
-             reference=None) -> dict:
-    """A config's whole training (its own max_epoch) through
-    graphgym_tpu_torch.main.main with --repeat ``seeds``, into
-    OUT/<tag>, then the aggregate the entry point wrote (exp/agg): each
-    seed's best val accuracy and the seeds' mean and std from
-    agg/val/best.json, the seconds of each run (data, model and
-    training) and the median ``time_iter`` of the train steps over all
-    seeds.  With ``reference`` (mean, sigma), fails unless the mean
-    meets PARITY.md's pass rule against it."""
-    from graphgym_tpu_torch import main as port_main
-
+             reference=None, gated: bool = True) -> dict:
+    """A config's whole training (its own max_epoch) through the port's
+    parity tool (``parity.run_config``: graphgym_tpu_torch.main.main
+    with --repeat ``seeds``, into OUT/<tag>, then the aggregate the
+    entry point wrote): each seed's best val accuracy and the seeds'
+    mean and std from agg/val/best.json, the seconds of each run (data,
+    model and training) and the median ``time_iter`` of the train
+    steps over all seeds, and every kernel's launches over the runs.
+    With ``reference`` (mean, sigma), the mean against it by PARITY.md's
+    pass rule (``parity.pass_rule``); fails on a miss where ``gated``."""
     out = os.path.join(OUT, tag)
     shutil.rmtree(out, ignore_errors=True)
-    seconds, real = [], port_main.run_single
-
-    def timed(*args):
-        t0 = time.perf_counter()
-        result = real(*args)
-        seconds.append(time.perf_counter() - t0)
-        return result
-    port_main.run_single = timed
-    try:
-        results = port_main.main(["--cfg", cfg_file, "--repeat", str(seeds)]
-                                 + list(overrides) + ["out_dir", out])
-    finally:
-        port_main.run_single = real
-    drop_checkpoints(out)
-    name = os.path.splitext(os.path.basename(cfg_file))[0]
-    parent = os.path.join(out, name)
-    with open(os.path.join(parent, "agg", "val", "best.json")) as f:
-        best = json.loads(f.readline())
-    per_seed, time_iter, epochs = [], [], []
-    for seed in sorted(d for d in os.listdir(parent) if d.isdigit()):
-        val = read_stats(os.path.join(parent, seed, "val", "stats.json"))
-        train = read_stats(os.path.join(parent, seed, "train",
-                                        "stats.json"))
-        per_seed.append(max(s["accuracy"] for s in val))
-        time_iter += [s["time_iter"] for s in train]
-        epochs.append(len(train))
-    mean, std = best["accuracy"], best.get("accuracy_std", 0.0)
-    out_row = dict(seeds=len(per_seed), epochs=epochs,
-                   best_val_acc_per_seed=per_seed,
-                   best_val_acc_from_main=[r["best_val_acc"]
-                                           for r in results],
-                   mean=mean, std=std, seconds_per_run=seconds,
-                   time_iter_median_s=float(np.median(time_iter)))
+    (results, summary), (launches, _, _) = counted(
+        lambda: parity.run_config(cfg_file, seeds, out, overrides))
+    parity.drop_checkpoints(out)
+    per_seed, mean, std = (summary["best_val_acc_per_seed"],
+                           summary["mean"], summary["std"])
+    out_row = dict(summary, best_val_acc_from_main=[r["best_val_acc"]
+                                                    for r in results],
+                   launches=launches)
     if len(per_seed) != seeds or abs(np.mean(per_seed) - mean) > 1e-4:
-        fail(f"{tag}: the aggregate {best} does not hold the {seeds} "
-             f"seeds' best val accuracies {per_seed}")
+        fail(f"{tag}: the aggregate ({mean}+-{std}) does not hold the "
+             f"{seeds} seeds' best val accuracies {per_seed}")
     if reference is not None:
         ref_mean, ref_sigma = reference
         delta = mean - ref_mean
-        limit = max(2 * math.sqrt(ref_sigma ** 2 + std ** 2), 0.03)
+        passes, limit = parity.pass_rule(delta, ref_sigma, std)
         out_row.update(reference=ref_mean, reference_sigma=ref_sigma,
-                       delta=delta, limit=limit, passes=abs(delta) <= limit)
-        if abs(delta) > limit:
+                       delta=delta, limit=limit, passes=passes)
+        if gated and not passes:
             fail(f"{tag}: mean best val accuracy {mean}+-{std} against "
                  f"{ref_mean}+-{ref_sigma}: |delta| {abs(delta)} > {limit}")
     return out_row
@@ -3041,6 +3179,12 @@ def main() -> None:
                                {k3_: (18, 6), sddmm_: (6, 3)},
                                widths={1: {k3_: (6, 3)}}),
     }
+    # the epoch prefetch and the native pack builder on ID-GIN ba's two
+    # train batches of 48 graphs a epoch
+    begin("prefetch_idgin_ba")
+    phase("prefetch_idgin_ba", **prefetch_phase(
+        config("idgin_ba"), ba_overrides, {k1_: (5, 3)},
+        {1: {k1_: (1, 1)}}, packs="plain"))
 
     # ---- the GraphGym torch path (pre-MP Linear + BN + act, the stage of
     # GeneralLayer(conv) with BN and act, the L2 norm, the node head's
@@ -3187,6 +3331,17 @@ def main() -> None:
             expected={k1_: (12, 6)}, widths={128: {k1_: (12, 6)}},
             rect=(2, 1), random_features=True),
     }
+    # the prefetch on two loaders of many small batches (6 and 3 an
+    # epoch)
+    begin("prefetch_design_graph_sf")
+    phase("prefetch_design_graph_sf", **prefetch_phase(
+        config("design/design_v1"), dz + list(DESIGN_GRAPH_SF),
+        {k1_: (6, 3)}, {256: {k1_: (4, 2)}, 768: {k1_: (2, 1)}},
+        rect=(2, 1)))
+    begin("prefetch_link_ba")
+    phase("prefetch_link_ba", **prefetch_phase(
+        config("idgcn_ba"), ba_overrides + list(LINK_BA), {k1_: (12, 6)},
+        {128: {k1_: (12, 6)}}, rect=(2, 1)))
     begin("kernel_pool")
     pools = pool_phase({
         "design_graph_sf": (config("design/design_v1"),
@@ -3228,6 +3383,15 @@ def main() -> None:
           link_parity_ws=LINK_PARITY_WS, **full_run(
               "full_linkid_ws", CFG, full_overrides + list(LINKID_WS)
               + ["optim.max_epoch", "100"]))
+
+    # ID-GIN on ba for its 1000 epochs at batch 48 (two train batches
+    # an epoch, collated ahead by the prefetch), against the reference's
+    # row (reported)
+    begin("full_idgin_ba")
+    phase("full_idgin_ba", **full_run(
+        "full_idgin_ba", config("idgin_ba"),
+        full_overrides + ["dataset.dir", CORPUS_DIR],
+        reference=IDGIN_BA_REF, gated=False))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")

@@ -40,6 +40,7 @@ from graphgym_tpu_torch.graphs.container import (GraphBatch, bucket_size,
 from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS,
                                                build_gather_packs,
                                                build_packs, build_pool_packs,
+                                               host_pool,
                                                kinds_for_layer, pack_chunks,
                                                pad_packs)
 
@@ -522,9 +523,12 @@ class GraphLoader:
         order = np.arange(len(self.graphs))
         if self.shuffle and len(self.graphs) > 1 and not static:
             order = self.rng.permutation(order)
-        out = [self._collate([self.graphs[j]
-                              for j in order[i:i + self.batch_size]])
-               for i in range(0, len(order), self.batch_size)]
+        # the batches collate side by side (host_pool): _collate reads
+        # the graphs and the loader's shapes and writes nothing shared
+        parts = [[self.graphs[j] for j in order[i:i + self.batch_size]]
+                 for i in range(0, len(order), self.batch_size)]
+        out = (list(host_pool("collate").map(self._collate, parts))
+               if len(parts) > 1 else [self._collate(p) for p in parts])
         out = self._share_pack_shapes(out)
         if static:
             self._cached = out
@@ -655,7 +659,8 @@ class GraphLoader:
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,
-                batch.node_mask, batch.num_nodes, kinds=kinds))
+                batch.node_mask, batch.num_nodes, kinds=kinds,
+                chunks=self._chunks))
         # re-pad the variable-length index lists to the split-wide bucket
         if batch.node_label_index is not None:
             batch = _repad_index(batch, "node_label_index", "label_mask",
@@ -667,13 +672,14 @@ class GraphLoader:
         if batch.edge_label_index is not None:
             gathers[PAIRS] = build_gather_packs(
                 batch.edge_label_index.reshape(-1),
-                np.tile(batch.edge_label_mask, 2), batch.num_nodes)
+                np.tile(batch.edge_label_mask, 2), batch.num_nodes,
+                self._chunks.get(PAIRS, (0, 0)))
         if batch.node_label_index is not None:
             real = batch.node_label_index[batch.label_mask]
             if len(np.unique(real)) < len(real):
                 gathers[LABELS] = build_gather_packs(
                     batch.node_label_index, batch.label_mask,
-                    batch.num_nodes)
+                    batch.num_nodes, self._chunks.get(LABELS, (0, 0)))
         if gathers:
             batch = batch.replace(packs={**(batch.packs or {}), **gathers})
         if cfg.dataset.task == "graph" \
@@ -685,7 +691,7 @@ class GraphLoader:
                     batch.graph_ids, batch.node_mask, batch.num_graphs,
                     cfg.model.graph_pooling,
                     batch.node_id_index if ego else None,
-                    batch.id_mask if ego else None)})
+                    batch.id_mask if ego else None, chunks=self._chunks)})
         return batch
 
 

@@ -98,15 +98,50 @@ class GraphBatch:
     def replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)
 
-    def to(self, device: torch.device) -> "GraphBatch":
-        """A copy with every array as a tensor on ``device``."""
+    def leaves(self):
+        """Every array of the batch (numpy on the host, tensors after
+        ``to``), its packs' included, in field order."""
+        for value in vars(self).values():
+            parts = value.values() if isinstance(value, dict) else [value]
+            for part in parts:
+                for p in (part if isinstance(part, tuple) else [part]):
+                    for a in (p if isinstance(p, tuple) else [p]):
+                        if isinstance(a, (np.ndarray, torch.Tensor)):
+                            yield a
+
+    def staging_bytes(self) -> int:
+        """The pinned staging buffer ``to`` needs for this host batch."""
+        return sum(_staged(a.nbytes) for a in self.leaves())
+
+    def to(self, device: torch.device,
+           staging: Optional[torch.Tensor] = None) -> "GraphBatch":
+        """A copy with every array as a tensor on ``device``.  With
+        ``staging``, a pinned uint8 host tensor of at least
+        ``staging_bytes()``, each array is copied into it and moved from
+        there without blocking the host, on the current stream, and index
+        arrays widen to int64 on the device; the caller synchronises that
+        stream before it writes ``staging`` again."""
+        offset = 0
+
         def move(a, index=False):
+            nonlocal offset
             if a is None:
                 return None
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if index:
-                t = t.long()
-            return t.to(device)
+            a = np.ascontiguousarray(a)
+            if staging is None:
+                t = torch.from_numpy(a)
+                if index:
+                    t = t.long()
+                return t.to(device)
+            dst = staging[offset:offset + a.nbytes].view(
+                torch.from_numpy(a).dtype).view(a.shape)
+            offset += _staged(a.nbytes)
+            # numpy's copy: one thread, the GIL released; torch's copy_
+            # would fork its intra-op threads, which stall behind the
+            # loader's threads while the prefetch worker collates
+            np.copyto(dst.numpy(), a)
+            t = dst.to(device, non_blocking=True)
+            return t.long() if index else t
 
         def move_pack(p):
             if isinstance(p, tuple):        # a PackedCSR
@@ -137,6 +172,12 @@ class GraphBatch:
             node_id_index=move(self.node_id_index, True),
             id_mask=move(self.id_mask),
             packs=packs)
+
+
+def _staged(nbytes: int) -> int:
+    """An array's share of a staging buffer: its bytes rounded up to 64,
+    so every array starts aligned."""
+    return (nbytes + 63) // 64 * 64
 
 
 def pad_to(x: np.ndarray, n: int, fill=0) -> np.ndarray:

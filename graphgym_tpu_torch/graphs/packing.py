@@ -47,14 +47,17 @@ no fixed order.
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from graphgym_tpu_torch import native
 from graphgym_tpu_torch.graphs.container import bucket_size
-from graphgym_tpu_torch.ops.cuda.spmm_kernel import (PackedCSR,
-                                                     pack_csr_with_slots,
-                                                     pad_pack)
+from graphgym_tpu_torch.ops.cuda.spmm_kernel import PackedCSR, pad_pack
+
+Chunks = Dict[str, Tuple[int, int]]
 
 
 def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
@@ -66,8 +69,7 @@ def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
     r = np.concatenate([receivers, loop])
     w = np.concatenate([edge_weight,
                         node_mask.astype(np.float32)])
-    deg = np.zeros(num_nodes, np.float64)
-    np.add.at(deg, r, w)
+    deg = np.bincount(r, weights=w, minlength=num_nodes)
     with np.errstate(divide="ignore"):
         dis = deg ** -0.5
     dis[~np.isfinite(dis)] = 0
@@ -78,8 +80,8 @@ def _mean_weights(senders: np.ndarray, receivers: np.ndarray,
                   edge_weight: np.ndarray, num_nodes: int):
     """Each edge's weight over its receiver's count of nonzero-weight
     in-edges (0 where the count is 0)."""
-    deg = np.zeros(num_nodes, np.float64)
-    np.add.at(deg, receivers, (edge_weight != 0).astype(np.float64))
+    deg = np.bincount(receivers, weights=(edge_weight != 0).astype(
+        np.float64), minlength=num_nodes)
     inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
     return senders, receivers, (edge_weight * inv[receivers]).astype(
         np.float32)
@@ -112,14 +114,15 @@ def _att_edges(senders: np.ndarray, receivers: np.ndarray,
 
 def build_packs(senders: np.ndarray, receivers: np.ndarray,
                 edge_weight: np.ndarray, node_mask: np.ndarray,
-                num_nodes: int, kinds: Sequence[str] = ("gcn",)
-                ) -> Dict[str, tuple]:
+                num_nodes: int, kinds: Sequence[str] = ("gcn",),
+                chunks: Optional[Chunks] = None) -> Dict[str, tuple]:
     """kind -> (fwd, bwd) packs, and for 'att' also the slot map
     [NC_bwd, C] int32.  num_nodes here is the PADDED node count (packs
     target padded rows; the padding row receives only weight-0
-    contributions)."""
-    senders = np.asarray(senders, np.int64)
-    receivers = np.asarray(receivers, np.int64)
+    contributions).  Each pack's chunk count is bucketed and at least
+    ``chunks[kind]``'s (``_pack``)."""
+    senders = np.asarray(senders, np.int32)
+    receivers = np.asarray(receivers, np.int32)
     edge_weight = np.asarray(edge_weight, np.float32)
     node_mask = np.asarray(node_mask, bool)
     out = {}
@@ -140,11 +143,9 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
                                  node_mask, num_nodes)
         else:
             raise ValueError(f"unknown pack kind {kind!r}")
-        fwd, fwd_slot = pack_csr_with_slots(s, r, w, num_nodes)
-        bwd, bwd_slot = pack_csr_with_slots(r, s, w, num_nodes)
-        # bucket chunk counts so multi-batch loaders share shapes
-        fwd = _pad_to_bucket(fwd, num_nodes, num_nodes)
-        bwd = _pad_to_bucket(bwd, num_nodes, num_nodes)
+        (fwd, fwd_slot), (bwd, bwd_slot) = _pack_pair(
+            s, r, w, num_nodes, num_nodes, (chunks or {}).get(kind, (0, 0)),
+            slots=kind == "att")
         out[kind] = (fwd, bwd)
         if kind == "att":
             out[kind] += (_slot_map(fwd, bwd, fwd_slot, bwd_slot),)
@@ -186,15 +187,54 @@ def _slot_map(fwd: PackedCSR, bwd: PackedCSR, fwd_slot: np.ndarray,
     """For each bwd slot, the fwd slot of the same edge.  Bwd padding
     slots point one past the last fwd slot, where the backward appends
     a zero coefficient."""
-    slot_map = np.full(bwd.senders.size, fwd.senders.size, np.int32)
-    slot_map[bwd_slot] = fwd_slot
-    return slot_map.reshape(bwd.senders.shape)
+    return native.scatter(bwd.senders.size, fwd.senders.size, bwd_slot,
+                          fwd_slot).reshape(bwd.senders.shape)
 
 
-def _pad_to_bucket(pack: PackedCSR, num_rows: int,
-                   num_senders: int) -> PackedCSR:
-    return pad_pack(pack, bucket_size(pack.senders.shape[0]), num_rows,
-                    num_senders)
+def _pack(senders: np.ndarray, receivers: np.ndarray, w: np.ndarray,
+          num_rows: int, num_senders: int, least: int = 0,
+          slots: bool = False) -> Tuple[PackedCSR, Optional[np.ndarray]]:
+    """A pack of ``num_rows`` rows reading ``num_senders`` rows, built
+    natively (graphgym_tpu_torch/native), and the slot of each edge where
+    ``slots``.  Its chunk count is bucketed, so the batches of a
+    multi-batch loader land on few shapes, and at least ``least``: the
+    loader's running count for the pack (``GraphLoader._chunks``), so a
+    batch is built at the shape the loader shares and is not copied
+    into it later."""
+    return native.pack_csr_with_slots(
+        senders, receivers, w, num_rows, num_senders=num_senders,
+        pad_chunks_to=lambda nc: max(bucket_size(nc), least), slots=slots)
+
+
+_POOLS: Dict[str, ThreadPoolExecutor] = {}
+_POOLS_LOCK = threading.Lock()
+HOST_THREADS = 4    # threads a pool: an epoch of ba at batch 48 is 2
+
+
+def host_pool(name: str) -> ThreadPoolExecutor:
+    """The process's pool of host threads called ``name`` (made at
+    first use).  The loader collates an epoch's batches on one and
+    builds each transpose pack on another; the native packer and most
+    numpy work release the GIL, so they run side by side.  Nothing the
+    threads compute depends on their timing."""
+    with _POOLS_LOCK:
+        if name not in _POOLS:
+            _POOLS[name] = ThreadPoolExecutor(
+                HOST_THREADS, thread_name_prefix=f"graphgym-{name}")
+        return _POOLS[name]
+
+
+def _pack_pair(senders: np.ndarray, receivers: np.ndarray, w: np.ndarray,
+               num_rows: int, num_senders: int,
+               least: Tuple[int, int] = (0, 0), slots: bool = False):
+    """((fwd, slots), (bwd, slots)): ``_pack`` of A (``num_rows`` rows
+    reading ``num_senders``) and of its transpose, the transpose built
+    on a ``host_pool`` thread while this one builds A."""
+    bwd = host_pool("pack").submit(_pack, receivers, senders, w,
+                                   num_senders, num_rows, least[1], slots)
+    fwd = _pack(senders, receivers, w, num_rows, num_senders, least[0],
+                slots)
+    return fwd, bwd.result()
 
 
 POOLINGS = ("add", "mean", "max")
@@ -211,8 +251,8 @@ def pool_kind(pooling: str, ego: bool = False) -> str:
 def build_pool_packs(graph_ids: np.ndarray, node_mask: np.ndarray,
                      num_graphs: int, pooling: str,
                      id_index: Optional[np.ndarray] = None,
-                     id_mask: Optional[np.ndarray] = None
-                     ) -> Dict[str, tuple]:
+                     id_mask: Optional[np.ndarray] = None,
+                     chunks: Optional[Chunks] = None) -> Dict[str, tuple]:
     """{pool_kind: (fwd, bwd)}: the pooling of ``global_pool``
     (graphgym_tpu/nn/heads.py:23-46) as packs.  The fwd pack has a row
     per graph slot and reads the node rows: a slot per node, or per
@@ -223,25 +263,24 @@ def build_pool_packs(graph_ids: np.ndarray, node_mask: np.ndarray,
     host as the 'gcn_mean' pack takes it).  The padding graph slot's row
     holds only weight-0 slots: an empty row, 0 in the sum and in the
     max.  The bwd pack has a row per node and reads the graph slots.
-    graph_ids and node_mask are the padded batch's (num_nodes long)."""
-    graph_ids = np.asarray(graph_ids, np.int64)
+    graph_ids and node_mask are the padded batch's (num_nodes long);
+    ``chunks`` as ``build_packs``'."""
+    graph_ids = np.asarray(graph_ids, np.int32)
     num_nodes = len(graph_ids)
     if id_index is None:
-        senders, mask = np.arange(num_nodes), node_mask
+        senders, mask = np.arange(num_nodes, dtype=np.int32), node_mask
     else:
-        senders, mask = np.asarray(id_index, np.int64), id_mask
+        senders, mask = np.asarray(id_index, np.int32), id_mask
     w = np.asarray(mask, np.float32)
     receivers = graph_ids[senders]
     if pooling == "mean":
         count = np.bincount(receivers, weights=w, minlength=num_graphs)
         w = (w / np.maximum(count, 1)[receivers]).astype(np.float32)
     kind = pool_kind(pooling, id_index is not None)
-    fwd, _ = pack_csr_with_slots(senders, receivers, w, num_graphs,
-                                 num_senders=num_nodes)
-    bwd, _ = pack_csr_with_slots(receivers, senders, w, num_nodes,
-                                 num_senders=num_graphs)
-    return {kind: (_pad_to_bucket(fwd, num_graphs, num_nodes),
-                   _pad_to_bucket(bwd, num_nodes, num_graphs))}
+    (fwd, _), (bwd, _) = _pack_pair(senders, receivers, w, num_graphs,
+                                    num_nodes, (chunks or {}).get(kind,
+                                                                  (0, 0)))
+    return {kind: (fwd, bwd)}
 
 
 def agg_kind(agg: str, normalize_adj: bool) -> str:
@@ -279,18 +318,17 @@ PAIRS, LABELS = "pairs", "labels"
 
 
 def build_gather_packs(index: np.ndarray, mask: np.ndarray,
-                       num_nodes: int) -> tuple:
+                       num_nodes: int, least: Tuple[int, int] = (0, 0)
+                       ) -> tuple:
     """(fwd, bwd): the gather x[index] of ``num_nodes`` node rows as a
     rectangular pack pair (module docstring).  The fwd pack has
     len(index) rows, each the one slot of its entry, weight ``mask``;
     the bwd pack has num_nodes rows, a node's slots the entries that
-    read it, in index order, with the same weights."""
-    index = np.asarray(index, np.int64)
-    rows = np.arange(len(index))
+    read it, in index order, with the same weights.  ``least``: the
+    chunk counts to pad to at least (``_pack``)."""
+    index = np.asarray(index, np.int32)
+    rows = np.arange(len(index), dtype=np.int32)
     w = np.asarray(mask, np.float32)
-    fwd, _ = pack_csr_with_slots(index, rows, w, len(index),
-                                 num_senders=num_nodes)
-    bwd, _ = pack_csr_with_slots(rows, index, w, num_nodes,
-                                 num_senders=len(index))
-    return (_pad_to_bucket(fwd, len(index), num_nodes),
-            _pad_to_bucket(bwd, num_nodes, len(index)))
+    (fwd, _), (bwd, _) = _pack_pair(index, rows, w, len(index), num_nodes,
+                                    least)
+    return fwd, bwd

@@ -6,7 +6,8 @@ graphgym/train.py:15-155).  A train step is the forward, masked loss
 backward and Adam update, one captured CUDA graph on the
 card (train/graphed.py), then one per-step learning-rate step; the
 epoch driver brings back the scalar loss and the supervised scores for
-logging.
+logging.  With ``cfg.tpu.prefetch`` a host thread collates epoch e+1's
+train batches while epoch e trains (graphgym_tpu/train/loop.py:406-434).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import collections
 import json
 import logging
 import os
+import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,6 +29,12 @@ from graphgym_tpu_torch.train.graphed import make_eval_step, make_train_step
 from graphgym_tpu_torch.train.logger import Logger
 from graphgym_tpu_torch.train.loss import LossOptions
 from graphgym_tpu_torch.train.optim import create_optimizer
+
+
+# the interpreter's switch interval while the prefetch worker runs: its
+# Python would otherwise keep the GIL for up to the default 5 ms each
+# time the training thread wants it back, several times a step
+PREFETCH_SWITCH_S = 1e-4
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -64,7 +73,7 @@ class Trainer:
                  device: torch.device, eager: bool = False):
         if cfg.view_emb:
             raise NotImplementedError(
-                "embedding views are not ported yet (ROADMAP A15)")
+                "embedding views are not ported yet (ROADMAP A15b)")
         self.model = model
         self.loaders = loaders
         self.cfg = cfg
@@ -100,13 +109,37 @@ class Trainer:
         self.eval_step = make_eval_step(
             model, self.loss_opts, max_programs=self._place_cap, pool=pool,
             eager=eager)
+        # on the card batches move on a stream of their own, so the next
+        # one moves while the device runs the step just enqueued
+        self._copy_stream = (torch.cuda.Stream(device)
+                             if device.type == "cuda" else None)
+        self._staging: Optional[torch.Tensor] = None
 
     def _place(self, batch):
+        """``batch`` on the trainer's device, moved once and kept while it
+        is among the last ``_place_cap`` placed.  On the card a batch
+        moves through a pinned staging buffer on the copy stream, which
+        runs beside the step the device may be running; the copies have
+        ended when this returns, and the placed tensors are recorded on
+        the step's stream, so the allocator reuses none of them before
+        that stream has read them."""
         hit = self._placed.get(id(batch))
         if hit is not None and hit[0] is batch:
             self._placed.move_to_end(id(batch))
             return hit[1]
-        placed = batch.to(self.device)
+        if self._copy_stream is None:
+            placed = batch.to(self.device)
+        else:
+            size = batch.staging_bytes()
+            if self._staging is None or self._staging.numel() < size:
+                self._staging = torch.empty(size, dtype=torch.uint8,
+                                            pin_memory=True)
+            with torch.cuda.stream(self._copy_stream):
+                placed = batch.to(self.device, self._staging)
+            self._copy_stream.synchronize()
+            stream = torch.cuda.current_stream(self.device)
+            for t in placed.leaves():
+                t.record_stream(stream)
         while len(self._placed) >= self._place_cap:
             self._placed.popitem(last=False)
         self._placed[id(batch)] = (batch, placed)
@@ -126,12 +159,24 @@ class Trainer:
                               self.cfg.out_dir, epoch)
 
     # ------------------------------------------------------------ epochs
-    def train_epoch(self, logger: Logger, epoch: int, batches=None):
+    def train_epoch(self, logger: Logger, epoch: int, batches=None,
+                    upcoming=None):
+        """One epoch of train steps on ``batches`` (by default the train
+        loader's of ``epoch``).  After each step is enqueued the next
+        batch is placed (``_place``), while the device runs the step;
+        after the last, the first of ``upcoming`` (a Future of the next
+        epoch's batches) where it is ready."""
+        if batches is None:
+            batches = self.loaders[0].batches(epoch)
         t0 = time.time()
-        for batch in (batches if batches is not None
-                      else self.loaders[0].batches(epoch)):
+        for i, batch in enumerate(batches):
             lr = self.scheduler.lr()     # the host float of this step's lr
             loss, score, label, mask = self.train_step(self._place(batch))
+            if i + 1 < len(batches):
+                self._place(batches[i + 1])
+            elif (upcoming is not None and upcoming.done()
+                  and upcoming.exception() is None and upcoming.result()):
+                self._place(upcoming.result()[0])
             label_h, score_h = _to_host(score, label, mask)
             logger.update_stats(true=label_h, pred=score_h,
                                 loss=float(loss), lr=lr,
@@ -187,35 +232,61 @@ class Trainer:
                                  if int(e) < start_epoch]
         edges_per_epoch = sum(b.count_real_edges()
                               for b in self.loaders[0].batches(0))
-        for epoch in range(start_epoch, cfg.optim.max_epoch):
-            t_ep = time.time()
-            self.train_epoch(loggers[0] if loggers else Logger("train"),
-                             epoch)
-            dt_ep = time.time() - t_ep
-            if epoch == start_epoch or (loggers and epoch % 50 == 0):
-                logging.info("epoch %d: %.3fs, %.0f edges/s", epoch, dt_ep,
-                             edges_per_epoch / max(dt_ep, 1e-9))
-            if loggers:
-                loggers[0].write_epoch(epoch)
-            if ckpt.is_eval_epoch(epoch, cfg.train.eval_period,
-                                  cfg.optim.max_epoch):
-                accs = []
-                for i in range(1, len(self.loaders)):
-                    accs.append(self.eval_epoch(
-                        loggers[i] if loggers else None, i))
-                    if loggers:
-                        loggers[i].write_epoch(epoch)
-                if accs:
-                    val_curve.append((epoch, float(np.mean(accs))))
-                    logging.info("epoch %d, acc:%s", epoch,
-                                 round(float(np.mean(accs)), 4))
-                    if curve_path:
-                        with open(curve_path, "w") as f:
-                            json.dump(val_curve, f)
-            if ckpt.is_ckpt_epoch(epoch, cfg.train.ckpt_period,
-                                  cfg.optim.max_epoch):
-                ckpt.save_ckpt(self.model, self.optimizer, self.scheduler,
-                               cfg.out_dir, epoch)
+        # The epoch prefetch: one worker collates epoch e+1's train
+        # batches while epoch e trains, so the loader's draws keep the
+        # serial order (the constructor's, the one above, epoch
+        # start_epoch on this thread, then e+1 on the worker after e)
+        # and the batches are the serial path's, bit for bit.  The
+        # worker makes no CUDA call: a step captured while it runs
+        # (train/graphed.py) sees no other thread's work on the card.
+        prefetch = (ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+                    if cfg.tpu.prefetch
+                    and cfg.optim.max_epoch - start_epoch > 1 else None)
+        ahead, switch = None, sys.getswitchinterval()
+        if prefetch is not None:
+            sys.setswitchinterval(PREFETCH_SWITCH_S)
+        try:
+            for epoch in range(start_epoch, cfg.optim.max_epoch):
+                t_ep = time.time()
+                batches = (ahead.result() if ahead is not None
+                           else self.loaders[0].batches(epoch))
+                ahead = None
+                if prefetch is not None and epoch + 1 < cfg.optim.max_epoch:
+                    ahead = prefetch.submit(self.loaders[0].batches,
+                                            epoch + 1)
+                self.train_epoch(loggers[0] if loggers else Logger("train"),
+                                 epoch, batches=batches, upcoming=ahead)
+                dt_ep = time.time() - t_ep
+                if epoch == start_epoch or (loggers and epoch % 50 == 0):
+                    logging.info("epoch %d: %.3fs, %.0f edges/s", epoch,
+                                 dt_ep, edges_per_epoch / max(dt_ep, 1e-9))
+                if loggers:
+                    loggers[0].write_epoch(epoch)
+                if ckpt.is_eval_epoch(epoch, cfg.train.eval_period,
+                                      cfg.optim.max_epoch):
+                    accs = []
+                    for i in range(1, len(self.loaders)):
+                        accs.append(self.eval_epoch(
+                            loggers[i] if loggers else None, i))
+                        if loggers:
+                            loggers[i].write_epoch(epoch)
+                    if accs:
+                        val_curve.append((epoch, float(np.mean(accs))))
+                        logging.info("epoch %d, acc:%s", epoch,
+                                     round(float(np.mean(accs)), 4))
+                        if curve_path:
+                            with open(curve_path, "w") as f:
+                                json.dump(val_curve, f)
+                if ckpt.is_ckpt_epoch(epoch, cfg.train.ckpt_period,
+                                      cfg.optim.max_epoch):
+                    ckpt.save_ckpt(self.model, self.optimizer,
+                                   self.scheduler, cfg.out_dir, epoch)
+        finally:
+            # an error in an epoch, or the worker's own (raised by
+            # result() above), leaves no collation running on
+            if prefetch is not None:
+                prefetch.shutdown(wait=True, cancel_futures=True)
+                sys.setswitchinterval(switch)
         best = max(val_curve, key=lambda t: t[1]) if val_curve else (0, 0.0)
         if cfg.train.ckpt_clean:
             ckpt.clean_ckpt(cfg.out_dir)

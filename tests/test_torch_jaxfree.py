@@ -49,7 +49,9 @@ def test_port_imports_no_jax():
                  "graphgym_tpu_torch.nn.heads",
                  "graphgym_tpu_torch.contrib",
                  "graphgym_tpu_torch.contrib.example",
-                 "graphgym_tpu_torch.nn.att_layers"):
+                 "graphgym_tpu_torch.nn.att_layers",
+                 "graphgym_tpu_torch.native",
+                 "graphgym_tpu_torch.exp.parity"):
         assert name in mods
 
 
@@ -101,3 +103,26 @@ def test_chip_smoke_alone_names_its_failure(tmp_path):
     reason = json.loads(out.stdout.strip().splitlines()[-1])
     assert reason["phase"] == "import"
     assert "graphgym_tpu_torch" in reason["error"]
+
+
+def test_packs_load_the_ports_own_native_build():
+    """The loader's pack builder loads the library g++ built from the
+    port's own graph_native.cpp (csrc/build/), never the JAX package's
+    build of graphgym_tpu/native."""
+    probe = (
+        "import numpy as np\n"
+        "from graphgym_tpu_torch.graphs import packing\n"
+        "packing.build_packs(np.array([0, 1]), np.array([1, 0]),\n"
+        "                    np.ones(2, np.float32), np.ones(3, bool), 3,\n"
+        "                    kinds=('gcn', 'att'))\n"
+        "print('MAPS:' + ','.join(sorted({ln.split()[-1] for ln in\n"
+        "      open('/proc/self/maps') if 'graph_native' in ln})))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    (line,) = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("MAPS:")]
+    (lib,) = line[len("MAPS:"):].split(",")
+    assert lib.startswith(os.path.join(ROOT, "graphgym_tpu_torch", "csrc",
+                                       "build", "libgraph_native_"))
