@@ -66,7 +66,9 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    H = 1 and 4, exact 0 on every slot of pack weight 0,
                    bitwise-repeatable launches; kernel, plain and library
                    (torch.sparse.sampled_addmm on a CSR of the valid
-                   slots, H = 1) times beside the bound;
+                   slots, H = 1) times beside the bound and the launch
+                   floor (an empty kernel over the SDDMM's grid of slot
+                   runs, packed_sddmm_floor_*);
   9. model_att   — as 4, for the full-width Tfg-idgat model;
  10. train_att   — as 5: 18 K3 launches (per layer: the softmax's row
                    sums and the aggregation forward; dv, the softmax's
@@ -260,7 +262,8 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    'att' packs, at bench_attention's shapes, K3's
                    aggregation (fwd) and dv (bwd) at H = 8, dv = 16, its
                    row sums on both packs (H = 8 and 1) and the SDDMM at
-                   H = 8, dh = 16, held and timed the same way; the
+                   H = 8, dh = 16, held and timed the same way (the
+                   SDDMM beside its launch floor); the
                    segmented max forward on the fwd pack and its
                    backward on the bwd pack at D = 128, held and timed
                    as in kernel_max (no path runs it there: the case of
@@ -417,6 +420,9 @@ LINK_BA = LINK_GRID + ("dataset.transform", "none", "dataset.task",
 # accuracy and agg/val/best.json's mean and std
 JAX_LINKID_WS = dict(best_val_acc_per_seed=[0.5897, 0.5, 0.5449],
                      mean=0.5449, std=0.0366)
+# the JAX package's CPU runs of ginconvFast_ba and gatconvFast_ba at the
+# same seeds, which the parity tool judges those rows against as well,
+# are the tool's own constant: parity.JAX_CPU_RUNS
 # results/parity/LINK_PARITY.md:16, gcnidconv on ws: the JAX package and
 # the reference on the reference's edge.yaml base at a matched parameter
 # budget (tools/run_parity.py:333-355), another protocol
@@ -694,12 +700,18 @@ def check_kernel(packs, n: int, d: int, device) -> dict:
 
 
 def floor_timings(pack: K.PackedCSR, x: torch.Tensor) -> dict:
-    """The launch floor's device ms per call (time_calls) and its
-    CUDA-event loop time; out has the pack's rows."""
+    """K1's launch floor (``launch_floor_times``); out has the pack's
+    rows."""
     out = torch.empty(pack.row_range.shape[0], x.shape[1],
                       dtype=torch.float32, device=x.device)
-    ms, loop_ms, timed_by, queued = time_calls(
-        {"floor": k1_floor(pack, x, out)}, bound_ms=1e-9)
+    return launch_floor_times(k1_floor(pack, x, out))
+
+
+def launch_floor_times(launch) -> dict:
+    """A launch floor's device ms per call (time_calls), its CUDA-event
+    loop time, how it was timed and its queued time."""
+    ms, loop_ms, timed_by, queued = time_calls({"floor": launch},
+                                               bound_ms=1e-9)
     return dict(floor_ms=ms["floor"], floor_call_ms=loop_ms["floor"],
                 floor_timed_by=timed_by["floor"],
                 floor_queued_ms=queued["floor"])
@@ -767,6 +779,32 @@ def sddmm_bound(pack: K.PackedCSR, a: torch.Tensor) -> tuple:
              + pack.row_range.numel() * 4
              + pack.senders.numel() * heads * 4)
     return moved, 2 * real_slots * heads * dh
+
+
+def sddmm_floor(pack: K.PackedCSR, a: torch.Tensor, b: torch.Tensor):
+    """The launch floor under the SDDMM (csrc/packed_sddmm.cu,
+    packed_sddmm_floor_*): an empty kernel over the grid the SDDMM takes
+    for these arguments (a run of slots an owner), launched with the
+    wrapper's arguments.  Counts no launch of the SDDMM."""
+    n, heads, dh = a.shape
+    suffix = "f32" if a.dtype == torch.float32 else "bf16"
+    fn = getattr(K.library("packed_sddmm"), f"packed_sddmm_floor_{suffix}")
+    fn.argtypes = K._ARGTYPES["packed_sddmm"]
+    fn.restype = ctypes.c_int
+    a2, b2 = (t.reshape(n, heads * dh).contiguous() for t in (a, b))
+    out = torch.empty(pack.senders.shape + (heads,), dtype=torch.float32,
+                      device=a.device)
+    args = (a2.data_ptr(), b2.data_ptr(), n, heads * dh, heads,
+            pack.senders.data_ptr(), pack.weights.data_ptr(),
+            pack.local_rows.data_ptr(), pack.tiles.data_ptr(),
+            pack.senders.numel(), out.data_ptr())
+
+    def launch(keep=(a2, b2, out)):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"SDDMM floor launch: CUDA error {err}")
+    return launch
+
 
 
 def check_attention_kernel(packs, n: int, d: int, device) -> dict:
@@ -966,7 +1004,9 @@ def check_sddmm_kernel(pack: K.PackedCSR, n: int, d: int, device) -> dict:
                  "plain": lambda: K.packed_sddmm_plain(pack, a, b)}
         if heads == 1:
             calls["library"] = library
-        out[f"h{heads}"] = bounded_times(calls, *sddmm_bound(pack, a))
+        out[f"h{heads}"] = dict(
+            **bounded_times(calls, *sddmm_bound(pack, a)),
+            **launch_floor_times(sddmm_floor(pack, a, b)))
     return dict(max_abs_err=max(e for k, e in errs.items()
                                 if k.endswith("float32")),
                 errs=errs, library_err=lib_err, slots=pack.senders.numel(),
@@ -1508,7 +1548,8 @@ def check_bench_sddmm(att: K.PackedCSR, n: int, gen) -> dict:
                if lib.shape == kern.shape else None)
     return dict(max_abs_err=err, library_err=lib_err, csr_nnz=nnz,
                 heads=BENCH_HEADS, dh=BENCH_DV,
-                **bounded_times(calls, *sddmm_bound(att, a)))
+                **bounded_times(calls, *sddmm_bound(att, a)),
+                **launch_floor_times(sddmm_floor(att, a, b)))
 
 
 def check_bench_runs(device) -> dict:
@@ -2879,7 +2920,8 @@ def new_path_rows(fast: dict, ba: dict, row: tuple, srcs: tuple) -> list:
              **pick(checks["softmax"]),
              **path_launches(k3, att, width=1)},
             {"name": f"packed_sddmm_{tag}", **sddmm_src, "path": path,
-             **pick(checks["sddmm"]), **path_launches(sddmm, att)}]
+             **pick(checks["sddmm"], row + ("floor_ms",)),
+             **path_launches(sddmm, att)}]
     return rows
 
 
@@ -2923,7 +2965,7 @@ def torch_path_rows(paths: dict, row: tuple, srcs: tuple) -> list:
              **{k: checks["softmax"][k] for k in row},
              **path_launches(k3, train, width=1)},
             {"name": f"packed_sddmm_{tag}", **sddmm_src, "path": tag,
-             **{k: checks["sddmm"][k] for k in row},
+             **{k: checks["sddmm"][k] for k in row + ("floor_ms",)},
              **path_launches(sddmm, train)}]
     return rows
 
@@ -3439,7 +3481,9 @@ def main() -> None:
     sddmm_src = dict(route="cuda",
                      source="graphgym_tpu_torch/csrc/packed_sddmm.cu",
                      replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:655, "
-                              "graphgym_tpu/nn/layers.py:152")
+                              "graphgym_tpu/nn/layers.py:152",
+                     design="redesigned for Hopper: a run of slots an "
+                            "owner, not a row")
     max_src = dict(route="cuda",
                    source="graphgym_tpu_torch/csrc/packed_max.cu",
                    replaces="graphgym_tpu/ops/segment.py:50 (XLA's "
@@ -3484,11 +3528,11 @@ def main() -> None:
          **{k: bk["row_sums"][f"fwd_h{BENCH_HEADS}"][k] for k in row[1:]},
          "launches": att_by_width.get(BENCH_HEADS, 0)},
         {"name": "packed_sddmm", **sddmm_src, "path": "idgat_ws",
-         **{k: sddmm[k] for k in row},
+         **{k: sddmm[k] for k in row + ("floor_ms",)},
          **path_launches(sddmm_, {"idgat_ws": train_att})},
         {"name": "packed_sddmm_make_graph", **sddmm_src,
          "path": "bench_attention", "heads": BENCH_HEADS, "dh": BENCH_DV,
-         **{k: bk["sddmm"][k] for k in row},
+         **{k: bk["sddmm"][k] for k in row + ("floor_ms",)},
          "launches": att_launches[sddmm_.__name__]},
         *new_path_rows(fast, ba, row, srcs[:3]),
         *torch_path_rows(torch_paths, row, srcs),

@@ -527,9 +527,9 @@ _ARGTYPES = {
     "packed_segment": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
     # v, n_rows, d, heads, senders, alpha, row_range, out, stream
     "packed_attention": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
-    # a, b, n_rows, d, heads, senders, weights, row_range, n_slots, out,
-    # stream
-    "packed_sddmm": [_P, _P, _LL, _I, _I, _P, _P, _P, _LL, _P, _P],
+    # a, b, n_rows, d, heads, senders, weights, local_rows, tiles, n_slots,
+    # out, stream
+    "packed_sddmm": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _LL, _P, _P],
     # x, x_rows, d, senders, weights, row_range, n_rows, out, cnt, stream
     "packed_max": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P],
     # x, g, out, cnt, n_rows, d, senders, weights, row_range, g_rows, dx,
@@ -664,7 +664,9 @@ def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
     """Launch the Hopper SDDMM kernel: f32 out [NC, C, H], out[s, h] =
     <a[row(s), h, :], b[senders[s], h, :]> on the slots of nonzero pack
     weight, 0 on every other slot, with a and b [num_nodes, H, dh] f32
-    or bf16 (one dtype) on a CUDA device.  Adds one to
+    or bf16 (one dtype) on a CUDA device.  The kernel deals out runs of
+    slots and reads each slot's row from the pack's ``tiles`` and
+    ``local_rows`` (chunks of EDGES_PER_CHUNK slots).  Adds one to
     ``packed_sddmm_cuda.launches`` per launch."""
     name = "packed_sddmm_cuda"
     _check(name, a.dim() == 3 and b.shape == a.shape,
@@ -676,13 +678,26 @@ def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
     n, heads, dh = a.shape
     a, b = (t.reshape(n, heads * dh).contiguous() for t in (a, b))
     _check_inputs(name, pack, a)
+    _check(name, pack.senders.dim() == 2
+           and pack.senders.shape[1] == EDGES_PER_CHUNK
+           and pack.local_rows.shape == pack.senders.shape
+           and pack.tiles.shape == pack.senders.shape[:1],
+           f"local_rows {tuple(pack.local_rows.shape)} and tiles "
+           f"{tuple(pack.tiles.shape)} for a pack of "
+           f"{tuple(pack.senders.shape)} slots of {EDGES_PER_CHUNK}-slot "
+           "chunks")
+    for field, t in (("local_rows", pack.local_rows), ("tiles", pack.tiles)):
+        _check(name, t.device == a.device and t.dtype == torch.int32
+               and t.is_contiguous(),
+               f"{field} must be a contiguous int32 tensor on {a.device}")
     out = torch.empty(pack.senders.shape + (heads,), dtype=torch.float32,
                       device=a.device)
     if out.numel() == 0 or n == 0 or dh == 0:
         return out.zero_()
     _launch("packed_sddmm", a, b.data_ptr(), n, heads * dh, heads,
             pack.senders.data_ptr(), pack.weights.data_ptr(),
-            pack.row_range.data_ptr(), pack.senders.numel(), out.data_ptr())
+            pack.local_rows.data_ptr(), pack.tiles.data_ptr(),
+            pack.senders.numel(), out.data_ptr())
     packed_sddmm_cuda.launches += 1
     return out
 

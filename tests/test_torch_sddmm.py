@@ -96,9 +96,11 @@ def test_packed_scaled_dot_vjp_matches_jax(heads):
 
 
 def sddmm_emulation(pack, a, b):
-    """The SDDMM kernel's reading rule in numpy: per row, its row_range
-    in slot order, the per-head dot product of each slot of nonzero
-    weight; every other slot 0."""
+    """The function by rows, in numpy: per row, its row_range in slot
+    order, the per-head dot product of each slot of nonzero weight;
+    every other slot 0 (the row ranges hold every slot of nonzero
+    weight).  The kernel's own split, runs of slots, is emulated in
+    test_torch_sddmm_runs.py."""
     n, heads, _ = a.shape
     s = pack.senders.reshape(-1)
     w = pack.weights.reshape(-1)
@@ -242,6 +244,38 @@ def test_cuda_sddmm_kernel_matches_plain(cuda_device, dtype, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sddmm_hub_pack_matches_emulation(cuda_device, dtype):
+    """A hub row of 2,500 slots over many runs, runs that start
+    mid-row, bucket-padding chunks, H = 8, dh = 16 (the vector path in
+    f32, the scalar path in bf16): bitwise the numpy emulation of the
+    kernel, within 1e-5 of each slot's sum of |a * b| of the plain
+    version, 0 on every slot of weight 0, bitwise repeats, one launch a
+    call."""
+    from test_torch_sddmm_runs import emulate, hub_pack
+    pack = hub_pack(11)
+    n = pack.row_range.shape[0]
+    rng = np.random.default_rng(12)
+    a, b = (rng.normal(size=(n, 8, 16)).astype(np.float32)
+            for _ in range(2))
+    dev = pack_tensors(pack, cuda_device)
+    at, bt = (torch.from_numpy(x).to(cuda_device, dtype) for x in (a, b))
+    before = K.packed_sddmm_cuda.launches
+    got = K.packed_sddmm(dev, at, bt)
+    torch.cuda.synchronize()
+    assert K.packed_sddmm_cuda.launches == before + 1
+    a32, b32 = (x.float().cpu().numpy() for x in (at, bt))
+    emu = emulate(pack, a32, b32, itemsize=at.element_size())
+    np.testing.assert_array_equal(got.cpu().numpy(), emu["out"])
+    want = K.packed_sddmm_plain(dev, at, bt)
+    scale = K.packed_sddmm_plain(dev, at.float().abs(), bt.float().abs())
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (got[dev.weights == 0] == 0).all()
+    assert torch.equal(got, K.packed_sddmm(dev, at, bt))
+    assert K.packed_sddmm_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
 def test_cuda_sddmm_wrapper_rejects_bad_inputs(cuda_device):
     *_, n, _, (fwd, _, _), _ = att_packs(6)
     pack = pack_tensors(fwd, cuda_device)
@@ -256,3 +290,10 @@ def test_cuda_sddmm_wrapper_rejects_bad_inputs(cuda_device):
     for aa, bb, msg in bad:
         with pytest.raises(ValueError, match=msg):
             K.packed_sddmm_cuda(pack, aa, bb)
+    # the rows come from the pack's tiles and local_rows
+    bad = [(pack._replace(tiles=pack.tiles[:-1]), "tiles"),
+           (pack._replace(local_rows=pack.local_rows.long()), "local_rows"),
+           (pack._replace(tiles=pack.tiles.cpu()), "tiles")]
+    for pk, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            K.packed_sddmm_cuda(pk, a, a)
