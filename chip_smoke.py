@@ -8,10 +8,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   2. build    — nvcc builds the kernels, one library per source
                 (csrc/packed_spmm.cu, csrc/packed_segment.cu,
                 csrc/packed_attention.cu, csrc/packed_sddmm.cu,
-                csrc/packed_max.cu), side by side; then three processes
-                start regenerating the synthetic corpora (ba, and the
-                design grid's scalefree and smallworld), beside the
-                phases up to the ba paths;
+                csrc/packed_max.cu), side by side; then five processes
+                start regenerating the synthetic corpora (ba, the
+                design grid's scalefree and smallworld, and the ID-GNN
+                graph grid's ws500 and ba500), beside the phases up to
+                the ba paths (ws500 and ba500: the graph paths);
   ID-GCN Full / ws (configs/idgcn_ws.yaml), kernel K1:
   3. kernel   — at the shapes of the train batch (the real 'gcn' packs
                 from the port's loader, D = 128): kernel vs its plain
@@ -191,6 +192,27 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   ego centers of each of the 93 graph slots: K1 8 per train step and 4
   per eval batch, all at 128); seeded random features in the model
   check (both corpora's are constant).
+  corpus500     — waits for ws500 and ba500 (graph.txt's 500-node
+                  corpora, 256 graphs asked, seed 0) their processes
+                  regenerated into CORPUS500_DIR, holds each to its
+                  graph count and digest (CORPUS500: 28 and 32 graphs)
+                  and reports their seconds.
+  Then that grid's chunks at their own size (parity.POINTS), each
+  through drive_path's phases: idgraph_ba500 (the ID chunk on ba500:
+  gcnidconv, ego at r = 3, a train batch of the ~2.2 M-node union of 25
+  graphs' ego nets, each graph's 500 ego centers pooled: K1 8 per train
+  step and 4 per eval batch, all at 128, the pooling's 2 and 1 of them;
+  the model check on the first 10 train graphs' union) and graph_ws500
+  (the plain chunk on ws500: gatconv, node_identity features, every
+  graph's 500 nodes pooled: K3 18 (12 row sums at width 1) and the
+  SDDMM 3 per train step, K3 6 (3) and no SDDMM per eval batch, K1 only
+  the add pooling's 2 and 1 at 128; the model check on the train
+  batch).
+  model_planted — graph_ws500's model check with a wrong K1 planted in
+                  its pooling (planted_faults): the forward's walk one
+                  slot short of each row, and the backward's output
+                  times 1 + 2^-8; each must fail, the second by the
+                  float64 witness; their messages.
   kernel_pool   — the pooling kernels on each graph path's first train
                   batch, at the width it pools: K1 forward (graph slots
                   from node rows) and backward (node rows from graph
@@ -201,7 +223,8 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   the bound (the input rows the slots read), the launch
                   floor and the library calls (torch.sparse.mm of the
                   pooling matrix and its transpose; scatter_reduce(amax)
-                  and its backward).
+                  and its backward); on the 500-node paths' packs too
+                  (rows of 500 slots: a graph's nodes or ego centers).
   full_design_graph_sf — design_graph_sf for its 200 epochs, 3 seeds,
                   reported.
   The link-prediction and edge tasks, each through drive_path's phases:
@@ -238,9 +261,9 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   epoch's collation with each.  prefetch_design_graph_sf
                   and prefetch_link_ba (after the link paths): the same
                   on 6 and 3 small batches an epoch, without the packs.
-  full_idgin_ba — configs/idgin_ba.yaml for its 1000 epochs, 3 seeds,
-                  as full_idgcn_ws, reported against parity.json's row
-                  (0.6596 +- 0.0297) by the pass rule, not gated.
+  (ID-GIN ba's 1000-epoch runs go through the parity tool, in calls of
+  their own: python -m graphgym_tpu_torch.exp.parity --configs
+  configs/idgin_ba.yaml --repeat 3 ...)
   Kernel K2, which no path runs:
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
@@ -309,15 +332,26 @@ import time
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 _PHASE = ["import"]   # the phase running now, named in a failure line
 T0 = time.perf_counter()
 
 
+class CheckFailed(Exception):
+    """A check's failure while a planted fault runs (``planted_faults``)."""
+
+
+_PLANTED = [False]    # True while a planted fault runs: fail() raises
+
+
 def fail(msg: str) -> None:
     """Print why the run failed as one JSON line on stdout (and on
-    stderr), then exit 1."""
+    stderr), then exit 1; raise CheckFailed instead while a planted
+    fault runs."""
+    if _PLANTED[0]:
+        raise CheckFailed(msg)
     line = json.dumps({"phase": _PHASE[0], "error": msg})
     print(line, flush=True)
     print(f"chip_smoke: FAILED: {line}", file=sys.stderr, flush=True)
@@ -335,6 +369,7 @@ try:
     from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
     from graphgym_tpu_torch.device import resolve_device
     from graphgym_tpu_torch.exp import parity
+    from graphgym_tpu_torch.exp.corpus_time import corpus_digest
     from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS, POOLINGS,
                                                    build_pool_packs,
                                                    pool_kind)
@@ -363,6 +398,17 @@ BA_DIGEST = ("fc3beb9b7b0effd6f75f3110d5119f3d"
 # generators under other names), regenerated beside the earlier phases
 DESIGN_CORPUS_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc",
                                  "build", "design_corpus")
+# the ID-GNN graph grid's 500-node corpora (grids/IDGNN/graph.txt:37,52),
+# regenerated from seed 0 beside the earlier phases: each one's graph
+# count and digest over its edge lists (the rejection loop's 51,200
+# attempts; every graph lands in the path-length histogram's clipped top
+# row, so neither reaches the 256 asked)
+CORPUS500_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build",
+                             "corpus500")
+CORPUS500 = {"ws500": (28, "d51d19e85d5b5fc6468121c026c2eecaf"
+                           "b4c3c24fd84eee3c42dac224faef86d"),
+             "ba500": (32, "d88b42103842ff39888113d909a9087d"
+                           "2bbef269fc4bb1e8cd31d450b6a7fa92")}
 CHILDREN = []   # processes this script starts, killed at its exit
 # the design_v1 point of results/design_v1_grid_round1 (scalefree, node
 # task, generalconv at 256): design_sf's and full_design_sf's overrides
@@ -435,6 +481,12 @@ IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
               "dataset.augment_label", "graph_clustering_coefficient",
               "gnn.layers_pre_mp", "1", "gnn.layers_mp", "3",
               "gnn.layers_post_mp", "3", "gnn.layer_type", "gcnidconv")
+# that grid's synthetic chunks at their own size, the parity tool's
+# points (base config, overrides): the ID chunk's gcnidconv on ba500 (ego
+# at r = 3, its centers pooled) and the plain chunk's gatconv with
+# node_identity features on ws500 (500 nodes pooled a graph)
+IDGRAPH_BA500 = parity.POINTS["idgraph_ba500"]
+GRAPH_WS500 = parity.POINTS["graph_ws500"]
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -875,6 +927,42 @@ def check_attention_kernel(packs, n: int, d: int, device) -> dict:
                 h4=timings(calls4, fwd, v, slot_bytes=4 + 4 * 4))
 
 
+def softmax_miss(pack: K.PackedCSR, cpu_pack: K.PackedCSR,
+                 logits: torch.Tensor, g: torch.Tensor, card: dict,
+                 cpu: dict, what: str) -> dict:
+    """Where ``check_softmax``'s card and CPU results part, for its
+    failure line (ROADMAP C6): the entries beyond F32_TOL and their
+    rows; the slot, head and row of the largest miss, the row's slot
+    range and, over it, the logits and both sides' results; whether the
+    card's pack still equals the CPU's copy of it; and a second CPU run
+    from fresh copies of the card's inputs against both results (which
+    side moved)."""
+    heads = logits.shape[-1]
+    off = ~torch.isclose(card[what], cpu[what], **F32_TOL)
+    worst = int((card[what] - cpu[what]).abs().argmax())
+    slot, head = divmod(worst, heads)
+    rows = K.pack_rows(cpu_pack).reshape(-1)
+    row = int(rows[slot])
+    lo, hi = cpu_pack.row_range[row].tolist()
+    x = logits.cpu().requires_grad_(True)
+    alpha = K.packed_segment_softmax(x, K.PackedCSR(*(a.cpu()
+                                                      for a in pack)))
+    alpha.backward(g.cpu())
+    again = {"values": alpha.detach(), "gradient": x.grad}[what]
+
+    def over_row(t):
+        return t.reshape(-1, heads)[lo:hi, head].tolist()
+    return dict(entries=int(off.sum()),
+                rows=int(rows[off.reshape(-1, heads).any(1)].unique().numel()),
+                slot=slot, head=head, row=row, row_range=[lo, hi],
+                logits=over_row(x.detach()), card=over_row(card[what]),
+                cpu=over_row(cpu[what]),
+                pack_unchanged=all(torch.equal(a.cpu(), b)
+                                   for a, b in zip(pack, cpu_pack)),
+                fresh_cpu_vs_card=(again - card[what]).abs().max().item(),
+                fresh_cpu_vs_cpu=(again - cpu[what]).abs().max().item())
+
+
 def check_softmax(pack: K.PackedCSR, n: int, device) -> dict:
     """The attention softmax (``packed_segment_softmax``, whose row sums
     are K3 at dv = 1) at the train 'att' fwd pack, H = 1 (K3's narrow
@@ -911,13 +999,16 @@ def check_softmax(pack: K.PackedCSR, n: int, device) -> dict:
             alpha = K.packed_segment_softmax(x, pk)
             alpha.backward(gg)
             runs.append((alpha.detach().cpu(), x.grad.cpu()))
-        (a0, d0), (a1, d1), (a_cpu, d_cpu) = runs
-        if not (torch.equal(a0, a1) and torch.equal(d0, d1)):
+        card, again, cpu = ({"values": a, "gradient": d} for a, d in runs)
+        if not all(torch.equal(card[k], again[k]) for k in card):
             fail(f"softmax H = {heads}: two runs on the card differ")
-        for what, x, y in (("values", a0, a_cpu), ("gradient", d0, d_cpu)):
+        for what in card:
+            x, y = card[what], cpu[what]
             if not torch.allclose(x, y, **F32_TOL):
                 fail(f"softmax H = {heads} {what}: card vs CPU max err "
-                     f"{(x - y).abs().max().item()} beyond {F32_TOL}")
+                     f"{(x - y).abs().max().item()} beyond {F32_TOL}; "
+                     + json.dumps(softmax_miss(pack, cpu_pack, logits, g,
+                                               card, cpu, what)))
             errs[f"softmax_h{heads}_{what}"] = (x - y).abs().max().item()
         if heads == 1:
             c1 = c
@@ -1832,50 +1923,61 @@ class SameMax:
         K.packed_max, K.packed_max_bwd = self.real_max, self.real_bwd
 
 
-class LinearSums:
-    """On the CPU reference, each Linear's (pre-MP, MLP, head) kernel
-    gradient scale: the gradient is a sum over the batch's rows, x^T d
-    (x the layer's input, d its output's gradient), and its sum of
-    |terms| per entry is |x|^T |d|.  Kept by kernel name."""
+class MatmulSums(TorchFunctionMode):
+    """On the CPU reference's train step, each matmul kernel's gradient
+    scale: a parameter W in x @ W (a Linear layer's kernel, a
+    convolution's) gets the gradient x^T d summed over the rows (d the
+    product's gradient), whose sum of |terms| per entry is |x|^T |d|,
+    added up over the kernel's uses.  Kept by parameter name."""
 
     def __init__(self, model: torch.nn.Module):
-        from graphgym_tpu_torch.nn import layers
-
+        super().__init__()
+        self.names = {id(p): k for k, p in model.named_parameters()}
         self.scale = {}
-        for name, mod in model.named_modules():
-            if isinstance(mod, layers.Linear):
-                mod.register_forward_hook(self._hook(f"{name}.kernel"))
 
-    def _hook(self, key: str):
-        def hook(mod, inputs, out):
-            if not out.node_feat.requires_grad:    # the eval forward
-                return
-            x = inputs[0].node_feat.detach().abs()
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = (self.names.get(id(args[1])) if len(args) == 2
+                and getattr(func, "__name__", "") in ("matmul", "__matmul__")
+                else None)
+        if name is not None and out.requires_grad:
+            x = args[0].detach().abs()
 
             def grad(d):
-                self.scale[key] = x.t() @ d.detach().abs()
-            out.node_feat.register_hook(grad)
-        return hook
+                s = x.t() @ d.detach().abs()
+                self.scale[name] = self.scale.get(name, 0) + s
+            out.register_hook(grad)
+        return out
 
 
-def f64_gradients(cfg, state: dict, batch, kink_inputs: list,
-                  max_calls: list) -> dict:
-    """The CPU reference's parameter gradients in float64: the same
-    parameters (``state``), the batch's features in float64, the card's
-    kink and max decisions (SameKinks, SameMax), one train-mode forward
-    and backward of the cross entropy.  The kernels' plain versions sum
-    in f32, so only the dense layers, BatchNorm and the loss run in
-    float64; that is where a Linear kernel's gradient sums its
-    terms."""
-    m = build_model(cfg, torch.device("cpu"))
+def f64_witness(cfg, state: dict, batch, kinks: tuple, maxes: tuple) -> dict:
+    """The CPU reference in float64: the same parameters (``state``),
+    the batch's features in float64, the card's kink and max decisions
+    (SameKinks, SameMax; ``kinks`` and ``maxes`` the card's train and
+    eval records), one train-mode forward and backward of the cross
+    entropy, then an eval-mode forward, as check_model runs them.  Every
+    sum runs in float64, the kernels' plain versions' too; the segmented
+    max's messages stay f32, which a max does not round further.
+    Returns the train and eval logits, the gradients and the buffers
+    under check_model's keys."""
+    cpu = torch.device("cpu")
+    m = build_model(cfg, cpu)
     m.load_state_dict(state)
     m.double().train()
-    b = batch.to(torch.device("cpu"))
+    b = batch.to(cpu)
     b = b.replace(node_feat=b.node_feat.double())
-    with SameKinks(kink_inputs), SameMax(max_calls):
+    with SameKinks(kinks[0]), SameMax(maxes[0]):
         pred, label, mask = m(b)
         torch.nn.functional.cross_entropy(pred[mask], label[mask]).backward()
-    return {k: p.grad for k, p in m.named_parameters()}
+    m.eval()
+    with torch.no_grad(), SameKinks(kinks[1]), SameMax(maxes[1]):
+        pred_eval = m(b)[0]
+    return dict(train=pred.detach(), eval=pred_eval,
+                **{k: p.grad for k, p in m.named_parameters()},
+                **dict(m.named_buffers()))
+
+
+GRAD_TOL = dict(rtol=1e-3, atol=1e-5)    # card vs CPU, gradients
 
 
 def check_model(cfg, batch, device, random_features: bool = False) -> dict:
@@ -1899,25 +2001,27 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     programs; with the kinks shared, the gradients are held
     elementwise.
 
-    A Linear kernel's gradient sums its input times its output's
-    gradient over the batch's rows; where those terms cancel (a 1-wide
-    input under BatchNorm, whose output does not change with the
-    kernel's scale: the pre-MP layer of the ba paths), f32 arithmetic
-    leaves a share of the sum of |terms|, not of the value, on either
-    side.  Where a Linear kernel's gradient misses the elementwise
-    tolerance, the CPU reference runs once more in float64
-    (``f64_gradients``): only if the CPU's own f32 gradient of that
-    kernel also misses float64's at the elementwise tolerance (so f32
-    itself cannot hold it) are its entries beyond the tolerance held by
-    hold_sums' rule, 1e-5 x their sum of |terms| (``LinearSums``) +
-    1e-6, and counted in ``sum_rule_entries`` (the CPU's own misses in
-    ``f32_vs_f64_entries``); anywhere else a miss fails.
+    Logits and buffers are held at LOGIT_TOL, gradients at GRAD_TOL.
+    Where the two f32 programs part beyond that (a sum of cancelling
+    terms, as a matmul kernel's gradient is where a 1-wide input sits
+    under BatchNorm: the pre-MP layer of the ba paths; or a graph head's
+    BatchNorm over a few graph slots of large pooled sums), the CPU
+    reference runs once more in float64 (``f64_witness``) and decides:
+    the card's entries beyond the tolerance must lie within hold_sums'
+    rule of it, 1e-5 x their sum of |terms| + 1e-6, for a matmul
+    kernel's gradient (``MatmulSums``), and within the same tolerance of
+    it, its atol times the tensor's largest |value| (as a kink input's),
+    for anything else; else the check fails.  ``witness_entries``
+    counts the entries it held, ``witness_off_card_cpu`` gives the
+    card's and the CPU's largest distance from float64 over them.
     tests/test_torch_graph_task.py::test_pre_mp_kernel_gradient_cancels_in_f32
-    shows the same on the CPU at a cut size.
+    shows the cancelling gradient on the CPU at a cut size.
 
     With gnn.dropout > 0 the two sides would draw their masks from
     different generators, so the comparison runs at dropout 0, and the
     dropout itself is held apart (``check_dropout``)."""
+    import contextlib
+
     if random_features:
         gen = torch.Generator().manual_seed(3)
         batch = batch.replace(node_feat=torch.randn(
@@ -1931,19 +2035,19 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     model = build_model(cfg, device)
     ref = build_model(cfg, torch.device("cpu"))
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    sums = LinearSums(ref)
+    sums = MatmulSums(ref)
     state = {k: v.clone() for k, v in ref.state_dict().items()}
     card_train, card_eval = CardKinks(), CardKinks()
     max_train, max_eval = CardMax(), CardMax()
     same_max = (SameMax(max_train.calls), SameMax(max_eval.calls))
     outs, kinks = [], []
-    for m, b, train_mode, eval_mode, maxes in (
+    for m, b, train_mode, eval_mode, maxes, scales in (
             (model, batch.to(device), card_train, card_eval,
-             (max_train, max_eval)),
+             (max_train, max_eval), contextlib.nullcontext()),
             (ref, batch.to(torch.device("cpu")),
              SameKinks(card_train.inputs), SameKinks(card_eval.inputs),
-             same_max)):
-        with train_mode, maxes[0]:
+             same_max, sums)):
+        with train_mode, maxes[0], scales:
             pred, label, mask = m(b)
             loss = torch.nn.functional.cross_entropy(pred[mask],
                                                      label[mask])
@@ -1951,58 +2055,64 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
         m.eval()
         with torch.no_grad(), eval_mode, maxes[1]:
             pred_eval = m(b)[0]
-        outs.append((pred.detach().cpu(),
-                     {k: p.grad.cpu() for k, p in m.named_parameters()},
-                     {k: v.cpu() for k, v in m.named_buffers()},
-                     pred_eval.cpu()))
+        outs.append(dict(train=pred.detach().cpu(), eval=pred_eval.cpu(),
+                         **{k: p.grad.cpu()
+                            for k, p in m.named_parameters()},
+                         **{k: v.cpu() for k, v in m.named_buffers()}))
         kinks.append((train_mode, eval_mode))
-    (p_gpu, g_gpu, b_gpu, e_gpu), (p_cpu, g_cpu, b_cpu, e_cpu) = outs
+    card, cpu = outs
     same = kinks[1]
-    for mode, card in zip(same, kinks[0]):
-        if mode.calls != len(card.inputs):
+    for mode, seen in zip(same, kinks[0]):
+        if mode.calls != len(seen.inputs):
             fail(f"the CPU ran {mode.calls} ReLUs, the card "
-                 f"{len(card.inputs)}")
+                 f"{len(seen.inputs)}")
     for mode in same_max:
         if mode.calls != len(mode.card):
             fail(f"the CPU ran {mode.calls} maxes, the card "
                  f"{len(mode.card)}")
-    buf_err = 0.0
-    for k in b_cpu:       # BatchNorm running statistics after the step
-        if not torch.allclose(b_gpu[k], b_cpu[k], **LOGIT_TOL):
-            fail(f"buffer {k} card vs CPU: max err "
-                 f"{(b_gpu[k] - b_cpu[k]).abs().max().item()}")
-        buf_err = max(buf_err, (b_gpu[k] - b_cpu[k]).abs().max().item())
-    for name, got, want in (("train", p_gpu, p_cpu), ("eval", e_gpu, e_cpu)):
-        if not torch.allclose(got, want, **LOGIT_TOL):
-            fail(f"model {name}-mode logits card vs CPU: max err "
-                 f"{(got - want).abs().max().item()}")
-    worst, sum_rule, own_misses, g64 = 0.0, {}, {}, None
-    for k in g_cpu:
-        err = (g_gpu[k] - g_cpu[k]).abs()
-        close = torch.isclose(g_gpu[k], g_cpu[k], rtol=1e-3, atol=1e-5)
-        if not close.all():
-            if k in sums.scale and g64 is None:
-                g64 = f64_gradients(cfg, state, batch, card_train.inputs,
-                                    max_train.calls)
-            own = (torch.zeros_like(close) if k not in sums.scale else
-                   ~torch.isclose(g_cpu[k].double(), g64[k], rtol=1e-3,
-                                  atol=1e-5))
-            if not own.any():
-                fail(f"gradient {k} card vs CPU: max err "
-                     f"{err.max().item()}, {int((~close).sum())} entries "
-                     f"beyond rtol 1e-3, atol 1e-5 (the CPU's own f32 "
-                     f"holds float64 there, or {k} is no Linear kernel)")
-            hold_sums(f"gradient {k} card vs CPU", g_gpu[k][~close],
-                      g_cpu[k][~close], sums.scale[k][~close])
-            sum_rule[k] = int((~close).sum())
-            own_misses[k] = int(own.sum())
-        worst = max(worst, err.max().item())
-    return dict(logits_max_err=(p_gpu - p_cpu).abs().max().item(),
-                eval_logits_max_err=(e_gpu - e_cpu).abs().max().item(),
-                grad_max_err=worst, sum_rule_entries=sum_rule,
-                f32_vs_f64_entries=own_misses,
-                buffers=len(b_cpu),
-                buffers_max_err=buf_err,
+    witness, held, off = {}, {}, {}
+
+    def hold(what: str, key: str, tol: dict, scale=None):
+        got, want = card[key], cpu[key]
+        miss = ~torch.isclose(got, want, **tol)
+        if not miss.any():
+            return
+        if not witness:
+            witness.update(f64_witness(
+                cfg, state, batch, (card_train.inputs, card_eval.inputs),
+                (max_train.calls, max_eval.calls)))
+        exact = witness[key]
+        if scale is not None:
+            hold_sums(f"{what} card vs float64", got[miss], exact[miss],
+                      scale[miss])
+        else:
+            atol = tol["atol"] * max(1.0, exact.abs().max().item())
+            if not torch.allclose(got[miss].double(), exact[miss],
+                                  rtol=tol["rtol"], atol=atol):
+                fail(f"{what}: {int(miss.sum())} entries beyond {tol} of "
+                     f"the CPU, max err "
+                     f"{(got - want).abs().max().item()}, and beyond rtol "
+                     f"{tol['rtol']}, atol {atol} of float64, max err "
+                     f"{(got[miss].double() - exact[miss]).abs().max().item()}")
+        held[key] = int(miss.sum())
+        off[key] = [(v[miss].double() - exact[miss]).abs().max().item()
+                    for v in (got, want)]
+    buffers = [k for k, _ in ref.named_buffers()]
+    for k in buffers:     # BatchNorm running statistics after the step
+        hold(f"buffer {k}", k, LOGIT_TOL)
+    for name in ("train", "eval"):
+        hold(f"model {name}-mode logits", name, LOGIT_TOL)
+    grads = [k for k, _ in ref.named_parameters()]
+    for k in grads:
+        hold(f"gradient {k}", k, GRAD_TOL, sums.scale.get(k))
+
+    def err(keys):
+        return max((card[k] - cpu[k]).abs().max().item() for k in keys)
+    return dict(logits_max_err=err(["train"]),
+                eval_logits_max_err=err(["eval"]),
+                grad_max_err=err(grads), buffers=len(buffers),
+                buffers_max_err=err(buffers) if buffers else 0.0,
+                witness_entries=held, witness_off_card_cpu=off,
                 relus=[mode.calls for mode in same],
                 relu_inputs_max_err=max(mode.input_max_err
                                         for mode in same),
@@ -2013,6 +2123,50 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
                 max_out_max_err=max(mode.out_max_err for mode in same_max),
                 max_choice_flips=[mode.flips for mode in same_max],
                 **dropout)
+
+
+def planted_faults(cfg_file: str, overrides, graphs: int, device) -> dict:
+    """check_model on a graph path's batch of its first ``graphs`` train
+    graphs with a wrong K1 planted in its pooling on the card (the CPU
+    reference keeps the plain versions): "fwd_short", the forward's walk
+    one slot short of every graph slot's row (each graph's last node
+    left out of its sum); "bwd_scaled", the backward's output (a row per
+    node) times 1 + 2^-8, which leaves the forward as it is, so only the
+    gradients move, and the float64 witness must turn them down.  Each
+    must fail the check, the second by the witness; returns their
+    messages."""
+    cfg, loaders, _ = load_path(cfg_file, overrides)
+    del loaders
+    batch = first_graphs_batch(cfg_file, overrides, graphs)
+    real = K.spmm_packed
+
+    def fwd_short(pack, x):
+        if x.is_cuda and pack.row_range.shape[0] < x.shape[0]:
+            rr = pack.row_range.clone()
+            rr[:, 1] = torch.maximum(rr[:, 0], rr[:, 1] - 1)
+            pack = pack._replace(row_range=rr)
+        return real(pack, x)
+
+    def bwd_scaled(pack, x):
+        out = real(pack, x)
+        return (out * (1 + 2 ** -8) if x.is_cuda and out.shape[0] > x.shape[0]
+                else out)
+    out = {}
+    for name, fault in (("fwd_short", fwd_short),
+                        ("bwd_scaled", bwd_scaled)):
+        K.spmm_packed, _PLANTED[0] = fault, True
+        try:
+            check_model(cfg, batch, device)
+        except CheckFailed as exc:
+            out[name] = str(exc)
+        finally:
+            K.spmm_packed, _PLANTED[0] = real, False
+        if name not in out:
+            fail(f"planted fault {name}: the model check passed")
+    if "float64" not in out["bwd_scaled"]:
+        fail(f"planted fault bwd_scaled: not turned down by the float64 "
+             f"witness: {out['bwd_scaled']}")
+    return out
 
 
 def check_dropout(cfg, batch, device) -> dict:
@@ -2420,18 +2574,12 @@ def load_path(cfg_file: str, overrides):
     return cfg, loaders, time.perf_counter() - t0
 
 
-def corpus_digest(graphs) -> str:
-    """sha256 over the graphs' edge lists (int32), in order."""
-    digest = hashlib.sha256()
-    for g in graphs:
-        digest.update(np.ascontiguousarray(g.edge_index, np.int32).tobytes())
-    return digest.hexdigest()
-
-
 # the corpora regenerated beside the first phases, one process each:
-# ba (the ba paths) and the design grid's scalefree and smallworld
+# ba (the ba paths), the design grid's scalefree and smallworld, and the
+# ID-GNN graph grid's ws500 and ba500
 CORPORA = {"ba": CORPUS_DIR, "scalefree": DESIGN_CORPUS_DIR,
-           "smallworld": DESIGN_CORPUS_DIR}
+           "smallworld": DESIGN_CORPUS_DIR, "ws500": CORPUS500_DIR,
+           "ba500": CORPUS500_DIR}
 
 
 def start_corpora() -> dict:
@@ -2486,6 +2634,26 @@ def design_corpus_phase(procs: dict) -> dict:
                 cache=sorted(os.listdir(DESIGN_CORPUS_DIR)))
 
 
+def corpus500_phase(procs: dict) -> dict:
+    """Wait for ws500 and ba500 (256 graphs of 500 nodes asked, seed 0),
+    regenerated into CORPUS500_DIR by their processes, and hold each to
+    its graph count and digest (CORPUS500); their seconds there."""
+    from graphgym_tpu_torch.data.loaders import load_nx
+
+    out = {}
+    for name, (count, digest) in CORPUS500.items():
+        seconds = wait_corpus(procs, name)
+        graphs = load_nx(name, CORPUS500_DIR)
+        got = corpus_digest(graphs)
+        if len(graphs) != count or got != digest:
+            fail(f"{name}: {len(graphs)} graphs, digest {got}; expected "
+                 f"{count}, {digest}")
+        out[name] = dict(seconds=seconds, graphs=len(graphs),
+                         nodes=sum(g.num_nodes for g in graphs),
+                         edges=sum(g.num_edges for g in graphs))
+    return dict(**out, cache=sorted(os.listdir(CORPUS500_DIR)))
+
+
 def corpus_phase(overrides, procs: dict) -> dict:
     """The ba corpus (256 graphs of 64 nodes asked, seed 0), regenerated
     into CORPUS_DIR through load_nx by ``start_corpora``'s process, as a
@@ -2515,23 +2683,35 @@ def corpus_phase(overrides, procs: dict) -> dict:
                 cache=sorted(os.listdir(CORPUS_DIR)), rows=rows)
 
 
+def first_graphs_batch(cfg_file: str, overrides, graphs: int):
+    """The batch of a config's first ``graphs`` train graphs (its
+    dataset built afresh, each split cut to that many)."""
+    cfg = load_cfg(cfg_file, overrides)
+    return create_loader([split[:graphs] for split in create_dataset(cfg)],
+                         cfg)[0].batches(0)[0]
+
+
 def pool_phase(paths: dict, device) -> dict:
     """kernel_pool: the graph head's pooling kernels on the first train
     batch of each graph path (``paths``: tag -> config, overrides, the
-    width it pools at), with the pooling packs of add, mean and max
+    width it pools at, and a count of train graphs to cut the max's
+    batch to, 0 for none), with the pooling packs of add, mean and max
     built from it (ego centers where the path pools them): K1 forward
     and backward (``check_pool_k1``) for add and mean, the segmented max
-    forward and backward (``check_max_kernel`` on the rectangular
-    packs) for max."""
+    forward and backward (``check_max_kernel`` on the rectangular packs)
+    for max, which no path runs."""
     out = {}
-    for tag, (cfg_file, overrides, width) in paths.items():
+    for tag, (cfg_file, overrides, width, max_graphs) in paths.items():
         cfg, loaders, _ = load_path(cfg_file, overrides)
-        batch = loaders[0].batches(0)[0]
+        batches = {"k1": loaders[0].batches(0)[0]}
         del loaders
+        batches["max"] = (first_graphs_batch(cfg_file, overrides, max_graphs)
+                          if max_graphs else batches["k1"])
         ego = cfg.dataset.transform == "ego"
-        n, g = batch.num_nodes, batch.num_graphs
         checks = {}
         for kind in POOLINGS:
+            batch = batches["max" if kind == "max" else "k1"]
+            n, g = batch.num_nodes, batch.num_graphs
             packs = build_pool_packs(
                 batch.graph_ids, batch.node_mask, g, kind,
                 batch.node_id_index if ego else None,
@@ -2541,7 +2721,14 @@ def pool_phase(paths: dict, device) -> dict:
             checks[kind] = (check_max_kernel(dev, n, width, device)
                             if kind == "max" else
                             check_pool_k1(dev, n, width, device))
-        out[tag] = dict(n=n, graph_slots=g, ego=ego, width=width, **checks)
+        n, g = batches["k1"].num_nodes, batches["k1"].num_graphs
+        if max_graphs:
+            checks["max"].update(
+                n=batches["max"].num_nodes,
+                graph_slots=batches["max"].num_graphs,
+                checked=f"the first {max_graphs} train graphs")
+        out[tag] = dict(n=n, graph_slots=g, ego=ego, width=width,
+                        checked="the first train batch", **checks)
     return out
 
 
@@ -2551,7 +2738,8 @@ def config(tag: str) -> str:
 
 def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                random_features: bool = False, base: str = "",
-               extra=(), rect_width=None, rect=(0, 0)) -> dict:
+               extra=(), rect_width=None, rect=(0, 0),
+               model_graphs: int = 0) -> dict:
     """The phases of one more path, as the ws paths have them:
     kernel_<tag> (its kernels at the train pack's shapes: K1 at the
     model width and at each narrow width ``widths`` names, or K3, its
@@ -2571,7 +2759,11 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     for pairs, dim_out for labels) and names the supervised pairs or
     nodes.  ``rect_width`` is the width of the head's rectangular packs
     where it is none of the layers' (kernel_pool and the gather check
-    hold those packs' kernels, check_kernel the layers')."""
+    hold those packs' kernels, check_kernel the layers').  The model
+    check runs on the first val batch, or with ``model_graphs`` on a
+    batch of the first that many train graphs (where the CPU side of a
+    val batch would take minutes, or its few graph slots leave the
+    graph head's BatchNorm ill-conditioned); its phase names which."""
     from graphgym_tpu_torch.graphs.packing import kinds_for_layer
     from graphgym_tpu_torch.train.graphed import signature
 
@@ -2640,8 +2832,15 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           bwd_rows=longest_rows(packs[1]), pool=pool, gathers=gathers,
           supervised=supervised, **checks)
     begin(f"model_{tag}")
-    phase(f"model_{tag}", **check_model(cfg, loaders[1].batches(0)[0],
-                                        device, random_features))
+    model_batch, checked = loaders[1].batches(0)[0], "the first val batch"
+    if model_graphs:
+        model_batch = first_graphs_batch(cfg_file, overrides, model_graphs)
+        checked = f"the first {model_graphs} train graphs"
+    phase(f"model_{tag}", checked=checked,
+          graphs=int(np.sum(model_batch.graph_mask))
+          if model_batch.graph_mask is not None else None,
+          real_nodes=int(np.sum(model_batch.node_mask)),
+          **check_model(cfg, model_batch, device, random_features))
     begin(f"train_{tag}")
     train = train_path(cfg_file, overrides, os.path.join(OUT, tag),
                        loaders, expected, widths, rect)
@@ -2805,14 +3004,12 @@ def prefetch_phase(cfg_file: str, overrides, expected: dict,
     return dict(out, pack=packs, packs=builds, epoch_collation_s=epoch_s)
 
 
-# results/parity/PARITY.md:29 and :30: ID-GCN Full on ws, ID-GIN Full
-# on ba
+# results/parity/PARITY.md:29: ID-GCN Full on ws
 IDGCN_WS_REF = reference_of("idgcn", "ws")
-IDGIN_BA_REF = reference_of("idgin", "ba")
 
 
 def full_run(tag: str, cfg_file: str, overrides, seeds: int = 3,
-             reference=None, gated: bool = True) -> dict:
+             reference=None) -> dict:
     """A config's whole training (its own max_epoch) through the port's
     parity tool (``parity.run_config``: graphgym_tpu_torch.main.main
     with --repeat ``seeds``, into OUT/<tag>, then the aggregate the
@@ -2821,7 +3018,7 @@ def full_run(tag: str, cfg_file: str, overrides, seeds: int = 3,
     model and training) and the median ``time_iter`` of the train
     steps over all seeds, and every kernel's launches over the runs.
     With ``reference`` (mean, sigma), the mean against it by PARITY.md's
-    pass rule (``parity.pass_rule``); fails on a miss where ``gated``."""
+    pass rule (``parity.pass_rule``); fails on a miss."""
     out = os.path.join(OUT, tag)
     shutil.rmtree(out, ignore_errors=True)
     (results, summary), (launches, _, _) = counted(
@@ -2841,7 +3038,7 @@ def full_run(tag: str, cfg_file: str, overrides, seeds: int = 3,
         passes, limit = parity.pass_rule(delta, ref_sigma, std)
         out_row.update(reference=ref_mean, reference_sigma=ref_sigma,
                        delta=delta, limit=limit, passes=passes)
-        if gated and not passes:
+        if not passes:
             fail(f"{tag}: mean best val accuracy {mean}+-{std} against "
                  f"{ref_mean}+-{ref_sigma}: |delta| {abs(delta)} > {limit}")
     return out_row
@@ -2972,31 +3169,38 @@ def torch_path_rows(paths: dict, row: tuple, srcs: tuple) -> list:
 
 def graph_rows(paths: dict, pools: dict, row: tuple, srcs: tuple) -> list:
     """The kernels line's rows of the graph task (``drive_path``'s and
-    ``pool_phase``'s results): K1 on each graph path's layer pack, K1's
-    add and mean pooling (forward timed, the backward beside it) and the
-    segmented max's pooling forward and backward on each path's pooling
-    packs.  The launches are train_path's counts of the path's run: K1's
-    rectangular ones (the pooling pack and its transpose) for the add
-    pooling, the rest for the layers.  No path pools by mean or max:
-    their rows launch 0."""
-    k1_src, max_src = srcs
+    ``pool_phase``'s results): K1 on each graph path's layer pack (K3,
+    its row sums and the SDDMM on an attention path's, as
+    ``torch_path_rows`` gives them), K1's add and mean pooling (forward
+    timed, the backward beside it) and the segmented max's pooling
+    forward and backward on each path's pooling packs.  The launches are
+    train_path's counts of the path's run: K1's rectangular ones (the
+    pooling pack and its transpose) for the add pooling, the rest for
+    the layers.  No path pools by mean or max: their rows launch 0."""
+    k1_src, max_src = srcs[0], srcs[3]
     keys = row + ("floor_ms",)
     rows = []
     for tag, path in paths.items():
         t, pool = path["train"], pools[tag]
         count = {"layers": t["k1_layer_launches"],
                  "pool": t["k1_rect_launches"]}
-        check = path["checks"][f"d{path['width']}"]
-        rows.append({"name": f"packed_spmm_{tag}", **k1_src, "path": tag,
-                     "pack": path["pack"], "width": path["width"],
-                     **{k: check[k] for k in keys},
-                     "launches": count["layers"], "launch_split": count})
+        if "k3" in path["checks"]:
+            rows += torch_path_rows({tag: path}, row, srcs)
+        else:
+            check = path["checks"][f"d{path['width']}"]
+            rows.append({"name": f"packed_spmm_{tag}", **k1_src,
+                         "path": tag, "pack": path["pack"],
+                         "width": path["width"],
+                         **{k: check[k] for k in keys},
+                         "launches": count["layers"],
+                         "launch_split": count})
         suffix = "_ego" if pool["ego"] else ""
         for kind in ("add", "mean"):
             rows.append({
                 "name": f"packed_spmm_pool_{kind}_{tag}", **k1_src,
                 "path": tag if kind == "add" else None,
                 "pack": f"pool_{kind}{suffix}, {tag}",
+                "checked": pool["checked"],
                 "width": pool["width"],
                 **{k: pool[kind]["fwd"][k] for k in keys},
                 "bwd": {k: pool[kind]["bwd"][k] for k in keys},
@@ -3004,6 +3208,7 @@ def graph_rows(paths: dict, pools: dict, row: tuple, srcs: tuple) -> list:
                 "launch_split": count})
         rows += [{"name": f"{kernel.__name__[:-5]}_pool_{tag}", **max_src,
                   "path": None, "pack": f"pool_max{suffix}, {tag}",
+                  "checked": pool["max"].get("checked", pool["checked"]),
                   "width": pool["width"],
                   **{k: pool["max"][half][k] for k in keys},
                   "launches": 0}
@@ -3351,6 +3556,40 @@ def main() -> None:
             expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
             rect=(2, 1), random_features=True),
     }
+    # ---- grids/IDGNN/graph.txt's synthetic chunks at their own size, on
+    # the 500-node corpora regenerated beside the first phases.
+    # idgraph_ba500 (the ID chunk: gcnidconv on ba500, ego at r = 3, the
+    # union of the train graphs' ego nets, ~2.2 M nodes): K1 2 per layer
+    # and the pooling of each graph's 500 ego centers, forward and
+    # backward, all at 128; 3 and 1 per eval batch.  graph_ws500 (the
+    # plain chunk: gatconv with node_identity features on ws500, every
+    # graph's 500 nodes pooled): per layer K3 6 (4 of them row sums at
+    # width 1) and the SDDMM 1 per train step (dalpha; the additive
+    # score needs none), K3 2 (1) per eval batch; K1 only the add
+    # pooling's 2 and 1.  ba500's features are constant: seeded random
+    # ones in its model check, on the first 10 train graphs' ego union
+    # (~920 k nodes; its val batch has 7 graphs); ws500's on its train
+    # batch (22 graphs; the val batch has 6, too few graph slots for the
+    # head's BatchNorm).  Then the planted faults on ws500's model
+    # batch.
+    begin("corpus500")
+    phase("corpus500", **corpus500_phase(corpora))
+    c500 = overrides + ["dataset.dir", CORPUS500_DIR]
+    graph500 = {
+        "idgraph_ba500": grid_point(
+            "idgraph_ba500", IDGRAPH_BA500[0], *IDGRAPH_BA500[1], ovr=c500,
+            expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
+            rect=(2, 1), random_features=True, model_graphs=10),
+        "graph_ws500": grid_point(
+            "graph_ws500", GRAPH_WS500[0], *GRAPH_WS500[1], ovr=c500,
+            expected={k1_: (2, 1), k3_: (18, 6), sddmm_: (3, 0)},
+            widths={1: {k3_: (12, 3)}, 128: {k1_: (2, 1), k3_: (6, 3)}},
+            rect=(2, 1), model_graphs=22),
+    }
+    begin("model_planted")
+    phase("model_planted", **planted_faults(
+        config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]), 22, device))
+
     # ---- the link-prediction and edge tasks (grids/IDGNN/link.txt and
     # path.txt's synthetic chunks): per train step K1 2 per layer at 128
     # (pre-MP gives layer 0 an input that needs a gradient), 5 layers,
@@ -3387,9 +3626,17 @@ def main() -> None:
     begin("kernel_pool")
     pools = pool_phase({
         "design_graph_sf": (config("design/design_v1"),
-                            dz + list(DESIGN_GRAPH_SF), 768),
+                            dz + list(DESIGN_GRAPH_SF), 768, 0),
         "idgraph_ba": (config("idgcn_ba"), ba_overrides + list(IDGRAPH_BA),
-                       128)}, device)
+                       128, 0),
+        # K1 on its first train batch (2.1 M node rows in the
+        # transpose); the max (no path's) on the first 3 train graphs,
+        # whose rows hold 500 ego centers too: on the whole batch the
+        # plain max backward's timing outlasts the run
+        "idgraph_ba500": (config(IDGRAPH_BA500[0]),
+                          c500 + list(IDGRAPH_BA500[1]), 128, 3),
+        "graph_ws500": (config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]),
+                        128, 0)}, device)
     phase("kernel_pool", **pools)
 
     # ---- full-length runs: the configs' 1000 epochs, 3 seeds each,
@@ -3425,15 +3672,6 @@ def main() -> None:
           link_parity_ws=LINK_PARITY_WS, **full_run(
               "full_linkid_ws", CFG, full_overrides + list(LINKID_WS)
               + ["optim.max_epoch", "100"]))
-
-    # ID-GIN on ba for its 1000 epochs at batch 48 (two train batches
-    # an epoch, collated ahead by the prefetch), against the reference's
-    # row (reported)
-    begin("full_idgin_ba")
-    phase("full_idgin_ba", **full_run(
-        "full_idgin_ba", config("idgin_ba"),
-        full_overrides + ["dataset.dir", CORPUS_DIR],
-        reference=IDGIN_BA_REF, gated=False))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")
@@ -3537,7 +3775,7 @@ def main() -> None:
         *new_path_rows(fast, ba, row, srcs[:3]),
         *torch_path_rows(torch_paths, row, srcs),
         *torch_path_rows(design, row, srcs),
-        *graph_rows(graph_paths, pools, row, (k1_src, max_src)),
+        *graph_rows({**graph_paths, **graph500}, pools, row, srcs),
         *link_rows(link_paths, row, k1_src),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",

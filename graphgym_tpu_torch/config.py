@@ -281,8 +281,10 @@ def set_cfg(cfg: CfgNode) -> CfgNode:
     # -------------------------------------------------- tpu group
     # The JAX package's device group, kept with its defaults so that
     # configs setting any of these keys still merge.  The port reads
-    # pad_buckets; loaders raise on a non-empty mesh_shape (multi-GPU
-    # is ROADMAP A16) and on a dtype other than float32 (A14).
+    # pad_buckets, prefetch and profile / profile_epochs (a
+    # torch.profiler trace, train/loop.py); loaders raise on a non-empty
+    # mesh_shape (multi-GPU is ROADMAP A16) and on a dtype other than
+    # float32 (A14).
     cfg.tpu = CfgNode()
     cfg.tpu.spmm_impl = "auto"
     cfg.tpu.dtype = "float32"

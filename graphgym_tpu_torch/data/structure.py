@@ -1,16 +1,22 @@
 """Structural graph algorithms in vectorized numpy over CSR.
 
-A copy of graphgym_tpu/data/structure.py on its numpy paths (the port
-does not use the JAX package's g++-built native library): the ego-net
-transform, the clustering-coefficient labels and the feature
-augmentations (degree, path lengths, PageRank, betweenness, Laplacian
-spectrum) run on them.
+A copy of graphgym_tpu/data/structure.py (the port never loads the JAX
+package's g++-built native library): the ego-net transform, the
+clustering-coefficient labels, the synthetic corpora's rejection
+statistics and the feature augmentations (degree, path lengths,
+PageRank, betweenness, Laplacian spectrum) run on them.  The BFS and the
+triangle count run in the port's own native library
+(graphgym_tpu_torch/native: ``bfs_from_sources``, ``triangle_counts``),
+which returns integers only; every float operation stays here.  Their
+numpy bodies, ``bfs_from_sources_plain`` and ``triangle_counts_plain``,
+are the plain versions the tests hold them to.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from graphgym_tpu_torch import native
 from graphgym_tpu_torch.data.hostgraph import HostGraph
 
 
@@ -40,11 +46,31 @@ def _expand(indptr: np.ndarray, indices: np.ndarray,
 
 def clustering_coefficient(g: HostGraph) -> np.ndarray:
     """nx.clustering equivalent for undirected simple graphs:
-    c_i = 2 T_i / (d_i (d_i - 1)), T_i = triangles through i.
+    c_i = 2 T_i / (d_i (d_i - 1)), T_i = triangles through i; the
+    closed wedges from the native ``triangle_counts``, the division
+    here in float64."""
+    indptr, indices = g.csr()
+    deg = (indptr[1:] - indptr[:-1]).astype(np.int64)
+    tri = triangle_counts(g)
+    # each triangle through j appears as 2 directed closed wedges
+    denom = deg * (deg - 1)
+    out = np.zeros(g.num_nodes, np.float64)
+    nz = denom > 0
+    out[nz] = tri[nz] / denom[nz]
+    return out
 
-    Vectorized wedge counting: every directed wedge (i->j->k) is a
-    candidate; membership (i,k) in E is tested with searchsorted on the
-    sorted edge-key array.  Chunked over wedges to bound memory."""
+
+def triangle_counts(g: HostGraph) -> np.ndarray:
+    """Closed directed wedges i - j - k per center j, int64 (twice the
+    triangles through j): graph_native.cpp's ``triangle_counts``."""
+    return native.triangle_counts(*g.csr())
+
+
+def triangle_counts_plain(g: HostGraph) -> np.ndarray:
+    """The plain version of ``triangle_counts``, vectorized wedge
+    counting: every directed wedge (i->j->k) is a candidate; membership
+    (i,k) in E is tested with searchsorted on the sorted edge-key array.
+    Chunked over wedges to bound memory."""
     n = g.num_nodes
     indptr, indices = g.csr()
     deg = (indptr[1:] - indptr[:-1]).astype(np.int64)
@@ -69,18 +95,21 @@ def clustering_coefficient(g: HostGraph) -> np.ndarray:
         closed = keys[pos] == wk if len(keys) else np.zeros(0, bool)
         # each closed wedge (i-j-k) contributes to the center j
         np.add.at(tri, js[wedge_e][valid][closed], 1)
-    # each triangle through j appears as 2 directed closed wedges
-    denom = deg * (deg - 1)
-    out = np.zeros(n, np.float64)
-    nz = denom > 0
-    out[nz] = tri[nz] / denom[nz]
-    return out
+    return tri
 
 
 def bfs_from_sources(g: HostGraph, sources: np.ndarray,
                      max_dist: int | None = None) -> np.ndarray:
-    """Hop distances from each source: [S, N] int32, -1 unreachable.
-    Frontier BFS with fully-vectorized CSR expansion."""
+    """Hop distances from each source: [S, N] int32, -1 unreachable
+    (beyond ``max_dist`` hops too): graph_native.cpp's ``multi_bfs``."""
+    cap = -1 if max_dist is None else max(int(max_dist), 0)
+    return native.bfs_distances(*g.csr(), sources, cap)
+
+
+def bfs_from_sources_plain(g: HostGraph, sources: np.ndarray,
+                           max_dist: int | None = None) -> np.ndarray:
+    """The plain version of ``bfs_from_sources``: frontier BFS with
+    fully-vectorized CSR expansion."""
     n = g.num_nodes
     sources = np.asarray(sources, np.int64)
     s_count = len(sources)

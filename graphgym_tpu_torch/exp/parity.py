@@ -5,6 +5,9 @@ full length through the port, against the reference's numbers.
         --configs configs/idgin_ws.yaml configs/idgat_ws.yaml \\
         --repeat 3 --out DIR [--opts dataset.dir D ...]
 
+    python -m graphgym_tpu_torch.exp.parity --points graph_ws500 \\
+        --repeat 3 --out DIR [--opts dataset.dir D ...]
+
 For each config it runs ``graphgym_tpu_torch.main --cfg C --repeat N``
 (in this process, each seed timed), reads the seed aggregate the entry
 point writes (``exp/agg.py``: ``DIR/runs/<config>/agg/val/best.json``)
@@ -18,8 +21,11 @@ never writes.  Where the JAX package's own row misses the reference
 JAX package's result instead, and the row says so.  Where the JAX
 package's own CPU run of the config at the same seeds is recorded
 (``JAX_CPU_RUNS``), the row is judged against it too, by the same rule,
-beside the first judgement.  The table is written as DIR/parity.md and
-DIR/parity.json, and nowhere else.
+beside the first judgement.  A grid point (``POINTS``: a base config
+and a grid's overrides, by name) has no parity.json row: it is
+reported, and judged against ``JAX_CPU_RUNS`` where that holds the
+point.  The table is written as DIR/parity.md and DIR/parity.json, and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -58,7 +64,42 @@ JAX_CPU_RUNS = {
     "gatconvFast_ba.yaml": dict(
         best_val_acc_per_seed=[0.5658, 0.5716, 0.5176], mean=0.5517,
         std=0.0242),
+    # a grid point (POINTS) the same way: --cfg configs/idgcn_ws.yaml
+    # --repeat 3 <its overrides> tpu.spmm_impl xla, with dataset.dir
+    # holding the port's regenerated ws500 (28 graphs) pickled as the
+    # JAX package's HostGraphs in ws500.pkl (the JAX package's own
+    # networkx loop computes the path length on all 51,200 attempts, for
+    # hours); 3 cores.  6 val graphs: an accuracy moves by 1/6.
+    "graph_ws500": dict(
+        best_val_acc_per_seed=[0.6667, 0.6667, 0.6667], mean=0.6667,
+        std=0.0),
 }
+
+
+# grids/IDGNN/graph.txt's synthetic chunks (:35-47 plain, :50-61 ID) on
+# the 500-node corpora, each a base config and the grid's overrides: the
+# ID chunk's gcnidconv on ba500 and the plain chunk's gatconv with
+# node_identity features on ws500 (the corpora regenerated from seed 0
+# where dataset.dir holds neither)
+GRAPH_GRID = ("dataset.format", "nx", "dataset.task", "graph",
+              "dataset.transductive", "False", "dataset.augment_label",
+              "graph_clustering_coefficient", "gnn.layers_pre_mp", "1",
+              "gnn.layers_mp", "3", "gnn.layers_post_mp", "3")
+POINTS = {
+    "idgraph_ba500": ("idgcn_ba", GRAPH_GRID + (
+        "dataset.name", "ba500", "dataset.transform", "ego",
+        "dataset.augment_feature", "[]", "gnn.layer_type", "gcnidconv")),
+    "graph_ws500": ("idgcn_ws", GRAPH_GRID + (
+        "dataset.name", "ws500", "dataset.transform", "none",
+        "dataset.augment_feature", "['node_identity']", "gnn.layer_type",
+        "gatconv")),
+}
+
+
+def point_config(name: str) -> Tuple[str, List[str]]:
+    """A grid point's base config file and overrides."""
+    base, opts = POINTS[name]
+    return os.path.join(ROOT, "configs", f"{base}.yaml"), list(opts)
 
 
 def pass_rule(delta: float, sigma_ref: float,
@@ -196,6 +237,26 @@ def parity_row(cfg_file: str, summary: Dict,
     return row
 
 
+def point_row(name: str, summary: Dict) -> Dict:
+    """One row of the table for a grid point: the port's summary, no
+    reference (parity.json has no row for it), judged against the JAX
+    package's CPU run where ``JAX_CPU_RUNS`` holds the point."""
+    mean, std = summary["mean"], summary["std"]
+    row = dict(config=name, model=name, dataset=None, port=mean,
+               port_std=std, seeds=summary["seeds"],
+               seconds_per_run=summary["seconds_per_run"],
+               time_iter_median_s=summary["time_iter_median_s"],
+               reference=None, judged_against=None, passes=None,
+               note="no parity.json row")
+    cpu = JAX_CPU_RUNS.get(name)
+    if cpu is not None:
+        passes, limit = pass_rule(mean - cpu["mean"], cpu["std"], std)
+        row.update(jax_cpu=cpu["mean"], jax_cpu_std=cpu["std"],
+                   delta_jax_cpu=mean - cpu["mean"], limit_jax_cpu=limit,
+                   passes_jax_cpu=passes)
+    return row
+
+
 def _pm(mean: float, std: float) -> str:
     return f"{mean:.4f}±{std:.4f}"
 
@@ -208,16 +269,20 @@ def table(rows: Sequence[Dict]) -> str:
            "same seeds: delta / limit, passes |",
            "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
-        delta, limit = ((r["delta_jax"], r["limit_jax"])
-                        if r["judged_against"] == "jax"
-                        else (r["delta"], r["limit"]))
         runs = ", ".join(f"{s:.1f}" for s in r["seconds_per_run"])
+        if r["reference"] is None:       # a grid point: reported
+            judged = "— (no row) | — | — | — | — | — | — |"
+        else:
+            delta, limit = ((r["delta_jax"], r["limit_jax"])
+                            if r["judged_against"] == "jax"
+                            else (r["delta"], r["limit"]))
+            judged = (f"{_pm(r['jax'], r['jax_std'])} ({r['jax_seeds']}) | "
+                      f"{_pm(r['reference'], r['reference_std'])} | "
+                      f"{delta:+.4f} | {limit:.4f} | {r['judged_against']} "
+                      f"| {r['passes']} |")
         out.append(
             f"| {r['config']} | {_pm(r['port'], r['port_std'])} "
-            f"({r['seeds']}) | {_pm(r['jax'], r['jax_std'])} "
-            f"({r['jax_seeds']}) | "
-            f"{_pm(r['reference'], r['reference_std'])} | {delta:+.4f} | "
-            f"{limit:.4f} | {r['judged_against']} | {r['passes']} | "
+            f"({r['seeds']}) | {judged} "
             f"{runs} | {1e3 * r['time_iter_median_s']:.2f} | "
             + (f"{_pm(r['jax_cpu'], r['jax_cpu_std'])}: "
                f"{r['delta_jax_cpu']:+.4f} / {r['limit_jax_cpu']:.4f}, "
@@ -246,18 +311,27 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     parser = argparse.ArgumentParser(
         description="full-length runs of configs through the port, "
                     "against results/parity/parity.json")
-    parser.add_argument("--configs", nargs="+", required=True)
+    parser.add_argument("--configs", nargs="+", default=[])
+    parser.add_argument("--points", nargs="+", default=[],
+                        choices=sorted(POINTS))
     parser.add_argument("--repeat", type=int, default=3)
     parser.add_argument("--out", required=True)
     parser.add_argument("--opts", nargs=argparse.REMAINDER, default=[],
                         help="config overrides for every run (last)")
     args = parser.parse_args(argv)
+    if not args.configs and not args.points:
+        parser.error("give --configs or --points")
+    runs = os.path.join(args.out, "runs")
+    jobs = [(cfg_file, [], runs, lambda s, c=cfg_file: parity_row(c, s))
+            for cfg_file in args.configs]
+    jobs += [(*point_config(name), os.path.join(runs, name),
+              lambda s, n=name: point_row(n, s)) for name in args.points]
     rows = []
-    for cfg_file in args.configs:
-        runs = os.path.join(args.out, "runs")
-        _, summary = run_config(cfg_file, args.repeat, runs, args.opts)
-        drop_checkpoints(runs)
-        rows.append(parity_row(cfg_file, summary))
+    for cfg_file, opts, out, row in jobs:
+        _, summary = run_config(cfg_file, args.repeat, out,
+                                opts + list(args.opts))
+        drop_checkpoints(out)
+        rows.append(row(summary))
         write(rows, args.out)
         print(json.dumps(rows[-1]), flush=True)
     return rows

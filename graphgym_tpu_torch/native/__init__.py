@@ -1,14 +1,21 @@
-"""The loader's host pack builder: ``graph_native.cpp`` through ctypes.
+"""The loader's host pack builder and the data pipeline's graph
+statistics: ``graph_native.cpp`` through ctypes.
 
 The port's own copy of the chunk packer of graphgym_tpu/native (the JAX
-package's build is never loaded).  ``g++ -O3`` compiles the source at
-first use into ``csrc/build/``, beside the kernels, under a name that
+package's build is never loaded), and of its BFS and triangle count
+(``bfs_distances``, ``triangle_counts``: integers only, which
+data/structure.py turns into path lengths and clustering coefficients
+in the numpy plain versions' float order).  ``g++ -O3`` compiles the
+source at first use into ``csrc/build/``, beside the kernels, under a
+name that
 carries the hash of the source and the flags; each process compiles to
 a file of its own and renames it into place, so processes that build at
 once all end with the same library.  A failed build raises with the
-compiler's message: the loader has no other packer.  The numpy
-``pack_csr_with_slots`` (ops/cuda/spmm_kernel.py) is the plain version
-the tests hold this one to, array for array.
+compiler's message: the loader has no other packer and the pipeline
+no other BFS.  The numpy ``pack_csr_with_slots``
+(ops/cuda/spmm_kernel.py) and data/structure.py's
+``bfs_from_sources_plain`` and ``triangle_counts_plain`` are the plain
+versions the tests hold these to, array for array.
 
 ctypes releases the GIL during a call, so a pack built on the trainer's
 prefetch thread leaves the main thread free.
@@ -84,6 +91,10 @@ def library() -> ctypes.CDLL:
             lib.scatter_i32.argtypes = [i64, ctypes.c_int32, i64, ptr,
                                         ptr, ptr]
             lib.scatter_i32.restype = ctypes.c_int
+            lib.multi_bfs.argtypes = [i64, ptr, ptr, i64, ptr, i64, ptr]
+            lib.multi_bfs.restype = ctypes.c_int
+            lib.triangle_counts.argtypes = [i64, ptr, ptr, ptr]
+            lib.triangle_counts.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -165,3 +176,43 @@ def scatter(size: int, fill: int, index: np.ndarray,
                              _ptr(values), _ptr(out)):
         raise ValueError(f"an index outside [0, {size})")
     return out
+
+
+def _csr(indptr: np.ndarray, indices: np.ndarray):
+    """A CSR's int64 indptr and int32 indices, contiguous, and its row
+    count; raises where they do not fit each other."""
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = _int32(indices, "a neighbour")
+    if indptr.ndim != 1 or len(indptr) < 1 or indptr[0] != 0 \
+            or indptr[-1] != len(indices) or np.any(np.diff(indptr) < 0):
+        raise ValueError(f"indptr of {len(indptr)} entries does not span "
+                         f"{len(indices)} neighbours")
+    return indptr, indices, len(indptr) - 1
+
+
+def bfs_distances(indptr: np.ndarray, indices: np.ndarray,
+                  sources: np.ndarray, max_dist: int = -1) -> np.ndarray:
+    """Hop distances [S, N] int32 from each source over the CSR (row u:
+    u's out-neighbours), -1 where unreached; nodes beyond ``max_dist``
+    hops stay -1 (no cap where it is negative)."""
+    indptr, indices, n = _csr(indptr, indices)
+    sources = np.ascontiguousarray(sources, np.int64).reshape(-1)
+    out = np.empty((len(sources), n), np.int32)
+    err = library().multi_bfs(n, _ptr(indptr), _ptr(indices), len(sources),
+                              _ptr(sources), int(max_dist), _ptr(out))
+    if err:
+        raise ValueError(f"multi_bfs refused its inputs (code {err}: 1 a "
+                         f"source, 2 a neighbour outside [0, {n}))")
+    return out
+
+
+def triangle_counts(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Per node j, int64: the closed wedges i - j - k counted from both
+    ends (twice the triangles through j on a simple graph; repeated
+    edges and self loops counted as data/structure.py's plain version
+    counts them)."""
+    indptr, indices, n = _csr(indptr, indices)
+    tri = np.empty(n, np.int64)
+    if library().triangle_counts(n, _ptr(indptr), _ptr(indices), _ptr(tri)):
+        raise ValueError(f"a neighbour outside [0, {n})")
+    return tri

@@ -1,4 +1,5 @@
-// Host pack builder of the port's loader.
+// Host pack builder of the port's loader, and the graph statistics of
+// its data pipeline (hop distances, triangle counts).
 //
 // The port's own copy of the chunk packer of the JAX package's native
 // library (graphgym_tpu/native/graph_native.cpp:181-275), extended to
@@ -17,6 +18,13 @@
 // The JAX package's packer sorts each row by sender with std::sort,
 // which does not keep the input order of repeated edges; a row's sum
 // order, and so the port's bitwise repeat, depends on it.
+//
+// The statistics (multi_bfs, triangle_counts) are the port's own copies
+// of the JAX package's multi_bfs and of the triangle count inside its
+// clustering_coeff (graphgym_tpu/native/graph_native.cpp:276-316,
+// :40-82), on one thread.  Each returns integers only (hop distances,
+// triangle counts): every float operation of the statistics built on
+// them stays in data/structure.py, in the numpy plain versions' order.
 //
 // A plain C ABI bound with ctypes; no call keeps state or allocates
 // what it returns (the caller passes every output buffer).
@@ -141,6 +149,105 @@ int scatter_i32(int64_t n, int32_t fill, int64_t e, const int32_t* index,
   for (int64_t i = 0; i < e; ++i) {
     if (index[i] < 0 || index[i] >= n) return 1;
     out[index[i]] = values[i];
+  }
+  return 0;
+}
+
+// Hop distances from each source over a CSR (row u: the receivers of
+// u's edges): out[si * n + v] the distance from sources[si] to v, -1
+// where unreached.  With max_dist >= 0 a node at max_dist is reached
+// but not expanded (the numpy plain version's levels); max_dist < 0
+// sets no cap.  Returns 0, or 1 for a source outside [0, n), 2 for a
+// neighbour outside [0, n).
+//
+// The distances of the JAX package's queue BFS, found 64 sources at a
+// time, level by level: bit b of a node's word is source b of the
+// block.  A level ORs each frontier word into the node's neighbours;
+// the bits a node had not seen are its sources at this distance.  A
+// queue BFS per source spends its time on a branch per edge that the
+// CPU cannot predict; here an edge costs one OR for 64 sources, which
+// is what a 500-node corpus's all-pairs path length needs.
+int multi_bfs(int64_t n, const int64_t* indptr, const int32_t* indices,
+              int64_t num_sources, const int64_t* sources,
+              int64_t max_dist, int32_t* out) {
+  for (int64_t k = 0; k < (n > 0 ? indptr[n] : 0); ++k)
+    if (indices[k] < 0 || indices[k] >= n) return 2;
+  for (int64_t si = 0; si < num_sources; ++si)
+    if (sources[si] < 0 || sources[si] >= n) return 1;
+  std::fill(out, out + num_sources * n, -1);
+  std::vector<uint64_t> seen(n), front(n), next(n);
+  for (int64_t b0 = 0; b0 < num_sources; b0 += 64) {
+    int64_t nb = std::min<int64_t>(64, num_sources - b0);
+    std::fill(seen.begin(), seen.end(), 0);
+    std::fill(front.begin(), front.end(), 0);
+    for (int64_t b = 0; b < nb; ++b) {
+      int64_t s0 = sources[b0 + b];
+      seen[s0] |= uint64_t(1) << b;
+      front[s0] |= uint64_t(1) << b;
+      out[(b0 + b) * n + s0] = 0;
+    }
+    for (int32_t d = 1; max_dist < 0 || d <= max_dist; ++d) {
+      std::fill(next.begin(), next.end(), 0);
+      for (int64_t u = 0; u < n; ++u) {
+        uint64_t f = front[u];
+        if (!f) continue;
+        for (int64_t k = indptr[u]; k < indptr[u + 1]; ++k)
+          next[indices[k]] |= f;
+      }
+      bool reached = false;
+      for (int64_t v = 0; v < n; ++v) {
+        uint64_t fresh = next[v] & ~seen[v];
+        front[v] = fresh;
+        if (!fresh) continue;
+        reached = true;
+        seen[v] |= fresh;
+        for (; fresh; fresh &= fresh - 1)
+          out[(b0 + __builtin_ctzll(fresh)) * n + v] = d;
+      }
+      if (!reached) break;
+    }
+  }
+  return 0;
+}
+
+// tri[j] = the number of (k, i), both taken from row j with their
+// repeats, with i != j, i != k and an edge i -> k: each closed wedge
+// i - j - k from both of its ends, so twice the triangles through j on
+// a simple undirected graph (the numpy plain version's count, repeated
+// edges and self loops included).  Row j's k are counted in a mark
+// array; each i adds the marks of its distinct out-neighbours other
+// than itself.  Returns 0, or 2 for a neighbour outside [0, n).
+int triangle_counts(int64_t n, const int64_t* indptr,
+                    const int32_t* indices, int64_t* tri) {
+  int64_t e = n > 0 ? indptr[n] : 0;
+  for (int64_t k = 0; k < e; ++k)
+    if (indices[k] < 0 || indices[k] >= n) return 2;
+  // each row's distinct out-neighbours, sorted
+  std::vector<int64_t> uptr(n + 1, 0);
+  std::vector<int32_t> uniq(indices, indices + e);
+  for (int64_t u = 0; u < n; ++u) {
+    int32_t* lo = uniq.data() + indptr[u];
+    int32_t* hi = uniq.data() + indptr[u + 1];
+    std::sort(lo, hi);
+    int32_t* end = std::unique(lo, hi);
+    int32_t* dst = uniq.data() + uptr[u];
+    std::copy(lo, end, dst);   // compacts in place: dst <= lo
+    uptr[u + 1] = uptr[u] + (end - lo);
+  }
+  std::vector<int64_t> mark(n, 0);
+  for (int64_t j = 0; j < n; ++j) {
+    for (int64_t a = indptr[j]; a < indptr[j + 1]; ++a) mark[indices[a]]++;
+    int64_t t = 0;
+    for (int64_t a = indptr[j]; a < indptr[j + 1]; ++a) {
+      int32_t i = indices[a];
+      if (i == j) continue;
+      for (int64_t b = uptr[i]; b < uptr[i + 1]; ++b) {
+        int32_t k = uniq[b];
+        if (k != i) t += mark[k];
+      }
+    }
+    tri[j] = t;
+    for (int64_t a = indptr[j]; a < indptr[j + 1]; ++a) mark[indices[a]] = 0;
   }
   return 0;
 }

@@ -23,7 +23,7 @@ class MaskedBatchNorm(nn.Module):
     (count - 1)), ``momentum`` is the weight of the new batch statistic
     (cfg.bn.mom), and ``eval()`` normalizes with the running ``mean``
     and ``var`` buffers, as the JAX eval step uses ``batch_stats``.
-    Statistics are taken in f32.  Parameters ``scale`` and ``bias`` and
+    Statistics are taken in f32 (float64 for float64 x).  Parameters ``scale`` and ``bias`` and
     the buffers keep the flax names."""
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -38,10 +38,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
-        xs = x.float()
+        xs = x if x.dtype == torch.float64 else x.float()
         if self.training:
             if mask is not None:
-                m = mask.float()[:, None]
+                m = mask.to(xs.dtype)[:, None]
                 count = m.sum().clamp_min(1.0)
                 mean = (xs * m).sum(0) / count
                 var = (m * (xs - mean) ** 2).sum(0) / count
@@ -64,13 +64,13 @@ class MaskedBatchNorm(nn.Module):
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """F.normalize(p=2) (reference gnn.py:79-80), the norm taken in
-    f32.  The sum of squares is clamped at eps^2 before its square root,
+    f32 (float64 for float64 x).  The sum of squares is clamped at eps^2 before its square root,
     so a row of norm below eps (an all-zero padding row, which a model
     without BatchNorm keeps at 0) divides by eps and passes no gradient
     to its norm, as F.normalize's does.  The JAX package clamps after
     the root (graphgym_tpu/nn/norm.py:68-74), whose gradient at a zero
     row is 0 * inf = NaN (ROADMAP C5); on every other row the two are
     the same function."""
-    xs = x.float()
+    xs = x if x.dtype == torch.float64 else x.float()
     norm = torch.sqrt((xs * xs).sum(dim, keepdim=True).clamp_min(eps * eps))
     return (xs / norm).to(x.dtype)

@@ -231,22 +231,28 @@ def num_tiles_of(n: int) -> int:
     return (n + ROWS_PER_TILE - 1) // ROWS_PER_TILE
 
 
-def _f32_tiles(n: int, d: int, device) -> torch.Tensor:
-    return torch.zeros(num_tiles_of(n) * ROWS_PER_TILE, d,
-                       dtype=torch.float32, device=device)
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' sums: f32, or float64 for float64 input."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _tiles(n: int, d: int, dtype, device) -> torch.Tensor:
+    return torch.zeros(num_tiles_of(n) * ROWS_PER_TILE, d, dtype=dtype,
+                       device=device)
 
 
 def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x from the packed layout: gather, weight, index_add_
-    into f32 tiles, cast to x.dtype.  out has the pack's rows (x's on a
-    square pack); the padding sender, x's row count, reads an appended
-    zero row."""
+    into f32 tiles (float64 for float64 x), cast to x.dtype.  out has
+    the pack's rows (x's on a square pack); the padding sender, x's row
+    count, reads an appended zero row."""
     d = x.shape[1]
     rows = pack.row_range.shape[0]
-    xp = torch.cat([x, x.new_zeros(1, d)]).float()
+    acc = _sum_dtype(x)
+    xp = torch.cat([x, x.new_zeros(1, d)]).to(acc)
     msg = xp.index_select(0, pack.senders.reshape(-1).long())
     msg = msg * pack.weights.reshape(-1, 1)
-    out = _f32_tiles(rows, d, x.device)
+    out = _tiles(rows, d, acc, x.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg)
     return out[:rows].to(x.dtype)
 
@@ -256,14 +262,15 @@ def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
     """out[row(s), h*dv + k] += alpha[s, h] * v[senders[s], h*dv + k]
     over the pack's slots: gather, per-head multiply, index_add_ into
     f32 tiles.  v [num_nodes, H*dv] f32 or bf16, alpha [NC, C, H];
-    out [num_nodes, H*dv] f32.  The padding sender num_nodes reads an
-    appended zero row."""
+    out [num_nodes, H*dv] f32 (float64 for float64 v and alpha).  The
+    padding sender num_nodes reads an appended zero row."""
     n, d = v.shape
     heads = alpha.shape[-1]
-    vp = torch.cat([v, v.new_zeros(1, d)]).float()
+    acc = _sum_dtype(v)
+    vp = torch.cat([v, v.new_zeros(1, d)]).to(acc)
     msg = vp.index_select(0, pack.senders.reshape(-1).long())
     msg = msg.view(-1, heads, d // heads) * alpha.reshape(-1, heads, 1)
-    out = _f32_tiles(n, d, v.device)
+    out = _tiles(n, d, msg.dtype, v.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg.view(-1, d))
     return out[:n]
 
@@ -271,14 +278,16 @@ def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
 def packed_sddmm_plain(pack: PackedCSR, a: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
     """out[s, h] = <a[row(s), h, :], b[senders[s], h, :]> where the pack
-    weight of slot s is nonzero, else 0: gather, multiply in f32, sum
-    per head, mask.  a and b [num_nodes, H, dh]; f32 out [NC, C, H].
-    The padding sender num_nodes reads an appended zero row."""
+    weight of slot s is nonzero, else 0: gather, multiply in f32 (float64
+    for float64 a), sum per head, mask.  a and b [num_nodes, H, dh]; f32
+    out [NC, C, H].  The padding sender num_nodes reads an appended zero
+    row."""
     n, heads, dh = a.shape
+    acc = _sum_dtype(a)
     rows = pack_rows(pack).reshape(-1).clamp_max(n - 1)
     bp = torch.cat([b.reshape(n, -1), b.new_zeros(1, heads * dh)])
-    prod = (a.reshape(n, -1).float().index_select(0, rows)
-            * bp.float().index_select(0, pack.senders.reshape(-1).long()))
+    prod = (a.reshape(n, -1).to(acc).index_select(0, rows)
+            * bp.to(acc).index_select(0, pack.senders.reshape(-1).long()))
     out = prod.view(-1, heads, dh).sum(-1).view(pack.senders.shape
                                                 + (heads,))
     return torch.where(pack.weights[..., None] != 0, out, 0.0)
@@ -289,12 +298,13 @@ def packed_segment_matmul_plain(msg: torch.Tensor, local_rows: torch.Tensor,
                                 num_tiles: int) -> torch.Tensor:
     """out[tiles[i]*R + local_rows[i, c]] += msg[i, c] over every slot,
     padding slots included: index_add_ into f32 tiles.  msg [NC, C, D]
-    f32 or bf16; out [num_tiles*R, D] f32."""
+    f32 or bf16; out [num_tiles*R, D] f32 (float64 for float64 msg)."""
     d = msg.shape[-1]
-    out = torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
+    acc = _sum_dtype(msg)
+    out = torch.zeros(num_tiles * ROWS_PER_TILE, d, dtype=acc,
                       device=msg.device)
     out.index_add_(0, slot_rows(local_rows, tiles).reshape(-1),
-                   msg.reshape(-1, d).float())
+                   msg.reshape(-1, d).to(acc))
     return out
 
 
@@ -1202,6 +1212,8 @@ class PackedSoftmaxFn(torch.autograd.Function):
     graphgym_tpu/nn/layers.py:157-160 calls it with the pack's rows and
     validity mask).
 
+    In f32 (float64 for float64 logits).
+
     Forward: logits of slots of pack weight 0 are masked to -1e30; the
     row max by scatter_reduce (amax, order-free; no gradient: the
     softmax does not depend on the shift); exp, 0 on masked slots; the
@@ -1217,7 +1229,7 @@ class PackedSoftmaxFn(torch.autograd.Function):
     def forward(ctx, logits: torch.Tensor, pack: PackedCSR) -> torch.Tensor:
         rows = pack_rows(pack).reshape(-1)
         valid = (pack.weights > 0)[..., None]
-        x = torch.where(valid, logits.float(), -1e30)
+        x = torch.where(valid, logits.to(_sum_dtype(logits)), -1e30)
         flat = x.reshape(-1, x.shape[-1])
         n = pack.row_range.shape[0]
         seg_max = flat.new_full((n, flat.shape[1]), float("-inf"))
@@ -1237,7 +1249,7 @@ class PackedSoftmaxFn(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         (alpha,) = ctx.saved_tensors
         pack = ctx.pack
-        g = g.float()
+        g = g.to(alpha.dtype)
         s = packed_row_sum(pack, (alpha * g).contiguous())
         rows = pack_rows(pack).reshape(-1)
         dlogit = alpha * (g - s.index_select(0, rows).view(g.shape))

@@ -7,7 +7,10 @@ backward and Adam update, one captured CUDA graph on the
 card (train/graphed.py), then one per-step learning-rate step; the
 epoch driver brings back the scalar loss and the supervised scores for
 logging.  With ``cfg.tpu.prefetch`` a host thread collates epoch e+1's
-train batches while epoch e trains (graphgym_tpu/train/loop.py:406-434).
+train batches while epoch e trains (graphgym_tpu/train/loop.py:406-434);
+with ``cfg.tpu.profile`` the first ``cfg.tpu.profile_epochs`` epochs are
+traced by torch.profiler into ``{out_dir}/profile``
+(graphgym_tpu/train/loop.py:399-402,425-426).
 """
 
 from __future__ import annotations
@@ -35,6 +38,29 @@ from graphgym_tpu_torch.train.optim import create_optimizer
 # Python would otherwise keep the GIL for up to the default 5 ms each
 # time the training thread wants it back, several times a step
 PREFETCH_SWITCH_S = 1e-4
+
+
+class EpochProfile:
+    """A torch.profiler trace of the epochs it is open over (host ops,
+    and the device's kernels on a CUDA device), written as
+    ``{out_dir}/profile/trace.json`` (Chrome trace format) when it
+    stops: the counterpart of the JAX package's jax.profiler trace in
+    the same directory.  The steps run as they do untraced."""
+
+    def __init__(self, out_dir: str, device: torch.device):
+        self.path = os.path.join(out_dir, "profile", "trace.json")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> str:
+        self._prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        logging.info("profile trace written to %s", self.path)
+        return self.path
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -245,8 +271,14 @@ class Trainer:
         ahead, switch = None, sys.getswitchinterval()
         if prefetch is not None:
             sys.setswitchinterval(PREFETCH_SWITCH_S)
+        profile = (EpochProfile(cfg.out_dir, self.device)
+                   if cfg.tpu.profile else None)
         try:
             for epoch in range(start_epoch, cfg.optim.max_epoch):
+                if profile is not None \
+                        and epoch - start_epoch == cfg.tpu.profile_epochs:
+                    profile.stop()
+                    profile = None
                 t_ep = time.time()
                 batches = (ahead.result() if ahead is not None
                            else self.loaders[0].batches(epoch))
@@ -284,6 +316,8 @@ class Trainer:
         finally:
             # an error in an epoch, or the worker's own (raised by
             # result() above), leaves no collation running on
+            if profile is not None:
+                profile.stop()
             if prefetch is not None:
                 prefetch.shutdown(wait=True, cancel_futures=True)
                 sys.setswitchinterval(switch)

@@ -7,9 +7,14 @@ writes them; its table, built from a fake seed aggregate written by the
 port's ``exp/agg.py``, judges a row against the reference, or against
 the JAX package where the JAX package's own row misses the reference;
 the command line trains a config through ``main`` on the CPU and
-writes parity.md and parity.json under --out only.
+writes parity.md and parity.json under --out only.  A grid point
+(``POINTS``: grids/IDGNN/graph.txt's synthetic chunks on ws500 and
+ba500) has no parity.json row: it is reported, judged only against the
+JAX package's CPU run where ``JAX_CPU_RUNS`` holds it, and trains
+through the command line by name.
 """
 
+import ast
 import hashlib
 import json
 import os
@@ -159,3 +164,85 @@ def test_second_judgement_against_the_jax_cpu_run(accs, first, second,
                               parity.summarize(parent))
     assert "jax_cpu" not in other
     assert parity.table([other]).splitlines()[2].endswith("| — |")
+
+
+def grid_chunks(path):
+    """The chunks of a grid file: per blank-line-separated chunk, each
+    key's list of values."""
+    chunks, cur = [], {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                if cur:
+                    chunks.append(cur)
+                cur = {}
+                continue
+            if line.startswith("#"):
+                continue
+            key, _, values = line.split(" ", 2)
+            cur[key] = ast.literal_eval(values)
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+@pytest.mark.parametrize("name,chunk", [("graph_ws500", 2),
+                                        ("idgraph_ba500", 3)])
+def test_points_are_the_grids_synthetic_chunks(name, chunk):
+    """Every override of a point takes one of its chunk's values
+    (grids/IDGNN/graph.txt: the plain chunk :35-47, the ID chunk
+    :50-61), and the point sets every key the chunk varies but the
+    epochs (the config's 1000)."""
+    grid = grid_chunks(os.path.join(ROOT, "grids", "IDGNN",
+                                    "graph.txt"))[chunk]
+    cfg_file, opts = parity.point_config(name)
+    assert os.path.exists(cfg_file)
+    pairs = dict(zip(opts[::2], opts[1::2]))
+    assert set(pairs) == set(grid) - {"optim.max_epoch"}
+    for key, value in pairs.items():
+        want = [str(v) for v in grid[key]]
+        if key == "dataset.augment_feature":
+            want = [str(v).replace('"', "'") for v in grid[key]]
+        assert value in want, (key, value, want)
+    assert grid["optim.max_epoch"] == [1000]
+
+
+def test_point_row_is_reported_without_a_reference(tmp_path):
+    parent = str(tmp_path / "runs" / "graph_ws500" / "idgcn_ws")
+    fake_runs(parent, [0.5, 0.6, 0.7])
+    row = parity.point_row("graph_ws500", parity.summarize(parent))
+    assert row["reference"] is None and row["passes"] is None
+    assert row["judged_against"] is None and row["seeds"] == 3
+    cpu = parity.JAX_CPU_RUNS["graph_ws500"]
+    want = parity.pass_rule(row["port"] - cpu["mean"], cpu["std"],
+                            row["port_std"])
+    assert (row["passes_jax_cpu"], row["limit_jax_cpu"]) == want
+    line = parity.table([row]).splitlines()[2]
+    assert line.startswith("| graph_ws500 |") and "(no row)" in line
+    assert line.endswith(f"{want[1]:.4f}, {want[0]} |")
+    other = parity.point_row("idgraph_ba500", parity.summarize(parent))
+    assert "jax_cpu" not in other
+    assert parity.table([other]).splitlines()[2].endswith("| — |")
+
+
+def test_points_train_through_the_command_line(tmp_path, monkeypatch):
+    """graph_ws500 by name, one seed of two epochs at width 8 on ws500
+    regenerated at a cut count of 6 graphs."""
+    from graphgym_tpu_torch.data import synthetic as syn
+
+    real = syn.generate_syn_graphs
+    monkeypatch.setattr(syn, "generate_syn_graphs",
+                        lambda kind, num_graphs, n: real(kind, 6, n))
+    out = tmp_path / "out"
+    (row,) = parity.main([
+        "--points", "graph_ws500", "--repeat", "1", "--out", str(out),
+        "--opts", "device", "cpu", "optim.max_epoch", "2",
+        "gnn.dim_inner", "8", "dataset.dir", str(tmp_path / "data")])
+    assert row["config"] == "graph_ws500" and row["seeds"] == 1
+    assert row["reference"] is None and 0.0 <= row["port"] <= 1.0
+    runs = out / "runs" / "graph_ws500" / "idgcn_ws"
+    assert sorted(os.listdir(runs)) == ["1", "agg"]
+    assert sorted(os.listdir(out)) == ["parity.json", "parity.md", "runs"]
+    with pytest.raises(SystemExit):
+        parity.main(["--out", str(out)])
