@@ -137,7 +137,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   per train step and 3 per eval batch, all at D = 128 (pre-MP hands
   each layer a 128-wide input that needs a gradient); gatid_ba K3 12 (8
   at width 1) and 4 (2), SDDMM 2 and 0; ws's and ba's constant
-  features replaced by seeded random ones in the model check.
+  features replaced by seeded random ones in the model check.  Then
+  appnp_ws (configs/idgcn_ws.yaml with gnn.layer_type Tfg-appnp: the
+  Tfg APPNP model, Dense [64, 6] then 10 propagations on the 'gcn'
+  pack: K1 20 per train step and 10 per eval batch, all at D = 6, the
+  narrow walk; seeded random features in the model check).
   full_idgcn_ws — configs/idgcn_ws.yaml for its 1000 epochs, 3 seeds,
                   through graphgym_tpu_torch.main.main --repeat 3 and its
                   aggregate (exp/agg): each seed's best val accuracy,
@@ -192,6 +196,23 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   ego centers of each of the 93 graph slots: K1 8 per train step and 4
   per eval batch, all at 128); seeded random features in the model
   check (both corpora's are constant).
+  Then grids/design/round1att.txt's synthetic chunks at scalefree on
+  configs/design/design_v1att.yaml (parity.POINTS; dim_inner 256, the
+  whole corpus one batch), each through drive_path's phases:
+  design_att_sf_mul (gmulconv, 4 layers, the node chunk: K3 24 per
+  train step, 8 of them row sums at width 1, and the SDDMM 8 (score,
+  dalpha); K3 8 (4) and the SDDMM 4 per eval batch) and
+  design_att_sf_add_graph (gaddconv = the port's GATConv, 2 layers,
+  skipsum, dropout 0.3, add pooling of every node at 256, the graph
+  chunk: K3 12 (8) and the SDDMM 2 per train step, K3 4 (2) per eval
+  batch; K1 only the pooling's 2 and 1).  Then three layer types no
+  config sets, card vs CPU (check_model) on design_sf's val batch
+  without a training (model_phase), the launches of the card side held
+  and the layer pack's kernel checked and timed at 256: model_v2_mean
+  and model_v2_max (generalconv_v2 with flow target_to_source and the
+  directed norm: K1 24 on 'rev_dir_mean'; the max's forward 16 and
+  backward 8 on 'rev_dir') and model_sageinit (sageinitconv built with
+  its L2 norm: K1 24 on 'mean').
   corpus500     — waits for ws500 and ba500 (graph.txt's 500-node
                   corpora, 256 graphs asked, seed 0) their processes
                   regenerated into CORPUS500_DIR, holds each to its
@@ -310,9 +331,11 @@ SDDMM on gatid_ba's; K1 at D = 256 on design_sf's and design_sw_mean's
 packs and at D = 128 on idconv_ws's, the max forward and backward on
 design_sf_max's pack, on kernel_max's and on make_graph's; K1 on the
 graph paths' layer packs, K1's add and mean pooling and the max's
-pooling forward and backward on their pooling packs; K1 on the link
-and edge paths' layer packs and on their gather packs), and last the
-result line
+pooling forward and backward on their pooling packs; K3, its row sums
+and the SDDMM on the round1att paths' 'att' packs at 256; K1 at D = 6
+on appnp_ws's 'gcn' pack; K1 and the max on the model-only checks'
+packs; K1 on the link and edge paths' layer packs and on their gather
+packs), and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -372,8 +395,11 @@ try:
     from graphgym_tpu_torch.exp.corpus_time import corpus_digest
     from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS, POOLINGS,
                                                    build_pool_packs,
+                                                   kinds_for_layer,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
+    from graphgym_tpu_torch.nn import model as M
+    from graphgym_tpu_torch.nn.att_layers import SAGEInitConv
     from graphgym_tpu_torch.nn.model import build_model
     from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
     from graphgym_tpu_torch.train import checkpoint as ckpt
@@ -487,6 +513,10 @@ IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
 # node_identity features on ws500 (500 nodes pooled a graph)
 IDGRAPH_BA500 = parity.POINTS["idgraph_ba500"]
 GRAPH_WS500 = parity.POINTS["graph_ws500"]
+# grids/design/round1att.txt's synthetic chunks on scalefree, the parity
+# tool's points: gmulconv on the node chunk, gaddconv on the graph chunk
+ATT_SF_MUL = parity.POINTS["design_att_sf_mul"]
+ATT_SF_ADD_GRAPH = parity.POINTS["design_att_sf_add_graph"]
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -2764,7 +2794,6 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     batch of the first that many train graphs (where the CPU side of a
     val batch would take minutes, or its few graph slots leave the
     graph head's BatchNorm ill-conditioned); its phase names which."""
-    from graphgym_tpu_torch.graphs.packing import kinds_for_layer
     from graphgym_tpu_torch.train.graphed import signature
 
     cfg_file = config(base or tag)
@@ -2779,13 +2808,13 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                       for b in loaders[0].batches(e)})
     n, d = batch.num_nodes, cfg.gnn.dim_inner
     (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                              cfg.gnn.normalize_adj)
+                              cfg.gnn.normalize_adj, cfg.gnn.flow)
     packs = batch.to(device).packs[kind]
     if kind == "att":
         checks = dict(k3=check_attention_kernel(packs, n, d, device),
                       softmax=check_softmax(packs[0], n, device),
                       sddmm=check_sddmm_kernel(packs[0], n, d, device))
-    elif cfg.gnn.layer_type in ("generalconv", "idconv") \
+    elif cfg.gnn.layer_type in ("generalconv", "idconv", "generalconv_v2") \
             and cfg.gnn.agg == "max":
         checks = dict(max=check_max_kernel(packs, n, d, device))
     else:
@@ -2855,6 +2884,44 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     phase(f"graphed_{tag}", **graphed_check(cfg, loaders, device))
     return dict(width=d, pack=f"{kind}, {base or tag}", checks=checks,
                 gathers=gathers, train=train, profile=profile)
+
+
+def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
+                layers=None) -> dict:
+    """model_<tag>, a layer type checked without a training: check_model
+    on the config's first val batch at full width, the launches of its
+    card side (a train-mode forward and backward, then an eval-mode
+    forward) counted and held to ``expected`` (kernel wrapper -> count),
+    and the kernel of its layer pack (K1, or the segmented max for agg
+    max) held to its plain version and timed at the width
+    (``check_kernel``, ``check_max_kernel``).  ``layers`` replaces
+    entries of the model's layer table while the check runs (a layer
+    built with an option its layer type does not set)."""
+    from unittest import mock
+
+    cfg, loaders, _ = load_path(cfg_file, overrides)
+    batch = loaders[1].batches(0)[0]
+    (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
+                              cfg.gnn.normalize_adj, cfg.gnn.flow)
+    packs = batch.to(device).packs[kind]
+    n, d = batch.num_nodes, cfg.gnn.dim_inner
+    agg_max = cfg.gnn.agg == "max" and cfg.gnn.layer_type == "generalconv_v2"
+    check = (check_max_kernel if agg_max else check_kernel)(packs, n, d,
+                                                            device)
+    with mock.patch.dict(M.LAYERS, layers or {}):
+        model, (launches, by_width, _) = counted(
+            lambda: check_model(cfg, batch, device))
+    hold_counts(f"model_{tag}", launches,
+                {k.__name__: (c, "the train step and the eval forward")
+                 for k, c in expected.items()})
+    return dict(layer_type=cfg.gnn.layer_type, pack=kind, n=n, width=d,
+                real_nodes=int(np.sum(batch.node_mask)),
+                chunks=int(packs[0].senders.shape[0]),
+                slots=int(packs[0].senders.numel()),
+                fwd_rows=longest_rows(packs[0]),
+                bwd_rows=longest_rows(packs[1]),
+                launches=launches, launches_by_width=by_width,
+                check=check, **model)
 
 
 def reference_of(model: str, dataset: str) -> tuple:
@@ -3217,6 +3284,31 @@ def graph_rows(paths: dict, pools: dict, row: tuple, srcs: tuple) -> list:
     return rows
 
 
+def model_rows(models: dict, row: tuple, srcs: tuple) -> list:
+    """The kernels line's rows of the model-only checks
+    (``model_phase``'s results): K1, or the segmented max forward and
+    backward, on each one's layer pack at its width, the launches those
+    of its card side."""
+    k1_src, max_src = srcs[0], srcs[3]
+    keys = row + ("floor_ms",)
+    rows = []
+    for tag, m in models.items():
+        common = dict(path=f"model_{tag}", pack=f"{m['pack']}, model_{tag}",
+                      width=m["width"])
+        if "ties" in m["check"]:            # the segmented max's check
+            rows += [{"name": f"{kernel.__name__[:-5]}_{tag}", **max_src,
+                      **common, **{k: m["check"][half][k] for k in keys},
+                      "launches": m["launches"][kernel.__name__]}
+                     for half, kernel in (("fwd", K.packed_max_cuda),
+                                          ("bwd", K.packed_max_bwd_cuda))]
+        else:
+            rows.append({"name": f"packed_spmm_{tag}", **k1_src, **common,
+                         **{k: m["check"][k] for k in keys},
+                         "launches": m["launches"][
+                             K.packed_spmm_cuda.__name__]})
+    return rows
+
+
 def link_rows(paths: dict, row: tuple, k1_src: dict) -> list:
     """The kernels line's rows of the link and edge paths
     (``drive_path``'s results): K1 on each path's layer pack, and on
@@ -3472,6 +3564,15 @@ def main() -> None:
                                 "0.3", expected={k1_: (6, 3)},
                                 random_features=True),
     }
+    # ---- the Tfg APPNP model on ID-GCN ws's config: Dense [64, C], then
+    # 10 propagations h <- 0.9 Anorm h + 0.1 h0 on the 'gcn' pack at
+    # D = C = 6 (K1's narrow walk): 10 forward and 10 backward per train
+    # step (the MLP's output needs a gradient), 10 per eval batch; the
+    # layers' K1 at the model width is checked on the same pack too.
+    # Constant ws features: seeded random ones in the model check.
+    appnp = grid_point("appnp_ws", "idgcn_ws", "gnn.layer_type",
+                       "Tfg-appnp", expected={k1_: (20, 10)},
+                       widths={6: {k1_: (20, 10)}}, random_features=True)
 
     # ---- the segmented max (csrc/packed_max.cu), no Pallas counterpart:
     # forward and backward on the ws ego 'plain' pack (ID-GIN's, 49,152
@@ -3556,6 +3657,58 @@ def main() -> None:
             expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
             rect=(2, 1), random_features=True),
     }
+    # ---- grids/design/round1att.txt's synthetic chunks on scalefree at
+    # 256 (configs/design/design_v1att.yaml, parity.POINTS), each a node
+    # or graph batch of the whole corpus.  design_att_sf_mul (gmulconv,
+    # 4 layers): per layer K3 6 per train step (forward: the softmax's row
+    # sums at width 1, the aggregation; backward: dv, the softmax's row
+    # sums, dq and dk of the SDDMM score, q and k the same h) and the
+    # SDDMM 2 (score, dalpha), per eval batch K3 2 (1) and the SDDMM 1.
+    # design_att_sf_add_graph (gaddconv = GATConv, 2 layers, skipsum,
+    # dropout 0.3, add pooling at 256): per layer K3 6 per train step (4
+    # row sums at width 1: the softmax's two and the node scores' two
+    # gradients) and the SDDMM 1 (dalpha), K3 2 (1) per eval batch; K1
+    # only the pooling's 2 and 1.
+    att_paths = {
+        "design_att_sf_mul": grid_point(
+            "design_att_sf_mul", ATT_SF_MUL[0], *ATT_SF_MUL[1], ovr=dz,
+            expected={k3_: (24, 8), sddmm_: (8, 4)},
+            widths={1: {k3_: (8, 4)}, 256: {k3_: (16, 4)}}),
+        "design_att_sf_add_graph": grid_point(
+            "design_att_sf_add_graph", ATT_SF_ADD_GRAPH[0],
+            *ATT_SF_ADD_GRAPH[1], ovr=dz,
+            expected={k1_: (2, 1), k3_: (12, 4), sddmm_: (2, 0)},
+            widths={1: {k3_: (8, 2)}, 256: {k1_: (2, 1), k3_: (4, 2)}},
+            rect=(2, 1)),
+    }
+    # ---- the layer types no grid point of the repo sets, checked card
+    # vs CPU without a training on design_sf's val batch at 256 (3 pre-MP
+    # and 8 MP layers, so every layer's input needs a gradient): per
+    # layer one forward and one backward in the train step and one
+    # forward in the eval one.  generalconv_v2 with flow
+    # target_to_source and the directed norm: K1 on 'rev_dir_mean' for
+    # agg mean, the segmented max on 'rev_dir' for agg max;
+    # sageinitconv built with normalize (make_conv's has none): K1 on
+    # 'mean' at its input width.
+    design_sf = config("design/design_v1")
+    v2 = list(DESIGN_SF) + ["gnn.layer_type", "generalconv_v2",
+                            "gnn.flow", "target_to_source",
+                            "gnn.normalize_adj", "True"]
+    sageinit = {"sageinitconv": lambda dim_in, dim_out, opts, gen, _:
+                SAGEInitConv(dim_in, dim_out, normalize=True,
+                             generator=gen)}
+    models = {}
+    for tag, extra, expected, layers in (
+            ("v2_mean", v2 + ["gnn.agg", "mean"], {k1_: 24}, None),
+            ("v2_max", v2 + ["gnn.agg", "max"], {max_: 16, max_bwd_: 8},
+             None),
+            ("sageinit", list(DESIGN_SF) + ["gnn.layer_type",
+                                            "sageinitconv"], {k1_: 24},
+             sageinit)):
+        begin(f"model_{tag}")
+        models[tag] = model_phase(tag, design_sf, dz + extra, device,
+                                  expected, layers)
+        phase(f"model_{tag}", **models[tag])
     # ---- grids/IDGNN/graph.txt's synthetic chunks at their own size, on
     # the 500-node corpora regenerated beside the first phases.
     # idgraph_ba500 (the ID chunk: gcnidconv on ba500, ego at r = 3, the
@@ -3629,6 +3782,8 @@ def main() -> None:
                             dz + list(DESIGN_GRAPH_SF), 768, 0),
         "idgraph_ba": (config("idgcn_ba"), ba_overrides + list(IDGRAPH_BA),
                        128, 0),
+        "design_att_sf_add_graph": (config(ATT_SF_ADD_GRAPH[0]),
+                                    dz + list(ATT_SF_ADD_GRAPH[1]), 256, 0),
         # K1 on its first train batch (2.1 M node rows in the
         # transpose); the max (no path's) on the first 3 train graphs,
         # whose rows hold 500 ego centers too: on the whole batch the
@@ -3776,6 +3931,16 @@ def main() -> None:
         *torch_path_rows(torch_paths, row, srcs),
         *torch_path_rows(design, row, srcs),
         *graph_rows({**graph_paths, **graph500}, pools, row, srcs),
+        *torch_path_rows({"design_att_sf_mul":
+                          att_paths["design_att_sf_mul"]}, row, srcs),
+        *graph_rows({"design_att_sf_add_graph":
+                     att_paths["design_att_sf_add_graph"]}, pools, row,
+                    srcs),
+        {"name": "packed_spmm_appnp_ws", **k1_src, "path": "appnp_ws",
+         "pack": "gcn, appnp_ws", "width": 6,
+         **{k: appnp["checks"]["d6"][k] for k in row + ("floor_ms",)},
+         **path_launches(k1_, {"appnp_ws": appnp["train"]}, width=6)},
+        *model_rows(models, row, srcs),
         *link_rows(link_paths, row, k1_src),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",

@@ -655,7 +655,7 @@ class GraphLoader:
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges, **pairs)
         kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                                cfg.gnn.normalize_adj)
+                                cfg.gnn.normalize_adj, cfg.gnn.flow)
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,

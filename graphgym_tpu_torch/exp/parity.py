@@ -64,6 +64,37 @@ JAX_CPU_RUNS = {
     "gatconvFast_ba.yaml": dict(
         best_val_acc_per_seed=[0.5658, 0.5716, 0.5176], mean=0.5517,
         std=0.0242),
+    # the smallworld and scalefree configs with a parity.json row (the
+    # JAX package's own corpora regenerated under dataset.dir), whose
+    # single-seed rows came from tools/run_parity.py's protocol (the
+    # smallworld Fast rows sit at its collapse, 0.1574)
+    "gcnconvFast_smallworld.yaml": dict(
+        best_val_acc_per_seed=[0.7031, 0.7448, 0.6875], mean=0.7118,
+        std=0.0242),
+    "gatconvFast_smallworld.yaml": dict(
+        best_val_acc_per_seed=[0.6042, 0.6875, 0.6068], mean=0.6328,
+        std=0.0387),
+    "gcnconv_smallworld.yaml": dict(
+        best_val_acc_per_seed=[0.5208, 0.4688, 0.4896], mean=0.4931,
+        std=0.0214),
+    "gatconv_smallworld.yaml": dict(
+        best_val_acc_per_seed=[0.2109, 0.1979, 0.3464], mean=0.2517,
+        std=0.0671),
+    "gcnconvFast_scalefree.yaml": dict(
+        best_val_acc_per_seed=[0.7643, 0.8001, 0.7865], mean=0.7836,
+        std=0.0148),
+    "gatconvFast_scalefree.yaml": dict(
+        best_val_acc_per_seed=[0.5658, 0.5716, 0.5169], mean=0.5514,
+        std=0.0245),
+    "gcnconv_scalefree.yaml": dict(
+        best_val_acc_per_seed=[0.6582, 0.6751, 0.5931], mean=0.6421,
+        std=0.0354),
+    "gatconv_scalefree.yaml": dict(
+        best_val_acc_per_seed=[0.4362, 0.4134, 0.3548], mean=0.4015,
+        std=0.0343),
+    "idgcn_smallworld.yaml": dict(
+        best_val_acc_per_seed=[1.0, 0.9922, 0.9948], mean=0.9957,
+        std=0.0032),
     # a grid point (POINTS) the same way: --cfg configs/idgcn_ws.yaml
     # --repeat 3 <its overrides> tpu.spmm_impl xla, with dataset.dir
     # holding the port's regenerated ws500 (28 graphs) pickled as the
@@ -73,6 +104,16 @@ JAX_CPU_RUNS = {
     "graph_ws500": dict(
         best_val_acc_per_seed=[0.6667, 0.6667, 0.6667], mean=0.6667,
         std=0.0),
+    # round1att's points: --cfg configs/design/design_v1att.yaml
+    # --repeat 3 <its overrides> tpu.spmm_impl xla, the JAX package's own
+    # scalefree corpus regenerated under dataset.dir; the graph point's
+    # dropout masks are the JAX package's draws
+    "design_att_sf_mul": dict(
+        best_val_acc_per_seed=[0.4887, 0.5836, 0.555], mean=0.5424,
+        std=0.0397),
+    "design_att_sf_add_graph": dict(
+        best_val_acc_per_seed=[0.4167, 0.2917, 0.375], mean=0.3611,
+        std=0.052),
 }
 
 
@@ -85,7 +126,29 @@ GRAPH_GRID = ("dataset.format", "nx", "dataset.task", "graph",
               "dataset.transductive", "False", "dataset.augment_label",
               "graph_clustering_coefficient", "gnn.layers_pre_mp", "1",
               "gnn.layers_mp", "3", "gnn.layers_post_mp", "3")
+# grids/design/round1att.txt's synthetic chunks on the design_v1att base
+# (dim_inner 256, batch 128, 100 epochs: the base's), at scalefree:
+# gmulconv on the node chunk (:44-61) and gaddconv on the graph chunk
+# (:82-99)
+ROUND1ATT_GRID = ("dataset.format", "nx", "dataset.name", "scalefree",
+                  "dataset.transductive", "True", "gnn.batchnorm", "True",
+                  "gnn.agg", "add", "optim.optimizer", "adam",
+                  "optim.base_lr", "0.01")
 POINTS = {
+    "design_att_sf_mul": ("design/design_v1att", ROUND1ATT_GRID + (
+        "dataset.task", "node", "dataset.augment_feature",
+        "['node_pagerank']", "dataset.augment_label",
+        "node_clustering_coefficient", "gnn.layer_type", "gmulconv",
+        "gnn.layers_pre_mp", "1", "gnn.layers_mp", "4",
+        "gnn.layers_post_mp", "1", "gnn.stage_type", "stack", "gnn.act",
+        "relu", "gnn.dropout", "0.0")),
+    "design_att_sf_add_graph": ("design/design_v1att", ROUND1ATT_GRID + (
+        "dataset.task", "graph", "dataset.augment_feature",
+        "['node_onehot']", "dataset.augment_label", "graph_path_len",
+        "gnn.layer_type", "gaddconv", "gnn.layers_pre_mp", "2",
+        "gnn.layers_mp", "2", "gnn.layers_post_mp", "2",
+        "gnn.stage_type", "skipsum", "gnn.act", "prelu", "gnn.dropout",
+        "0.3")),
     "idgraph_ba500": ("idgcn_ba", GRAPH_GRID + (
         "dataset.name", "ba500", "dataset.transform", "ego",
         "dataset.augment_feature", "[]", "gnn.layer_type", "gcnidconv")),

@@ -17,6 +17,15 @@ graph structure) and the packed chunk layouts of A and A^T:
   'att'   — A + self-loops on real nodes, weights a validity indicator
             (1 real, 0 padding); the attention coefficients are computed
             in the layer (packing.py:71-79 of the JAX package).
+  'dir'   — generalconv_v2's directed norm: each weight over its
+            receiver's weighted in-degree, no self-loops
+            (graphgym_tpu/nn/att_layers.py:205-208).
+  'dir_mean' — the 'dir' weights over each receiver's count of
+            nonzero-weight in-edges (generalconv_v2's agg 'mean' with
+            normalize_adj: segment_mean of the normed messages).
+  'rev_<kind>' — <kind> of the reversed edges (generalconv_v2's flow
+            'target_to_source': senders and receivers swapped before
+            the weights), so its fwd pack is <kind>'s transpose.
 
 The bwd layout packs the transpose with the same weights, giving
 dx = A^T g.  The 'att' entry carries a third array, the slot map: for
@@ -58,6 +67,8 @@ from graphgym_tpu_torch.graphs.container import bucket_size
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import PackedCSR, pad_pack
 
 Chunks = Dict[str, Tuple[int, int]]
+FLOWS = ("source_to_target", "target_to_source")   # cfg.gnn.flow
+REV = "rev_"        # the prefix of a kind of the reversed edges
 
 
 def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
@@ -100,6 +111,27 @@ def _gcn_mean_weights(senders: np.ndarray, receivers: np.ndarray,
     return s, r, (w / np.maximum(count, 1)[r]).astype(np.float32)
 
 
+def _dir_weights(senders: np.ndarray, receivers: np.ndarray,
+                 edge_weight: np.ndarray, num_nodes: int):
+    """Each edge's weight over its receiver's weighted in-degree (0
+    where the degree is 0)."""
+    deg = np.bincount(receivers, weights=edge_weight, minlength=num_nodes)
+    inv = np.where(deg > 0, 1.0 / np.where(deg > 0, deg, 1.0), 0.0)
+    return senders, receivers, (edge_weight * inv[receivers]).astype(
+        np.float32)
+
+
+def _dir_mean_weights(senders: np.ndarray, receivers: np.ndarray,
+                      edge_weight: np.ndarray, num_nodes: int):
+    """The 'dir' weights over each receiver's count of nonzero-weight
+    in-edges."""
+    _, _, w = _dir_weights(senders, receivers, edge_weight, num_nodes)
+    count = np.bincount(receivers, weights=(edge_weight != 0).astype(
+        np.float64), minlength=num_nodes)
+    return senders, receivers, (w / np.maximum(count, 1)[receivers]).astype(
+        np.float32)
+
+
 def _att_edges(senders: np.ndarray, receivers: np.ndarray,
                edge_weight: np.ndarray, node_mask: np.ndarray,
                num_nodes: int):
@@ -127,27 +159,31 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
     node_mask = np.asarray(node_mask, bool)
     out = {}
     for kind in kinds:
-        if kind == "gcn":
-            s, r, w = _gcn_weights(senders, receivers, edge_weight,
-                                   node_mask, num_nodes)
-        elif kind == "plain":
-            s, r, w = senders, receivers, edge_weight
-        elif kind == "mean":
-            s, r, w = _mean_weights(senders, receivers, edge_weight,
-                                    num_nodes)
-        elif kind == "gcn_mean":
-            s, r, w = _gcn_mean_weights(senders, receivers, edge_weight,
-                                        node_mask, num_nodes)
-        elif kind == "att":
-            s, r, w = _att_edges(senders, receivers, edge_weight,
-                                 node_mask, num_nodes)
+        base = kind[len(REV):] if kind.startswith(REV) else kind
+        s, r = ((receivers, senders) if base != kind
+                else (senders, receivers))
+        if base == "gcn":
+            s, r, w = _gcn_weights(s, r, edge_weight, node_mask, num_nodes)
+        elif base == "plain":
+            w = edge_weight
+        elif base == "mean":
+            s, r, w = _mean_weights(s, r, edge_weight, num_nodes)
+        elif base == "gcn_mean":
+            s, r, w = _gcn_mean_weights(s, r, edge_weight, node_mask,
+                                        num_nodes)
+        elif base == "att":
+            s, r, w = _att_edges(s, r, edge_weight, node_mask, num_nodes)
+        elif base == "dir":
+            s, r, w = _dir_weights(s, r, edge_weight, num_nodes)
+        elif base == "dir_mean":
+            s, r, w = _dir_mean_weights(s, r, edge_weight, num_nodes)
         else:
             raise ValueError(f"unknown pack kind {kind!r}")
         (fwd, fwd_slot), (bwd, bwd_slot) = _pack_pair(
             s, r, w, num_nodes, num_nodes, (chunks or {}).get(kind, (0, 0)),
-            slots=kind == "att")
+            slots=base == "att")
         out[kind] = (fwd, bwd)
-        if kind == "att":
+        if base == "att":
             out[kind] += (_slot_map(fwd, bwd, fwd_slot, bwd_slot),)
     return out
 
@@ -172,7 +208,7 @@ def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
         fwd = pad_pack(entry[0], chunks[kind][0], fwd_rows, bwd_rows)
         bwd = pad_pack(entry[1], chunks[kind][1], bwd_rows, fwd_rows)
         out[kind] = (fwd, bwd)
-        if kind == "att":
+        if len(entry) == 3:             # an 'att' pack's slot map
             past = fwd.senders.size
             slot_map = np.full(bwd.senders.shape, past, np.int32)
             old = entry[2]
@@ -295,14 +331,36 @@ def agg_kind(agg: str, normalize_adj: bool) -> str:
     return "gcn" if normalize_adj else "plain"
 
 
+def v2_kind(agg: str, normalize_adj: bool, flow: str) -> str:
+    """The pack of GeneralConvV2's aggregation (graphgym_tpu/nn/
+    att_layers.py:184-226, spmm of ops/sparse.py:25-57 with reduce
+    'sum', 'mean' or 'max'): 'add' and 'max' take A ('plain') or its
+    directed norm ('dir'), 'mean' the same weights over each receiver's
+    count of real in-edges ('mean', 'dir_mean'); 'max' takes the max of
+    its weighted messages.  Flow 'target_to_source' takes the kind of
+    the reversed edges ('rev_<kind>')."""
+    if agg not in ("add", "mean", "max"):
+        raise ValueError(f"Unknown agg: {agg}")
+    if flow not in FLOWS:
+        raise ValueError(f"Unknown flow: {flow}")
+    kind = {(False, False): "plain", (False, True): "dir",
+            (True, False): "mean", (True, True): "dir_mean"}[
+        (agg == "mean", bool(normalize_adj))]
+    return REV + kind if flow == "target_to_source" else kind
+
+
 def kinds_for_layer(layer_type: str, agg: str = "add",
-                    normalize_adj: bool = False) -> Tuple[str, ...]:
-    """Which precomputed packs a layer type consumes (``agg`` and
-    ``normalize_adj``: cfg.gnn's, read by generalconv and idconv)."""
+                    normalize_adj: bool = False,
+                    flow: str = "source_to_target") -> Tuple[str, ...]:
+    """Which precomputed packs a layer type consumes (``agg``,
+    ``normalize_adj`` and ``flow``: cfg.gnn's, read by generalconv,
+    idconv and generalconv_v2)."""
     lt = layer_type.replace("Tfg-", "")
     if lt in ("generalconv", "idconv"):
         return (agg_kind(agg, normalize_adj),)
-    if lt in ("gcnconv", "gcnidconv", "idgcn"):
+    if lt == "generalconv_v2":
+        return (v2_kind(agg, normalize_adj, flow),)
+    if lt in ("gcnconv", "gcnidconv", "idgcn", "appnp"):
         return ("gcn",)
     if lt in ("ginconv", "ginidconv", "idgin", "exampleconv1",
               "exampleconv2", "contrib_example"):

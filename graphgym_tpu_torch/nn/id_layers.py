@@ -67,7 +67,7 @@ class GeneralIDConv(nn.Module):
                  agg: str = "add", normalize_adj: bool = False, *,
                  generator: torch.Generator):
         super().__init__()
-        agg_kind(agg, normalize_adj)
+        self.kind = agg_kind(agg, normalize_adj)
         self.agg, self.normalize_adj = agg, normalize_adj
         self.kernel = glorot((dim_in, dim_out), generator)
         self.id_kernel = glorot((dim_in, dim_out), generator)
@@ -77,7 +77,7 @@ class GeneralIDConv(nn.Module):
         idx, id_mask = _id_index(graph)
         h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
                                 self.id_kernel, id_mask)
-        h = packed_aggregate(graph, h, self.agg, self.normalize_adj)
+        h = packed_aggregate(graph, h, self.agg, self.kind)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)

@@ -71,13 +71,14 @@ def packed_spmm(graph: GraphBatch, kind: str,
 
 
 def packed_aggregate(graph: GraphBatch, h: torch.Tensor, agg: str,
-                     normalize_adj: bool) -> torch.Tensor:
+                     kind: str) -> torch.Tensor:
     """GeneralConv's aggregation of the messages h over the receivers
     (graphgym_tpu/ops/sparse.py:25-57 as layers.py:626-642 calls it):
-    'add' and 'mean' are K1 on the pack ``agg_kind`` names (the mean's
-    division is in its weights), 'max' the segmented max on it, each
-    with its backward on the transpose pack: no float atomics."""
-    fwd, bwd = _packs(graph, agg_kind(agg, normalize_adj))
+    'add' and 'mean' are K1 on the packs of ``kind`` (``agg_kind``'s or
+    ``v2_kind``'s; the mean's division is in its weights), 'max' the
+    segmented max on them, each with its backward on the transpose
+    pack: no float atomics."""
+    fwd, bwd = _packs(graph, kind)
     if agg == "max":
         return packed_max_vjp(fwd, bwd, h)
     return spmm_pack_vjp(fwd, bwd, h)
@@ -90,6 +91,7 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
                      node_scores: Optional[Tuple[torch.Tensor,
                                                  torch.Tensor]] = None,
                      score_transform: Optional[Callable] = None,
+                     score_bias: Optional[torch.Tensor] = None,
                      dropout_rate: float = 0.0,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
@@ -109,10 +111,16 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     node_scores: optional (s_dst [N, H], s_src [N, H]) for scores that
     decompose per node (GAT's additive attention); only those scalars
     are gathered per edge, and alpha = score_transform(s_dst[i] +
-    s_src[j]).  dropout_rate > 0 drops coefficients with a mask drawn
+    s_src[j]).  score_bias: optional [H] added to a ``ScaledDot``
+    score as score_bias / scale, broadcast over the slots (GeneralMulAttConv's
+    (h_i . h_j + b) / sqrt(d), up to rounding); its gradient is the
+    per-head sum of the slots' (the masked slots' are 0 after the
+    softmax).  dropout_rate > 0 drops coefficients with a mask drawn
     from ``generator``.  Returns [N, H, dv]."""
     if score_fn is None and node_scores is None:
         raise ValueError("packed_attention needs score_fn or node_scores")
+    if score_bias is not None and not isinstance(score_fn, ScaledDot):
+        raise ValueError("score_bias is added to a ScaledDot score only")
     if torch.distributed.is_available() and \
             torch.distributed.is_initialized() and \
             torch.distributed.get_world_size() > 1:
@@ -132,6 +140,8 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
         if isinstance(score_fn, ScaledDot):
             alpha = packed_scaled_dot(h_heads, k, fwd, bwd, slot_map,
                                       score_fn.scale)    # [NC, C, H]
+            if score_bias is not None:
+                alpha = alpha + score_bias / score_fn.scale
         else:
             alpha = score_fn(take_padded(h_heads, pack_rows(fwd)),
                              take_padded(k, fwd.senders))
@@ -159,6 +169,16 @@ class ScaledDot:
         return (q_i * k_j).sum(-1) / self.scale
 
 
+def check_heads(layer: str, dim_out: int, heads: int) -> None:
+    """The JAX attention layers assert dim_out % heads == 0
+    (layers.py:361,440; id_layers.py:203,276; att_layers.py:55,94):
+    their non-packed branches run only without an 'att' pack or with
+    split_value_heads False, which no config sets."""
+    if heads < 1 or dim_out % heads != 0:
+        raise ValueError(f"{layer}: {heads} attention heads do not divide "
+                         f"the width {dim_out}")
+
+
 def scaled_dot(dh: int, dtype: torch.dtype) -> ScaledDot:
     """score(q_i, k_j) = sum(q_i * k_j) / sqrt(dh), the scale rounded
     to the input dtype as in the JAX package (layers.py:454)."""
@@ -174,9 +194,10 @@ class TfgGATConv(nn.Module):
       score = sum_h(Q_h[i] * K_h[j]) / sqrt(d_h);  alpha = edge softmax
       h = per-head alpha-weighted sum of V_h[j], heads concatenated
 
-    Only the packed branch is ported: value heads split (dim_out
-    divisible by heads), attention width dim_out, relu on Q and K (the
-    JAX layer's defaults, which no model overrides)."""
+    The packed branch, as in the JAX package: value heads split (dim_out
+    divisible by heads, else ValueError as the JAX layer asserts),
+    attention width dim_out, relu on Q and K (the JAX layer's defaults,
+    which no model overrides)."""
 
     has_id_kernel = False
 
@@ -185,11 +206,7 @@ class TfgGATConv(nn.Module):
                  generator: torch.Generator,
                  dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dim_out % heads != 0:
-            raise NotImplementedError(
-                f"{type(self).__name__}: {heads} heads do not divide "
-                f"{dim_out}; the non-packed attention branch is not "
-                "ported yet (ROADMAP A10b)")
+        check_heads(type(self).__name__, dim_out, heads)
         if att_dropout > 0 and dropout_generator is None:
             raise ValueError("att_dropout > 0 needs a dropout_generator")
         self.heads = heads
@@ -236,8 +253,11 @@ class GATConv(nn.Module):
     The score decomposes per endpoint, so only the [N, H] node scores
     are gathered per slot (``packed_attention``'s node_scores branch,
     the JAX layer's packed branch): self-loops are those of the 'att'
-    pack, one per real node.  The non-packed branch, and heads that do
-    not divide dim_out, are ROADMAP A10b."""
+    pack, one per real node.  Heads that do not divide dim_out raise
+    ValueError, as the JAX layer asserts.  The layer type 'gaddconv'
+    (GeneralAddAttConv, graphgym_tpu/nn/att_layers.py:41-79: the same
+    parameters, score and 'att' edges) is this class without attention
+    dropout."""
 
     has_id_kernel = False
 
@@ -246,11 +266,7 @@ class GATConv(nn.Module):
                  att_dropout: float = 0.0, *, generator: torch.Generator,
                  dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dim_out % heads != 0:
-            raise NotImplementedError(
-                f"{type(self).__name__}: {heads} heads do not divide "
-                f"{dim_out}; the non-packed attention branch is not "
-                "ported yet (ROADMAP A10b)")
+        check_heads(type(self).__name__, dim_out, heads)
         if att_dropout > 0 and dropout_generator is None:
             raise ValueError("att_dropout > 0 needs a dropout_generator")
         self.heads = heads
@@ -357,7 +373,7 @@ class GeneralConv(nn.Module):
         super().__init__()
         if self_msg not in ("none", "add", "concat"):
             raise ValueError(f"self_msg {self_msg} not defined")
-        agg_kind(agg, normalize_adj)
+        self.kind = agg_kind(agg, normalize_adj)
         self.agg, self.self_msg = agg, self_msg
         self.normalize_adj = normalize_adj
         self.kernel = glorot((dim_in, dim_out), generator)
@@ -368,7 +384,7 @@ class GeneralConv(nn.Module):
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
         h = x @ self.kernel
-        out = packed_aggregate(graph, h, self.agg, self.normalize_adj)
+        out = packed_aggregate(graph, h, self.agg, self.kind)
         if self.bias is not None:
             out = out + self.bias
         if self.self_msg == "add":

@@ -12,12 +12,13 @@ Two model families, as in the JAX package:
   * the Tfg path (main_zd.py:28-257, layer types 'Tfg-*'): plain conv +
     act stacks with a Dense(256) -> Dense(C) head, no pre-MP, no
     BatchNorm wrapper and no L2 norm (the GIN layers keep the BatchNorm
-    inside their MLP); node tasks only, as in the JAX package, whose Tfg
+    inside their MLP), or for 'Tfg-appnp' the APPNP model
+    (``TfgAPPNPNet``); node tasks only, as in the JAX package, whose Tfg
     head gathers node slots whatever the task.
 The layer table holds the layer types of the packed paths, and a
 layer registered in register.layer_dict (the contrib 'contrib_example')
-takes precedence, as in the JAX make_conv; the others raise naming
-their ROADMAP item.
+takes precedence, as in the JAX make_conv; the edge-feature convs
+raise naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ from graphgym_tpu_torch import register
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
-from graphgym_tpu_torch.nn.att_layers import ExampleConv
+from graphgym_tpu_torch.nn.att_layers import (APPNP, ExampleConv,
+                                              GeneralConvV2,
+                                              GeneralMulAttConv,
+                                              SAGEInitConv)
 from graphgym_tpu_torch.nn.heads import (GNNEdgeHead, GNNGraphHead,
                                          GNNNodeHead, HeadOut,
                                          gather_supervised)
@@ -67,6 +71,21 @@ LAYERS = {
         dim_in, dim_out, use_bias=not opts.batchnorm, agg=opts.agg,
         self_msg=opts.self_msg, normalize_adj=opts.normalize_adj,
         generator=gen),
+    "generalconv_v2": lambda dim_in, dim_out, opts, gen, _: GeneralConvV2(
+        dim_in, dim_out, use_bias=not opts.batchnorm, agg=opts.agg,
+        self_msg=opts.self_msg, normalize_adj=opts.normalize_adj,
+        flow=opts.flow, generator=gen),
+    # GeneralAddAttConv: GATConv's parameters, score and edges, with no
+    # attention dropout (nn/model.py:81)
+    "gaddconv": lambda dim_in, dim_out, opts, gen, _: GATConv(
+        dim_in, dim_out, heads=opts.att_heads,
+        use_bias=not opts.batchnorm, generator=gen),
+    "gmulconv": lambda dim_in, dim_out, opts, gen, _: GeneralMulAttConv(
+        dim_in, dim_out, heads=opts.att_heads,
+        use_bias=not opts.batchnorm, generator=gen),
+    # a bias whatever the BatchNorm, no normalize (nn/model.py:94)
+    "sageinitconv": lambda dim_in, dim_out, opts, gen, _: SAGEInitConv(
+        dim_in, dim_out, generator=gen),
     "idconv": lambda dim_in, dim_out, opts, gen, _: idl.GeneralIDConv(
         dim_in, dim_out, use_bias=not opts.batchnorm, agg=opts.agg,
         normalize_adj=opts.normalize_adj, generator=gen),
@@ -106,15 +125,17 @@ LAYERS = {
         generator=gen, dropout_generator=drop_gen),
 }
 
-# layer types of the JAX package not ported yet, by ROADMAP item (the
-# edge-feature convs wait for the loaders that give edge features)
+# the Tfg APPNP model's layer type (build_model picks TfgAPPNPNet by it)
+APPNP_TYPE = "Tfg-appnp"
+
+# layer types of the JAX package not ported yet, by ROADMAP item: the
+# edge-feature convs, which wait for the loaders that give edge features
 NOT_PORTED = {
     **dict.fromkeys(("generaledgeconv", "generalsampleedgeconv",
                      "splineconv"), "A9b, with the edge features of A13c"),
-    **dict.fromkeys(("gaddconv", "gmulconv", "generaledgeattconvv1",
-                     "generaledgeattconvv2", "generalconv_v2",
-                     "sageinitconv", "generalogbconv", "Tfg-appnp"),
-                    "A10b"),
+    **dict.fromkeys(("generaledgeattconvv1", "generaledgeattconvv2",
+                     "generalogbconv"),
+                    "A10b, with the edge features of A13c"),
 }
 
 
@@ -139,6 +160,7 @@ class GNNOptions:
     agg: str = "add"           # GeneralConv / GeneralIDConv
     self_msg: str = "concat"   # GeneralConv
     normalize_adj: bool = False
+    flow: str = "source_to_target"   # GeneralConvV2
     l2norm: bool = True
     bn_eps: float = 1e-5       # the BN wrapper's; the Tfg GIN MLP's BN
     bn_mom: float = 0.1        # keeps the defaults, as in the JAX layer
@@ -160,7 +182,8 @@ def options_from_cfg(cfg) -> GNNOptions:
         raise NotImplementedError(
             f"layer type {name!r} is not ported yet (ROADMAP "
             f"{NOT_PORTED[name]})")
-    if name not in LAYERS and name not in register.layer_dict:
+    if name not in LAYERS and name not in register.layer_dict \
+            and name != APPNP_TYPE:
         raise ValueError(f"Unknown layer type: {name}")
     task = cfg.dataset.task
     if task not in ("node", "graph", "edge", "link_pred"):
@@ -176,7 +199,7 @@ def options_from_cfg(cfg) -> GNNOptions:
                   att_heads=cfg.gnn.att_heads,
                   att_dropout=cfg.gnn.att_dropout, gin_agg=cfg.gnn.gin_agg,
                   agg=cfg.gnn.agg, self_msg=cfg.gnn.self_msg,
-                  normalize_adj=cfg.gnn.normalize_adj,
+                  normalize_adj=cfg.gnn.normalize_adj, flow=cfg.gnn.flow,
                   bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom, task=task,
                   graph_pooling=cfg.model.graph_pooling,
                   edge_decoding=cfg.model.edge_decoding,
@@ -375,14 +398,34 @@ class GNN(nn.Module):
         return self.post_mp(graph)
 
 
-def build_model(cfg, device: torch.device) -> GNN:
+class TfgAPPNPNet(nn.Module):
+    """The Tfg APPNP model (nn/model.py:419-434; reference main_zd.py:
+    245-257): one APPNP block, Dense layers [64, C] then 10 iterations
+    of the propagation with alpha 0.1, and the logits gathered at the
+    supervised nodes; no MLP head.  Its kernels ('kernel0', 'kernel1')
+    take the Tfg path's kernel L2 term."""
+
+    def __init__(self, opts: GNNOptions, generator: torch.Generator):
+        super().__init__()
+        self.appnp = APPNP(opts.dim_in, (64, opts.dim_out), alpha=0.1,
+                           num_iterations=10, generator=generator)
+
+    def forward(self, graph: GraphBatch) -> HeadOut:
+        graph = self.appnp(graph)
+        return gather_supervised(graph, graph.node_feat)
+
+
+def build_model(cfg, device: torch.device) -> nn.Module:
     """create_model equivalent (reference model_builder.py:15): kernels
     drawn from a torch.Generator seeded with cfg.seed, zero biases, on
-    ``device``; the Tfg or the torch model by layer type.  With dropout
+    ``device``; the Tfg or the torch model by layer type, or the Tfg
+    APPNP model for 'Tfg-appnp' (nn/model.py:448-449).  With dropout
     or att_dropout > 0 the layers draw their masks from a second
     Generator on ``device``, seeded with cfg.seed (train mode only)."""
     opts = options_from_cfg(cfg)
     generator = torch.Generator().manual_seed(int(cfg.seed))
+    if opts.layer_type == APPNP_TYPE:
+        return TfgAPPNPNet(opts, generator).to(device)
     dropout_generator = None
     if opts.dropout > 0 or opts.att_dropout > 0:
         dropout_generator = torch.Generator(device=device).manual_seed(

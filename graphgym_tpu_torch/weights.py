@@ -21,10 +21,13 @@ are siblings:
                                            and the pair decoding have
                                            none)
     post_mp/<leaf> (the Tfg head)      ->  post_mp.<leaf>
+    APPNP_0/<leaf> (the Tfg APPNP model: kernel<i>, bias<i>)
+                                       ->  appnp.<leaf>
 
 A conv's own leaves keep their flax names: ``kernel``, ``self_kernel``
-(GeneralConv with self_msg 'concat'), ``id_kernel`` (the ID convs,
-GeneralIDConv among them) and ``bias``, e.g.
+(GeneralConv and GeneralConvV2 with self_msg 'concat'), ``id_kernel``
+(the ID convs, GeneralIDConv among them), ``att`` (GATConv, gaddconv),
+``att_bias`` (GeneralMulAttConv) and ``bias``, e.g.
 ``mp/GeneralConv_2/self_kernel`` -> ``mp.layers.2.layer.self_kernel``.
 A conv that is itself an MLP (layer type 'mlp') nests a stage:
 ``mp/MLP_<i>/Linear_<j>/...`` -> ``mp.layers.<i>.layer.layers.<j>.
@@ -68,7 +71,8 @@ def _in_stage(segs: list, prefix: str, path: str) -> str:
     """A module of a stage (``mp``, an MLP) whose layers live in the
     ModuleList ``prefix``: GeneralLayer_<i> is layer i's wrapper, any
     other <Class>_<i> its conv (an MLP nests another stage)."""
-    m = re.fullmatch(r"([A-Za-z]+)_(\d+)", segs[0]) if segs else None
+    m = re.fullmatch(r"([A-Za-z][A-Za-z0-9]*)_(\d+)", segs[0]) \
+        if segs else None
     if m is None or len(segs) < 2:
         raise KeyError(f"no port parameter for flax path {path!r}")
     cls, i, rest = m.group(1), m.group(2), segs[1:]
@@ -89,6 +93,8 @@ def _torch_name(path: str) -> str:
             return f"post_mp.{segs[1]}"
         if segs[1] == "MLP_0":
             return _in_stage(segs[2:], "post_mp.mlp.layers", path)
+    if head == "APPNP_0" and len(segs) == 2:
+        return f"appnp.{segs[1]}"
     m = re.fullmatch(r"Linear_(\d+)", head)
     if m and len(segs) == 2:
         return f"pre_mp.{m.group(1)}.layer.{segs[1]}"

@@ -146,9 +146,11 @@ def test_kernel_l2_matches_jax(model_pair):
 
 
 def test_heads_must_divide_width():
+    """As the JAX layer asserts: a ValueError naming heads and width."""
     _, cfg = configs(setup_dict("Tfg-idgat", 3))
     cfg.share.dim_in, cfg.share.dim_out = 1, 4
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="3 attention heads do not divide "
+                                         "the width 16"):
         build_model(cfg, CPU)
 
 

@@ -7,9 +7,11 @@ packs must equal it array for array, dtype and bits, with the edge
 slots and row ranges: on random edge lists with repeated edges, every
 group size, empty rows and empty tiles, rectangular packs and chunk
 padding; on every pack kind the loader builds ('gcn', 'plain', 'mean',
-'gcn_mean', 'att' with its slot map, the graph head's 'pool_*' packs,
-the heads' 'pairs' and 'labels' gather packs), through the builders
-and through a loader's batches over three epochs.  The four fields the
+'gcn_mean', 'att' with its slot map, generalconv_v2's 'dir',
+'dir_mean' and the 'rev_*' kinds of the reversed edges, the graph
+head's 'pool_*' packs, the heads' 'pairs' and 'labels' gather packs),
+through the builders and through a loader's batches over three
+epochs.  The four fields the
 JAX package's PackedCSR has must equal the JAX package's numpy
 ``pack_csr``.  A failed build raises with the compiler's message.
 """
@@ -161,7 +163,8 @@ def batch_arrays(seed=0, n=900, e=5000):
 
 
 @pytest.mark.parametrize("kind", ["gcn", "plain", "mean", "gcn_mean",
-                                  "att"])
+                                  "att", "dir", "dir_mean", "rev_plain",
+                                  "rev_mean", "rev_dir", "rev_dir_mean"])
 @pytest.mark.parametrize("least", [(0, 0), (9, 11)])
 def test_build_packs_equal_the_numpy_builder(kind, least, monkeypatch):
     s, r, w, mask, n = batch_arrays()
@@ -226,6 +229,10 @@ LOADER_POINTS = {
     "gcn_mean": ("idgcn_ws", ["gnn.layer_type", "generalconv", "gnn.agg",
                               "mean", "gnn.normalize_adj", "True",
                               "train.batch_size", "3"]),
+    "rev_dir_mean": ("idgcn_ws", ["gnn.layer_type", "generalconv_v2",
+                                  "gnn.agg", "mean", "gnn.normalize_adj",
+                                  "True", "gnn.flow", "target_to_source",
+                                  "train.batch_size", "3"]),
     "pool_add": ("idgcn_ws", ["dataset.task", "graph",
                               "dataset.augment_label",
                               "graph_clustering_coefficient",

@@ -9,7 +9,8 @@ the JAX package where the JAX package's own row misses the reference;
 the command line trains a config through ``main`` on the CPU and
 writes parity.md and parity.json under --out only.  A grid point
 (``POINTS``: grids/IDGNN/graph.txt's synthetic chunks on ws500 and
-ba500) has no parity.json row: it is reported, judged only against the
+ba500, grids/design/round1att.txt's at scalefree) has no parity.json
+row: it is reported, judged only against the
 JAX package's CPU run where ``JAX_CPU_RUNS`` holds it, and trains
 through the command line by name.
 """
@@ -206,6 +207,25 @@ def test_points_are_the_grids_synthetic_chunks(name, chunk):
             want = [str(v).replace('"', "'") for v in grid[key]]
         assert value in want, (key, value, want)
     assert grid["optim.max_epoch"] == [1000]
+
+
+@pytest.mark.parametrize("name,chunk", [("design_att_sf_mul", 2),
+                                        ("design_att_sf_add_graph", 4)])
+def test_round1att_points_are_the_grids_synthetic_chunks(name, chunk):
+    """The same for grids/design/round1att.txt's synthetic node chunk
+    :44-61 and graph chunk :82-99 on configs/design/design_v1att.yaml,
+    whose 100 epochs are one of the grid's."""
+    grid = grid_chunks(os.path.join(ROOT, "grids", "design",
+                                    "round1att.txt"))[chunk]
+    cfg_file, opts = parity.point_config(name)
+    assert cfg_file.endswith(os.path.join("design", "design_v1att.yaml"))
+    pairs = dict(zip(opts[::2], opts[1::2]))
+    assert set(pairs) == set(grid) - {"optim.max_epoch"}
+    for key, value in pairs.items():
+        want = [str(v).replace('"', "'") for v in grid[key]]
+        assert value in want, (key, value, want)
+    assert 100 in grid["optim.max_epoch"]
+    assert "max_epoch: 100" in open(cfg_file).read()
 
 
 def test_point_row_is_reported_without_a_reference(tmp_path):

@@ -534,7 +534,7 @@ def test_sageidconv_mean_is_the_jax_coo_mean():
 @pytest.mark.parametrize("overrides,item", [
     (["gnn.layer_type", "generaledgeconv"], "A9b"),
     (["gnn.layer_type", "splineconv"], "A9b"),
-    (["gnn.layer_type", "gaddconv"], "A10b"),
+    (["gnn.layer_type", "generaledgeattconvv1"], "A10b"),
     (["tpu.remat", "True"], "A0"),
     (["dataset.node_encoder", "True"], "A13c"),
 ])
