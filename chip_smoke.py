@@ -50,6 +50,14 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                 train.batch_size 8 (three shuffled batches an epoch, one
                 graph for them all), per-step losses and val accuracy
                 equal over two epochs.
+  6c. registered_optim — torch's RMSprop registered in
+                register.optimizer_dict (not capturable) on gcnidconv:
+                the trainer logs once that its train steps run eagerly
+                on the card; 3 train steps equal, bitwise, the same
+                optimizer stepped directly on the same batch from the
+                same seed (K1 6 a step in both), the parameters and the
+                optimizer's state stay on the card, and 2 eval steps
+                beside them are captured (K1 3 each).
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
@@ -218,17 +226,34 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   regenerated into CORPUS500_DIR, holds each to its
                   graph count and digest (CORPUS500: 28 and 32 graphs)
                   and reports their seconds.
-  Then that grid's chunks at their own size (parity.POINTS), each
+  Then that grid's chunks on their corpora (parity.POINTS), each
   through drive_path's phases: idgraph_ba500 (the ID chunk on ba500:
-  gcnidconv, ego at r = 3, a train batch of the ~2.2 M-node union of 25
-  graphs' ego nets, each graph's 500 ego centers pooled: K1 8 per train
-  step and 4 per eval batch, all at 128, the pooling's 2 and 1 of them;
-  the model check on the first 10 train graphs' union) and graph_ws500
+  gcnidconv cut to 2 MP layers, so ego nets at r = 2, for the script's
+  time (IDGRAPH_BA500_DEPTH; the parity tool runs the grid's 3 layers,
+  a ~2.1 M-node union of 25 graphs' ego nets), each graph's 500 ego
+  centers pooled: K1 6 per train step and 3 per eval batch, all at 128,
+  the pooling's 2 and 1 of them; the model check on the first 10 train
+  graphs' union) and graph_ws500
   (the plain chunk on ws500: gatconv, node_identity features, every
   graph's 500 nodes pooled: K3 18 (12 row sums at width 1) and the
   SDDMM 3 per train step, K3 6 (3) and no SDDMM per eval batch, K1 only
   the add pooling's 2 and 1 at 128; the model check on the train
   batch).
+  sweep_round1  — (before corpus500) scripts/design/run_design_round1.sh's
+                  steps through the port: exp/grid's
+                  gen_grid_sample_aliased samples grids/design/round1.txt
+                  along 'agg' at sample_num 8, each point budget-matched
+                  to configs/design/design_v1.yaml (exp/budget, the
+                  port's parameter count); three nx points are kept (a
+                  scalefree node point, a smallworld node point with agg
+                  max, a graph-task point) and exp/runner's run_batch
+                  runs them one process at a time through
+                  graphgym_tpu_torch.main --mark_done on the card for 3
+                  epochs; exp/agg's agg_batch aggregates them.  Fails
+                  unless no config failed, each was renamed _done, each
+                  job's log names the CUDA device, every loss is finite,
+                  every val accuracy in [0, 1] and val_best.csv has a row
+                  a run.
   model_planted — graph_ws500's model check with a wrong K1 planted in
                   its pooling (planted_faults): the forward's walk one
                   slot short of each row, and the backward's output
@@ -261,9 +286,13 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   node_identity features, the disjoint protocol, concat decoding; 92
   train graphs in 3 batches re-collated each epoch; the edge head
   gathers both ends of each pair on the 'pairs' gather pack: K1 12 and
-  6, of them 2 and 1 on the pack, all at D = 128); the kernel phase
-  also holds K1 on the gather packs (check_gather_k1); seeded random
-  features in the model check.
+  6, of them 2 and 1 on the pack, all at D = 128) and linkid_ba
+  (link.txt:21-34 on configs/idgcn_ba.yaml at gatidconv, the parity
+  tool's point: the 64-copy edge-net union of ~131 k nodes a batch of
+  32, 3 train batches; K3 30 per train step, 20 of them row sums at
+  width 1, and the SDDMM 5; K3 10 (5) and no SDDMM per eval batch); the
+  kernel phase also holds K1 on the gather packs (check_gather_k1);
+  seeded random features in the model check.
   full_linkid_ws — linkid_ws for its 100 epochs (link.txt:33), 3 seeds,
                   reported beside the JAX package's CPU result at the
                   same point and seeds (JAX_LINKID_WS) and
@@ -335,7 +364,8 @@ pooling forward and backward on their pooling packs; K3, its row sums
 and the SDDMM on the round1att paths' 'att' packs at 256; K1 at D = 6
 on appnp_ws's 'gcn' pack; K1 and the max on the model-only checks'
 packs; K1 on the link and edge paths' layer packs and on their gather
-packs), and last the result line
+packs; K3, its row sums and the SDDMM on linkid_ba's 'att' pack), and
+last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -512,11 +542,22 @@ IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
 # at r = 3, its centers pooled) and the plain chunk's gatconv with
 # node_identity features on ws500 (500 nodes pooled a graph)
 IDGRAPH_BA500 = parity.POINTS["idgraph_ba500"]
+# idgraph_ba500 runs here at 2 MP layers (ego nets at r = 2, the layers'
+# depth), the script's time: at the grid's 3 its ego union (~2.1 M
+# nodes) and the CPU side of its model check took ~20% of a run
+IDGRAPH_BA500_DEPTH = ("gnn.layers_mp", "2")
 GRAPH_WS500 = parity.POINTS["graph_ws500"]
 # grids/design/round1att.txt's synthetic chunks on scalefree, the parity
 # tool's points: gmulconv on the node chunk, gaddconv on the graph chunk
 ATT_SF_MUL = parity.POINTS["design_att_sf_mul"]
 ATT_SF_ADD_GRAPH = parity.POINTS["design_att_sf_add_graph"]
+# grids/IDGNN/link.txt:21-34's ID point on ba at gatidconv, the parity
+# tool's point (its grid's 100 epochs there, EPOCHS here)
+LINKID_BA = parity.POINTS["linkid_ba"]
+# sweep_round1: grids/design/round1.txt sampled along 'agg' at this
+# sample_num, budget-matched to configs/design/design_v1.yaml (24
+# configs, 18 of them on the nx chunks), of which three run
+SWEEP_SAMPLE_NUM, SWEEP_ALIASES = 8, ("agg",)
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 EPOCHS = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -2469,6 +2510,100 @@ def repeat_steps(cfg, loaders, device, steps: int = 3) -> dict:
     return out
 
 
+def rmsprop(params, optim_cfg):
+    """An optimizer for register.optimizer_dict that a CUDA graph cannot
+    capture: torch's RMSprop on a float lr."""
+    return torch.optim.RMSprop(params, lr=optim_cfg.base_lr, alpha=0.9,
+                               weight_decay=optim_cfg.weight_decay)
+
+
+def registered_optim(cfg, loaders, device, k1: tuple, steps: int = 3
+                     ) -> dict:
+    """A registered optimizer the captured step cannot take (``rmsprop``
+    under register.optimizer_dict) in the trainer on the card: fails
+    unless the trainer logs once that its train steps run eagerly, its
+    ``steps`` train steps equal, bitwise, the same optimizer stepped
+    directly on a model from the same seed on the same batch, with the
+    same launches (``k1``: K1's per train step and per eval batch; no
+    other kernel), the parameters and the optimizer's state stay on the
+    card, and the eval step beside them is still captured."""
+    import logging
+
+    from graphgym_tpu_torch import register
+    from graphgym_tpu_torch.train.loss import compute_loss
+    from graphgym_tpu_torch.train.optim import capturable
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    root, lines = logging.getLogger(), Lines()
+    level = root.level
+    root.addHandler(lines)
+    root.setLevel(logging.INFO)
+    register.optimizer_dict["rmsprop"] = rmsprop
+    try:
+        trainer = Trainer(build_model(cfg, device), loaders, cfg, device)
+    finally:
+        del register.optimizer_dict["rmsprop"]
+        root.removeHandler(lines)
+        root.setLevel(level)
+    said = [ln for ln in lines.lines if "is not capturable" in ln]
+    if len(said) != 1 or f"eagerly on {device}" not in said[0]:
+        fail(f"the trainer's log for a registered RMSprop: {said}")
+    if capturable(trainer.optimizer):
+        fail("torch's RMSprop on a float lr reads as capturable")
+    host_batch, host_vbatch = (ld.batches(0)[0] for ld in loaders[:2])
+    batch, vbatch = trainer._place(host_batch), trainer._place(host_vbatch)
+    (losses, evals), (launches, *_) = counted(lambda: (
+        [trainer.train_step(batch)[0].item() for _ in range(steps)],
+        [trainer.eval_step(vbatch)[0].item() for _ in range(2)]))
+    direct = build_model(cfg, device)
+    opt = rmsprop(direct.parameters(), cfg.optim)
+
+    def run_directly():
+        out = []
+        for _ in range(steps):
+            direct.train()
+            pred, label, mask = direct(batch)
+            loss, _ = compute_loss(pred, label, mask, trainer.loss_opts)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            out.append(loss.item())
+        return out
+    want, (want_launches, *_) = counted(run_directly)
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(trainer.model.state_dict().values(),
+                               direct.state_dict().values()))
+    state = [t for s in trainer.optimizer.state.values()
+             for t in s.values() if torch.is_tensor(t) and t.dim() > 0]
+    on_card = all(t.device.type == "cuda" for t in
+                  [*trainer.model.parameters(), *state])
+    k1_train, k1_eval = k1
+    held = {name: 0 for name in launches}
+    if (losses != want or diff != 0.0 or not on_card
+            or trainer.train_step.captured != 0
+            or trainer.eval_step.captured != 1
+            or launches != dict(held, packed_spmm_cuda=k1_train * steps
+                                + k1_eval * 2)
+            or want_launches != dict(held,
+                                     packed_spmm_cuda=k1_train * steps)):
+        fail(f"registered RMSprop on the card: losses {losses} / directly "
+             f"{want}, state max diff {diff}, on the card {on_card}, "
+             f"captured train {trainer.train_step.captured} / eval "
+             f"{trainer.eval_step.captured}, launches {launches} / "
+             f"directly {want_launches}")
+    return dict(optimizer="torch.optim.RMSprop (registered)", log=said[0],
+                losses=losses, eval_losses=evals, launches=launches,
+                direct_launches=want_launches, bitwise_equal=True,
+                state_tensors_on_card=len(state))
+
+
 def ptxas_report(log: str) -> list:
     """Registers and spills of each kernel from nvcc's -Xptxas -v output:
     one line per entry function, its (mangled) name first."""
@@ -3338,6 +3473,137 @@ def link_rows(paths: dict, row: tuple, k1_src: dict) -> list:
     return rows
 
 
+def sweep_round1_phase() -> dict:
+    """sweep_round1: scripts/design/run_design_round1.sh's three steps
+    through the port.  (1) gen_grid_sample_aliased samples round1 along
+    SWEEP_ALIASES at SWEEP_SAMPLE_NUM, every point budget-matched to
+    design_v1 (its configs' count and seconds; each kept point's
+    dim_inner and parameter count beside the baseline's); (2) three nx
+    points are kept: the first scalefree node point, the first
+    smallworld node point with agg max and the first graph-task point;
+    (3) exp/runner.run_batch runs them, one job at a time, each a
+    ``python -m graphgym_tpu_torch.main --mark_done`` process on the
+    card, for 3 epochs with an eval each epoch on the design corpora;
+    (4) exp/agg.agg_batch aggregates the batch.  Fails unless the runner
+    reports no failure, every config was renamed _done, each job's log
+    names the CUDA device, every train loss is finite, every val
+    accuracy lies in [0, 1] and val_best.csv holds one row a run."""
+    import csv
+
+    import yaml
+
+    from graphgym_tpu_torch.config import get_cfg
+    from graphgym_tpu_torch.exp import agg, budget, grid, runner
+
+    out = os.path.join(OUT, "sweep_round1")
+    configs, results = (os.path.join(out, d) for d in ("configs", "results"))
+    shutil.rmtree(out, ignore_errors=True)
+    design = config("design/design_v1")
+    t0 = time.perf_counter()
+    paths = grid.gen_grid_sample_aliased(
+        design, os.path.join(ROOT, "grids", "design", "round1.txt"),
+        configs, sample_num=SWEEP_SAMPLE_NUM, aliases=list(SWEEP_ALIASES),
+        config_budget=design, results_dir=results)
+    generate_s = time.perf_counter() - t0
+    points = {}
+    for path in paths:
+        with open(path) as f:
+            points[path] = yaml.safe_load(f)
+    nx = [p for p in paths if points[p]["dataset"]["format"] == "nx"]
+
+    def first(what, test):
+        for p in nx:
+            if test(points[p]["dataset"], points[p]["gnn"]):
+                return p
+        fail(f"no {what} among the {len(nx)} nx configs")
+    keep = [first("scalefree node point",
+                  lambda d, g: d["task"] == "node"
+                  and d["name"] == "scalefree"),
+            first("smallworld node point with agg max",
+                  lambda d, g: d["task"] == "node"
+                  and d["name"] == "smallworld" and g["agg"] == "max"),
+            first("graph-task point", lambda d, g: d["task"] == "graph")]
+    for p in paths:
+        if p not in keep:
+            os.remove(p)
+    baseline = get_cfg()
+    with open(design) as f:
+        baseline.merge_from_dict(yaml.safe_load(f))
+    target = budget.params_count(baseline)
+    kept = {}
+    for p in keep:
+        cfg = get_cfg()
+        cfg.merge_from_dict(points[p])
+        kept[os.path.basename(p)[:-5]] = dict(
+            dim_inner=cfg.gnn.dim_inner, params=budget.params_count(cfg),
+            baseline_params=target)
+    # the jobs import the package from this checkout; their logs go to
+    # their run directories only
+    env = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = ROOT + (os.pathsep + env if env else "")
+    t0 = time.perf_counter()
+    try:
+        failures = runner.run_batch(
+            configs, max_jobs=1, overrides=[
+                "optim.max_epoch", "3", "train.eval_period", "1",
+                "dataset.dir", DESIGN_CORPUS_DIR, "print", "file"])
+    finally:
+        if env is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env
+    run_s = time.perf_counter() - t0
+    if failures:
+        fail(f"run_batch: {failures} of {len(keep)} configs failed")
+    done = sorted(os.listdir(configs))
+    if done != sorted(os.path.basename(p) + "_done" for p in keep):
+        fail(f"configs not all renamed _done: {done}")
+    card = torch.cuda.get_device_name(0)
+    for run, row in kept.items():
+        seed_dir = os.path.join(results, run, "1")
+        with open(os.path.join(seed_dir, "logging.log")) as f:
+            log = f.read()
+        if f"device: cuda:0 ({card})" not in log:
+            fail(f"{run}: its log names no CUDA device")
+        losses = [s["loss"] for s in read_stats(
+            os.path.join(seed_dir, "train", "stats.json"))]
+        accs = [s["accuracy"] for s in read_stats(
+            os.path.join(seed_dir, "val", "stats.json"))]
+        if len(losses) != 3 or not all(map(math.isfinite, losses)):
+            fail(f"{run}: train losses {losses}")
+        if len(accs) != 3 or not all(0.0 <= a <= 1.0 for a in accs):
+            fail(f"{run}: val accuracies {accs}")
+        row.update(losses=losses, val_acc=accs)
+    agg.agg_batch(results)
+    parity.drop_checkpoints(results)
+    with open(os.path.join(results, "agg", "val_best.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if sorted(r["run"] for r in rows) != sorted(kept):
+        fail(f"val_best.csv rows {[r['run'] for r in rows]}")
+    for r in rows:
+        kept[r["run"]]["best_val_acc"] = float(r["accuracy"])
+    return dict(sample_num=SWEEP_SAMPLE_NUM, aliases=list(SWEEP_ALIASES),
+                configs_written=len(paths), nx_configs=len(nx),
+                generate_s=generate_s, run_s=run_s, failures=failures,
+                kept=kept, val_best_rows=len(rows))
+
+
+def linkid_ba_path(device, ba_overrides) -> dict:
+    """linkid_ba through drive_path: link.txt:21-34's ID point on ba at
+    gatidconv (LINKID_BA), the edge-net union of 64 copies a graph.  Per
+    layer K3 6 per train step (4 of them row sums at width 1: the
+    softmax's two and the node scores' two gradients) and the SDDMM 1
+    (dalpha), K3 2 (1) per eval batch; 5 layers.  ba's constant feature:
+    seeded random ones in the model check, on the first 8 train graphs'
+    union (~32 k nodes)."""
+    k3_, sddmm_ = K.packed_segment_matmul_headed_cuda, K.packed_sddmm_cuda
+    return drive_path("linkid_ba", device, ba_overrides, base=LINKID_BA[0],
+                      extra=(*LINKID_BA[1], "optim.max_epoch", str(EPOCHS)),
+                      expected={k3_: (30, 10), sddmm_: (5, 0)},
+                      widths={1: {k3_: (20, 5)}, 128: {k3_: (10, 5)}},
+                      random_features=True, model_graphs=8)
+
+
 def main() -> None:
     shutil.rmtree(OUT, ignore_errors=True)
     begin("device")
@@ -3393,6 +3659,16 @@ def main() -> None:
     phase("graphed", **graphed_check(cfg, loaders, device),
           batch_size_8=graphed_batches(CFG, overrides
                                        + ["train.batch_size", "8"]))
+    # a registered optimizer the captured step cannot take: eager train
+    # steps on the card beside the captured eval step (gcnidconv: K1 6
+    # per train step, 3 per eval batch)
+    begin("registered_optim")
+    cfg, loaders, _ = load_path(CFG, overrides + [
+        "gnn.layer_type", "gcnidconv", "optim.optimizer", "rmsprop",
+        "optim.base_lr", "0.003", "optim.weight_decay", "0.001",
+        "optim.scheduler", "none"])
+    phase("registered_optim", **registered_optim(cfg, loaders, device,
+                                                 k1=(6, 3)))
 
     # ---- ID-GAT Full / ws: kernels K3 and the SDDMM
     begin("kernel_att")
@@ -3709,19 +3985,24 @@ def main() -> None:
         models[tag] = model_phase(tag, design_sf, dz + extra, device,
                                   expected, layers)
         phase(f"model_{tag}", **models[tag])
+    # ---- round1's design sweep through the port: sample with budget
+    # matching, run three points through the batch runner (a process
+    # each), aggregate
+    begin("sweep_round1")
+    phase("sweep_round1", **sweep_round1_phase())
     # ---- grids/IDGNN/graph.txt's synthetic chunks at their own size, on
     # the 500-node corpora regenerated beside the first phases.
-    # idgraph_ba500 (the ID chunk: gcnidconv on ba500, ego at r = 3, the
-    # union of the train graphs' ego nets, ~2.2 M nodes): K1 2 per layer
-    # and the pooling of each graph's 500 ego centers, forward and
-    # backward, all at 128; 3 and 1 per eval batch.  graph_ws500 (the
+    # idgraph_ba500 (the ID chunk: gcnidconv on ba500 at 2 layers, ego at
+    # r = 2, the union of the train graphs' ego nets): K1 2 per layer and
+    # the pooling of each graph's 500 ego centers, forward and backward,
+    # all at 128; 2 and 1 per eval batch.  graph_ws500 (the
     # plain chunk: gatconv with node_identity features on ws500, every
     # graph's 500 nodes pooled): per layer K3 6 (4 of them row sums at
     # width 1) and the SDDMM 1 per train step (dalpha; the additive
     # score needs none), K3 2 (1) per eval batch; K1 only the add
     # pooling's 2 and 1.  ba500's features are constant: seeded random
     # ones in its model check, on the first 10 train graphs' ego union
-    # (~920 k nodes; its val batch has 7 graphs); ws500's on its train
+    # (its val batch has 7 graphs); ws500's on its train
     # batch (22 graphs; the val batch has 6, too few graph slots for the
     # head's BatchNorm).  Then the planted faults on ws500's model
     # batch.
@@ -3730,9 +4011,10 @@ def main() -> None:
     c500 = overrides + ["dataset.dir", CORPUS500_DIR]
     graph500 = {
         "idgraph_ba500": grid_point(
-            "idgraph_ba500", IDGRAPH_BA500[0], *IDGRAPH_BA500[1], ovr=c500,
-            expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
-            rect=(2, 1), random_features=True, model_graphs=10),
+            "idgraph_ba500", IDGRAPH_BA500[0], *IDGRAPH_BA500[1],
+            *IDGRAPH_BA500_DEPTH, ovr=c500, expected={k1_: (6, 3)},
+            widths={128: {k1_: (6, 3)}}, rect=(2, 1), random_features=True,
+            model_graphs=10),
         "graph_ws500": grid_point(
             "graph_ws500", GRAPH_WS500[0], *GRAPH_WS500[1], ovr=c500,
             expected={k1_: (2, 1), k3_: (18, 6), sddmm_: (3, 0)},
@@ -3765,6 +4047,9 @@ def main() -> None:
             expected={k1_: (12, 6)}, widths={128: {k1_: (12, 6)}},
             rect=(2, 1), random_features=True),
     }
+    # the ID link point on ba at gatidconv: K3 and the SDDMM on the
+    # 64-copy edge-net union (~131 k nodes a batch of 32)
+    linkid_ba = linkid_ba_path(device, ba_overrides)
     # the prefetch on two loaders of many small batches (6 and 3 an
     # epoch)
     begin("prefetch_design_graph_sf")
@@ -3784,12 +4069,13 @@ def main() -> None:
                        128, 0),
         "design_att_sf_add_graph": (config(ATT_SF_ADD_GRAPH[0]),
                                     dz + list(ATT_SF_ADD_GRAPH[1]), 256, 0),
-        # K1 on its first train batch (2.1 M node rows in the
-        # transpose); the max (no path's) on the first 3 train graphs,
-        # whose rows hold 500 ego centers too: on the whole batch the
-        # plain max backward's timing outlasts the run
+        # K1 on its first train batch (at 2 layers, as its path); the
+        # max (no path's) on the first 3 train graphs, whose rows hold
+        # 500 ego centers too: on the whole batch the plain max
+        # backward's timing outlasts the run
         "idgraph_ba500": (config(IDGRAPH_BA500[0]),
-                          c500 + list(IDGRAPH_BA500[1]), 128, 3),
+                          c500 + list(IDGRAPH_BA500[1])
+                          + list(IDGRAPH_BA500_DEPTH), 128, 3),
         "graph_ws500": (config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]),
                         128, 0)}, device)
     phase("kernel_pool", **pools)
@@ -3942,6 +4228,7 @@ def main() -> None:
          **path_launches(k1_, {"appnp_ws": appnp["train"]}, width=6)},
         *model_rows(models, row, srcs),
         *link_rows(link_paths, row, k1_src),
+        *torch_path_rows({"linkid_ba": linkid_ba}, row, srcs),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
            "width": check["width"],

@@ -269,9 +269,11 @@ def _default_supervision(g: HostGraph, cfg,
 
     The negatives are drawn against the full edge set, at the
     configured ratio on the train split and 1.0 on the others
-    (reference loader.py:231-233).  The JAX package's
-    GRAPHGYM_LINK_BOTH_DIRS probe, which doubles the positives, is not
-    ported."""
+    (reference loader.py:231-233).  With the environment variable
+    GRAPHGYM_LINK_BOTH_DIRS=1 (the JAX package's protocol probe,
+    graphgym_tpu/data/loaders.py:613-617) the positives are stored in
+    both directions, as DeepSNAP stores undirected supervision edges,
+    before the negatives are drawn, so their count doubles too."""
     if cfg.dataset.task == "node" and "node_label_index" not in g:
         g["node_label_index"] = np.arange(g.num_nodes)
     if cfg.dataset.task not in ("link_pred", "edge") \
@@ -299,6 +301,8 @@ def _default_supervision(g: HostGraph, cfg,
                                               axis=1))
     else:
         pos = pairs
+    if os.environ.get("GRAPHGYM_LINK_BOTH_DIRS") == "1":
+        pos = np.concatenate([pos, pos[::-1]], axis=1)
     ratio = (cfg.dataset.edge_negative_sampling_ratio
              if split_index == 0 else 1.0)
     neg = negative_sampling(full_edge_index, g.num_nodes,

@@ -53,9 +53,12 @@ def _agg_dict_list(dict_list: List[Dict], round_digits: int = 4) -> Dict:
 
 
 def agg_runs(parent_dir: str, metric: str = "accuracy",
-             metric_agg: str = "argmax") -> Optional[Dict]:
-    """Aggregate over seed subdirectories of parent_dir.  The
-    tensorboard copy of the aggregate is not ported (ROADMAP A15b)."""
+             metric_agg: str = "argmax",
+             tensorboard: bool = False) -> Optional[Dict]:
+    """Aggregate over seed subdirectories of parent_dir.  With
+    ``tensorboard`` each aggregated epoch is also written through
+    tensorboardX into agg/{split}/, where that package imports; without
+    it nothing more is written."""
     seed_dirs = [d for d in sorted(os.listdir(parent_dir))
                  if d.isdigit() and
                  os.path.isdir(os.path.join(parent_dir, d))] \
@@ -94,10 +97,23 @@ def agg_runs(parent_dir: str, metric: str = "accuracy",
         os.makedirs(os.path.join(agg_dir, s), exist_ok=True)
         # align epochs across seeds
         num_epochs = min(len(run) for run in per_split[s])
+        tb = None
+        if tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+                tb = SummaryWriter(os.path.join(agg_dir, s))
+            except Exception:   # missing or broken: the copy is optional
+                tb = None
         with open(os.path.join(agg_dir, s, "stats.json"), "w") as f:
             for ei in range(num_epochs):
                 agg = _agg_dict_list([run[ei] for run in per_split[s]])
                 f.write(json.dumps(agg) + "\n")
+                if tb is not None:
+                    for k, v in agg.items():
+                        if isinstance(v, (int, float)) and k != "epoch":
+                            tb.add_scalar(k, v, agg.get("epoch", ei))
+        if tb is not None:
+            tb.close()
         if best_per_seed[s]:
             best = _agg_dict_list(best_per_seed[s])
             with open(os.path.join(agg_dir, s, "best.json"), "w") as f:
@@ -167,3 +183,20 @@ def agg_batch(batch_dir: str, metric: str = "accuracy") -> None:
                   rows_bestepoch.get(split, []))
     logging.info("agg_batch: wrote CSVs for %d runs to %s",
                  len(run_dirs), agg_dir)
+
+
+def main(argv=None):
+    """CLI (reference run/agg_batch.py): aggregate a batch directory,
+    ``python -m graphgym_tpu_torch.exp.agg <dir> [--metric accuracy]``."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="aggregate batch results")
+    p.add_argument("dir", help="batch results directory")
+    p.add_argument("--metric", default="accuracy")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    agg_batch(args.dir, metric=args.metric)
+
+
+if __name__ == "__main__":
+    main()

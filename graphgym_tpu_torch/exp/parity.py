@@ -134,7 +134,19 @@ ROUND1ATT_GRID = ("dataset.format", "nx", "dataset.name", "scalefree",
                   "dataset.transductive", "True", "gnn.batchnorm", "True",
                   "gnn.agg", "add", "optim.optimizer", "adam",
                   "optim.base_lr", "0.01")
+# grids/IDGNN/link.txt's ID chunk (:21-34: the edge-net transform, 5 MP
+# layers at the base's 128, batch 32, 100 epochs) with the disjoint
+# protocol of results/parity/LINK_PARITY.md, at gatidconv on ba
+LINK_ID_GRID = ("dataset.format", "nx", "dataset.transductive", "False",
+                "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
+                "gnn.layers_mp", "5", "gnn.layers_post_mp", "1",
+                "train.batch_size", "32", "dataset.transform", "edge",
+                "dataset.task", "link_pred", "dataset.augment_feature", "[]",
+                "dataset.edge_train_mode", "disjoint", "optim.max_epoch",
+                "100")
 POINTS = {
+    "linkid_ba": ("idgcn_ba", LINK_ID_GRID + (
+        "dataset.name", "ba", "gnn.layer_type", "gatidconv")),
     "design_att_sf_mul": ("design/design_v1att", ROUND1ATT_GRID + (
         "dataset.task", "node", "dataset.augment_feature",
         "['node_pagerank']", "dataset.augment_label",

@@ -14,7 +14,8 @@ head's pooling and MLP, on ``link_pred`` / ``edge`` the edge head's pair
 decoding, or with ``dataset.transform edge`` the node head on the
 edge-net union) and the Tfg one's (Tfg-idgcn, ...: node tasks).
 After the seeds, ``exp/agg.agg_runs`` writes their aggregate under
-``<out_dir>/<cfg-name>/agg/``.
+``<out_dir>/<cfg-name>/agg/`` (and its tensorboard copy with
+``tensorboard_agg``, where tensorboardX imports).
 """
 
 from __future__ import annotations
@@ -87,13 +88,12 @@ def main(argv=None):
         out_dir_parent = cfg.out_dir
         results.append(run_single(cfg, out_dir_parent, args.cfg_file))
     # aggregate across seeds (reference main.py:60-61), with the metric
-    # rules of graphgym_tpu/main.py:90-100; the tensorboard copy
-    # (cfg.tensorboard_agg) is not ported (ROADMAP A15b)
+    # rules of graphgym_tpu/main.py:90-100
     metric = cfg.metric_best if cfg.metric_best != "auto" \
         else ("accuracy" if "classification" in cfg.dataset.task_type
               else "mae")
     agg_runs(get_parent_dir(out_dir_parent, args.cfg_file), metric=metric,
-             metric_agg=cfg.metric_agg)
+             metric_agg=cfg.metric_agg, tensorboard=cfg.tensorboard_agg)
     if args.mark_done:
         os.rename(args.cfg_file, args.cfg_file + "_done")
     return results

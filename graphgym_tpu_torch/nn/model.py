@@ -339,7 +339,9 @@ class TfgMLPHead(nn.Module):
 
 class GNN(nn.Module):
     """Full model (nn/model.py:227-336; reference gnn.py:123-168):
-    pre-MP layers -> MP stage -> head (nn/model.py:314-335: a head
+    pre-MP layers -> MP stage (``STAGES``, else a stage registered in
+    register.stage_dict, called as STAGES' are; nn/model.py:310-312)
+    -> head (nn/model.py:314-335: a head
     registered for the task, called as the JAX model calls it with the
     options and, here, the head's input width and init generator; else
     the Tfg head, or the node, edge or graph head by task).  ``forward`` returns
@@ -364,8 +366,10 @@ class GNN(nn.Module):
         self.pre_mp = nn.ModuleList(pre)
         self.mp = None
         if opts.layers_mp > 0:
-            self.mp = STAGES[opts.stage_type](opts, dim, generator,
-                                              dropout_generator)
+            stage = STAGES.get(opts.stage_type)
+            if stage is None:
+                stage = register.stage_dict[opts.stage_type]
+            self.mp = stage(opts, dim, generator, dropout_generator)
             dim = self.mp.dim_out
         if opts.task in register.head_dict:
             self.post_mp = register.head_dict[opts.task](
@@ -419,15 +423,20 @@ def build_model(cfg, device: torch.device) -> nn.Module:
     """create_model equivalent (reference model_builder.py:15): kernels
     drawn from a torch.Generator seeded with cfg.seed, zero biases, on
     ``device``; the Tfg or the torch model by layer type, or the Tfg
-    APPNP model for 'Tfg-appnp' (nn/model.py:448-449).  With dropout
-    or att_dropout > 0 the layers draw their masks from a second
-    Generator on ``device``, seeded with cfg.seed (train mode only)."""
+    APPNP model for 'Tfg-appnp' (nn/model.py:448-449); a network
+    registered in register.network_dict under cfg.model.type first,
+    called as GNN is (nn/model.py:446-447).  With dropout or
+    att_dropout > 0 the layers draw their masks from a second Generator
+    on ``device``, seeded with cfg.seed (train mode only)."""
     opts = options_from_cfg(cfg)
     generator = torch.Generator().manual_seed(int(cfg.seed))
-    if opts.layer_type == APPNP_TYPE:
-        return TfgAPPNPNet(opts, generator).to(device)
     dropout_generator = None
     if opts.dropout > 0 or opts.att_dropout > 0:
         dropout_generator = torch.Generator(device=device).manual_seed(
             int(cfg.seed))
+    if cfg.model.type in register.network_dict:
+        return register.network_dict[cfg.model.type](
+            opts, generator, dropout_generator).to(device)
+    if opts.layer_type == APPNP_TYPE:
+        return TfgAPPNPNet(opts, generator).to(device)
     return GNN(opts, generator, dropout_generator).to(device)

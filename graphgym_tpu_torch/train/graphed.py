@@ -29,8 +29,10 @@ that fails raises, naming the step and the signature.  A failed capture
 first leaves the process as it found it (``_abandon_capture``): the
 capture ended, the stream and the default generator's state restored,
 so the card draws and captures again.  There is no eager fallback on
-the card; ``eager=True`` asks for eager steps on any device, for
-comparisons against the captured ones.
+the card; ``eager=True`` asks for eager steps on any device: for
+comparisons against the captured ones, and the trainer's train step
+where a registered optimizer cannot be captured (train/optim.py
+``capturable``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ logging.  With ``cfg.tpu.prefetch`` a host thread collates epoch e+1's
 train batches while epoch e trains (graphgym_tpu/train/loop.py:406-434);
 with ``cfg.tpu.profile`` the first ``cfg.tpu.profile_epochs`` epochs are
 traced by torch.profiler into ``{out_dir}/profile``
-(graphgym_tpu/train/loop.py:399-402,425-426).
+(graphgym_tpu/train/loop.py:399-402,425-426); with ``cfg.view_emb`` the
+node embeddings are projected and saved after the last epoch.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from graphgym_tpu_torch.train import checkpoint as ckpt
 from graphgym_tpu_torch.train.graphed import make_eval_step, make_train_step
 from graphgym_tpu_torch.train.logger import Logger
 from graphgym_tpu_torch.train.loss import LossOptions
-from graphgym_tpu_torch.train.optim import create_optimizer
+from graphgym_tpu_torch.train.optim import capturable, create_optimizer
 
 
 # the interpreter's switch interval while the prefetch worker runs: its
@@ -97,9 +98,6 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, loaders, cfg,
                  device: torch.device, eager: bool = False):
-        if cfg.view_emb:
-            raise NotImplementedError(
-                "embedding views are not ported yet (ROADMAP A15b)")
         self.model = model
         self.loaders = loaders
         self.cfg = cfg
@@ -129,9 +127,16 @@ class Trainer:
         # at most as many programs as there are placements
         pool = (torch.cuda.graph_pool_handle()
                 if device.type == "cuda" and not eager else None)
+        # a registered optimizer that reads the host in its step cannot
+        # be captured: its train steps run eagerly, still on the device
+        eager_train = eager or (device.type == "cuda"
+                                and not capturable(self.optimizer))
+        if eager_train and not eager:
+            logging.info("optimizer %s is not capturable: train steps run "
+                         "eagerly on %s", cfg.optim.optimizer, device)
         self.train_step = make_train_step(
             model, self.optimizer, self.loss_opts, self.scheduler,
-            max_programs=self._place_cap, pool=pool, eager=eager)
+            max_programs=self._place_cap, pool=pool, eager=eager_train)
         self.eval_step = make_eval_step(
             model, self.loss_opts, max_programs=self._place_cap, pool=pool,
             eager=eager)
@@ -183,6 +188,36 @@ class Trainer:
                 "first step")
         return ckpt.load_ckpt(self.model, self.optimizer, self.scheduler,
                               self.cfg.out_dir, epoch)
+
+    def _dump_embeddings(self) -> Optional[str]:
+        """The post-MP node embeddings of the last loader's first batch
+        (an eval-mode forward, read by a hook on ``model.mp``), its real
+        nodes projected to 2-D and saved with their labels
+        (graphgym_tpu/train/loop.py:316-342; utils/plot.view_emb: a
+        .png, or a .npz where matplotlib is missing).  A model without
+        an MP stage has no view."""
+        from graphgym_tpu_torch.utils.plot import view_emb
+
+        mp = getattr(self.model, "mp", None)
+        if mp is None:
+            return None
+        batch = self.loaders[-1].batches(0)[0]
+        seen = []
+        hook = mp.register_forward_hook(
+            lambda mod, args, out: seen.append(out.node_feat.detach()))
+        try:
+            self.model.eval()
+            with torch.no_grad():
+                self.model(self._place(batch))
+        finally:
+            hook.remove()
+        emb = seen[0].cpu().numpy()
+        mask = np.asarray(batch.node_mask)
+        labels = (np.asarray(batch.node_label)
+                  if batch.node_label is not None else np.zeros(len(mask)))
+        path = view_emb(emb[mask], labels[mask], self.cfg.out_dir)
+        logging.info("embedding viz saved to %s", path)
+        return path
 
     # ------------------------------------------------------------ epochs
     def train_epoch(self, logger: Logger, epoch: int, batches=None,
@@ -321,6 +356,8 @@ class Trainer:
             if prefetch is not None:
                 prefetch.shutdown(wait=True, cancel_futures=True)
                 sys.setswitchinterval(switch)
+        if cfg.view_emb:
+            self._dump_embeddings()
         best = max(val_curve, key=lambda t: t[1]) if val_curve else (0, 0.0)
         if cfg.train.ckpt_clean:
             ckpt.clean_ckpt(cfg.out_dir)

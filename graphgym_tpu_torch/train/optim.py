@@ -25,14 +25,27 @@ it in the graph from the step count: one definition of each schedule
 serves both devices and the log (which records the host float of each
 step's lr, as the JAX Trainer does), at the cost of one small fill
 launch a step.
+
+A scheduler registered in ``register.scheduler_dict`` under
+``optim.scheduler`` takes ``(optim_cfg, steps_per_epoch)`` and returns
+step -> lr, as in the JAX package (train/optim.py:22-23); it takes
+precedence over the built-in ones.  An optimizer registered in
+``register.optimizer_dict`` under ``optim.optimizer`` takes
+``(params, optim_cfg)`` and returns a ``torch.optim.Optimizer``; it
+replaces the built-in one, weight decay included (train/optim.py:
+45-46).  The captured step needs an optimizer that steps without
+reading the host (``capturable``); the trainer runs a registered one
+that is not with eager train steps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+
+from graphgym_tpu_torch import register
 
 
 def make_lr_factor(optim_cfg, steps_per_epoch: int
@@ -137,16 +150,39 @@ class SGD(torch.optim.Optimizer):
                                 torch._foreach_mul(grads, -group["lr"]))
 
 
+def make_schedule(optim_cfg, steps_per_epoch: int
+                  ) -> Tuple[Callable[[int], float], float]:
+    """StepSchedule's (factor, base_lr) for ``optim.scheduler``: a
+    registered schedule's lr is its factor over a base of 1."""
+    if optim_cfg.scheduler in register.scheduler_dict:
+        schedule = register.scheduler_dict[optim_cfg.scheduler](
+            optim_cfg, steps_per_epoch)
+        return (lambda step: float(schedule(step))), 1.0
+    return make_lr_factor(optim_cfg, steps_per_epoch), optim_cfg.base_lr
+
+
+def capturable(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether a CUDA graph can capture ``optimizer.step()``: the port's
+    SGD, or an optimizer whose groups are all ``capturable``, each with
+    its lr a tensor (a float lr would be baked into the graph)."""
+    return all(isinstance(g["lr"], torch.Tensor)
+               and (isinstance(optimizer, SGD) or g.get("capturable"))
+               for g in optimizer.param_groups)
+
+
 def create_optimizer(params: Iterable[torch.nn.Parameter], optim_cfg,
                      steps_per_epoch: int, use_loss_l2: bool = False,
                      device: Optional[torch.device] = None):
-    """(optimizer, StepSchedule): Adam or SGD.  use_loss_l2=True (Tfg
-    path) disables optimizer weight decay.  On a CUDA ``device`` the lr
-    is a 0-d float32 tensor there and Adam is capturable."""
+    """(optimizer, StepSchedule): a registered optimizer, or Adam or
+    SGD.  use_loss_l2=True (Tfg path) disables the built-in optimizers'
+    weight decay.  On a CUDA ``device`` their lr is a 0-d float32 tensor
+    there and Adam is capturable."""
+    factor, base_lr = make_schedule(optim_cfg, steps_per_epoch)
+    if optim_cfg.optimizer in register.optimizer_dict:
+        opt = register.optimizer_dict[optim_cfg.optimizer](params, optim_cfg)
+        return opt, StepSchedule(opt, factor, base_lr)
     if optim_cfg.optimizer not in ("adam", "sgd"):
-        raise NotImplementedError(
-            f"optimizer {optim_cfg.optimizer!r} is not ported yet "
-            "(ROADMAP A15b)")
+        raise ValueError(f"Optimizer {optim_cfg.optimizer} not supported")
     wd = 0.0 if use_loss_l2 else optim_cfg.weight_decay
     cuda = device is not None and torch.device(device).type == "cuda"
     lr = (torch.tensor(optim_cfg.base_lr, dtype=torch.float32, device=device)
@@ -157,6 +193,4 @@ def create_optimizer(params: Iterable[torch.nn.Parameter], optim_cfg,
     else:
         opt = torch.optim.Adam(params, lr=lr, weight_decay=wd,
                                capturable=cuda)
-    sched = StepSchedule(opt, make_lr_factor(optim_cfg, steps_per_epoch),
-                         optim_cfg.base_lr)
-    return opt, sched
+    return opt, StepSchedule(opt, factor, base_lr)

@@ -5,6 +5,7 @@ the same seed directories, written by the port's entry point with
 and run-name parsing agree as well."""
 
 import filecmp
+import importlib.util
 import inspect
 import json
 import os
@@ -34,18 +35,26 @@ def seed_dirs(tmp_path_factory):
 
 
 def agg_files(parent):
+    """The aggregate's files, tensorboard event files left out."""
     return sorted(os.path.relpath(os.path.join(d, f), parent)
                   for d, _, fs in os.walk(os.path.join(parent, "agg"))
-                  for f in fs)
+                  for f in fs if not f.startswith("events.out.tfevents"))
 
 
 def test_main_writes_the_aggregate(seed_dirs):
     """--repeat 2 ran seeds 1 and 2 and aggregated them: the val
-    aggregate's accuracy is the mean of the seeds' best epochs."""
+    aggregate's accuracy is the mean of the seeds' best epochs; with
+    cfg.tensorboard_agg (on by default) each split also holds an event
+    file where tensorboardX imports."""
     assert sorted(os.listdir(seed_dirs)) == ["1", "2", "agg"]
     assert agg_files(seed_dirs) == [
         os.path.join("agg", s, f) for s in ("train", "val")
         for f in ("best.json", "stats.json")]
+    tensorboard = importlib.util.find_spec("tensorboardX") is not None
+    for s in ("train", "val"):
+        names = os.listdir(seed_dirs / "agg" / s)
+        assert any(n.startswith("events.out.tfevents")
+                   for n in names) == tensorboard
     best = json.loads((seed_dirs / "agg" / "val" / "best.json").read_text())
     seeds = []
     for seed in ("1", "2"):
@@ -97,10 +106,12 @@ def test_agg_batch_and_names_match_jax(seed_dirs, tmp_path):
 
 
 def test_no_seed_dirs_and_tensorboard(tmp_path):
-    """No seed directories give no aggregate; the tensorboard copy of the
-    aggregate is not ported (ROADMAP A15b), so agg_runs takes no such
-    option."""
+    """No seed directories give no aggregate, with or without the
+    tensorboard copy, which agg_runs takes as the JAX package's does
+    (its files: tests/test_torch_registries.py)."""
     assert agg.agg_runs(str(tmp_path / "empty")) is None
-    assert "tensorboard" not in inspect.signature(agg.agg_runs).parameters
-    with pytest.raises(TypeError, match="tensorboard"):
-        agg.agg_runs(str(tmp_path), tensorboard=True)
+    assert agg.agg_runs(str(tmp_path), tensorboard=True) is None
+    assert inspect.signature(agg.agg_runs).parameters["tensorboard"] \
+        .default is False
+    assert list(inspect.signature(agg.agg_runs).parameters) == list(
+        inspect.signature(jax_agg.agg_runs).parameters)

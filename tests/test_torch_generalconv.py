@@ -213,7 +213,7 @@ def test_sgd_takes_a_tensor_lr():
     assert opt.param_groups[0]["lr"] is lr and lr.item() == pytest.approx(
         sched.lr(1))
     cfg.optim.optimizer = "rmsprop"
-    with pytest.raises(NotImplementedError, match="A15b"):
+    with pytest.raises(ValueError, match="rmsprop"):
         create_optimizer([p], cfg.optim, 4)
 
 
