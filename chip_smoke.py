@@ -270,7 +270,8 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   floor and the library calls (torch.sparse.mm of the
                   pooling matrix and its transpose; scatter_reduce(amax)
                   and its backward); on the 500-node paths' packs too
-                  (rows of 500 slots: a graph's nodes or ego centers).
+                  (rows of 500 slots: a graph's nodes or ego centers),
+                  and on idgraph_enzymes'.
   full_design_graph_sf — design_graph_sf for its 200 epochs, 3 seeds,
                   reported.
   The link-prediction and edge tasks, each through drive_path's phases:
@@ -293,6 +294,27 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   width 1, and the SDDMM 5; K3 10 (5) and no SDDMM per eval batch); the
   kernel phase also holds K1 on the gather packs (check_gather_k1);
   seeded random features in the model check.
+  The ID-GNN paper's real-dataset points, after linkid_ba:
+  raw_files     — Cora's Planetoid files (ind.cora.*: scipy CSR
+                  features, a defaultdict graph, Python 2 pickles) and
+                  ENZYMES' TU text files written into RAW_DIR at the
+                  published sizes, content drawn from seed 0 with numpy
+                  (graphgym_tpu_torch/data/standins.py; the real files
+                  are not in the repository), parsed by the port's
+                  load_planetoid and load_tu, each timed, and held to
+                  those sizes;
+  then through drive_path's phases cora_gatid (grids/IDGNN/node.txt:
+  22-34 on configs/idgcn_Cora.yaml: PyG Cora, transductive, the class
+  labels, the ego union at r = 2 of ~131 k nodes a split with 1,433
+  features; gatidconv, 2 layers: K3 12 per train step (8 row sums at
+  width 1) and the SDDMM 2, K3 4 (2) per eval batch) and
+  idgraph_enzymes (graph_enzyme.txt:21-33 at gcnidconv on
+  configs/idgcn_ENZYMES.yaml: TU_ENZYMES' 600 graphs, the graph task,
+  ego at r = 3, 4 train batches of 128 graphs an epoch, re-collated on
+  the prefetch thread; K1 8 per train step and 4 per eval batch at 128,
+  the add pooling of the ego centers 2 and 1 of them; the model check
+  on the first 32 train graphs); their own features in the model
+  check.
   full_linkid_ws — linkid_ws for its 100 epochs (link.txt:33), 3 seeds,
                   reported beside the JAX package's CPU result at the
                   same point and seeds (JAX_LINKID_WS) and
@@ -346,9 +368,11 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    bench_attention (K3 6 per step, 4 of them row sums
                    at width 8, and SDDMM 1; gradients
                    of two calls bitwise equal; card vs CPU on a small
-                   graph) and bench_train_epoch of the four ws paths
-                   (captured steps after two warm-up epochs), rates and
-                   epoch times as median and IQR.
+                   graph), bench_train_epoch of the four ws paths
+                   (captured steps after two warm-up epochs) and
+                   bench_tu_epoch on the ENZYMES stand-in (gcnconv, 8
+                   batches an epoch: K1 8 per step), rates and epoch
+                   times as median and IQR.
 Then the kernel table as one JSON line, also written to
 OUT/kernels.json (K1 at D = 128, at D = 1 and on
 make_graph's pack; K3's aggregation and its softmax row sums on ws and
@@ -364,8 +388,9 @@ pooling forward and backward on their pooling packs; K3, its row sums
 and the SDDMM on the round1att paths' 'att' packs at 256; K1 at D = 6
 on appnp_ws's 'gcn' pack; K1 and the max on the model-only checks'
 packs; K1 on the link and edge paths' layer packs and on their gather
-packs; K3, its row sums and the SDDMM on linkid_ba's 'att' pack), and
-last the result line
+packs; K3, its row sums and the SDDMM on linkid_ba's 'att' pack and on
+cora_gatid's; K1 on idgraph_enzymes' layer pack and its pooling
+packs), and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -554,6 +579,14 @@ ATT_SF_ADD_GRAPH = parity.POINTS["design_att_sf_add_graph"]
 # grids/IDGNN/link.txt:21-34's ID point on ba at gatidconv, the parity
 # tool's point (its grid's 100 epochs there, EPOCHS here)
 LINKID_BA = parity.POINTS["linkid_ba"]
+# the ID-GNN paper's real-dataset points (parity.POINTS): node.txt:22-34
+# on Cora and graph_enzyme.txt:21-33 at gcnidconv on TU_ENZYMES, each on
+# a stand-in written in its dataset's published raw format at the
+# published sizes (graphgym_tpu_torch/data/standins.py, seed 0) into the
+# git-ignored RAW_DIR
+RAW_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build", "raw")
+CORA_GATID = parity.POINTS["cora_gatid"]
+IDGRAPH_ENZYMES = parity.POINTS["idgraph_enzymes"]
 # sweep_round1: grids/design/round1.txt sampled along 'agg' at this
 # sample_num, budget-matched to configs/design/design_v1.yaml (24
 # configs, 18 of them on the nx chunks), of which three run
@@ -844,13 +877,13 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
             slot_bytes: int) -> dict:
     """Device ms per call of the kernel and, where given, the plain
     version and the library call, their CUDA-event loop times, and the
-    bound: each input read once (x, the pack's slot_bytes on each slot
-    the kernel reads, row_range), the f32 output written once, over the
-    card's memory rate, against 2 flops per slot and column over its f32
-    rate."""
+    bound: each input read once (the rows of x the live slots name, the
+    pack's slot_bytes on each slot the kernel reads, row_range), the f32
+    output written once, over the card's memory rate, against 2 flops
+    per slot and column over its f32 rate."""
     n, d = x.shape
     real_slots = real_slots_of(pack)
-    moved = (x.numel() * x.element_size()        # x read once
+    moved = (live_rows(pack, n) * d * x.element_size()   # x rows read
              + real_slots * slot_bytes
              + pack.row_range.numel() * 4
              + n * d * 4)                         # out written once
@@ -893,12 +926,17 @@ def row_sum_timings(calls: dict, pack: K.PackedCSR, heads: int) -> dict:
 
 def sddmm_bound(pack: K.PackedCSR, a: torch.Tensor) -> tuple:
     """(bytes, flops) of the SDDMM on a pack with a and b like ``a``
-    [N, H, dh]: a and b read once, a sender and a weight on each slot of
-    the row ranges, row_range, the f32 [NC, C, H] output written on
+    [N, H, dh]: the rows of a (the rows of the live slots) and of b (the
+    live slots' senders) read once, a sender and a weight on each slot
+    of the row ranges, row_range, the f32 [NC, C, H] output written on
     every slot; 2 flops per real slot and column."""
     n, heads, dh = a.shape
     real_slots = real_slots_of(pack)
-    moved = (2 * a.numel() * a.element_size() + real_slots * 8
+    live = (pack.weights.reshape(-1) != 0) \
+        & (pack.senders.reshape(-1).long() < n)
+    a_rows = int(torch.unique(K.pack_rows(pack).reshape(-1)[live]).numel())
+    moved = ((a_rows + live_rows(pack, n)) * heads * dh * a.element_size()
+             + real_slots * 8
              + pack.row_range.numel() * 4
              + pack.senders.numel() * heads * 4)
     return moved, 2 * real_slots * heads * dh
@@ -1724,9 +1762,10 @@ def check_bench_runs(device) -> dict:
     dalpha, the softmax row sum and the two node-score gradients; the
     four row sums at width H, the two aggregations at width H * dv), the
     attention gradients from two calls bitwise equal and, at a small
-    graph, card against CPU, and ``bench_train_epoch`` of the four ws
-    paths (one batch an epoch).  Rates and epoch times as median and
-    IQR over BENCH_REPEATS."""
+    graph, card against CPU, ``bench_train_epoch`` of the four ws
+    paths (one batch an epoch) and ``bench_tu_epoch`` on the ENZYMES
+    stand-in in RAW_DIR (8 batches an epoch).  Rates and epoch times as
+    median and IQR over BENCH_REPEATS."""
     import contextlib
     import io
 
@@ -1802,6 +1841,19 @@ def check_bench_runs(device) -> dict:
                              train_edges_per_s=median_iqr(
                                  [eps for _, eps in runs]),
                              launches=launches)
+    # the multi-batch graph task on the ENZYMES stand-in raw_phase wrote:
+    # gcnconv, 3 layers, 8 train batches of 64 graphs; K1 2 per layer and
+    # the add pooling's 2 per step, one warm-up epoch
+    tu_steps = 8 * (1 + EPOCHS) * rep
+    runs, launches, _ = run("tu_epoch", lambda: [B.bench_tu_epoch(
+        "pallas", EPOCHS, device=device, dataset_dir=RAW_DIR)
+        for _ in range(rep)],
+        {k1: (8 * tu_steps, f"8/train step x {tu_steps}")})
+    if {source for *_, source in runs} != {"ENZYMES"}:
+        fail(f"bench tu_epoch ran {[r[2] for r in runs]}, not ENZYMES")
+    tu_epoch = dict(epoch_s=median_iqr([r[0] for r in runs]),
+                    train_edges_per_s=median_iqr([r[1] for r in runs]),
+                    dataset="ENZYMES", launches=launches)
     return dict(iters=it, repeats=rep, main=line,
                 main_launches=main_launches,
                 bf16_fwd_bwd_edges_per_s=median_iqr(bf16),
@@ -1811,7 +1863,7 @@ def check_bench_runs(device) -> dict:
                 attention_launches_by_width=att_by_width,
                 attention_grads_bitwise_equal=True,
                 attention_small_card_vs_cpu_max_err=small_err,
-                train_epochs=epochs)
+                train_epochs=epochs, tu_epoch=tu_epoch)
 
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)   # card vs CPU, forward values
@@ -2276,36 +2328,40 @@ def check_dropout(cfg, batch, device) -> dict:
                 dropout_kept_sigma=sigma)
 
 
-def widest_op_inputs(fn, top: int = 5) -> list:
+def widest_op_inputs(fn, top: int = 5, node_rows: int = -1) -> tuple:
     """The ops of one call of fn (forward and backward) whose widest
     tensor argument has the most elements (torch.profiler with shapes),
-    and the longest index any index_add of the call takes."""
+    the longest index any index_add of the call takes, and the most
+    elements of any tensor argument none of whose dimensions is
+    ``node_rows`` (a batch's node rows, or their transpose in a weight
+    gradient: its features, however wide, are no per-slot tensor)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def numel(shape) -> int:
+    def numel(shape, skip=None) -> int:
         if isinstance(shape, (list, tuple)) and shape and all(
                 isinstance(x, int) for x in shape):
-            return math.prod(shape)
+            return 0 if skip in shape else math.prod(shape)
         if isinstance(shape, (list, tuple)):
-            return max((numel(x) for x in shape), default=0)
+            return max((numel(x, skip) for x in shape), default=0)
         return 0
 
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) \
             as prof:
         fn()
         torch.cuda.synchronize()
-    ops, index_add = {}, 0
+    ops, index_add, off_rows = {}, 0, 0
     for ev in prof.events():
         shapes = ev.input_shapes or []
         widest = max((numel(sh) for sh in shapes), default=0)
         if widest > ops.get(ev.name, (0, None))[0]:
             ops[ev.name] = (widest, shapes)
+        off_rows = max(off_rows, numel(shapes, node_rows))
         if "index_add" in ev.name and len(shapes) > 2 \
                 and len(shapes[2]) == 1:   # (self, dim, index, source)
             index_add = max(index_add, shapes[2][0])
     ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
     return [dict(op=name, numel=w, shapes=str(sh)[:160])
-            for name, (w, sh) in ranked], index_add
+            for name, (w, sh) in ranked], index_add, off_rows
 
 
 def step_profile(trainer, batch, device, steps: int, base: int) -> dict:
@@ -2371,9 +2427,11 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
     first and freed before the other (``step_profile``); the captured
     step's capture time and host operator calls, and the ops of the
     eager step with the widest tensor arguments.  With ``forbid_numel``,
-    fails if an op of the step takes a tensor that large, or an
-    index_add an index that long (one entry per pack slot: a scatter of
-    per-slot values).  The captured graph runs the eager step's ops."""
+    fails if an op of the step takes a tensor that large other than one
+    of the batch's node rows (the input features of Cora's 1,433
+    columns outgrow its pack's slots times the width), or an index_add
+    an index that long (one entry per pack slot: a scatter of per-slot
+    values).  The captured graph runs the eager step's ops."""
     import gc
 
     out = {}
@@ -2388,8 +2446,9 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
         out[mode] = step_profile(trainer, batch, device, steps, base)
         out[mode]["allocated_before_bytes"] = base
         if mode == "eager":
-            widest, index_add = widest_op_inputs(
-                lambda: trainer.train_step(batch))
+            widest, index_add, off_rows = widest_op_inputs(
+                lambda: trainer.train_step(batch),
+                node_rows=host_batch.num_nodes)
         else:
             (prog,) = trainer.train_step.programs.values()
             out[mode]["capture_s"] = prog.capture_s
@@ -2401,10 +2460,10 @@ def profile_steps(cfg, loaders, device, steps: int = 5,
         fail(f"{cfg.gnn.layer_type}: the captured train step makes "
              f"{out['captured']['host_op_calls']} host operator calls "
              "(a few dozen at most: the lr fill and the graph launch)")
-    if forbid_numel and widest[0]["numel"] >= forbid_numel:
-        fail(f"an op of the train step takes a tensor of "
-             f"{widest[0]['numel']} elements (>= {forbid_numel}): "
-             f"{widest[0]}")
+    if forbid_numel and off_rows >= forbid_numel:
+        fail(f"an op of the train step takes a tensor of {off_rows} "
+             f"elements (>= {forbid_numel}) besides the node rows; the "
+             f"widest: {widest}")
     if forbid_index_add and index_add >= forbid_index_add:
         fail(f"an index_add of the train step takes an index of "
              f"{index_add} entries (>= {forbid_index_add}, the pack's "
@@ -2914,7 +2973,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     model_<tag> (``check_model``), train_<tag> (``train_path`` with
     ``expected``, ``widths`` and ``rect``), profile_<tag> (with ``repeat_steps``;
     no op of the eager step takes a tensor of the pack's slots times the
-    width, and no index_add an index of the pack's slots) and
+    width, the batch's node rows aside, and no index_add an index of the
+    pack's slots) and
     graphed_<tag>.  The config is configs/<base or tag>.yaml with
     ``extra`` overrides (a grid point).  On a graph task the kernel
     phase names the pooling pack's rows and slots; on a batch with a
@@ -3588,6 +3648,69 @@ def sweep_round1_phase() -> dict:
                 kept=kept, val_best_rows=len(rows))
 
 
+def raw_phase() -> dict:
+    """raw_files: Cora's Planetoid files and ENZYMES' TU files written
+    afresh into RAW_DIR (data/standins.py, seed 0, the published sizes)
+    and parsed by the port's loaders, each timed; fails unless the
+    parsed graphs have the published sizes (standins.CORA, ENZYMES):
+    Cora's nodes, its features' width, 7 classes and every undirected
+    edge of ind.cora.graph both ways; ENZYMES' 600 graphs of 2-126
+    nodes, 19,580 nodes, 74,564 directed edges, 21 feature columns (18
+    attributes, 3 one-hot labels), 6 classes, and at least 100 graphs of
+    100 undirected edges or more, which tu_simple_filter keeps on a node
+    task."""
+    from graphgym_tpu_torch.data import standins as S
+    from graphgym_tpu_torch.data.loaders import (load_planetoid, load_tu,
+                                                 tu_simple_filter)
+
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    S.write_planetoid_standin(RAW_DIR, "cora")
+    S.write_tu_standin(RAW_DIR, "ENZYMES")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (cora,) = load_planetoid("Cora", RAW_DIR)
+    enz = load_tu("ENZYMES", RAW_DIR)
+    parse_s = time.perf_counter() - t0
+    c, e = S.CORA, S.ENZYMES
+    degree = np.bincount(cora.senders, minlength=cora.num_nodes)
+    sizes = np.array([g.num_nodes for g in enz])
+    edges = np.array([g.num_edges for g in enz])
+    simple = tu_simple_filter(enz)
+    got = dict(
+        cora=dict(nodes=cora.num_nodes, directed_edges=cora.num_edges,
+                  features=int(cora["node_feature"].shape[1]),
+                  classes=int(cora["node_label"].max()) + 1,
+                  max_degree=int(degree.max()),
+                  nonzeros_a_row=float(cora["node_feature"].sum(1).mean())),
+        enzymes=dict(graphs=len(enz), nodes=int(sizes.sum()),
+                     min_nodes=int(sizes.min()), max_nodes=int(sizes.max()),
+                     directed_edges=int(edges.sum()),
+                     features=int(enz[0]["node_feature"].shape[1]),
+                     classes=len({int(g["graph_label"][0]) for g in enz}),
+                     graphs_of_100_edges=int((edges >= 200).sum()),
+                     tu_simple_kept=len(simple)))
+    want = dict(
+        cora=dict(nodes=c["nodes"], directed_edges=2 * c["edges"],
+                  features=c["features"], classes=c["classes"]),
+        enzymes=dict(graphs=e["graphs"], nodes=e["nodes"],
+                     min_nodes=e["min_nodes"], max_nodes=e["max_nodes"],
+                     directed_edges=2 * e["edges"],
+                     features=e["attributes"] + e["node_labels"],
+                     classes=e["classes"]))
+    for name, keys in want.items():
+        for k, v in keys.items():
+            if got[name][k] != v:
+                fail(f"{name} stand-in: {k} {got[name][k]}, expected {v}")
+    if got["enzymes"]["graphs_of_100_edges"] < 100 \
+            or min(g.num_edges for g in simple) < 200:
+        fail(f"ENZYMES stand-in: {got['enzymes']['graphs_of_100_edges']} "
+             "graphs of 100 undirected edges or more, 100 needed")
+    return dict(write_s=write_s, parse_s=parse_s, **got,
+                files=sorted(os.path.relpath(os.path.join(d, f), RAW_DIR)
+                             for d, _, fs in os.walk(RAW_DIR) for f in fs))
+
+
 def linkid_ba_path(device, ba_overrides) -> dict:
     """linkid_ba through drive_path: link.txt:21-34's ID point on ba at
     gatidconv (LINKID_BA), the edge-net union of 64 copies a graph.  Per
@@ -4050,6 +4173,32 @@ def main() -> None:
     # the ID link point on ba at gatidconv: K3 and the SDDMM on the
     # 64-copy edge-net union (~131 k nodes a batch of 32)
     linkid_ba = linkid_ba_path(device, ba_overrides)
+    # ---- the ID-GNN paper's real-dataset points, from files in the
+    # published formats (Planetoid, TU) at the published sizes.
+    # cora_gatid: Cora's one graph, transductive, the ego union at r = 2
+    # (~131 k nodes a split, 1,433 features); gatidconv at 2 layers as
+    # gatid_ba: per layer K3 6 per train step (4 row sums at width 1)
+    # and the SDDMM 1, K3 2 (1) per eval batch.  idgraph_enzymes: 600 TU
+    # graphs, the graph task, ego at r = 3, 4 train batches of 128
+    # graphs (the prefetch collates them): K1 2 per gcnidconv layer and
+    # the add pooling of the ego centers, forward and backward, all at
+    # 128; 3 and 1 per eval batch.  Both datasets' features are their
+    # own (no random ones in the model check); ENZYMES' model check on
+    # the first 32 train graphs (its val batch's CPU side took 15 s).
+    begin("raw_files")
+    phase("raw_files", **raw_phase())
+    raw = overrides + ["dataset.dir", RAW_DIR]
+    real_paths = {
+        "cora_gatid": grid_point(
+            "cora_gatid", CORA_GATID[0], *CORA_GATID[1], "optim.max_epoch",
+            str(EPOCHS), ovr=raw, expected={k3_: (12, 4), sddmm_: (2, 0)},
+            widths={1: {k3_: (8, 2)}, 128: {k3_: (4, 2)}}),
+        "idgraph_enzymes": grid_point(
+            "idgraph_enzymes", IDGRAPH_ENZYMES[0], *IDGRAPH_ENZYMES[1],
+            "optim.max_epoch", str(EPOCHS), ovr=raw,
+            expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
+            rect=(2, 1), model_graphs=32),
+    }
     # the prefetch on two loaders of many small batches (6 and 3 an
     # epoch)
     begin("prefetch_design_graph_sf")
@@ -4077,7 +4226,11 @@ def main() -> None:
                           c500 + list(IDGRAPH_BA500[1])
                           + list(IDGRAPH_BA500_DEPTH), 128, 3),
         "graph_ws500": (config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]),
-                        128, 0)}, device)
+                        128, 0),
+        # the max (no path's) on the first 16 train graphs, for time
+        "idgraph_enzymes": (config(IDGRAPH_ENZYMES[0]),
+                            raw + list(IDGRAPH_ENZYMES[1]), 128, 16)},
+        device)
     phase("kernel_pool", **pools)
 
     # ---- full-length runs: the configs' 1000 epochs, 3 seeds each,
@@ -4229,6 +4382,10 @@ def main() -> None:
         *model_rows(models, row, srcs),
         *link_rows(link_paths, row, k1_src),
         *torch_path_rows({"linkid_ba": linkid_ba}, row, srcs),
+        *torch_path_rows({"cora_gatid": real_paths["cora_gatid"]}, row,
+                         srcs),
+        *graph_rows({"idgraph_enzymes": real_paths["idgraph_enzymes"]},
+                    pools, row, srcs),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
            "width": check["width"],

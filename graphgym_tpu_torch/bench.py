@@ -210,22 +210,13 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
     root bench.py:125-158): two epochs of warm-up (one step each on ws:
     on the card the eager step 0 and the capture of step 1), then
     ``epochs`` timed, replays of the captured step.
-    Returns (seconds per epoch, real edges per second).  The port's
-    layers run the packs (the hand-written kernels) only: impl 'xla',
-    the JAX package's COO layer path, is not ported (ROADMAP A0), and
-    dtype bfloat16 raises in the loader (A14)."""
+    Returns (seconds per epoch, real edges per second).  impl 'xla'
+    raises (``_epoch_device``), and dtype bfloat16 raises in the loader
+    (A14)."""
     from graphgym_tpu_torch.config import get_cfg
-    from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
-    from graphgym_tpu_torch.nn.model import build_model
-    from graphgym_tpu_torch.train.logger import Logger
-    from graphgym_tpu_torch.train.loop import Trainer
+    from graphgym_tpu_torch.data.loaders import create_dataset
 
-    if impl not in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"impl {impl!r}: the port's layers run the packed kernels "
-            "only; the COO layer path is not ported yet (ROADMAP A0)")
-    if isinstance(device, torch.device):    # cfg.device is a name
-        device = device.type
+    device = _epoch_device(impl, device)
     cfg = get_cfg()     # the root bench.py's ID-GNN / ws config, :137-146
     cfg.merge_from_dict({
         "dataset": {"format": "nx", "name": "ws", "task": "node",
@@ -240,17 +231,77 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
         "optim": {"scheduler": "none"},
         "device": device})
     np.random.seed(1)
-    loaders = create_loader(create_dataset(cfg), cfg)
+    return _epoch_rate(cfg, create_dataset(cfg), 2, epochs)
+
+
+def _epoch_device(impl, device) -> str:
+    """The device name a train-epoch benchmark's config takes; impl
+    'xla', the JAX package's COO layer path, raises (ROADMAP A0): the
+    port's layers run the packs (the hand-written kernels) only."""
+    if impl not in ("pallas", "auto"):
+        raise NotImplementedError(
+            f"impl {impl!r}: the port's layers run the packed kernels "
+            "only; the COO layer path is not ported yet (ROADMAP A0)")
+    return device.type if isinstance(device, torch.device) else device
+
+
+def _epoch_rate(cfg, splits, warmup: int, epochs: int):
+    """(seconds per train epoch, real edges per second) of cfg's model on
+    ``splits``' train loader: ``warmup`` epochs, then ``epochs`` timed."""
+    from graphgym_tpu_torch.data.loaders import create_loader
+    from graphgym_tpu_torch.nn.model import build_model
+    from graphgym_tpu_torch.train.logger import Logger
+    from graphgym_tpu_torch.train.loop import Trainer
+
+    loaders = create_loader(splits, cfg)
     device = _device(cfg.device)
     tr = Trainer(build_model(cfg, device), loaders, cfg, device)
     edges = sum(int(b.count_real_edges()) for b in loaders[0].batches(0))
-    for ep in range(2):
+    for ep in range(warmup):
         tr.train_epoch(Logger("warmup"), ep)
     t0 = time.perf_counter()
     for ep in range(epochs):
         tr.train_epoch(Logger("t"), ep)
     dt = (time.perf_counter() - t0) / epochs
     return dt, edges / dt
+
+
+def bench_tu_epoch(impl="pallas", epochs=5, device="auto", dim_inner=128,
+                   dataset_dir=None):
+    """Multi-batch graph-task epoch time (the root bench.py:239-284): TU
+    ENZYMES' graph labels (raw files under ``dataset_dir``, else the
+    config's dataset.dir, then datasets/) at gcnconv, 3 layers, batch
+    64 (8 train batches), or, where the TU files are missing, the ws
+    corpus as a stand-in multi-batch graph task (graph_path_len labels).
+    One warm-up epoch (on the card the eager step 0 and the capture of
+    step 1), then ``epochs`` timed.  Returns (seconds per epoch, real
+    edges per second, the dataset run: 'ENZYMES' or 'ws')."""
+    from graphgym_tpu_torch.config import get_cfg
+    from graphgym_tpu_torch.data.loaders import create_dataset
+
+    device = _epoch_device(impl, device)
+    model = {"gnn": {"layers_mp": 3, "dim_inner": dim_inner,
+                     "layer_type": "gcnconv"},
+             "train": {"batch_size": 64}, "tpu": {"spmm_impl": impl},
+             "optim": {"scheduler": "none"}, "device": device}
+    cfg = get_cfg()
+    cfg.merge_from_dict({"dataset": {"format": "TU", "name": "ENZYMES",
+                                     "task": "graph"}, **model})
+    if dataset_dir is not None:
+        cfg.dataset.dir = dataset_dir
+    np.random.seed(1)
+    try:
+        splits, source = create_dataset(cfg), "ENZYMES"
+    except FileNotFoundError:
+        cfg = get_cfg()
+        cfg.merge_from_dict({
+            "dataset": {"format": "nx", "name": "ws", "task": "graph",
+                        "augment_label": "graph_path_len",
+                        "augment_label_dims": 5,
+                        "dir": os.path.join(ROOT, "datasets")}, **model})
+        np.random.seed(1)
+        splits, source = create_dataset(cfg), "ws"
+    return (*_epoch_rate(cfg, splits, 1, epochs), source)
 
 
 def _stats(rates, ndigits=1):
@@ -273,8 +324,10 @@ def device_name(device) -> str:
 def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
               epochs=5, dim_inner=128):
     """The extended suite (the root bench.py:210-236) -> ``out_path``:
-    SpMM fwd+bwd (COO and packed, f32; packed bf16), attention, and a
-    train epoch of each of the four ID-GNN / ws paths.  Keys the port
+    SpMM fwd+bwd (COO and packed, f32; packed bf16), attention, a train
+    epoch of each of the four ID-GNN / ws paths, and the multi-batch
+    graph-task epoch (``bench_tu_epoch``; which dataset it ran under
+    'tu_enzymes_dataset').  Keys the port
     cannot fill are null, with the reason under 'null_reasons'."""
     dims = dims or (131072, 2_000_000, 128)
     n, e, d = dims
@@ -294,15 +347,18 @@ def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
                                     device=device, dim_inner=dim_inner)
         details[f"{name}_ws_epoch_s_pallas"] = round(dt, 4)
         details[f"{name}_ws_train_edges_per_s_pallas"] = round(eps, 1)
+    dt, eps, source = bench_tu_epoch("pallas", epochs, device=device,
+                                     dim_inner=dim_inner)
+    details["tu_enzymes_epoch_s_pallas"] = round(dt, 4)
+    details["tu_enzymes_train_edges_per_s_pallas"] = round(eps, 1)
+    details["tu_enzymes_dataset"] = source
     for key, why in (
             ("idgcn_ws_epoch_s_xla", "the COO layer path is not ported "
              "(ROADMAP A0)"),
             ("idgcn_ws_epoch_s_pallas_bf16", "tpu.dtype bfloat16 is not "
              "ported (ROADMAP A14)"),
-            ("tu_enzymes_epoch_s_xla", "the TU loader is not ported "
-             "(ROADMAP A13c)"),
-            ("tu_enzymes_epoch_s_pallas", "the TU loader is not ported "
-             "(ROADMAP A13c)")):
+            ("tu_enzymes_epoch_s_xla", "the COO layer path is not ported "
+             "(ROADMAP A0)")):
         details[key] = None
         reasons[key] = why
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)

@@ -1,12 +1,18 @@
 """Dataset loading, splitting, transforms and GraphBatch batching.
 
 The port of graphgym_tpu/data/loaders.py for the node, graph, edge and
-link_pred tasks on pickled or regenerated synthetic graph corpora
-(reference graphgym/loader.py:24-260):
+link_pred tasks (reference graphgym/loader.py:24-260):
   load graphs -> feature augmentation -> label replacement (path-length
   labels on the edge task) -> split with its edge supervision -> ego or
   edge transform per split -> padded GraphBatches with the packed SpMM
   layouts.
+
+Formats (cfg.dataset.format, 'Tfg-' prefixes accepted): 'nx' = pickled
+graph lists or the regenerated synthetic corpora; 'PyG' / 'Planetoid' =
+the raw files behind PyG's datasets, parsed natively (Planetoid, TU,
+Karate, the GNN-benchmark npz, PPI, QM7b, MNIST superpixels); 'TU' =
+raw TU files; 'syn' = generated on the fly.  cfg.dataset.cache_save /
+cache_load keep the processed splits in the JAX package's cache file.
 
 Batches always carry the packs their layer consumes, on CPU and CUDA
 alike (the port has no COO path); a graph task's batches the pack of
@@ -15,8 +21,8 @@ the edge head's gather; and a batch whose supervised node index repeats
 a node the label pack of the node head's gather (``graphs/packing.
 build_gather_packs``), so no gather on a training path has a
 float-atomic backward.  What the port does not run yet raises
-NotImplementedError naming its ROADMAP item: other formats, samplers,
-dataset caches, node sampling (A13c), mesh plans.
+NotImplementedError naming its ROADMAP item: OGB, samplers and node
+sampling (A13c), mesh plans.
 """
 
 from __future__ import annotations
@@ -51,6 +57,11 @@ _REPO_DATASETS = os.path.join(os.path.dirname(os.path.dirname(
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+# what the port still lacks of A13c: the OGB loader with its splits, the
+# OGB encoders, the samplers and per-epoch node sampling
+_A13C_REST = "A13c (OGB, encoders, samplers)"
 
 
 class _CorpusUnpickler(pickle.Unpickler):
@@ -125,17 +136,369 @@ def load_nx(name: str, dataset_dir: str) -> List[HostGraph]:
             for g in graphs]
 
 
+# ------------------------------------------------------------ raw formats
+#
+# The parsers of graphgym_tpu/data/loaders.py:107-388, array for array.
+# Raw files are looked up under cfg.dataset.dir, then the repository's
+# datasets/; in each, under <subname>/raw, <subname>, then the directory.
+
+def _find_raw(fname: str, dataset_dir: str, subname: str) -> str:
+    for d in (dataset_dir, _REPO_DATASETS):
+        for sub in (os.path.join(d, subname, "raw"),
+                    os.path.join(d, subname), d):
+            path = os.path.join(sub, fname)
+            if os.path.exists(path):
+                return path
+    raise FileNotFoundError(
+        f"{fname} not found under {dataset_dir} or {_REPO_DATASETS}")
+
+
+# What a Planetoid pickle may build: numpy arrays, scipy sparse matrices
+# and the graph's dict of lists, under Python 2's module names too (the
+# published files are Python 2 pickles)
+_PLANETOID_GLOBALS = {
+    (m, n) for m in ("builtins", "__builtin__")
+    for n in ("list", "dict", "set", "tuple", "object", "int", "float")
+} | {(m, n) for m in ("copyreg", "copy_reg")
+     for n in ("_reconstructor", "__newobj__")} | {
+    ("collections", "defaultdict"), ("collections", "OrderedDict"),
+    ("_codecs", "encode"), ("numpy", "ndarray"), ("numpy", "dtype")
+} | {(f"numpy.{core}.{m}", n) for core in ("core", "_core")
+     for m, n in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                  ("numeric", "_frombuffer"))}
+
+
+class _PlanetoidUnpickler(_CorpusUnpickler):
+    """The Planetoid files come from outside the program: their pickles
+    may name only ``_PLANETOID_GLOBALS`` and scipy's sparse matrix
+    classes (unpickling them needs scipy)."""
+
+    def find_class(self, module, name):
+        sparse = module.startswith("scipy.sparse") \
+            and name.endswith(("_matrix", "_array"))
+        if not sparse and (module, name) not in _PLANETOID_GLOBALS:
+            raise pickle.UnpicklingError(
+                f"a Planetoid file may not build {module}.{name}")
+        return super().find_class(module, name)
+
+
+def load_planetoid(name: str, dataset_dir: str) -> List[HostGraph]:
+    """The raw Planetoid files (ind.<name>.{x,tx,allx,y,ty,ally,graph,
+    test.index}), the format behind PyG's Planetoid('Cora' / 'CiteSeer'
+    / 'PubMed') at reference loader.py:32-33 (graphgym_tpu/data/
+    loaders.py:107-168).  Row i of tx / ty is node test.index[i]:
+    CiteSeer's gaps in it are isolated nodes that keep zero features
+    (and label 0).  Edges are symmetrized and deduplicated."""
+    lname = name.lower()
+    base = next((c for d in (dataset_dir, _REPO_DATASETS)
+                 for c in (os.path.join(d, name, "raw"),
+                           os.path.join(d, name),
+                           os.path.join(d, lname, "raw"), d)
+                 if os.path.exists(os.path.join(c, f"ind.{lname}.graph"))),
+                None)
+    if base is None:
+        raise FileNotFoundError(
+            f"Planetoid raw files for {name} not found (need "
+            f"ind.{lname}.* under {dataset_dir} or {_REPO_DATASETS})")
+
+    def read(suffix):
+        with open(os.path.join(base, f"ind.{lname}.{suffix}"), "rb") as f:
+            return _PlanetoidUnpickler(f, encoding="latin1").load()
+
+    def dense(m):
+        return np.asarray(m.todense()) if hasattr(m, "todense") \
+            else np.asarray(m)
+
+    tx, allx = dense(read("tx")), dense(read("allx"))
+    ty, ally = np.asarray(read("ty")), np.asarray(read("ally"))
+    graph = read("graph")
+    test_idx = np.loadtxt(os.path.join(base, f"ind.{lname}.test.index"),
+                          dtype=np.int64)
+    n = int(test_idx.max()) + 1
+    feat = np.zeros((n, allx.shape[1]), np.float32)
+    labels = np.zeros((n, ally.shape[1]), np.float32)
+    feat[:allx.shape[0]] = allx
+    labels[:ally.shape[0]] = ally
+    feat[test_idx] = tx
+    labels[test_idx] = ty
+    edges = [(u, v) for u, nbrs in graph.items() for v in nbrs
+             if u < n and v < n]
+    edge_index = np.asarray(edges, np.int32).T
+    und = np.unique(np.concatenate([edge_index, edge_index[::-1]], axis=1),
+                    axis=1)
+    g = HostGraph(n, und.astype(np.int32))
+    g["node_feature"] = feat
+    g["node_label"] = labels.argmax(-1).astype(np.int64)
+    return [g]
+
+
+def _one_hot(labels: np.ndarray, width: int) -> np.ndarray:
+    out = np.zeros((len(labels), width), np.float32)
+    out[np.arange(len(labels)), labels] = 1
+    return out
+
+
+def load_tu(name: str, dataset_dir: str) -> List[HostGraph]:
+    """Raw TU files (DS_A.txt, DS_graph_indicator.txt and the optional
+    DS_graph_labels, DS_node_labels, DS_node_attributes, DS_edge_labels
+    and DS_edge_attributes), the format behind TUDataset at reference
+    loader.py:34-53 (graphgym_tpu/data/loaders.py:171-232).  Ids are
+    1-based.  node_feature = the attributes, then the one-hot node
+    labels (width: the largest label + 1), or a constant 1 where there
+    is neither; edge_feature likewise from the edge attributes and
+    labels; graph_label the file's integer label."""
+    base = os.path.dirname(_find_raw(f"{name}_A.txt", dataset_dir, name))
+
+    def maybe(suffix):
+        path = os.path.join(base, f"{name}_{suffix}.txt")
+        return np.loadtxt(path, delimiter=",", ndmin=2) \
+            if os.path.exists(path) else None
+
+    a = np.loadtxt(os.path.join(base, f"{name}_A.txt"),
+                   delimiter=",").astype(np.int64) - 1
+    indicator = np.loadtxt(os.path.join(
+        base, f"{name}_graph_indicator.txt")).astype(np.int64) - 1
+    glabels = maybe("graph_labels")
+    nlabels, nattrs = maybe("node_labels"), maybe("node_attributes")
+    elabels, eattrs = maybe("edge_labels"), maybe("edge_attributes")
+
+    num_graphs = int(indicator.max()) + 1
+    offsets = np.zeros(num_graphs + 1, np.int64)
+    offsets[1:] = np.cumsum(np.bincount(indicator, minlength=num_graphs))
+    edge_graph = indicator[a[:, 0]]
+    graphs = []
+    for gi in range(num_graphs):
+        lo, hi = offsets[gi], offsets[gi + 1]
+        em = edge_graph == gi
+        g = HostGraph(int(hi - lo), (a[em] - lo).T.astype(np.int32))
+        feats = []
+        if nattrs is not None:
+            feats.append(nattrs[lo:hi].astype(np.float32))
+        if nlabels is not None:
+            feats.append(_one_hot(nlabels[lo:hi].astype(np.int64)
+                                  .reshape(-1), int(nlabels.max()) + 1))
+        if not feats:
+            feats.append(np.ones((int(hi - lo), 1), np.float32))
+        g["node_feature"] = np.concatenate(feats, axis=1)
+        efeats = []
+        if eattrs is not None:
+            efeats.append(eattrs[em].astype(np.float32))
+        if elabels is not None:
+            efeats.append(_one_hot(elabels[em].astype(np.int64).reshape(-1),
+                                   int(elabels.max()) + 1))
+        if efeats:
+            g["edge_feature"] = np.concatenate(efeats, axis=1)
+        if glabels is not None:
+            g["graph_label"] = np.asarray(
+                [int(glabels[gi].reshape(-1)[0])], np.int64)
+        graphs.append(g)
+    return graphs
+
+
+def tu_simple_filter(graphs: List[HostGraph]) -> List[HostGraph]:
+    """Reference loader.py:45-53, for the node tasks on TU data: the 100
+    graphs with the fewest directed edges among those with at least
+    200 (both directions counted), in a stable order."""
+    sizes = np.array([g.num_edges if g.num_edges >= 200 else 9999
+                      for g in graphs])
+    return [graphs[i] for i in np.argsort(sizes, kind="stable")[:100]]
+
+
+_KARATE_EDGES = (
+    (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8),
+    (0, 10), (0, 11), (0, 12), (0, 13), (0, 17), (0, 19), (0, 21),
+    (0, 31), (1, 2), (1, 3), (1, 7), (1, 13), (1, 17), (1, 19), (1, 21),
+    (1, 30), (2, 3), (2, 7), (2, 8), (2, 9), (2, 13), (2, 27), (2, 28),
+    (2, 32), (3, 7), (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10),
+    (5, 16), (6, 16), (8, 30), (8, 32), (8, 33), (9, 33), (13, 33),
+    (14, 32), (14, 33), (15, 32), (15, 33), (18, 32), (18, 33), (19, 33),
+    (20, 32), (20, 33), (22, 32), (22, 33), (23, 25), (23, 27), (23, 29),
+    (23, 32), (23, 33), (24, 25), (24, 27), (24, 31), (25, 31), (26, 29),
+    (26, 33), (27, 33), (28, 31), (28, 33), (29, 32), (29, 33), (30, 32),
+    (30, 33), (31, 32), (31, 33), (32, 33))
+_KARATE_LABELS = (1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 0, 0, 1, 1, 0,
+                  1, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+
+
+def load_karate() -> List[HostGraph]:
+    """Zachary's karate club (reference loader.py:54-55 KarateClub): 34
+    nodes, 78 undirected edges, identity features, community labels."""
+    arr = np.asarray(_KARATE_EDGES, np.int32)
+    g = HostGraph(34, np.concatenate([arr, arr[:, ::-1]], axis=0).T
+                  .astype(np.int32))
+    g["node_feature"] = np.eye(34, dtype=np.float32)
+    g["node_label"] = np.asarray(_KARATE_LABELS, np.int64)
+    return [g]
+
+
+def _csr_to_dense(data, indices, indptr, shape) -> np.ndarray:
+    out = np.zeros(shape, np.float32)
+    out[np.repeat(np.arange(shape[0]), np.diff(indptr)), indices] = data
+    return out
+
+
+def load_npz_graph(fname: str, dataset_dir: str) -> List[HostGraph]:
+    """The GNN-benchmark npz format behind PyG's Coauthor / Amazon
+    (reference loader.py:56-66): a CSR adjacency (adj_*), CSR or dense
+    attributes (attr_*), integer labels; symmetrized, self loops
+    dropped (PyG read_npz)."""
+    path = _find_raw(fname, dataset_dir, fname.split(".")[0])
+    with np.load(path) as z:
+        n = int(z["adj_shape"][0])
+        rows = np.repeat(np.arange(n), np.diff(z["adj_indptr"]))
+        cols = np.asarray(z["adj_indices"], np.int64)
+        if "attr_matrix" in z:
+            x = np.asarray(z["attr_matrix"], np.float32)
+        else:
+            x = _csr_to_dense(z["attr_data"], z["attr_indices"],
+                              z["attr_indptr"], (n, int(z["attr_shape"][1])))
+        labels = np.asarray(z["labels"], np.int64)
+    s, r = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    keep = s != r
+    pairs = np.unique(np.stack([s[keep], r[keep]], axis=1), axis=0)
+    g = HostGraph(n, pairs.T.astype(np.int32))
+    g["node_feature"] = x
+    g["node_label"] = labels
+    return [g]
+
+
+def load_ppi(dataset_dir: str) -> List[HostGraph]:
+    """The GraphSAGE PPI files behind PyG's PPI (reference
+    loader.py:69-70): per split {split}_graph.json (node-link),
+    _feats.npy, _labels.npy (multi-label), _graph_id.npy; one graph per
+    protein graph, its links symmetrized."""
+    import json
+
+    base = os.path.dirname(_find_raw("train_graph.json", dataset_dir, "PPI"))
+    graphs = []
+    for split in ("train", "valid", "test"):
+        gpath = os.path.join(base, f"{split}_graph.json")
+        if not os.path.exists(gpath):
+            continue
+        with open(gpath) as f:
+            links = json.load(f)["links"]
+        feats = np.load(os.path.join(base, f"{split}_feats.npy"))
+        labels = np.load(os.path.join(base, f"{split}_labels.npy"))
+        gids = np.load(os.path.join(base, f"{split}_graph_id.npy"))
+        links = np.asarray([(l["source"], l["target"]) for l in links],
+                           np.int64).reshape(-1, 2)
+        for gid in np.unique(gids):
+            nodes = np.where(gids == gid)[0]
+            lo, hi = nodes.min(), nodes.max() + 1
+            inside = ((links >= lo) & (links < hi)).all(axis=1)
+            e = links[inside] - lo
+            pairs = np.unique(np.concatenate([e, e[:, ::-1]]), axis=0)
+            g = HostGraph(int(hi - lo), pairs.T.astype(np.int32)
+                          if len(pairs) else np.zeros((2, 0), np.int32))
+            g["node_feature"] = feats[lo:hi].astype(np.float32)
+            g["node_label"] = labels[lo:hi].astype(np.int64)
+            graphs.append(g)
+    return graphs
+
+
+def load_qm7b(dataset_dir: str) -> List[HostGraph]:
+    """qm7b.mat behind PyG's QM7b (reference loader.py:71-72): each
+    Coulomb matrix of X [N, 23, 23] a dense weighted graph, its entry
+    the 1-wide edge_feature; the targets T [N, 14] the graph_label."""
+    from scipy.io import loadmat
+
+    mat = loadmat(_find_raw("qm7b.mat", dataset_dir, "QM7b"))
+    coulomb = np.asarray(mat["X"], np.float32)
+    targets = np.asarray(mat["T"], np.float32)
+    graphs = []
+    for adj, target in zip(coulomb, targets):
+        s, r = np.nonzero(adj)
+        g = HostGraph(adj.shape[0], np.stack([s, r]).astype(np.int32))
+        g["edge_feature"] = adj[s, r][:, None]
+        g["node_feature"] = np.ones((adj.shape[0], 1), np.float32)
+        g["graph_label"] = target
+        graphs.append(g)
+    return graphs
+
+
+def load_mnist_superpixels(dataset_dir: str) -> List[HostGraph]:
+    """MNISTSuperpixels.pt behind PyG's MNIST (reference
+    loader.py:67-68): a torch-saved [train, test] pair of lists of
+    per-graph dicts (x, edge_index, pos, y); node_feature = x then
+    pos.  The file comes from outside the program: torch.load builds
+    only tensors and plain containers from it."""
+    import torch
+
+    path = _find_raw("MNISTSuperpixels.pt", dataset_dir, "MNIST")
+    graphs = []
+    for split in torch.load(path, weights_only=True):
+        for d in split:
+            x = np.asarray(d["x"], np.float32)
+            g = HostGraph(x.shape[0],
+                          np.asarray(d["edge_index"], np.int32).reshape(2, -1))
+            pos = d.get("pos")
+            g["node_feature"] = x if pos is None else np.concatenate(
+                [x, np.asarray(pos, np.float32)], axis=1)
+            g["graph_label"] = np.asarray(
+                [int(np.asarray(d["y"]).reshape(-1)[0])], np.int64)
+            graphs.append(g)
+    return graphs
+
+
+def _load_pyg(name: str, cfg) -> List[HostGraph]:
+    """The PyG dataset names the reference's loader.py:30-72 reads, each
+    from its raw files (graphgym_tpu/data/loaders.py:402-431)."""
+    d = cfg.dataset.dir
+    if name in ("Cora", "CiteSeer", "PubMed"):
+        return load_planetoid(name, d)
+    if name == "Karate":
+        return load_karate()
+    if name.startswith("TU_"):
+        # TU_IMDB is IMDB-MULTI (reference loader.py:36-40)
+        return _load_tu_task("IMDB-MULTI" if name[3:] == "IMDB"
+                             else name[3:], cfg)
+    if "Coauthor" in name:
+        return load_npz_graph("ms_academic_cs.npz" if "CS" in name
+                              else "ms_academic_phy.npz", d)
+    if "Amazon" in name:
+        return load_npz_graph("amazon_electronics_computers.npz"
+                              if "Computers" in name
+                              else "amazon_electronics_photo.npz", d)
+    if name == "PPI":
+        return load_ppi(d)
+    if name == "QM7b":
+        return load_qm7b(d)
+    if name == "MNIST":
+        return load_mnist_superpixels(d)
+    raise ValueError(f"PyG dataset {name} not supported natively; "
+                     "provide raw files or use nx format")
+
+
+def _load_tu_task(name: str, cfg) -> List[HostGraph]:
+    """A TU dataset, cut by tu_simple_filter off the graph task where
+    cfg.dataset.tu_simple asks."""
+    graphs = load_tu(name, cfg.dataset.dir)
+    if cfg.dataset.tu_simple and cfg.dataset.task != "graph":
+        graphs = tu_simple_filter(graphs)
+    return graphs
+
+
 def load_dataset(cfg) -> List[HostGraph]:
     fmt = cfg.dataset.format
     if fmt.startswith("Tfg-"):
         fmt = fmt[4:]
+    name = cfg.dataset.name
     for func in register.loader_dict.values():
-        graphs = func(fmt, cfg.dataset.name, cfg.dataset.dir)
+        graphs = func(fmt, name, cfg.dataset.dir)
         if graphs is not None:
             return graphs
     if fmt == "nx":
-        return load_nx(cfg.dataset.name, cfg.dataset.dir)
-    raise _not_ported(f"dataset format {cfg.dataset.format!r}", "A13c")
+        return load_nx(name, cfg.dataset.dir)
+    if fmt in ("PyG", "Planetoid"):
+        return _load_pyg(name, cfg)
+    if fmt == "TU":
+        return _load_tu_task(name, cfg)
+    if fmt == "OGB":
+        raise _not_ported("dataset format 'OGB'", _A13C_REST)
+    if fmt == "syn":
+        from graphgym_tpu_torch.data.synthetic import generate_syn_graphs
+        return generate_syn_graphs(name, seed=cfg.seed)
+    raise ValueError(f"Unknown data format: {cfg.dataset.format}")
 
 
 # ----------------------------------------------------------------- splits
@@ -355,16 +718,43 @@ def _set_message_edges(gg: HostGraph, orig_edge_index: np.ndarray,
 
 # ------------------------------------------------------------ create_dataset
 
+def _cache_path(cfg) -> str:
+    """The processed-dataset cache file, the JAX package's key and name
+    (graphgym_tpu/data/loaders.py:684-693): a digest of the main options
+    only (reference config.py:188-192's caveat), under dataset.dir where
+    that is a directory, else the working directory."""
+    import hashlib
+
+    key = "|".join(str(v) for v in (
+        cfg.dataset.name, cfg.dataset.format, cfg.dataset.task,
+        cfg.dataset.transform, cfg.dataset.augment_label,
+        cfg.dataset.augment_feature, cfg.gnn.layers_mp,
+        cfg.dataset.split, cfg.seed))
+    digest = hashlib.sha256(key.encode()).hexdigest()[:16]
+    return os.path.join(cfg.dataset.dir if os.path.isdir(cfg.dataset.dir)
+                        else ".", f"cache_{digest}.pkl")
+
+
 def create_dataset(cfg, rng: Optional[np.random.Generator] = None
                    ) -> List[List[HostGraph]]:
     """Full pipeline (reference create_dataset, loader.py:191-244).  The
     edge transform rewrites cfg.dataset.task to 'node', as in the JAX
     package: its link or edge supervision becomes node labels of the
-    edge-net union."""
+    edge-net union.  cfg.dataset.cache_load reads the processed splits
+    from ``_cache_path`` where that file exists (one the JAX package
+    wrote too: ``_CorpusUnpickler``), cache_save writes them there; as
+    in the JAX package the save's key is taken after the pipeline, so
+    an edge transform's cache (task rewritten) is never found again."""
     if cfg.dataset.task not in ("node", "graph", "link_pred", "edge"):
         raise ValueError(f"Unknown task {cfg.dataset.task!r}")
-    if cfg.dataset.cache_load or cfg.dataset.cache_save:
-        raise _not_ported("the processed-dataset cache", "A13c")
+    if cfg.dataset.cache_load:
+        path = _cache_path(cfg)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                splits = _CorpusUnpickler(f).load()
+            set_dataset_info(splits, cfg)
+            logging.info("Loaded cached dataset from %s", path)
+            return splits
     rng = rng or np.random.default_rng(cfg.seed)
     t1 = time.time()
     graphs = load_dataset(cfg)
@@ -403,6 +793,14 @@ def create_dataset(cfg, rng: Optional[np.random.Generator] = None
         "Load: %.4fs, Before split: %.4fs, Split: %.4fs, "
         "After split: %.4fs", t2 - t1, t3 - t2, t4 - t3, t5 - t4)
     set_dataset_info(splits, cfg)
+    if cfg.dataset.cache_save:
+        path = _cache_path(cfg)
+        try:
+            with open(path, "wb") as f:
+                pickle.dump(splits, f)
+            logging.info("Cached dataset to %s", path)
+        except OSError as exc:
+            logging.warning("dataset cache_save failed: %s", exc)
     return splits
 
 
@@ -517,7 +915,7 @@ class GraphLoader:
     def batches(self, epoch: int = 0) -> List[GraphBatch]:
         sample_group = self.cfg.train if self.shuffle else self.cfg.val
         if sample_group.sample_node:
-            raise _not_ported("per-epoch node sampling", "A13c")
+            raise _not_ported("per-epoch node sampling", _A13C_REST)
         resampled = self._resample()
         # with one batch per epoch shuffling cannot change its
         # composition: collate once and reuse
@@ -718,7 +1116,7 @@ def create_loader(splits: List[List[HostGraph]], cfg) -> List[GraphLoader]:
     loader.py:247-260).  Each loader gets its own seeded Generator, as
     in the JAX package."""
     if cfg.train.sampler != "full_batch" or cfg.val.sampler != "full_batch":
-        raise _not_ported("graph samplers", "A13c")
+        raise _not_ported("graph samplers", _A13C_REST)
     rngs = [np.random.default_rng([cfg.seed, i])
             for i in range(len(splits))]
     return [GraphLoader(part, cfg, batch_size=cfg.train.batch_size,

@@ -144,7 +144,26 @@ LINK_ID_GRID = ("dataset.format", "nx", "dataset.transductive", "False",
                 "dataset.task", "link_pred", "dataset.augment_feature", "[]",
                 "dataset.edge_train_mode", "disjoint", "optim.max_epoch",
                 "100")
+# the ID-GNN paper's real-dataset chunks, each on the config of its
+# dataset: grids/IDGNN/node.txt:22-34 (Cora, transductive, the class
+# labels, gatidconv at 2 MP layers) and graph_enzyme.txt:21-33 at its
+# first layer type (TU_ENZYMES, the graph task, ego at r = 3); their raw
+# files under dataset.dir (data/loaders.py's parsers)
+CORA_GRID = ("dataset.format", "PyG", "dataset.name", "Cora",
+             "dataset.transform", "ego", "dataset.task", "node",
+             "dataset.transductive", "True", "dataset.augment_feature", "[]",
+             "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
+             "gnn.layers_mp", "2", "gnn.layers_post_mp", "1",
+             "gnn.layer_type", "gatidconv", "optim.max_epoch", "100")
+ENZYMES_GRID = ("dataset.format", "PyG", "dataset.name", "TU_ENZYMES",
+                "dataset.transform", "ego", "dataset.task", "graph",
+                "dataset.transductive", "False", "dataset.augment_feature",
+                "[]", "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
+                "gnn.layers_mp", "3", "gnn.layers_post_mp", "3",
+                "gnn.layer_type", "gcnidconv", "optim.max_epoch", "100")
 POINTS = {
+    "cora_gatid": ("idgcn_Cora", CORA_GRID),
+    "idgraph_enzymes": ("idgcn_ENZYMES", ENZYMES_GRID),
     "linkid_ba": ("idgcn_ba", LINK_ID_GRID + (
         "dataset.name", "ba", "gnn.layer_type", "gatidconv")),
     "design_att_sf_mul": ("design/design_v1att", ROUND1ATT_GRID + (

@@ -246,8 +246,12 @@ def test_run_suite_writes_details(tmp_path):
               "spmm_fwd_bwd_pallas_bf16_edges_per_s",
               "attention_fwd_bwd_edges_per_s"):
         assert details[k] > 0
+    # no TU files under datasets/: the graph-task epoch on ws
+    assert details["tu_enzymes_epoch_s_pallas"] > 0
+    assert details["tu_enzymes_train_edges_per_s_pallas"] > 0
+    assert details["tu_enzymes_dataset"] == "ws"
     for k in ("idgcn_ws_epoch_s_xla", "idgcn_ws_epoch_s_pallas_bf16",
-              "tu_enzymes_epoch_s_pallas"):
+              "tu_enzymes_epoch_s_xla"):
         assert details[k] is None and details["null_reasons"][k]
     assert B.DEFAULT_OUT.startswith(os.path.join(ROOT, "chiprun_out"))
 

@@ -108,7 +108,7 @@ def test_batch_to_device(both):
 
 
 def test_unported_options_raise():
-    cfg = load_cfg(CFG, ["device", "cpu", "dataset.cache_load", "True"])
+    cfg = load_cfg(CFG, ["device", "cpu", "dataset.format", "OGB"])
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         loaders.create_dataset(cfg)
     cfg = load_cfg(CFG, ["device", "cpu", "train.sampler", "neighbor"])
