@@ -150,17 +150,14 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   Tfg APPNP model, Dense [64, 6] then 10 propagations on the 'gcn'
   pack: K1 20 per train step and 10 per eval batch, all at D = 6, the
   narrow walk; seeded random features in the model check).
-  full_idgcn_ws — configs/idgcn_ws.yaml for its 1000 epochs, 3 seeds,
-                  through graphgym_tpu_torch.main.main --repeat 3 and its
-                  aggregate (exp/agg): each seed's best val accuracy,
-                  mean and std, seconds per run, median time_iter
-                  (graphgym_tpu_torch/exp/parity.py's run_config, the
-                  port's parity tool); fails unless the mean meets
-                  results/parity/PARITY.md's pass rule (the tool's
-                  pass_rule) against parity.json's row (0.99375 +-
-                  0.0006);
-  full_gcnid_ws — the same for gnn.layer_type gcnidconv, reported only
-                  (no reference number).
+  (The full-length runs full_idgcn_ws (its 1000 epochs, 3 seeds, held
+  to PARITY.md's pass rule against 0.99375 +- 0.0006), full_gcnid_ws,
+  full_design_sf, full_design_graph_sf and full_linkid_ws left the
+  script in PR 20 for its time: the parity tool runs them in calls of
+  their own, ``python -m graphgym_tpu_torch.exp.parity --configs
+  configs/idgcn_ws.yaml --repeat 3 --opts device cuda`` (add
+  ``gnn.layer_type gcnidconv`` for full_gcnid_ws); the JAX package's
+  CPU run of full_linkid_ws's point, seeds 1-3: 0.5897, 0.5, 0.5449.)
   kernel_max    — the segmented max (csrc/packed_max.cu; XLA's
                   segment_max in the JAX package, no Pallas kernel),
                   forward and backward, against its plain version on the
@@ -189,7 +186,6 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   the fifth ID-GNN Full variant: K1 6 and 3 at D = 128); each through
   drive_path's phases (kernel_design_sf_max holds the max on its train
   pack; the model check gives the CPU the card's max choices, SameMax).
-  full_design_sf — design_sf for its 100 epochs, 3 seeds, reported.
   The graph task (the graph head: global pooling on the batch's
   pooling pack, then its MLP over the graph slots, BatchNorm masked to
   the real ones), each through drive_path's phases after the design
@@ -272,8 +268,6 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   and its backward); on the 500-node paths' packs too
                   (rows of 500 slots: a graph's nodes or ego centers),
                   and on idgraph_enzymes'.
-  full_design_graph_sf — design_graph_sf for its 200 epochs, 3 seeds,
-                  reported.
   The link-prediction and edge tasks, each through drive_path's phases:
   linkid_ws (grids/IDGNN/link.txt:21-34 on configs/idgcn_ws.yaml:
   gcnidconv, 5 layers, the edge transform, so a node task on the
@@ -315,11 +309,36 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   the add pooling of the ego centers 2 and 1 of them; the model check
   on the first 32 train graphs); their own features in the model
   check.
-  full_linkid_ws — linkid_ws for its 100 epochs (link.txt:33), 3 seeds,
-                  reported beside the JAX package's CPU result at the
-                  same point and seeds (JAX_LINKID_WS) and
-                  LINK_PARITY.md's row (context, another protocol; read
-                  from link_parity.json by the parity tool).
+  OGB raw directories (A13c's second half), after them:
+  ogb_files     — ogbg-molhiv's and ogbn-arxiv's raw directories
+                  (raw/*.csv.gz and split/) written into OGB_DIR at the
+                  published sizes by data/standins.py, each timed and
+                  held to those sizes, and molhiv's cut (MOLHIV_CUT);
+  then through drive_path's phases ogbg_molhiv_gcnid (graph_ogb.txt:
+  21-33 at gcnidconv on configs/design/design_v2ogb.yaml: the Atom
+  encoder and its BN at 300, ego at r = 3 over an eighth of the
+  molecules (MOLHIV_CUT: 5,141, for the script's time), 33 train
+  batches of 128 an epoch; K1 8 per train step and 4 per
+  eval batch at 300, the add pooling of the ego centers 2 and 1 of
+  them, K1 also held on that pooling pack; K2 1 per train step, the
+  encoder tables' gradient, held on the Atom encoder's embedding pack
+  with its library calls and the one-hot product) and
+  ogbn_arxiv_design (configs/design/design_v2.yaml on ogbn-arxiv, full
+  batch, the official time split: K1 4 and 2 at 256 on the 'plain'
+  pack; the model check on the subgraph of the first 40,000 papers),
+  the processed splits kept in the dataset cache (OGB_CACHE) after the
+  first load;
+  samplers_arxiv — the arxiv point trained 2 epochs with each
+                  train.sampler (neighbor, saint_node, saint_edge,
+                  saint_rw, random_node, cluster; train.iter_per_epoch
+                  cut, SAMPLER_ITERS) and with train.sample_node: each
+                  epoch's draws, host seconds, signatures and captures,
+                  finite losses, K1's launches held exactly;
+  model_bond    — the Bond edge encoder on a TU set with edge labels
+                  (BOND_TU; ENZYMES has none): model_phase's card vs
+                  CPU check of the ENZYMES graph point at gcnconv with
+                  dataset.edge_encoder, the edge BN's statistics
+                  included.
   prefetch_idgin_ba — ID-GIN ba's train loader (2 batches of 48 graphs
                   re-collated each epoch): the run with cfg.tpu.prefetch
                   off and on (train_path, 10 epochs, the launches of
@@ -336,7 +355,7 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
   (ID-GIN ba's 1000-epoch runs go through the parity tool, in calls of
   their own: python -m graphgym_tpu_torch.exp.parity --configs
   configs/idgin_ba.yaml --repeat 3 ...)
-  Kernel K2, which no path runs:
+  Kernel K2 off its path (its path: ogbg_molhiv_gcnid's encoder):
  20. kernel_seg  — at the train 'plain' fwd pack of ID-GIN, D = 128: K2
                    against its plain version with a random message on
                    every slot (padding slots included), against K1 with
@@ -390,13 +409,16 @@ on appnp_ws's 'gcn' pack; K1 and the max on the model-only checks'
 packs; K1 on the link and edge paths' layer packs and on their gather
 packs; K3, its row sums and the SDDMM on linkid_ba's 'att' pack and on
 cora_gatid's; K1 on idgraph_enzymes' layer pack and its pooling
-packs), and last the result line
+packs; K1 on the molhiv ID point's 'gcn' pack and its add pooling at
+300, K2 on its Atom encoder's embedding pack, K1 on the arxiv design
+point's 'plain' pack at 256), and last the result line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import atexit
+import collections
 import ctypes
 import hashlib
 import json
@@ -448,13 +470,16 @@ try:
     from graphgym_tpu_torch.device import resolve_device
     from graphgym_tpu_torch.exp import parity
     from graphgym_tpu_torch.exp.corpus_time import corpus_digest
-    from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS, POOLINGS,
+    from graphgym_tpu_torch.graphs.packing import (EMBED_KINDS,
+                                                   EMBED_TABLES, LABELS,
+                                                   PAIRS, POOLINGS,
                                                    build_pool_packs,
                                                    kinds_for_layer,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
     from graphgym_tpu_torch.nn import model as M
     from graphgym_tpu_torch.nn.att_layers import SAGEInitConv
+    from graphgym_tpu_torch.nn import encoders as ENC
     from graphgym_tpu_torch.nn.model import build_model
     from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
     from graphgym_tpu_torch.train import checkpoint as ckpt
@@ -492,7 +517,7 @@ CORPUS500 = {"ws500": (28, "d51d19e85d5b5fc6468121c026c2eecaf"
                            "2bbef269fc4bb1e8cd31d450b6a7fa92")}
 CHILDREN = []   # processes this script starts, killed at its exit
 # the design_v1 point of results/design_v1_grid_round1 (scalefree, node
-# task, generalconv at 256): design_sf's and full_design_sf's overrides
+# task, generalconv at 256): design_sf's overrides
 DESIGN_SF = ("dataset.format", "nx", "dataset.name", "scalefree",
              "dataset.task", "node", "dataset.transductive", "True",
              "dataset.augment_feature", "['node_pagerank']",
@@ -524,7 +549,7 @@ DESIGN_GRAPH_SF = ("dataset.format", "nx", "dataset.name", "scalefree",
 # link.txt:5-18 (the plain chunk on ba, gcnconv, node_identity) on
 # configs/idgcn_ba.yaml with the disjoint protocol and the reference
 # base's concat decoding (tools/run_parity.py:360-363); the grid's 100
-# epochs only in full_linkid_ws
+# epochs only in the parity tool (full_linkid_ws)
 LINK_GRID = ("dataset.format", "nx", "dataset.transductive", "False",
              "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
              "gnn.layers_mp", "5", "gnn.layers_post_mp", "1",
@@ -541,22 +566,6 @@ LINK_BA = LINK_GRID + ("dataset.transform", "none", "dataset.task",
                        "['node_identity']", "gnn.layer_type", "gcnconv",
                        "dataset.edge_train_mode", "disjoint",
                        "model.edge_decoding", "concat")
-# full_linkid_ws's point on the JAX package, the same seeds (1-3), on a
-# CPU: python -m graphgym_tpu.main --cfg configs/idgcn_ws.yaml --repeat 3
-# <LINKID_WS> optim.max_epoch 100 tpu.spmm_impl xla: each seed's best val
-# accuracy and agg/val/best.json's mean and std
-JAX_LINKID_WS = dict(best_val_acc_per_seed=[0.5897, 0.5, 0.5449],
-                     mean=0.5449, std=0.0366)
-# the JAX package's CPU runs of ginconvFast_ba and gatconvFast_ba at the
-# same seeds, which the parity tool judges those rows against as well,
-# are the tool's own constant: parity.JAX_CPU_RUNS
-# results/parity/LINK_PARITY.md:16, gcnidconv on ws: the JAX package and
-# the reference on the reference's edge.yaml base at a matched parameter
-# budget (tools/run_parity.py:333-355), another protocol
-_LINK_WS = parity.link_reference("gcnidconv", "ws")
-LINK_PARITY_WS = dict(jax=(_LINK_WS["ours"], _LINK_WS["ours_std"]),
-                      reference=(_LINK_WS["reference"],
-                                 _LINK_WS["reference_std"]))
 IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
               "dataset.transform", "ego", "dataset.augment_feature", "[]",
               "dataset.augment_label", "graph_clustering_coefficient",
@@ -587,6 +596,34 @@ LINKID_BA = parity.POINTS["linkid_ba"]
 RAW_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build", "raw")
 CORA_GATID = parity.POINTS["cora_gatid"]
 IDGRAPH_ENZYMES = parity.POINTS["idgraph_enzymes"]
+# git-ignored OGB_DIR: the OGB stand-ins (data/standins.py, seed 0, the
+# published sizes), the TU set of the Bond check, and the dataset cache
+# of their processed splits (the molhiv ego union is built once and
+# read back by the later phases: OGB_CACHE)
+OGB_DIR = os.path.join(ROOT, "graphgym_tpu_torch", "csrc", "build", "ogb")
+# ogbg_molhiv_gcnid runs the molhiv stand-in cut to an eighth of its
+# molecules (the same writer, the per-molecule shape unchanged), in
+# OGB_CUT_DIR: at all 41,127 the ego union took 40.0-52.6 s of host time
+# and an epoch of 258 batches 11.6-16.5 s, host-bound (PR 20's calls 1-2),
+# which the script's time does not hold; the parity tool runs the set
+OGB_CUT_DIR = os.path.join(OGB_DIR, "cut")
+MOLHIV_CUT = dict(graphs=5141, split=(4113, 514, 514))
+MOLHIV_ID = parity.POINTS["ogbg_molhiv_gcnid"]
+ARXIV_DESIGN = parity.POINTS["ogbn_arxiv_design"]
+OGB_CACHE = ("dataset.cache_save", "True", "dataset.cache_load", "True")
+# ogbn_arxiv_design's model check: the subgraph of the first 40,000
+# papers (all in the train split), full width; on the whole graph its
+# CPU side took 23.6-31.3 s (PR 20's calls)
+ARXIV_MODEL_NODES = 40000
+# samplers_arxiv: each sampler's draws an epoch, train.iter_per_epoch
+# cut from its 32 for the phase's time (neighbor's four hops from 256
+# seeds reach 98% of the graph, 4.3 s a draw: one draw)
+SAMPLER_ITERS = {"neighbor": 1, "saint_node": 4, "saint_edge": 4,
+                 "saint_rw": 4, "random_node": 4, "cluster": 4}
+# model_bond: a TU set with edge labels (ENZYMES has none), its ego
+# graph point with the Bond edge encoder
+BOND_TU = dict(graphs=120, nodes=3000, edges=6000, min_nodes=8,
+               max_nodes=60, large=0, attributes=4, edge_labels=4)
 # sweep_round1: grids/design/round1.txt sampled along 'agg' at this
 # sample_num, budget-matched to configs/design/design_v1.yaml (24
 # configs, 18 of them on the nx chunks), of which three run
@@ -615,8 +652,8 @@ def begin(name: str) -> None:
 
 def phase(name: str, **kw) -> None:
     """One phase's line, with the seconds since the script started, on
-    stdout and appended to OUT/phases.jsonl (the full-length runs' logs
-    push early lines out of a short tail)."""
+    stdout and appended to OUT/phases.jsonl (the trainings' logs push
+    early lines out of a short tail)."""
     line = json.dumps({"phase": name,
                        "at_s": round(time.perf_counter() - T0, 1), **kw})
     print(line, flush=True)
@@ -1341,6 +1378,87 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                 longest_row_slots=int(np.bincount(
                     rows.cpu().numpy()).max()),
                 index_build_s=index_s)
+
+
+def check_embed_kernel(pack, table_rows: int, d: int, device) -> dict:
+    """K2 on an encoder's embedding pack (graphs/packing.
+    build_embed_pack, on the card), the tables' gradient of the lookup:
+    the rows of a seeded g [items, d] gathered in slot order and summed
+    per table row.  Against its plain version on the CPU (hold_sums'
+    rule), bitwise between two launches, and the encoder's whole
+    gradient (``table_grad``: the gather, then K2) against the plain
+    gathers' autograd on the CPU.  Times at f32: the kernel, the plain
+    version on the card, two library calls for K2's function on the
+    same messages (index_add_ into zeros; torch.sparse.mm of the 0/1
+    [rows, slots] matrix), the one-hot product count^T @ g (the
+    lookup's gradient from g, no gathered messages: ``onehot_ms``) and
+    the encoder's backward (``backward_ms``).  The bound: the messages
+    read once, K2's index, the output rows written once."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    items, n_out = pack.rows.shape[0], pack.comb_rows.shape[0]
+    runs = K.SegmentRuns(pack.run_start, pack.run_out, pack.comb_rows,
+                         pack.comb_ptr, pack.run_out.shape[0])
+    rows = pack.slot_rows.long()
+    g = torch.randn(items, d, generator=gen, device=device)
+    msg = g.index_select(0, pack.slot_items)
+    K.packed_segment_matmul_cuda.launches = 0
+    got = K.packed_segment_runs_cuda(msg, runs, n_out)
+    cpu_msg, cpu_rows = msg.cpu(), rows.cpu()
+    err = hold_sums("K2 embedding", got.cpu(),
+                    K.segment_sum_plain(cpu_msg, cpu_rows, n_out),
+                    K.segment_sum_plain(cpu_msg.abs(), cpu_rows, n_out))
+    if not torch.equal(got, K.packed_segment_runs_cuda(msg, runs, n_out)):
+        fail("K2 embedding: two launches differ")
+    # the encoder's gradient: K2 against autograd of the plain gathers
+    grad = ENC.table_grad(pack, g, table_rows)
+    table = torch.zeros(table_rows + 1, d, requires_grad=True)
+    cpu_ids = pack.rows.long().cpu()
+    plain = sum(table.index_select(0, cpu_ids[:, c])
+                for c in range(cpu_ids.shape[1]))
+    (want,) = torch.autograd.grad(plain, table, g.cpu(), retain_graph=True)
+    (scale,) = torch.autograd.grad(plain, table, g.abs().cpu())
+    grad_err = hold_sums("encoder table gradient", grad.cpu(),
+                         want[:table_rows], scale[:table_rows])
+    torch.cuda.synchronize()
+    launches = K.packed_segment_matmul_cuda.launches
+    flat = torch.ones(rows.numel(), device=device)
+    ones = torch.sparse_coo_tensor(
+        torch.stack([rows, torch.arange(rows.numel(), device=device)]),
+        flat, (n_out, rows.numel())).coalesce().to_sparse_csr()
+    count = torch.zeros(n_out, items, device=device).index_put_(
+        (rows, pack.slot_items.long()), flat, accumulate=True)
+    out_lib = torch.zeros(n_out, d, device=device)
+    lib_err = (torch.sparse.mm(ones, msg) - got).abs().max().item()
+    onehot_err = (count @ g - got).abs().max().item()
+    calls = {"kernel": lambda: K.packed_segment_runs_cuda(msg, runs, n_out),
+             "plain": lambda: K.segment_sum_plain(msg, rows, n_out),
+             "index_add": lambda: out_lib.index_add_(0, rows, msg),
+             "sparse_mm": lambda: torch.sparse.mm(ones, msg),
+             "onehot_mm": lambda: count @ g,
+             "backward": lambda: ENC.table_grad(pack, g, table_rows)}
+    index = sum(a.numel() for a in runs[:4])
+    moved = msg.numel() * 4 + index * 4 + n_out * d * 4
+    flops = msg.numel()
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    ms, loop_ms, timed_by, queued = time_calls(calls,
+                                               max(t_bytes, t_ops) * 1e3)
+    library = min(("index_add", "sparse_mm"), key=ms.get)
+    real_runs = int((pack.run_start[1:] > pack.run_start[:-1]).sum())
+    return dict(max_abs_err=err, table_grad_err=grad_err,
+                launches=launches, library_err=lib_err,
+                onehot_err=onehot_err, ms=ms["kernel"],
+                plain_ms=ms["plain"], library_ms=ms[library],
+                library=library, index_add_ms=ms["index_add"],
+                sparse_mm_ms=ms["sparse_mm"], onehot_ms=ms["onehot_mm"],
+                backward_ms=ms["backward"], call_ms=loop_ms,
+                timed_by=timed_by, queued_ms=queued,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved, flops=flops, width=d, items=items,
+                columns=int(pack.rows.shape[1]), table_rows=table_rows,
+                slots=rows.numel(), runs=real_runs,
+                padded_runs=int(pack.run_out.numel()),
+                longest_row_slots=int(torch.bincount(rows).max().item()))
 
 
 def longest_rows(pack: K.PackedCSR) -> dict:
@@ -2178,8 +2296,11 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
         m.eval()
         with torch.no_grad(), eval_mode, maxes[1]:
             pred_eval = m(b)[0]
+        # a parameter no loss reaches (the Bond encoder's tables: no
+        # ported layer reads edge_feat) has no gradient on either side
         outs.append(dict(train=pred.detach().cpu(), eval=pred_eval.cpu(),
-                         **{k: p.grad.cpu()
+                         **{k: (p.grad if p.grad is not None
+                                else torch.zeros_like(p)).cpu()
                             for k, p in m.named_parameters()},
                          **{k: v.cpu() for k, v in m.named_buffers()}))
         kinks.append((train_mode, eval_mode))
@@ -2738,21 +2859,28 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     launches (the graph head's pooling, or a head's gather, forward and
     backward) per train step and eval batch, of those ``expected``
     counts; the result reports them and the rest, the layers', as
-    measured."""
+    measured; with the graphs each step captured, and the train
+    batches' signatures over the epochs and what each epoch adds (one
+    captured program a signature)."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
     steps = epochs * len(loaders[0])
     evals = sum(ckpt.is_eval_epoch(e, cfg.train.eval_period, epochs)
-                for e in range(epochs)) * len(loaders[1])
+                for e in range(epochs)) * sum(map(len, loaders[1:]))
 
     def totals(per):
         return {k.__name__: (s * steps + e * evals,
                              f"{s}/train step x {steps} + {e}/eval batch "
                              f"x {evals}") for k, (s, e) in per.items()}
-    with LoaderCalls(keep=False) as calls:
+    with LoaderCalls(keep=False) as calls, Captures() as captures, \
+            Draws() as draws:
         result, (launches, by_width, rectangular) = counted(
             lambda: run_single(cfg, cfg.out_dir, cfg_file))
+    # the epochs' train batches (the trainer's construction and its edge
+    # count draw first)
+    by_epoch = [c["signatures"] for c in draws.calls
+                if c["train"]][-epochs:]
     k1 = K.packed_spmm_cuda.__name__
     rect_launches = sum(rectangular.values())
     parity.drop_checkpoints(out)
@@ -2785,6 +2913,10 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                 k1_rect_launches_by_width=rectangular,
                 launches_per_train_step_and_eval_batch={
                     k.__name__: v for k, v in expected.items()},
+                captures=dict(captures.counts),
+                train_signatures=len({sig for sigs in by_epoch
+                                      for sig in sigs}),
+                new_signatures_by_epoch=new_by_epoch(by_epoch),
                 params=cfg.params)
 
 
@@ -2907,12 +3039,24 @@ def corpus_phase(overrides, procs: dict) -> dict:
                 cache=sorted(os.listdir(CORPUS_DIR)), rows=rows)
 
 
+def first_graphs(cfg, loaders, graphs: int):
+    """The batch of the first ``graphs`` graphs of each split's loader
+    (``first_graphs_batch`` from a path's loaded splits)."""
+    return create_loader([ld.graphs[:graphs] for ld in loaders],
+                         cfg)[0].batches(0)[0]
+
+
 def first_graphs_batch(cfg_file: str, overrides, graphs: int):
     """The batch of a config's first ``graphs`` train graphs (its
     dataset built afresh, each split cut to that many)."""
     cfg = load_cfg(cfg_file, overrides)
     return create_loader([split[:graphs] for split in create_dataset(cfg)],
                          cfg)[0].batches(0)[0]
+
+
+# a graph path's config, loaders and first train batch, kept by
+# drive_path for kernel_pool
+LOADED: dict = {}
 
 
 def pool_phase(paths: dict, device) -> dict:
@@ -2923,14 +3067,19 @@ def pool_phase(paths: dict, device) -> dict:
     built from it (ego centers where the path pools them): K1 forward
     and backward (``check_pool_k1``) for add and mean, the segmented max
     forward and backward (``check_max_kernel`` on the rectangular packs)
-    for max, which no path runs."""
+    for max, which no path runs.  A path that drive_path ran brings its
+    loaders and first train batch (``LOADED``)."""
     out = {}
     for tag, (cfg_file, overrides, width, max_graphs) in paths.items():
-        cfg, loaders, _ = load_path(cfg_file, overrides)
-        batches = {"k1": loaders[0].batches(0)[0]}
+        if tag in LOADED:
+            cfg, loaders, first = LOADED.pop(tag)
+        else:
+            cfg, loaders, _ = load_path(cfg_file, overrides)
+            first = loaders[0].batches(0)[0]
+        batches = {"k1": first}
+        batches["max"] = (first_graphs(cfg, loaders, max_graphs)
+                          if max_graphs else first)
         del loaders
-        batches["max"] = (first_graphs_batch(cfg_file, overrides, max_graphs)
-                          if max_graphs else batches["k1"])
         ego = cfg.dataset.transform == "ego"
         checks = {}
         for kind in POOLINGS:
@@ -2963,7 +3112,8 @@ def config(tag: str) -> str:
 def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                random_features: bool = False, base: str = "",
                extra=(), rect_width=None, rect=(0, 0),
-               model_graphs: int = 0) -> dict:
+               model_graphs: int = 0, pool_width: int = 0,
+               model_nodes: int = 0) -> dict:
     """The phases of one more path, as the ws paths have them:
     kernel_<tag> (its kernels at the train pack's shapes: K1 at the
     model width and at each narrow width ``widths`` names, or K3, its
@@ -2988,19 +3138,22 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     check runs on the first val batch, or with ``model_graphs`` on a
     batch of the first that many train graphs (where the CPU side of a
     val batch would take minutes, or its few graph slots leave the
-    graph head's BatchNorm ill-conditioned); its phase names which."""
-    from graphgym_tpu_torch.train.graphed import signature
-
+    graph head's BatchNorm ill-conditioned); its phase names which.
+    With ``model_nodes`` the model check takes the subgraph the train
+    split's first that many nodes induce (a one-graph dataset whose CPU
+    side would take tens of seconds), with the train supervision there.
+    With ``pool_width`` the kernel phase also holds K1 on the path's own
+    pooling packs at that width (``check_pool_k1``); a batch with an
+    encoder's embedding pack has K2 held on it at the encoder width
+    (``check_embed_kernel``), and the profile's per-slot width check
+    lets the encoder's gathered messages (its slots times the width)
+    pass.  The profile, repeat and graphed checks take the first train
+    batch (``FirstBatch``)."""
     cfg_file = config(base or tag)
     overrides = list(overrides) + list(extra)
     begin(f"kernel_{tag}")
     cfg, loaders, host_s = load_path(cfg_file, overrides)
     batch = loaders[0].batches(0)[0]
-    # one captured program per signature: over the epochs a training
-    # re-collates (its packs padded to the loader's running chunk counts)
-    signatures = len({signature(b.to(torch.device("cpu")))
-                      for e in range(cfg.optim.max_epoch)
-                      for b in loaders[0].batches(e)})
     n, d = batch.num_nodes, cfg.gnn.dim_inner
     (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
                               cfg.gnn.normalize_adj, cfg.gnn.flow)
@@ -3015,6 +3168,17 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     else:
         checks = {f"d{w}": check_kernel(packs, n, w, device)
                   for w in sorted({d, *(widths or {})} - {rect_width})}
+    embed_numel = 0
+    for name in EMBED_KINDS:
+        if name in batch.packs:
+            (pack,) = batch.to(device).packs[name]
+            table = (cfg.dataset.node_encoder_name if name == EMBED_KINDS[0]
+                     else cfg.dataset.edge_encoder_name)
+            checks[f"k2_{name}"] = check_embed_kernel(
+                pack, sum(EMBED_TABLES[table][0]), cfg.dataset.encoder_dim,
+                device)
+            embed_numel = max(embed_numel, pack.slot_items.numel()
+                              * cfg.dataset.encoder_dim)
     pool = {}
     if cfg.dataset.task == "graph":
         name = next(k for k in batch.packs if k.startswith("pool_"))
@@ -3025,6 +3189,9 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                     bwd_rows=longest_rows(bwd_pool),
                     centers=(None if batch.node_id_index is None
                              else int(np.sum(batch.id_mask))))
+        if pool_width:
+            checks["pool_k1"] = check_pool_k1((fwd_pool, bwd_pool), n,
+                                           pool_width, device)
     gathers = {}
     for name, index, mask, width in (
             (PAIRS, lambda: batch.edge_label_index.reshape(-1),
@@ -3050,7 +3217,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           edge_slots=len(batch.senders),
           real_edges=int(np.sum(batch.edge_mask)),
           chunks=int(packs[0].senders.shape[0]), host_data_s=host_s,
-          batches=len(loaders[0]), train_signatures=signatures,
+          batches=len(loaders[0]),
           slots=int(packs[0].senders.numel()),
           fwd_rows=longest_rows(packs[0]),
           bwd_rows=longest_rows(packs[1]), pool=pool, gathers=gathers,
@@ -3058,8 +3225,16 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     begin(f"model_{tag}")
     model_batch, checked = loaders[1].batches(0)[0], "the first val batch"
     if model_graphs:
-        model_batch = first_graphs_batch(cfg_file, overrides, model_graphs)
+        model_batch = first_graphs(cfg, loaders, model_graphs)
         checked = f"the first {model_graphs} train graphs"
+    if model_nodes:
+        from graphgym_tpu_torch.data.samplers import induced_subgraph
+
+        model_batch = create_loader([[induced_subgraph(g, np.arange(
+            min(model_nodes, g.num_nodes))) for g in loaders[0].graphs]],
+            cfg)[0].batches(0)[0]
+        checked = (f"the subgraph of the first {model_nodes} nodes, the "
+                   "train split's supervision")
     phase(f"model_{tag}", checked=checked,
           graphs=int(np.sum(model_batch.graph_mask))
           if model_batch.graph_mask is not None else None,
@@ -3071,12 +3246,16 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     phase(f"train_{tag}", **train)
     begin(f"profile_{tag}")
     slots = packs[0].senders.numel()
-    profile = profile_steps(cfg, loaders, device, forbid_numel=slots * d,
+    first = [FirstBatch(batch, len(loaders[0])), *loaders[1:]]
+    profile = profile_steps(cfg, first, device,
+                            forbid_numel=max(slots * d, embed_numel + 1),
                             forbid_index_add=slots)
     phase(f"profile_{tag}", **profile,
-          repeat=repeat_steps(cfg, loaders, device))
+          repeat=repeat_steps(cfg, first, device))
     begin(f"graphed_{tag}")
-    phase(f"graphed_{tag}", **graphed_check(cfg, loaders, device))
+    phase(f"graphed_{tag}", **graphed_check(cfg, first, device))
+    if cfg.dataset.task == "graph":       # kernel_pool's, not loaded again
+        LOADED[tag] = (cfg, loaders, batch)
     return dict(width=d, pack=f"{kind}, {base or tag}", checks=checks,
                 gathers=gathers, train=train, profile=profile)
 
@@ -3111,20 +3290,14 @@ def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
                  for k, c in expected.items()})
     return dict(layer_type=cfg.gnn.layer_type, pack=kind, n=n, width=d,
                 real_nodes=int(np.sum(batch.node_mask)),
+                edge_columns=(None if batch.edge_feat is None
+                              else int(batch.edge_feat.shape[1])),
                 chunks=int(packs[0].senders.shape[0]),
                 slots=int(packs[0].senders.numel()),
                 fwd_rows=longest_rows(packs[0]),
                 bwd_rows=longest_rows(packs[1]),
                 launches=launches, launches_by_width=by_width,
                 check=check, **model)
-
-
-def reference_of(model: str, dataset: str) -> tuple:
-    """results/parity/parity.json's reference mean best val accuracy
-    over the reference's seeds, and their spread (the parity tool's
-    reader)."""
-    row = parity.reference(model, dataset)
-    return row["reference"], row["reference_std"]
 
 
 class LoaderCalls:
@@ -3172,6 +3345,100 @@ class LoaderCalls:
                     h.update(np.ascontiguousarray(a).tobytes())
             out.append((epoch, thread, h.hexdigest()))
         return out
+
+
+class Captures:
+    """While installed, the CUDA graphs each captured step
+    (train/graphed.GraphedStep) captures, by step name."""
+
+    def __enter__(self):
+        from graphgym_tpu_torch.train import graphed
+
+        self.counts = collections.Counter()
+        self.real = graphed.GraphedStep._capture
+
+        def capture(step, prog):
+            self.counts[step.name] += 1
+            return self.real(step, prog)
+        graphed.GraphedStep._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        from graphgym_tpu_torch.train import graphed
+
+        graphed.GraphedStep._capture = self.real
+
+
+class Draws:
+    """While installed, each ``batches`` call of every loader: whether
+    it is the train loader's (a SamplerLoader, or a GraphLoader that
+    shuffles), its seconds, its batches' signatures (train/graphed.
+    signature) and, for a SamplerLoader, the nodes and edges of each
+    subgraph it drew."""
+
+    def __enter__(self):
+        from graphgym_tpu_torch.data import loaders as L
+
+        self.calls = []
+        self.real = (L.GraphLoader.batches, L.SamplerLoader.batches)
+
+        def wrap(real):
+            def batches(loader, epoch=0):
+                t0 = time.perf_counter()
+                out = real(loader, epoch)
+                seconds = time.perf_counter() - t0
+                sampled = isinstance(loader, L.SamplerLoader)
+                self.calls.append(dict(
+                    train=sampled or loader.shuffle, seconds=seconds,
+                    batches=len(out), signatures=[host_signature(b)
+                                                  for b in out],
+                    draws=([(g.num_nodes, g.num_edges)
+                            for g in loader.graphs] if sampled else None)))
+                return out
+            return batches
+        L.GraphLoader.batches = wrap(self.real[0])
+        L.SamplerLoader.batches = wrap(self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        from graphgym_tpu_torch.data import loaders as L
+
+        L.GraphLoader.batches, L.SamplerLoader.batches = self.real
+
+
+def host_signature(host_batch) -> tuple:
+    """A host batch's key, equal for two batches exactly where their
+    signatures (train/graphed.signature of the placed batch) are: the
+    shape and dtype of every array and the pack kinds, with no copy."""
+    return (tuple(sorted(host_batch.packs or {})),
+            tuple((a.shape, a.dtype.str) for a in host_batch.leaves()))
+
+
+class FirstBatch:
+    """A train loader that hands out one host batch each epoch and has
+    the length of the loader it stands for (a trainer's lr schedule
+    reads it): the checks after a path's training (``profile_steps``,
+    ``repeat_steps``, ``graphed_check``) take the first batch, and a
+    trainer built on this collates no epoch for its draws."""
+
+    def __init__(self, batch, length: int):
+        self.batch, self.length = batch, length
+
+    def __len__(self) -> int:
+        return self.length
+
+    def batches(self, epoch: int = 0) -> list:
+        return [self.batch]
+
+
+def new_by_epoch(signatures_by_epoch) -> list:
+    """How many signatures each epoch adds to those of the epochs before
+    it: one captured train program each, up to max_programs."""
+    seen, out = set(), []
+    for sigs in signatures_by_epoch:
+        out.append(len(set(sigs) - seen))
+        seen |= set(sigs)
+    return out
 
 
 def numpy_pack(s, r, w, rows, senders, least=0, slots=False):
@@ -3264,46 +3531,6 @@ def prefetch_phase(cfg_file: str, overrides, expected: dict,
     finally:
         packing._pack = real_pack
     return dict(out, pack=packs, packs=builds, epoch_collation_s=epoch_s)
-
-
-# results/parity/PARITY.md:29: ID-GCN Full on ws
-IDGCN_WS_REF = reference_of("idgcn", "ws")
-
-
-def full_run(tag: str, cfg_file: str, overrides, seeds: int = 3,
-             reference=None) -> dict:
-    """A config's whole training (its own max_epoch) through the port's
-    parity tool (``parity.run_config``: graphgym_tpu_torch.main.main
-    with --repeat ``seeds``, into OUT/<tag>, then the aggregate the
-    entry point wrote): each seed's best val accuracy and the seeds'
-    mean and std from agg/val/best.json, the seconds of each run (data,
-    model and training) and the median ``time_iter`` of the train
-    steps over all seeds, and every kernel's launches over the runs.
-    With ``reference`` (mean, sigma), the mean against it by PARITY.md's
-    pass rule (``parity.pass_rule``); fails on a miss."""
-    out = os.path.join(OUT, tag)
-    shutil.rmtree(out, ignore_errors=True)
-    (results, summary), (launches, _, _) = counted(
-        lambda: parity.run_config(cfg_file, seeds, out, overrides))
-    parity.drop_checkpoints(out)
-    per_seed, mean, std = (summary["best_val_acc_per_seed"],
-                           summary["mean"], summary["std"])
-    out_row = dict(summary, best_val_acc_from_main=[r["best_val_acc"]
-                                                    for r in results],
-                   launches=launches)
-    if len(per_seed) != seeds or abs(np.mean(per_seed) - mean) > 1e-4:
-        fail(f"{tag}: the aggregate ({mean}+-{std}) does not hold the "
-             f"{seeds} seeds' best val accuracies {per_seed}")
-    if reference is not None:
-        ref_mean, ref_sigma = reference
-        delta = mean - ref_mean
-        passes, limit = parity.pass_rule(delta, ref_sigma, std)
-        out_row.update(reference=ref_mean, reference_sigma=ref_sigma,
-                       delta=delta, limit=limit, passes=passes)
-        if not passes:
-            fail(f"{tag}: mean best val accuracy {mean}+-{std} against "
-                 f"{ref_mean}+-{ref_sigma}: |delta| {abs(delta)} > {limit}")
-    return out_row
 
 
 def path_launches(kernel, trains: dict, width=None,
@@ -3533,6 +3760,49 @@ def link_rows(paths: dict, row: tuple, k1_src: dict) -> list:
     return rows
 
 
+def ogb_rows(paths: dict, samplers: dict, row: tuple, k1_src: dict,
+             k2_src: dict) -> list:
+    """The kernels line's rows of the OGB paths (``drive_path``'s
+    results): K1 on the molhiv ID point's 'gcn' pack and its add pooling
+    of the ego centers at 300 (the pooling's backward beside it), K2 on
+    its Atom encoder's embedding pack (the tables' gradient, one launch
+    a train step), and K1 on the arxiv design point's 'plain' pack at
+    256, the samplers' launches beside the path's."""
+    keys = row + ("floor_ms",)
+    mol, arx = paths["ogbg_molhiv_gcnid"], paths["ogbn_arxiv_design"]
+    t = mol["train"]
+    split = {"layers": t["k1_layer_launches"], "pool": t["k1_rect_launches"]}
+    pool, k2 = mol["checks"]["pool_k1"], mol["checks"]["k2_node_encoder"]
+    return [
+        {"name": "packed_spmm_ogbg_molhiv_gcnid", **k1_src,
+         "path": "ogbg_molhiv_gcnid", "pack": mol["pack"],
+         "width": mol["width"],
+         **{k: mol["checks"][f"d{mol['width']}"][k] for k in keys},
+         "launches": split["layers"], "launch_split": split},
+        {"name": "packed_spmm_pool_add_ogbg_molhiv_gcnid", **k1_src,
+         "path": "ogbg_molhiv_gcnid",
+         "pack": "pool_add_ego, ogbg_molhiv_gcnid", "width": pool["width"],
+         **{k: pool["fwd"][k] for k in keys},
+         "bwd": {k: pool["bwd"][k] for k in keys},
+         "launches": split["pool"], "launch_split": split},
+        {"name": "packed_segment_atom_encoder", **k2_src,
+         "path": "ogbg_molhiv_gcnid",
+         "pack": "node_encoder (Atom), ogbg_molhiv_gcnid",
+         "width": k2["width"],
+         **{k: k2[k] for k in row + ("onehot_ms", "backward_ms")},
+         **path_launches(K.packed_segment_matmul_cuda,
+                         {"ogbg_molhiv_gcnid": t})},
+        {"name": "packed_spmm_ogbn_arxiv_design", **k1_src,
+         "path": "ogbn_arxiv_design", "pack": arx["pack"],
+         "width": arx["width"],
+         **{k: arx["checks"][f"d{arx['width']}"][k] for k in keys},
+         **path_launches(K.packed_spmm_cuda,
+                         {"ogbn_arxiv_design": arx["train"]}),
+         "samplers_arxiv_launches": {k: v["k1_launches"]
+                                     for k, v in samplers.items()}},
+    ]
+
+
 def sweep_round1_phase() -> dict:
     """sweep_round1: scripts/design/run_design_round1.sh's three steps
     through the port.  (1) gen_grid_sample_aliased samples round1 along
@@ -3711,6 +3981,188 @@ def raw_phase() -> dict:
                              for d, _, fs in os.walk(RAW_DIR) for f in fs))
 
 
+def start_ogb_files() -> subprocess.Popen:
+    """Write the OGB stand-ins into OGB_DIR (data/standins.py, seed 0:
+    molhiv and arxiv at the published sizes, molhiv cut to MOLHIV_CUT
+    into OGB_CUT_DIR) in a process of their own while the first phases
+    run; it prints each writer's seconds as one JSON line
+    (``ogb_files_phase``)."""
+    shutil.rmtree(OGB_DIR, ignore_errors=True)
+    code = ("import json, sys, time\n"
+            "from graphgym_tpu_torch.data import standins as S\n"
+            "d, cut, sizes = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])\n"
+            "out = {}\n"
+            "for name, write in (\n"
+            "        ('molhiv_write', lambda: S.write_molhiv_standin(d)),\n"
+            "        ('arxiv_write', lambda: S.write_arxiv_standin(d)),\n"
+            "        ('molhiv_cut_write',\n"
+            "         lambda: S.write_molhiv_standin(cut, **sizes))):\n"
+            "    t0 = time.perf_counter()\n"
+            "    write()\n"
+            "    out[name] = time.perf_counter() - t0\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, OGB_DIR, OGB_CUT_DIR,
+         json.dumps(MOLHIV_CUT)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def ogb_files_phase(writer: subprocess.Popen) -> dict:
+    """ogb_files: ogbg-molhiv's and ogbn-arxiv's raw directories as
+    ``start_ogb_files``' process wrote them into OGB_DIR (the published
+    sizes: standins.MOLHIV, ARXIV), each timed, and molhiv's cut to
+    MOLHIV_CUT into OGB_CUT_DIR (the molhiv path's); fails unless the
+    process ended well and the files hold
+    the published sizes: molhiv's 41,127 graphs (raw/num-node-list and
+    num-edge-list), its largest of max_nodes atoms, 9 atom and 3 bond
+    columns and its scaffold split, arxiv's nodes, 1,166,243 directed
+    citations (raw/edge and num-edge-list), 128 features, 40 classes
+    and its time split.  The OGB loaders parse them in the paths."""
+    import gzip
+
+    from graphgym_tpu_torch.data import standins as S
+    from graphgym_tpu_torch.data.ogb import _read_csv_gz
+
+    t0 = time.perf_counter()
+    out, err = writer.communicate(timeout=900)
+    if writer.returncode != 0:
+        fail(f"writing the OGB stand-ins: exit {writer.returncode}: "
+             f"{err[-2000:]}")
+    seconds = dict(json.loads(out.splitlines()[-1]),
+                   waited=time.perf_counter() - t0)
+
+    def read(name, part, dtype=np.int64):
+        return _read_csv_gz(os.path.join(OGB_DIR, name, part), dtype)
+
+    def width(name, part):          # the first row's columns
+        with gzip.open(os.path.join(OGB_DIR, name, part), "rt") as f:
+            return len(f.readline().split(","))
+
+    m, a = S.MOLHIV, S.ARXIV
+    nodes = read("ogbg_molhiv", "raw/num-node-list.csv.gz").reshape(-1)
+    edges = read("ogbg_molhiv", "raw/num-edge-list.csv.gz").reshape(-1)
+
+    def split(name, scheme):
+        return [len(read(name, f"split/{scheme}/{p}.csv.gz"))
+                for p in ("train", "valid", "test")]
+    got = dict(
+        molhiv=dict(graphs=len(nodes), nodes=int(nodes.sum()),
+                    mean_nodes=float(nodes.mean()),
+                    max_nodes=int(nodes.max()), bonds=int(edges.sum()),
+                    mean_bonds=float(edges.mean()),
+                    atom_columns=width("ogbg_molhiv",
+                                       "raw/node-feat.csv.gz"),
+                    bond_columns=width("ogbg_molhiv",
+                                       "raw/edge-feat.csv.gz"),
+                    positives=int(read("ogbg_molhiv",
+                                       "raw/graph-label.csv.gz").sum()),
+                    split=split("ogbg_molhiv", "scaffold")),
+        arxiv=dict(nodes=int(read("ogbn_arxiv",
+                                  "raw/num-node-list.csv.gz")[0, 0]),
+                   directed_edges=len(read("ogbn_arxiv",
+                                           "raw/edge.csv.gz")),
+                   features=width("ogbn_arxiv", "raw/node-feat.csv.gz"),
+                   classes=int(read("ogbn_arxiv",
+                                    "raw/node-label.csv.gz").max()) + 1,
+                   split=split("ogbn_arxiv", "time")))
+    want = dict(
+        molhiv=dict(graphs=m["graphs"], max_nodes=m["max_nodes"],
+                    atom_columns=9, bond_columns=3, split=list(m["split"])),
+        arxiv=dict(nodes=a["nodes"], directed_edges=a["edges"],
+                   features=a["features"], classes=a["classes"],
+                   split=list(a["split"])))
+    for name, keys in want.items():
+        for k, v in keys.items():
+            if got[name][k] != v:
+                fail(f"{name} stand-in: {k} {got[name][k]}, expected {v}")
+    return dict(seconds=seconds, molhiv_cut=MOLHIV_CUT, **got)
+
+
+def samplers_phase(device, overrides) -> dict:
+    """samplers_arxiv: ogbn_arxiv_design's config and loaded data (the
+    dataset cache of its path), one short training through the entry
+    point (``run_single``) with each train.sampler (train.iter_per_epoch
+    SAMPLER_ITERS) and with train.sample_node on the full batch; the
+    eval splits full batch.  Per run: each train epoch's draws (nodes
+    and edges of each subgraph), host seconds and signatures, what each
+    epoch adds, the graphs captured by step, finite losses, and K1's
+    launches held exactly (generalconv's 'plain' pack: 4 a train step,
+    2 an eval batch, all at 256), the batches counted from the run's own
+    loader calls (the trainer's construction and its edge count draw
+    ahead of the epochs too)."""
+    k1 = K.packed_spmm_cuda
+    out = {}
+    for kind in (*SAMPLER_ITERS, "sample_node"):
+        extra = (["train.sample_node", "True"] if kind == "sample_node"
+                 else ["train.sampler", kind, "train.iter_per_epoch",
+                       str(SAMPLER_ITERS[kind])])
+        run_dir = os.path.join(OUT, "samplers", kind)
+        shutil.rmtree(run_dir, ignore_errors=True)
+        cfg_file = config(ARXIV_DESIGN[0])
+        cfg = load_cfg(cfg_file, overrides + extra + ["out_dir", run_dir])
+        t0 = time.perf_counter()
+        with Draws() as draws, Captures() as captures:
+            _, (launches, by_width, _) = counted(
+                lambda: run_single(cfg, cfg.out_dir, cfg_file))
+        run_s = time.perf_counter() - t0
+        parity.drop_checkpoints(run_dir)
+        # the trainer's construction and its edge count draw first
+        train = [c for c in draws.calls if c["train"]][-cfg.optim.max_epoch:]
+        evals = sum(c["batches"] for c in draws.calls if not c["train"])
+        steps = sum(c["batches"] for c in train)
+        hold_counts(f"samplers_arxiv {kind}", launches,
+                    {k1.__name__: (4 * steps + 2 * evals,
+                                   f"4/train step x {steps} + 2/eval "
+                                   f"batch x {evals}")})
+        hold_counts(f"samplers_arxiv {kind}, at width "
+                    f"{cfg.gnn.dim_inner}",
+                    at_width(by_width, cfg.gnn.dim_inner),
+                    {k1.__name__: (4 * steps + 2 * evals, "all")})
+        losses = [st["loss"] for st in read_stats(
+            os.path.join(cfg.out_dir, "train", "stats.json"))]
+        if len(losses) != cfg.optim.max_epoch \
+                or not all(map(math.isfinite, losses)):
+            fail(f"samplers_arxiv {kind}: train losses {losses}")
+        out[kind] = dict(
+            epochs=cfg.optim.max_epoch, train_steps=steps,
+            eval_batches=evals, run_s=run_s,
+            draws=[c["draws"] for c in train],
+            host_s=[c["seconds"] for c in train],
+            signatures=len({sig for c in train for sig in c["signatures"]}),
+            new_signatures_by_epoch=new_by_epoch(
+                [c["signatures"] for c in train]),
+            captures=dict(captures.counts), losses=losses,
+            k1_launches=launches[k1.__name__])
+    return out
+
+
+def bond_phase(device, overrides) -> dict:
+    """model_bond: the Bond edge encoder and its BatchNorm on the card
+    against the CPU (``model_phase``), on a TU set with edge labels
+    written into OGB_DIR (data/standins.py, BOND_TU; ENZYMES has none),
+    the ENZYMES graph point without the ego transform (so the edge
+    features stay aligned with the edges) at gcnconv: the Bond
+    encoder's output and the edge BatchNorm's statistics held card
+    against CPU (no ported layer reads edge_feat, so its tables get no
+    gradient and K2 no launch); K1 12 (three layers and the add pooling,
+    forward and backward, then the eval forward)."""
+    from graphgym_tpu_torch.data import standins as S
+
+    S.write_tu_standin(OGB_DIR, "BONDS", seed=5, **BOND_TU)
+    overrides = overrides + list(IDGRAPH_ENZYMES[1]) + [
+        "dataset.dir", OGB_DIR, "dataset.name", "TU_BONDS",
+        "dataset.transform", "none", "gnn.layer_type", "gcnconv",
+        "dataset.edge_encoder", "True", "dataset.edge_encoder_name", "Bond"]
+    out = model_phase("bond", config(IDGRAPH_ENZYMES[0]), overrides, device,
+                      {K.packed_spmm_cuda: 12})
+    if not out["buffers"] or out["edge_columns"] != 4:
+        fail(f"model_bond: {out['buffers']} buffers, "
+             f"{out['edge_columns']} edge feature columns")
+    return out
+
+
 def linkid_ba_path(device, ba_overrides) -> dict:
     """linkid_ba through drive_path: link.txt:21-34's ID point on ba at
     gatidconv (LINKID_BA), the edge-net union of 64 copies a graph.  Per
@@ -3749,6 +4201,7 @@ def main() -> None:
     atexit.register(lambda: [p.kill() for p in CHILDREN
                              if p.poll() is None])
     corpora = start_corpora()
+    ogb_writer = start_ogb_files()
 
     overrides = ["device", "cuda", "optim.max_epoch", str(EPOCHS),
                  "train.eval_period", "1"]
@@ -4199,6 +4652,39 @@ def main() -> None:
             expected={k1_: (8, 4)}, widths={128: {k1_: (8, 4)}},
             rect=(2, 1), model_graphs=32),
     }
+    # ---- OGB raw directories (stand-ins at the published sizes):
+    # graph_ogb.txt:21-33's ID point at gcnidconv on ogbg-molhiv (the
+    # Atom encoder and its BN at 300, ego at r = 3; the stand-in cut to
+    # MOLHIV_CUT, 33 train batches of 128 molecules: K1 2 per layer and
+    # the add pooling of the ego
+    # centers forward and backward, all at 300, 3 + 1 per eval batch; K2
+    # 1 a train step, the encoder tables' gradient), an ogbn-arxiv design
+    # point (design_v2.yaml, full batch, the time split: K1 2 per
+    # generalconv layer on the 'plain' pack at 256, 2 per eval batch),
+    # arxiv's samplers and node sampling, and the Bond encoder
+    begin("ogb_files")
+    phase("ogb_files", **ogb_files_phase(ogb_writer))
+    ogb = overrides + ["dataset.dir", OGB_DIR, *OGB_CACHE]
+    k2_ = K.packed_segment_matmul_cuda
+    ogb_paths = {
+        "ogbg_molhiv_gcnid": grid_point(
+            "ogbg_molhiv_gcnid", MOLHIV_ID[0], *MOLHIV_ID[1],
+            "optim.max_epoch", str(EPOCHS),
+            ovr=overrides + ["dataset.dir", OGB_CUT_DIR, *OGB_CACHE],
+            expected={k1_: (8, 4), k2_: (1, 0)},
+            widths={300: {k1_: (8, 4)}}, rect=(2, 1), pool_width=300),
+        "ogbn_arxiv_design": grid_point(
+            "ogbn_arxiv_design", ARXIV_DESIGN[0], *ARXIV_DESIGN[1],
+            "optim.max_epoch", str(EPOCHS), ovr=ogb,
+            expected={k1_: (4, 2)}, widths={256: {k1_: (4, 2)}},
+            model_nodes=ARXIV_MODEL_NODES),
+    }
+    begin("samplers_arxiv")
+    samplers = samplers_phase(device, ogb + list(ARXIV_DESIGN[1])
+                              + ["optim.max_epoch", "2"])
+    phase("samplers_arxiv", **samplers)
+    begin("model_bond")
+    phase("model_bond", **bond_phase(device, overrides))
     # the prefetch on two loaders of many small batches (6 and 3 an
     # epoch)
     begin("prefetch_design_graph_sf")
@@ -4232,40 +4718,6 @@ def main() -> None:
                             raw + list(IDGRAPH_ENZYMES[1]), 128, 16)},
         device)
     phase("kernel_pool", **pools)
-
-    # ---- full-length runs: the configs' 1000 epochs, 3 seeds each,
-    # through the entry point and its seed aggregate (the logs to the
-    # run directories only)
-    full_overrides = ["device", "cuda", "print", "file"]
-    begin("full_idgcn_ws")
-    phase("full_idgcn_ws", **full_run("full_idgcn_ws", CFG, full_overrides,
-                                      reference=IDGCN_WS_REF))
-    begin("full_gcnid_ws")
-    phase("full_gcnid_ws", **full_run(
-        "full_gcnid_ws", CFG,
-        full_overrides + ["gnn.layer_type", "gcnidconv"]))
-    # the design point of results/design_v1_grid_round1 for its 100
-    # epochs (reported: no reference number for the port to meet)
-    begin("full_design_sf")
-    phase("full_design_sf", **full_run(
-        "full_design_sf", config("design/design_v1"),
-        full_overrides + ["dataset.dir", DESIGN_CORPUS_DIR, *DESIGN_SF,
-                          "optim.max_epoch", "100"]))
-    # the graph point of results/design_v1_grid_round1 for its 200
-    # epochs (reported: that directory holds a 3-epoch smoke run only)
-    begin("full_design_graph_sf")
-    phase("full_design_graph_sf", **full_run(
-        "full_design_graph_sf", config("design/design_v1"),
-        full_overrides + ["dataset.dir", DESIGN_CORPUS_DIR,
-                          *DESIGN_GRAPH_SF, "optim.max_epoch", "200"]))
-
-    # the ID link point for the grid's 100 epochs (link.txt:33), beside
-    # the JAX package's CPU run at the same point and seeds (reported)
-    begin("full_linkid_ws")
-    phase("full_linkid_ws", jax_cpu=JAX_LINKID_WS,
-          link_parity_ws=LINK_PARITY_WS, **full_run(
-              "full_linkid_ws", CFG, full_overrides + list(LINKID_WS)
-              + ["optim.max_epoch", "100"]))
 
     # ---- kernel K2, at the train 'plain' fwd pack of ID-GIN
     begin("kernel_seg")
@@ -4386,6 +4838,10 @@ def main() -> None:
                          srcs),
         *graph_rows({"idgraph_enzymes": real_paths["idgraph_enzymes"]},
                     pools, row, srcs),
+        *ogb_rows(ogb_paths, samplers, row, k1_src,
+                  dict(route="cuda",
+                       source="graphgym_tpu_torch/csrc/packed_segment.cu",
+                       replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309")),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
            "width": check["width"],

@@ -11,8 +11,10 @@ Formats (cfg.dataset.format, 'Tfg-' prefixes accepted): 'nx' = pickled
 graph lists or the regenerated synthetic corpora; 'PyG' / 'Planetoid' =
 the raw files behind PyG's datasets, parsed natively (Planetoid, TU,
 Karate, the GNN-benchmark npz, PPI, QM7b, MNIST superpixels); 'TU' =
-raw TU files; 'syn' = generated on the fly.  cfg.dataset.cache_save /
-cache_load keep the processed splits in the JAX package's cache file.
+raw TU files; 'OGB' = OGB raw directories (data/ogb.py), whose official
+split replaces the ratio split; 'syn' = generated on the fly.
+cfg.dataset.cache_save / cache_load keep the processed splits in the
+JAX package's cache file.
 
 Batches always carry the packs their layer consumes, on CPU and CUDA
 alike (the port has no COO path); a graph task's batches the pack of
@@ -20,9 +22,15 @@ its head's pooling; a batch with supervised node pairs the pair pack of
 the edge head's gather; and a batch whose supervised node index repeats
 a node the label pack of the node head's gather (``graphs/packing.
 build_gather_packs``), so no gather on a training path has a
-float-atomic backward.  What the port does not run yet raises
-NotImplementedError naming its ROADMAP item: OGB, samplers and node
-sampling (A13c), mesh plans.
+float-atomic backward; a model with a built-in node or edge encoder
+the embedding pack of its lookup (``build_embed_pack``).  Batches carry
+the graphs' edge features where every graph has them.  A train split
+with cfg.train.sampler other than full_batch (an eval split with
+cfg.val.sampler) draws sampled subgraphs each epoch
+(``SamplerLoader``, data/samplers.py); cfg.train.sample_node
+(cfg.val.sample_node) supervises a fresh subset of nodes each epoch.
+What the port does not run yet raises NotImplementedError naming its
+ROADMAP item: mesh plans (A16), bfloat16 (A14).
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ from graphgym_tpu_torch.data.transforms import (edge_nets, ego_nets,
                                                 path_len_labels)
 from graphgym_tpu_torch.graphs.container import (GraphBatch, bucket_size,
                                                  build_graph_batch)
-from graphgym_tpu_torch.graphs.packing import (LABELS, PAIRS,
+from graphgym_tpu_torch.graphs.packing import (EDGE_ENCODER, EMBED_TABLES,
+                                               LABELS, NODE_ENCODER, PAIRS,
+                                               build_embed_pack,
                                                build_gather_packs,
                                                build_packs, build_pool_packs,
                                                host_pool,
@@ -57,11 +67,6 @@ _REPO_DATASETS = os.path.join(os.path.dirname(os.path.dirname(
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-# what the port still lacks of A13c: the OGB loader with its splits, the
-# OGB encoders, the samplers and per-epoch node sampling
-_A13C_REST = "A13c (OGB, encoders, samplers)"
 
 
 class _CorpusUnpickler(pickle.Unpickler):
@@ -494,7 +499,10 @@ def load_dataset(cfg) -> List[HostGraph]:
     if fmt == "TU":
         return _load_tu_task(name, cfg)
     if fmt == "OGB":
-        raise _not_ported("dataset format 'OGB'", _A13C_REST)
+        # the raw directory and its official split, no `ogb` package
+        # (reference loader_pyg.py:84-138, loader.py:118-124)
+        from graphgym_tpu_torch.data.ogb import load_ogb
+        return load_ogb(name, cfg.dataset.dir)
     if fmt == "syn":
         from graphgym_tpu_torch.data.synthetic import generate_syn_graphs
         return generate_syn_graphs(name, seed=cfg.seed)
@@ -513,7 +521,12 @@ def split_dataset(graphs: List[HostGraph], cfg,
     A graph task is always inductive, whatever cfg.dataset.transductive
     says.  Transductive: each split shares the graphs; a node task
     partitions node_label_index by ratio, a link or edge task the
-    undirected edge pairs (``_transductive_pairs``)."""
+    undirected edge pairs (``_transductive_pairs``).  Graphs that carry
+    an official OGB split are split by it instead (data/ogb.py
+    ``ogb_split_dataset``; graphgym_tpu/data/loaders.py:459-463)."""
+    from graphgym_tpu_torch.data.ogb import has_ogb_split, ogb_split_dataset
+    if has_ogb_split(graphs):
+        return ogb_split_dataset(graphs, cfg, rng)
     ratios = list(cfg.dataset.split)
     if not cfg.dataset.transductive or cfg.dataset.task == "graph":
         idx = np.arange(len(graphs))
@@ -913,28 +926,54 @@ class GraphLoader:
         return (len(self.graphs) + self.batch_size - 1) // self.batch_size
 
     def batches(self, epoch: int = 0) -> List[GraphBatch]:
-        sample_group = self.cfg.train if self.shuffle else self.cfg.val
-        if sample_group.sample_node:
-            raise _not_ported("per-epoch node sampling", _A13C_REST)
         resampled = self._resample()
+        sampled = self._sample_nodes()
         # with one batch per epoch shuffling cannot change its
         # composition: collate once and reuse
-        static = (not self.shuffle or len(self) == 1) and not resampled
+        static = ((not self.shuffle or len(self) == 1) and not resampled
+                  and not sampled)
         if static and self._cached is not None:
             return self._cached
         order = np.arange(len(self.graphs))
         if self.shuffle and len(self.graphs) > 1 and not static:
             order = self.rng.permutation(order)
-        # the batches collate side by side (host_pool): _collate reads
-        # the graphs and the loader's shapes and writes nothing shared
-        parts = [[self.graphs[j] for j in order[i:i + self.batch_size]]
-                 for i in range(0, len(order), self.batch_size)]
-        out = (list(host_pool("collate").map(self._collate, parts))
-               if len(parts) > 1 else [self._collate(p) for p in parts])
-        out = self._share_pack_shapes(out)
+        out = self._collate_all(
+            [[self.graphs[j] for j in order[i:i + self.batch_size]]
+             for i in range(0, len(order), self.batch_size)])
         if static:
             self._cached = out
         return out
+
+    def _collate_all(self, parts: List[List[HostGraph]]
+                     ) -> List[GraphBatch]:
+        """The batches of ``parts``, collated side by side (host_pool:
+        _collate reads the graphs and the loader's shapes and writes
+        nothing shared), their packs at the loader's shared shapes."""
+        out = (list(host_pool("collate").map(self._collate, parts))
+               if len(parts) > 1 else [self._collate(p) for p in parts])
+        return self._share_pack_shapes(out)
+
+    def _sample_nodes(self) -> bool:
+        """Per-epoch node sampling on a node task (reference
+        cfg.train.sample_node / node_per_graph, config.py:218-221; the
+        eval twin cfg.val.*, config.py:204-206; graphgym_tpu/data/
+        loaders.py:936-958): each graph supervises node_per_graph nodes
+        drawn without replacement from its full supervision (kept as
+        ``_full_label_index`` at the first draw), sorted, on this
+        loader's Generator.  Returns whether it drew."""
+        group = self.cfg.train if self.shuffle else self.cfg.val
+        if not (group.sample_node and self.cfg.dataset.task == "node"):
+            return False
+        for g in self.graphs:
+            base = g.get("_full_label_index")
+            if base is None:
+                base = np.asarray(g.get("node_label_index",
+                                        np.arange(g.num_nodes)))
+                g["_full_label_index"] = base
+            sel = self.rng.choice(base, size=min(group.node_per_graph,
+                                                 len(base)), replace=False)
+            g["node_label_index"] = np.sort(sel)
+        return True
 
     def _resample(self) -> bool:
         """Redraw the link supervision of this epoch, where the config
@@ -997,13 +1036,16 @@ class GraphLoader:
         cfg = self.cfg
         xs, ss, rs, gids = [], [], [], []
         node_labels, label_idx, id_idx, graph_labels = [], [], [], []
-        edge_labels, edge_label_idx = [], []
+        edge_labels, edge_label_idx, edge_feats = [], [], []
         offset = 0
         for gi, g in enumerate(graphs):
             xs.append(graph_to_arrays(g, cfg))
             ss.append(g.senders + offset)
             rs.append(g.receivers + offset)
             gids.append(np.full(g.num_nodes, gi, np.int32))
+            if "edge_feature" in g:
+                ef = np.asarray(g["edge_feature"], np.float32)
+                edge_feats.append(ef if ef.ndim > 1 else ef[:, None])
             if "node_label" in g:
                 node_labels.append(
                     np.asarray(g["node_label"]).reshape(g.num_nodes, -1))
@@ -1054,6 +1096,9 @@ class GraphLoader:
             node_label_index=label_index,
             graph_label=graph_label,
             node_id_index=(np.concatenate(id_idx) if id_idx else None),
+            edge_feat=(np.concatenate(edge_feats)
+                       if edge_feats and len(edge_feats) == len(graphs)
+                       else None),
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges, **pairs)
         kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
@@ -1094,7 +1139,29 @@ class GraphLoader:
                     cfg.model.graph_pooling,
                     batch.node_id_index if ego else None,
                     batch.id_mask if ego else None, chunks=self._chunks)})
+        embeds = self._embed_packs(batch)
+        if embeds:
+            batch = batch.replace(packs={**(batch.packs or {}), **embeds})
         return batch
+
+    def _embed_packs(self, batch: GraphBatch) -> dict:
+        """The embedding pack of each built-in encoder the model runs
+        (nn/encoders.py; a registered encoder of the same name replaces
+        it and takes none): the node encoder's over node_feat, the edge
+        encoder's over edge_feat where the batch has it."""
+        d = self.cfg.dataset
+        if self.cfg.gnn.layer_type.startswith("Tfg-"):
+            return {}
+        out = {}
+        for kind, on, name, registered, feat in (
+                (NODE_ENCODER, d.node_encoder, d.node_encoder_name,
+                 register.node_encoder_dict, batch.node_feat),
+                (EDGE_ENCODER, d.edge_encoder, d.edge_encoder_name,
+                 register.edge_encoder_dict, batch.edge_feat)):
+            if on and name in EMBED_TABLES and name not in registered \
+                    and feat is not None:
+                out[kind] = (build_embed_pack(feat, *EMBED_TABLES[name]),)
+        return out
 
 
 def _pad1(x, n, fill):
@@ -1111,14 +1178,69 @@ def _repad_index(batch: GraphBatch, key: str, mask_key: str,
     return batch.replace(**{key: idx, mask_key: mask})
 
 
+class SamplerLoader(GraphLoader):
+    """A loader that draws fresh sampled subgraphs of its graphs each
+    epoch (reference get_loader, loader_pyg.py:204-255;
+    graphgym_tpu/data/loaders.py:1183-1225): ``sampler`` (default
+    cfg.train.sampler) through data/samplers.make_sampled_graphs on the
+    loader's Generator, the first draw in ``__init__``.  The node, edge
+    and label buckets are twice the first draw's (bucketed); a later
+    draw with a graph past them re-buckets (another captured program).
+    The batches take the drawn subgraphs in order, batch_size at a time,
+    and their packs the loader's running chunk counts."""
+
+    def __init__(self, graphs: Sequence[HostGraph], cfg, *,
+                 batch_size: int, rng: Optional[np.random.Generator] = None,
+                 sampler: Optional[str] = None):
+        self.base_graphs = list(graphs)
+        self.cfg = cfg
+        self.sampler_kind = sampler or cfg.train.sampler
+        self.sample_rng = rng or np.random.default_rng(cfg.seed)
+        super().__init__(self._draw(), cfg, batch_size=batch_size,
+                         shuffle=False, rng=self.sample_rng)
+        self.pad_nodes = bucket_size(self.pad_nodes * 2)
+        self.pad_edges = bucket_size(self.pad_edges * 2)
+        self.pad_labels = bucket_size(self.pad_labels * 2)
+
+    def _draw(self) -> List[HostGraph]:
+        from graphgym_tpu_torch.data.samplers import make_sampled_graphs
+        return [sub for g in self.base_graphs
+                for sub in make_sampled_graphs(g, self.cfg, self.sample_rng,
+                                               sampler=self.sampler_kind)]
+
+    def batches(self, epoch: int = 0) -> List[GraphBatch]:
+        self.graphs = self._draw()
+        for g in self.graphs:
+            if g.num_nodes + 1 > self.pad_nodes \
+                    or g.num_edges > self.pad_edges:
+                self.pad_nodes = bucket_size(max(self.pad_nodes,
+                                                 g.num_nodes + 1))
+                self.pad_edges = bucket_size(max(self.pad_edges,
+                                                 g.num_edges))
+                self.pad_labels = max(self.pad_labels, self.pad_nodes)
+        return self._collate_all(
+            [self.graphs[i:i + self.batch_size]
+             for i in range(0, len(self.graphs), self.batch_size)])
+
+
 def create_loader(splits: List[List[HostGraph]], cfg) -> List[GraphLoader]:
     """One loader per split; train shuffles (reference create_loader,
-    loader.py:247-260).  Each loader gets its own seeded Generator, as
-    in the JAX package."""
-    if cfg.train.sampler != "full_batch" or cfg.val.sampler != "full_batch":
-        raise _not_ported("graph samplers", _A13C_REST)
+    loader.py:247-260); a split whose sampler (cfg.train.sampler for
+    train, cfg.val.sampler for the others, reference loader_pyg.py:
+    258-285) is not full_batch gets a ``SamplerLoader``.  Each loader
+    gets its own seeded Generator, as in the JAX package: the prefetch
+    worker collates the next train epoch while the eval loaders draw."""
     rngs = [np.random.default_rng([cfg.seed, i])
             for i in range(len(splits))]
-    return [GraphLoader(part, cfg, batch_size=cfg.train.batch_size,
-                        shuffle=(i == 0), rng=rngs[i])
-            for i, part in enumerate(splits)]
+    out = []
+    for i, part in enumerate(splits):
+        sampler = cfg.train.sampler if i == 0 else cfg.val.sampler
+        if sampler != "full_batch":
+            out.append(SamplerLoader(part, cfg,
+                                     batch_size=cfg.train.batch_size,
+                                     rng=rngs[i], sampler=sampler))
+        else:
+            out.append(GraphLoader(part, cfg,
+                                   batch_size=cfg.train.batch_size,
+                                   shuffle=(i == 0), rng=rngs[i]))
+    return out

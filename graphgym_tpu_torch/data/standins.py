@@ -2,23 +2,31 @@
 formats.
 
 The raw files of the ID-GNN paper's real datasets (Cora's Planetoid
-pickles, ENZYMES' TU text files) are not in the repository.  This module
-writes files in those formats, at the published sizes, with content
-drawn from a seed with numpy only, so that the port's parsers
-(``data/loaders.load_planetoid``, ``load_tu``) and everything after
-them run at the real shapes.  The content is not the real data: no
-accuracy measured on it says anything about the real datasets.
+pickles, ENZYMES' TU text files, OGB's csv.gz directories) are not in
+the repository.  This module writes files in those formats, at the
+published sizes, with content drawn from a seed with numpy only, so
+that the port's parsers (``data/loaders.load_planetoid``, ``load_tu``,
+``data/ogb.load_ogb``) and everything after them run at the real
+shapes.  The content is not the real data: no accuracy measured on it
+says anything about the real datasets.
 
     write_planetoid_standin(root, "cora", seed)  -> root/cora/raw/ind.cora.*
     write_tu_standin(root, "ENZYMES", seed)      -> root/ENZYMES/raw/ENZYMES_*
+    write_molhiv_standin(root, seed)             -> root/ogbg_molhiv/{raw,split}
+    write_arxiv_standin(root, seed)              -> root/ogbn_arxiv/{raw,split}
 
-``CORA`` and ``ENZYMES`` hold the published sizes; smaller ones are
-passed as keyword overrides (the tests' small sets).
+``CORA``, ``ENZYMES``, ``MOLHIV`` and ``ARXIV`` hold the published
+sizes; smaller ones are passed as keyword overrides (the tests' small
+sets).  The csv.gz files are written by ``write_csv_gz``: each distinct
+value formatted once, the rows joined, gzip at level 1 (np.savetxt
+formats value by value, ~1 us each: about a minute at arxiv's 21.7 M
+feature values).
 """
 
 from __future__ import annotations
 
 import collections
+import gzip
 import os
 import pickle
 from typing import Dict, Optional
@@ -37,6 +45,16 @@ CORA = dict(nodes=2708, edges=5429, features=1433, nnz=18, classes=7,
 ENZYMES = dict(graphs=600, classes=6, nodes=19580, min_nodes=2,
                max_nodes=126, edges=37282, node_labels=3, attributes=18,
                large=110)
+# ogbg-molhiv (OGB): 41,127 molecules, about 25.5 atoms and 27.5 bonds
+# each (a bond listed once in raw/edge.csv.gz), 9 atom and 3 bond
+# feature columns, binary labels about 3.5% positive, the scaffold split
+# 32,901 / 4,113 / 4,113; atoms of up to ``max_nodes``
+MOLHIV = dict(graphs=41127, mean_nodes=25.5, max_nodes=222, rings=3.0,
+              positive=0.035, split=(32901, 4113, 4113))
+# ogbn-arxiv (OGB): 169,343 papers, 1,166,243 directed citations, 128
+# float features, 40 classes, the time split 90,941 / 29,799 / 48,603
+ARXIV = dict(nodes=169343, edges=1166243, features=128, classes=40,
+             split=(90941, 29799, 48603))
 
 
 # ------------------------------------------------------------- writers
@@ -196,7 +214,9 @@ def write_tu_standin(root: str, name: str = "ENZYMES", seed: int = 0,
     plus random edges, its undirected edge count proportional to its
     nodes and the total exact; graph labels uniform in 0..classes-1,
     node labels in 0..node_labels-1, node attributes normal (no file at
-    attributes=0)."""
+    attributes=0), and with ``edge_labels`` > 0 an edge label file,
+    each undirected edge's label uniform in 0..edge_labels-1 on both
+    its lines (ENZYMES has none)."""
     s = {**ENZYMES, **sizes}
     rng = np.random.default_rng(seed)
     sizes_ = _sizes(rng, s)
@@ -217,10 +237,154 @@ def write_tu_standin(root: str, name: str = "ENZYMES", seed: int = 0,
         offset += n
     total = int(sizes_.sum())
     base = os.path.join(root, name, "raw")
+    graph_labels = rng.integers(s["classes"], size=len(sizes_))
+    node_labels = rng.integers(s["node_labels"], size=total)
+    attributes = (rng.normal(size=(total, s["attributes"]))
+                  if s["attributes"] else None)
+    edge_labels = None
+    if s.get("edge_labels"):
+        edge_labels = np.repeat(rng.integers(s["edge_labels"],
+                                             size=int(want.sum())), 2)
     write_tu(base, name, np.concatenate(edges),
              np.repeat(np.arange(len(sizes_)), sizes_),
-             graph_labels=rng.integers(s["classes"], size=len(sizes_)),
-             node_labels=rng.integers(s["node_labels"], size=total),
-             node_attributes=(rng.normal(size=(total, s["attributes"]))
-                              if s["attributes"] else None))
+             graph_labels=graph_labels, node_labels=node_labels,
+             node_attributes=attributes, edge_labels=edge_labels)
+    return base
+
+
+# ------------------------------------------------------------------- OGB
+
+def write_csv_gz(path: str, arr: np.ndarray, decimals: int = 0) -> None:
+    """``arr`` (2-D, or 1-D as one column) as comma-separated rows in a
+    gzip file (level 1): integers as written, or with ``decimals``
+    digits after the point (rounded to them).  Each distinct value is
+    formatted once and looked up."""
+    arr = np.asarray(arr)
+    arr = arr[:, None] if arr.ndim == 1 else arr
+    q = (np.round(arr * 10.0 ** decimals) if decimals else arr) \
+        .astype(np.int64)
+    lo = int(q.min()) if q.size else 0
+    hi = int(q.max()) if q.size else 0
+    if decimals:
+        lut = np.array([f"{v / 10 ** decimals:.{decimals}f}"
+                        for v in range(lo, hi + 1)], dtype=object)
+    else:
+        lut = np.array([str(v) for v in range(lo, hi + 1)], dtype=object)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        f.write("\n".join(map(",".join, lut[q - lo].tolist())))
+        if q.size:
+            f.write("\n")
+
+
+def _write_split(base: str, parts) -> None:
+    for name, idx in zip(("train", "valid", "test"), parts):
+        write_csv_gz(os.path.join(base, f"{name}.csv.gz"), idx)
+
+
+def _categorical(rng: np.random.Generator, n: int, probs) -> np.ndarray:
+    p = np.asarray(probs, np.float64)
+    return rng.choice(len(p), size=n, p=p / p.sum())
+
+
+def write_molhiv_standin(root: str, seed: int = 0, **sizes) -> str:
+    """ogbg-molhiv's raw directory at MOLHIV's sizes (or ``sizes``)
+    under root/ogbg_molhiv; returns that directory.  Each molecule a
+    random tree (an atom bonded to one of the three before it) plus
+    ring closures (an atom to the one five before it, a Poisson count
+    of mean ``rings``), sizes drawn around ``mean_nodes`` (the first
+    molecule at max_nodes, the second at 2 atoms); atom columns within
+    ATOM_FEATURE_DIMS, mostly carbon, bond columns within
+    BOND_FEATURE_DIMS; labels 1 with probability ``positive``; the
+    split a seeded permutation (split/scaffold)."""
+    s = {**MOLHIV, **sizes}
+    rng = np.random.default_rng(seed)
+    g = s["graphs"]
+    n = np.maximum(np.round(rng.gamma(6.0, s["mean_nodes"] / 6.0, g)),
+                   2).astype(np.int64)
+    n = np.minimum(n, s["max_nodes"])
+    n[0], n[min(1, g - 1)] = s["max_nodes"], 2
+    total = int(n.sum())
+    first = np.repeat(np.cumsum(n) - n, n)
+    local = np.arange(total) - first
+    back = rng.integers(1, 4, size=total)
+    parent = local - np.minimum(back, np.maximum(local, 1))
+    tree = np.stack([local, parent], axis=1)[local > 0]
+    graph_of = np.repeat(np.arange(g), n)[local > 0]
+    edges, counts = [tree], np.bincount(graph_of, minlength=g)
+    rings = np.minimum(rng.poisson(s["rings"], g), np.maximum(n - 5, 0))
+    ring_edges = [np.stack([u, u - 5], axis=1) for u in
+                  (5 + rng.permutation(int(m) - 5)[:int(r)]
+                   for m, r in zip(n.tolist(), rings.tolist()))]
+    # graph-major: each molecule's tree bonds, then its ring closures
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    per = []
+    for gi in range(g):
+        per.append(tree[starts[gi]:starts[gi + 1]])
+        per.append(ring_edges[gi].reshape(-1, 2))
+    edges = np.concatenate(per).astype(np.int64)
+    num_edges = counts + rings
+    atom = np.stack([
+        _categorical(rng, total, [.005, 0, 0, 0, 0, .72, .1, .1, .01, 0,
+                                  0, 0, 0, 0, .005, .02, .02, 0, 0, 0, 0,
+                                  0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                  .01, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                  0, 0, 0, 0, 0, 0, .01]),
+        _categorical(rng, total, [.97, .015, .015, 0]),
+        _categorical(rng, total, [.01, .25, .35, .3, .08, .01]),
+        _categorical(rng, total, [0, 0, 0, 0, .01, .97, .02]),
+        _categorical(rng, total, [.55, .25, .15, .05]),
+        _categorical(rng, total, [.999, .001]),
+        _categorical(rng, total, [0, .05, .45, .5]),
+        _categorical(rng, total, [.55, .45]),
+        _categorical(rng, total, [.45, .55])], axis=1)
+    m = len(edges)
+    bond = np.stack([_categorical(rng, m, [.55, .1, .02, .33]),
+                     _categorical(rng, m, [.97, .01, .01, .01]),
+                     _categorical(rng, m, [.5, .5])], axis=1)
+    label = (rng.random(g) < s["positive"]).astype(np.int64)
+    parts = np.split(rng.permutation(g), np.cumsum(s["split"])[:-1])
+    base = os.path.join(root, "ogbg_molhiv")
+    raw = os.path.join(base, "raw")
+    write_csv_gz(os.path.join(raw, "num-node-list.csv.gz"), n)
+    write_csv_gz(os.path.join(raw, "num-edge-list.csv.gz"), num_edges)
+    write_csv_gz(os.path.join(raw, "edge.csv.gz"), edges)
+    write_csv_gz(os.path.join(raw, "node-feat.csv.gz"), atom)
+    write_csv_gz(os.path.join(raw, "edge-feat.csv.gz"), bond)
+    write_csv_gz(os.path.join(raw, "graph-label.csv.gz"), label)
+    _write_split(os.path.join(base, "split", "scaffold"),
+                 [np.sort(p) for p in parts])
+    return base
+
+
+def write_arxiv_standin(root: str, seed: int = 0, **sizes) -> str:
+    """ogbn-arxiv's raw directory at ARXIV's sizes (or ``sizes``) under
+    root/ogbn_arxiv; returns that directory.  Papers in time order, each
+    citation from a uniform paper to an earlier one drawn toward the
+    first papers (u^1.5 of its index), the directed pairs distinct;
+    features a class centre plus noise, at 4 decimals; the time split
+    the first, middle and last papers (split/time)."""
+    s = {**ARXIV, **sizes}
+    rng = np.random.default_rng(seed)
+    n, e = s["nodes"], s["edges"]
+    seen = np.zeros(0, np.int64)
+    while len(seen) < e:
+        src = rng.integers(1, n, size=e)
+        dst = (src * rng.random(e) ** 1.5).astype(np.int64)
+        seen = np.unique(np.concatenate([seen, src * n + dst]))
+    keep = np.sort(rng.permutation(len(seen))[:e])
+    pairs = np.stack([seen[keep] // n, seen[keep] % n], axis=1)
+    label = rng.integers(s["classes"], size=n)
+    centre = rng.normal(scale=0.5, size=(s["classes"], s["features"]))
+    feat = centre[label] + rng.normal(scale=0.5, size=(n, s["features"]))
+    a, b = s["split"][0], s["split"][0] + s["split"][1]
+    base = os.path.join(root, "ogbn_arxiv")
+    raw = os.path.join(base, "raw")
+    write_csv_gz(os.path.join(raw, "num-node-list.csv.gz"), [n])
+    write_csv_gz(os.path.join(raw, "num-edge-list.csv.gz"), [e])
+    write_csv_gz(os.path.join(raw, "edge.csv.gz"), pairs)
+    write_csv_gz(os.path.join(raw, "node-feat.csv.gz"), feat, decimals=4)
+    write_csv_gz(os.path.join(raw, "node-label.csv.gz"), label)
+    _write_split(os.path.join(base, "split", "time"),
+                 [np.arange(a), np.arange(a, b), np.arange(b, n)])
     return base

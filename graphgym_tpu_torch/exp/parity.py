@@ -161,7 +161,26 @@ ENZYMES_GRID = ("dataset.format", "PyG", "dataset.name", "TU_ENZYMES",
                 "[]", "dataset.augment_label", "", "gnn.layers_pre_mp", "1",
                 "gnn.layers_mp", "3", "gnn.layers_post_mp", "3",
                 "gnn.layer_type", "gcnidconv", "optim.max_epoch", "100")
+# grids/IDGNN/graph_ogb.txt's ID chunk (:21-33) at its first layer type
+# on configs/design/design_v2ogb.yaml (the Atom encoder and its BN at
+# encoder_dim 300, dim_inner 300, batch 128, add pooling, PReLU): ego at
+# r = 3, 1 / 3 / 3 layers, 100 epochs; the grid's
+# dataset.feature_encoder_name, a key neither package reads.  And
+# ogbn-arxiv on configs/design/design_v2.yaml (generalconv, 2 MP layers
+# at 256), full batch, its official time split.  Both from the OGB raw
+# directories under dataset.dir (data/ogb.py).
+OGB_ID_GRID = ("dataset.format", "OGB", "dataset.name", "ogbg-molhiv",
+               "dataset.transform", "ego", "dataset.task", "graph",
+               "dataset.transductive", "False", "dataset.augment_feature",
+               "[]", "dataset.augment_label", "",
+               "dataset.feature_encoder_name", "Atom",
+               "gnn.layers_pre_mp", "1", "gnn.layers_mp", "3",
+               "gnn.layers_post_mp", "3", "gnn.layer_type", "gcnidconv",
+               "optim.max_epoch", "100")
 POINTS = {
+    "ogbg_molhiv_gcnid": ("design/design_v2ogb", OGB_ID_GRID),
+    "ogbn_arxiv_design": ("design/design_v2", (
+        "dataset.format", "OGB", "dataset.name", "ogbn-arxiv")),
     "cora_gatid": ("idgcn_Cora", CORA_GRID),
     "idgraph_enzymes": ("idgcn_ENZYMES", ENZYMES_GRID),
     "linkid_ba": ("idgcn_ba", LINK_ID_GRID + (

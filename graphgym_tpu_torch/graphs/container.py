@@ -34,6 +34,8 @@ class GraphBatch:
       receivers:  [E] destination node of each edge.
       edge_weight:[E] f32, 0.0 on padded edges.
       node_feat:  [N, D] node features (zeros on padded rows).
+      edge_feat:  [E, De] edge features, zeros on padded edges (None
+                  where a graph of the batch has none).
       node_mask:  [N] bool, True for real nodes.
       edge_mask:  [E] bool, True for real edges.
       graph_ids:  [N] graph slot of each node; padded nodes point at the
@@ -83,6 +85,7 @@ class GraphBatch:
     node_id_index: Any = None
     id_mask: Any = None
     packs: Optional[dict] = None
+    edge_feat: Any = None
 
     @property
     def num_nodes(self) -> int:
@@ -171,7 +174,8 @@ class GraphBatch:
             graph_mask=move(self.graph_mask),
             node_id_index=move(self.node_id_index, True),
             id_mask=move(self.id_mask),
-            packs=packs)
+            packs=packs,
+            edge_feat=move(self.edge_feat))
 
 
 def _staged(nbytes: int) -> int:
@@ -225,6 +229,7 @@ def build_graph_batch(
     edge_label_mask: Optional[np.ndarray] = None,
     graph_label: Optional[np.ndarray] = None,
     node_id_index: Optional[np.ndarray] = None,
+    edge_feat: Optional[np.ndarray] = None,
     pad_nodes_to: Optional[int] = None,
     pad_edges_to: Optional[int] = None,
 ) -> GraphBatch:
@@ -232,7 +237,8 @@ def build_graph_batch(
 
     One extra padding node slot is always reserved (the scatter target for
     padded edges), so ``pad_nodes_to`` must exceed the real node count.
-    The edge supervision arrays are kept as given (the loader pads them).
+    The edge supervision arrays are kept as given (the loader pads them);
+    ``edge_feat`` is padded with zero rows to the edge slots.
     """
     n_real = int(node_feat.shape[0])
     e_real = int(senders.shape[0])
@@ -260,6 +266,9 @@ def build_graph_batch(
                        max(num_graphs - 1, 0))
 
     kw: dict[str, Any] = {}
+    if edge_feat is not None:
+        kw["edge_feat"] = pad_to(np.asarray(edge_feat, np.float32),
+                                 pad_edges_to, 0.0)
     if node_label is not None:
         kw["node_label"] = pad_to(np.asarray(node_label), pad_nodes_to, 0)
     if node_label_index is not None:

@@ -52,19 +52,30 @@ that read it, in index order.  So the gather's gradient sums a node's
 entries on K1 in a fixed order: the gradient of ``index_select`` is
 an ``index_add_`` whose float atomics sum a repeated node's entries in
 no fixed order.
+
+A model with a node or edge encoder adds the embedding pack of its
+table lookup (``build_embed_pack``, kinds 'node_encoder' and
+'edge_encoder'): the stacked tables' row of each item's id columns for
+the forward gather, and for the tables' gradient the (item, column)
+slots sorted by row with K2's index of them (``fixed_runs_host``), so
+the gradient of the lookup is a segmented sum in a fixed order (the
+gradient of ``index_select`` is an ``index_add_``, float atomics).
 """
 
 from __future__ import annotations
 
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from graphgym_tpu_torch import native
 from graphgym_tpu_torch.graphs.container import bucket_size
-from graphgym_tpu_torch.ops.cuda.spmm_kernel import PackedCSR, pad_pack
+from graphgym_tpu_torch.ops.cuda.spmm_kernel import (ROWS_PER_TILE,
+                                                     PackedCSR,
+                                                     fixed_runs_host,
+                                                     num_tiles_of, pad_pack)
 
 Chunks = Dict[str, Tuple[int, int]]
 FLOWS = ("source_to_target", "target_to_source")   # cfg.gnn.flow
@@ -189,9 +200,10 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
 
 
 def pack_chunks(packs: Dict[str, tuple]) -> Dict[str, Tuple[int, int]]:
-    """kind -> (fwd chunks, bwd chunks) of a batch's packs."""
+    """kind -> (fwd chunks, bwd chunks) of a batch's packed-CSR packs
+    (the embedding packs have their loader's shape by construction)."""
     return {kind: (entry[0].senders.shape[0], entry[1].senders.shape[0])
-            for kind, entry in packs.items()}
+            for kind, entry in packs.items() if kind not in EMBED_KINDS}
 
 
 def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
@@ -204,6 +216,9 @@ def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
     padded fwd slots."""
     out = {}
     for kind, entry in packs.items():
+        if kind in EMBED_KINDS:
+            out[kind] = entry
+            continue
         fwd_rows, bwd_rows = (p.row_range.shape[0] for p in entry[:2])
         fwd = pad_pack(entry[0], chunks[kind][0], fwd_rows, bwd_rows)
         bwd = pad_pack(entry[1], chunks[kind][1], bwd_rows, fwd_rows)
@@ -390,3 +405,75 @@ def build_gather_packs(index: np.ndarray, mask: np.ndarray,
     (fwd, _), (bwd, _) = _pack_pair(index, rows, w, len(index), num_nodes,
                                     least)
     return fwd, bwd
+
+
+# ---------------------------------------------------------------- encoders
+
+NODE_ENCODER, EDGE_ENCODER = "node_encoder", "edge_encoder"
+EMBED_KINDS = (NODE_ENCODER, EDGE_ENCODER)
+# ogb.utils.features get_atom_feature_dims() / get_bond_feature_dims()
+ATOM_FEATURE_DIMS = [119, 4, 12, 12, 10, 6, 6, 2, 2]
+BOND_FEATURE_DIMS = [5, 6, 2]
+# the built-in encoders' tables (graphgym_tpu/nn/encoders.py): encoder
+# name -> (rows of each column's table, ids clipped to the table)
+EMBED_TABLES = {
+    "Integer": ([256], False),
+    "SingleAtom": ([ATOM_FEATURE_DIMS[0]], False),
+    "Atom": (ATOM_FEATURE_DIMS, True),
+    "Bond": (BOND_FEATURE_DIMS, True),
+}
+
+
+class EmbedPack(NamedTuple):
+    """An encoder's table lookup over M items (nodes or edges, padding
+    included) of C id columns, the columns' tables stacked into R rows.
+
+    rows        [M, C] int32 — the stacked row of item m's column c; R
+                 (one past the tables: a NaN row in the forward, no
+                 gradient) where the id lies outside its table
+    slot_items  [M * C] int32 — the item of each (item, column) slot,
+                 the slots in row order (stable)
+    slot_rows   [M * C] int32 — the row of each slot, sorted
+    run_start, run_out, comb_rows, comb_ptr — K2's index of the slots
+                 (``fixed_runs_host``), over the ``num_tiles_of(R + 1)``
+                 tiles' rows; every run writes a partial, so
+                 num_partials is run_out's length
+    """
+    rows: Any
+    slot_items: Any
+    slot_rows: Any
+    run_start: Any
+    run_out: Any
+    comb_rows: Any
+    comb_ptr: Any
+
+
+def build_embed_pack(feat: np.ndarray, dims: Sequence[int],
+                     clip: bool) -> EmbedPack:
+    """The embedding pack of ``feat`` [M, F]: the first min(len(dims),
+    F) columns as integer ids (truncated toward zero, as the JAX
+    encoders' ``astype(int32)``), looked up in tables of ``dims`` rows.
+    With ``clip`` an id is clipped into its table (_MultiColumnEmbed);
+    else a negative id counts from the table's end and an id outside
+    [-rows, rows) gets the NaN row (flax ``nn.Embed``'s ``jnp.take``,
+    IntegerFeatureEncoder and SingleAtomEncoder).  Its shapes depend on
+    M, F and ``dims`` alone."""
+    dims = np.asarray(dims[:min(len(dims), feat.shape[1])], np.int64)
+    ncol = len(dims)
+    offsets = np.concatenate([[0], np.cumsum(dims)[:-1]])
+    total = int(dims.sum())
+    ids = np.asarray(feat[:, :ncol], np.float32).astype(np.int64)
+    if clip:
+        rows = np.clip(ids, 0, dims - 1) + offsets
+    else:
+        ids = np.where(ids < 0, ids + dims, ids)
+        rows = np.where((ids >= 0) & (ids < dims), ids + offsets, total)
+    flat = rows.reshape(-1)
+    # a stable sort of small ints: numpy's radix sort on int16
+    order = np.argsort(flat.astype(np.int16 if total < 2 ** 15
+                                   else np.int64), kind="stable")
+    slot_rows = flat[order]
+    runs = fixed_runs_host(slot_rows,
+                           num_tiles_of(total + 1) * ROWS_PER_TILE)
+    return EmbedPack(rows.astype(np.int32), (order // ncol).astype(np.int32),
+                     slot_rows.astype(np.int32), *runs[:4])

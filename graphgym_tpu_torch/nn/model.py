@@ -18,7 +18,8 @@ Two model families, as in the JAX package:
 The layer table holds the layer types of the packed paths, and a
 layer registered in register.layer_dict (the contrib 'contrib_example')
 takes precedence, as in the JAX make_conv; the edge-feature convs
-raise naming their ROADMAP item.
+raise naming their ROADMAP item.  Node and edge encoders (nn/encoders.py,
+or registered ones) run ahead of the torch path's pre-MP layers.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch import nn
 
 from graphgym_tpu_torch import register
 from graphgym_tpu_torch.graphs.container import GraphBatch
+from graphgym_tpu_torch.nn import encoders
 from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.att_layers import (APPNP, ExampleConv,
@@ -44,7 +46,7 @@ from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
                                           GeneralConv, GeneralLayer, GINConv,
                                           Linear, SAGEConv, TfgGATConv,
                                           glorot, zeros)
-from graphgym_tpu_torch.nn.norm import l2_normalize
+from graphgym_tpu_torch.nn.norm import MaskedBatchNorm, l2_normalize
 
 # layer type -> conv(dim_in, dim_out, opts, init generator, dropout
 # generator) (make_conv, nn/model.py:36-120 of the JAX package).  The
@@ -129,13 +131,13 @@ LAYERS = {
 APPNP_TYPE = "Tfg-appnp"
 
 # layer types of the JAX package not ported yet, by ROADMAP item: the
-# edge-feature convs, which wait for the loaders that give edge features
+# edge-feature convs, which read the batch's edge_feat (queue A item 7)
 NOT_PORTED = {
     **dict.fromkeys(("generaledgeconv", "generalsampleedgeconv",
-                     "splineconv"), "A9b, with the edge features of A13c"),
+                     "splineconv"), "A9b, A item 7: the edge-feature convs"),
     **dict.fromkeys(("generaledgeattconvv1", "generaledgeattconvv2",
                      "generalogbconv"),
-                    "A10b, with the edge features of A13c"),
+                    "A10b, A item 7: the edge-feature convs"),
 }
 
 
@@ -170,6 +172,11 @@ class GNNOptions:
     #                             | concat
     ego: bool = False          # the graph head pools the ego centers
     tfg_head: bool = False
+    node_encoder: str = ""     # encoder names ('' for none) and their
+    node_encoder_bn: bool = True   # BatchNorms (torch path only)
+    edge_encoder: str = ""
+    edge_encoder_bn: bool = True
+    encoder_dim: int = 128
 
 
 def options_from_cfg(cfg) -> GNNOptions:
@@ -211,15 +218,19 @@ def options_from_cfg(cfg) -> GNNOptions:
         raise NotImplementedError(
             "tpu.remat (rematerialized MP layers) is not ported yet "
             "(ROADMAP A0)")
-    if cfg.dataset.node_encoder or cfg.dataset.edge_encoder:
-        raise NotImplementedError(
-            "node and edge encoders are not ported yet (ROADMAP A13c)")
     return GNNOptions(**common, stage_type=cfg.gnn.stage_type,
                       layers_pre_mp=cfg.gnn.layers_pre_mp,
                       layers_post_mp=max(cfg.gnn.layers_post_mp, 1),
                       skip_every=cfg.gnn.skip_every,
                       batchnorm=cfg.gnn.batchnorm, dropout=cfg.gnn.dropout,
-                      l2norm=cfg.gnn.l2norm)
+                      l2norm=cfg.gnn.l2norm,
+                      node_encoder=(cfg.dataset.node_encoder_name
+                                    if cfg.dataset.node_encoder else ""),
+                      node_encoder_bn=cfg.dataset.node_encoder_bn,
+                      edge_encoder=(cfg.dataset.edge_encoder_name
+                                    if cfg.dataset.edge_encoder else ""),
+                      edge_encoder_bn=cfg.dataset.edge_encoder_bn,
+                      encoder_dim=cfg.dataset.encoder_dim)
 
 
 def _gnn_layer(opts: GNNOptions, dim_in: int, gen: torch.Generator,
@@ -337,15 +348,30 @@ class TfgMLPHead(nn.Module):
                                  + self.head_bias2)
 
 
+def _encoder(table: dict, registered: dict, name: str, dim: int,
+             generator: torch.Generator) -> nn.Module:
+    """The encoder ``name``, a registered one first (nn/model.py:
+    272-285 merges the registry over the built-ins)."""
+    found = {**table, **registered}
+    if name not in found:
+        raise ValueError(f"Unknown encoder {name!r}")
+    return found[name](dim, generator)
+
+
 class GNN(nn.Module):
     """Full model (nn/model.py:227-336; reference gnn.py:123-168):
-    pre-MP layers -> MP stage (``STAGES``, else a stage registered in
+    encoders -> pre-MP layers -> MP stage (``STAGES``, else a stage registered in
     register.stage_dict, called as STAGES' are; nn/model.py:310-312)
     -> head (nn/model.py:314-335: a head
     registered for the task, called as the JAX model calls it with the
     options and, here, the head's input width and init generator; else
     the Tfg head, or the node, edge or graph head by task).  ``forward`` returns
-    (pred, label, mask) at the supervised slots.  ``pre_mp`` holds
+    (pred, label, mask) at the supervised slots.  The node encoder
+    (then ``MaskedBatchNorm`` on the node mask with node_encoder_bn) and
+    the edge encoder (then one on the edge mask with edge_encoder_bn)
+    come first (nn/model.py:265-290), their BatchNorms at the default
+    eps and momentum, and the node encoder's width encoder_dim is the
+    pre-MP input's.  ``pre_mp`` holds
     GeneralLayer(Linear) blocks, each Linear + BN + dropout + act
     (GNNPreMP, nn/model.py:291-308)."""
 
@@ -354,6 +380,19 @@ class GNN(nn.Module):
         super().__init__()
         self.opts = opts
         dim = opts.dim_in
+        if opts.node_encoder:
+            self.node_encoder = _encoder(
+                encoders.node_encoder_dict, register.node_encoder_dict,
+                opts.node_encoder, opts.encoder_dim, generator)
+            if opts.node_encoder_bn:
+                self.node_encoder_bn = MaskedBatchNorm(opts.encoder_dim)
+            dim = opts.encoder_dim
+        if opts.edge_encoder:
+            self.edge_encoder = _encoder(
+                encoders.edge_encoder_dict, register.edge_encoder_dict,
+                opts.edge_encoder, opts.encoder_dim, generator)
+            if opts.edge_encoder_bn:
+                self.edge_encoder_bn = MaskedBatchNorm(opts.encoder_dim)
         pre = []
         for _ in range(opts.layers_pre_mp):
             pre.append(GeneralLayer(
@@ -395,6 +434,17 @@ class GNN(nn.Module):
                 generator=generator)
 
     def forward(self, graph: GraphBatch) -> HeadOut:
+        opts = self.opts
+        if opts.node_encoder:
+            graph = self.node_encoder(graph)
+            if opts.node_encoder_bn:
+                graph = graph.replace(node_feat=self.node_encoder_bn(
+                    graph.node_feat, graph.node_mask))
+        if opts.edge_encoder:
+            graph = self.edge_encoder(graph)
+            if opts.edge_encoder_bn:
+                graph = graph.replace(edge_feat=self.edge_encoder_bn(
+                    graph.edge_feat, graph.edge_mask))
         for layer in self.pre_mp:
             graph = layer(graph)
         if self.mp is not None:

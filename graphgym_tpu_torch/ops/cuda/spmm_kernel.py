@@ -439,6 +439,53 @@ def segment_runs_host(local_rows: np.ndarray, tiles: np.ndarray,
         len(multi))
 
 
+def fixed_runs_host(rows: np.ndarray, n_out: int) -> SegmentRuns:
+    """K2's index of S slots whose output rows ``rows`` [S] never fall,
+    at shapes that depend on S and n_out alone (so batches of one loader
+    share one captured program): runs cut at each change of row and
+    every RUN_SLOTS slots, padded with empty runs to
+    ``fixed_runs_count(S, n_out)``; every run writes its own partial
+    (run j partial j), and every one of the n_out output rows is
+    combined from its partials in slot order (0 where it has none).
+    num_partials is the padded run count."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (np.any(rows[1:] < rows[:-1]) or rows[0] < 0
+                      or rows[-1] >= n_out):
+        raise ValueError(f"rows must be sorted and within {n_out} rows")
+    new = np.ones(rows.size, bool)
+    new[1:] = rows[1:] != rows[:-1]
+    starts = np.flatnonzero(new)
+    pieces = -(-np.diff(np.append(starts, rows.size)) // RUN_SLOTS)
+    first = np.cumsum(pieces) - pieces
+    k = np.arange(int(pieces.sum()))
+    run_start = (np.repeat(starts, pieces)
+                 + (k - np.repeat(first, pieces)) * RUN_SLOTS)
+    total = fixed_runs_count(rows.size, n_out)
+    per_row = np.bincount(rows[run_start], minlength=n_out)
+    return SegmentRuns(
+        np.concatenate([run_start, np.full(total + 1 - len(run_start),
+                                           rows.size)]).astype(np.int32),
+        (-1 - np.arange(total)).astype(np.int32),
+        np.arange(n_out, dtype=np.int32),
+        np.concatenate([[0], np.cumsum(per_row)]).astype(np.int32),
+        total)
+
+
+def fixed_runs_count(slots: int, n_out: int) -> int:
+    """The most runs that sorted rows of ``slots`` slots over n_out rows
+    cut into: a row of c slots takes ceil(c / RUN_SLOTS) runs."""
+    return -(-slots // RUN_SLOTS) + n_out
+
+
+def segment_sum_plain(msg: torch.Tensor, rows: torch.Tensor,
+                      n_out: int) -> torch.Tensor:
+    """K2's function on an index of rows: f32 out [n_out, D], out[rows[s]]
+    += msg[s] (index_add_; float64 for float64 msg)."""
+    out = torch.zeros(n_out, msg.shape[-1], dtype=_sum_dtype(msg),
+                      device=msg.device)
+    return out.index_add_(0, rows.long(), msg.to(out.dtype))
+
+
 _RUNS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _RUNS_CACHE_SIZE = 8
 
@@ -735,11 +782,45 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
     for field, a in (("local_rows", local_rows), ("tiles", tiles)):
         _check(name, a.device == msg.device and a.dtype == torch.int32,
                f"{field} must be an int32 tensor on {msg.device}")
-    runs = segment_runs(local_rows, tiles, num_tiles)
+    return _segment_launch(msg, segment_runs(local_rows, tiles, num_tiles),
+                           num_tiles * ROWS_PER_TILE)
+
+
+packed_segment_matmul_cuda.launches = 0
+
+
+def packed_segment_runs_cuda(msg: torch.Tensor, runs: SegmentRuns,
+                             n_out: int) -> torch.Tensor:
+    """Launch K2 on an index built on the host beside its batch (no copy
+    to the host, so a captured step may launch it): f32 out [n_out, D],
+    each output row the sum of its runs' slots of msg [S, D] (f32 or
+    bf16) in slot order, with ``runs``' int32 arrays on msg's device and
+    room for ``runs.num_partials`` partial rows.  Adds one to
+    ``packed_segment_matmul_cuda.launches`` (K2's count) per launch."""
+    name = "packed_segment_runs_cuda"
+    _check(name, msg.is_cuda and msg.dim() == 2,
+           "msg must be a 2-D CUDA tensor")
+    _check(name, msg.dtype in (torch.float32, torch.bfloat16),
+           f"msg dtype {msg.dtype} not supported (float32, bfloat16)")
+    for field in ("run_start", "run_out", "comb_rows", "comb_ptr"):
+        a = getattr(runs, field)
+        _check(name, a.device == msg.device and a.dtype == torch.int32
+               and a.is_contiguous(),
+               f"{field} must be a contiguous int32 tensor on {msg.device}")
+    _check(name, runs.run_start.numel() == runs.run_out.numel() + 1
+           and runs.comb_ptr.numel() == runs.comb_rows.numel() + 1,
+           "run_start / comb_ptr must hold one entry more than "
+           "run_out / comb_rows")
+    return _segment_launch(msg, runs, n_out)
+
+
+def _segment_launch(msg: torch.Tensor, runs: SegmentRuns,
+                    n_out: int) -> torch.Tensor:
+    """K2's two passes on the current stream: f32 out [n_out, D] from
+    msg [..., D] and its runs."""
     msg = msg.contiguous()
     d = msg.shape[-1]
-    out = torch.empty(num_tiles * ROWS_PER_TILE, d, dtype=torch.float32,
-                      device=msg.device)
+    out = torch.empty(n_out, d, dtype=torch.float32, device=msg.device)
     if out.numel() == 0:
         return out
     partial = torch.empty(runs.num_partials, d, dtype=torch.float32,
@@ -750,9 +831,6 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
             runs.comb_ptr.data_ptr(), partial.data_ptr(), out.data_ptr())
     packed_segment_matmul_cuda.launches += 1
     return out
-
-
-packed_segment_matmul_cuda.launches = 0
 
 
 def packed_max_cuda(pack: PackedCSR, x: torch.Tensor):
@@ -887,6 +965,16 @@ def packed_segment_matmul(msg: torch.Tensor, local_rows: torch.Tensor,
     if msg.is_cuda:
         return packed_segment_matmul_cuda(msg, local_rows, tiles, num_tiles)
     return packed_segment_matmul_plain(msg, local_rows, tiles, num_tiles)
+
+
+def segment_sum_runs(msg: torch.Tensor, rows: torch.Tensor,
+                     runs: SegmentRuns, n_out: int) -> torch.Tensor:
+    """out[rows[s]] += msg[s] into f32 [n_out, D], msg [S, D], by the
+    slots' host-built index ``runs`` (``fixed_runs_host`` of rows): K2
+    for a CUDA tensor, the plain version for a CPU one."""
+    if msg.is_cuda:
+        return packed_segment_runs_cuda(msg, runs, n_out)
+    return segment_sum_plain(msg, rows, n_out)
 
 
 class SegmentMatmulFn(torch.autograd.Function):

@@ -23,6 +23,12 @@ are siblings:
     post_mp/<leaf> (the Tfg head)      ->  post_mp.<leaf>
     APPNP_0/<leaf> (the Tfg APPNP model: kernel<i>, bias<i>)
                                        ->  appnp.<leaf>
+    node_encoder/Embed_0/embedding (Integer, SingleAtom)
+                                       ->  node_encoder.embedding
+    node_encoder/_MultiColumnEmbed_0/col<i>/embedding (Atom; Bond
+    under edge_encoder)                ->  node_encoder.col<i>
+    node_encoder_bn/<leaf>, edge_encoder_bn/<leaf>
+                                       ->  node_encoder_bn.<leaf>, ...
 
 A conv's own leaves keep their flax names: ``kernel``, ``self_kernel``
 (GeneralConv and GeneralConvV2 with self_msg 'concat'), ``id_kernel``
@@ -95,6 +101,14 @@ def _torch_name(path: str) -> str:
             return _in_stage(segs[2:], "post_mp.mlp.layers", path)
     if head == "APPNP_0" and len(segs) == 2:
         return f"appnp.{segs[1]}"
+    if head in ("node_encoder", "edge_encoder"):
+        if segs[1:] == ["Embed_0", "embedding"]:
+            return f"{head}.embedding"
+        if len(segs) == 4 and segs[1] == "_MultiColumnEmbed_0" \
+                and segs[3] == "embedding":
+            return f"{head}.{segs[2]}"
+    if head in ("node_encoder_bn", "edge_encoder_bn") and len(segs) == 2:
+        return f"{head}.{segs[1]}"
     m = re.fullmatch(r"Linear_(\d+)", head)
     if m and len(segs) == 2:
         return f"pre_mp.{m.group(1)}.layer.{segs[1]}"

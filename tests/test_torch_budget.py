@@ -13,7 +13,7 @@ post-MP depths; the graph head with each pooling, the link head with
 dot, cosine and concat decoding, and the edge task.  The width comes
 from the cfg's share.dim_in / dim_out (``max(dim_in, 1)``), never from
 data.  An edge-feature layer type raises the port's NotImplementedError
-naming ROADMAP A13c.
+naming ROADMAP's queue A item 7.
 """
 
 import itertools
@@ -150,8 +150,9 @@ def test_widths_come_from_the_cfg(dim_in, dim_out):
                                         "generalogbconv"])
 def test_edge_feature_layer_raises(layer_type):
     """An edge-feature conv is not ported: params_count raises the
-    port's NotImplementedError naming A13c, as build_model does."""
+    port's NotImplementedError naming ROADMAP's queue A item 7, as
+    build_model does."""
     cfg = get_cfg()
     cfg.merge_from_dict(merged(SMALL, {"gnn": {"layer_type": layer_type}}))
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(NotImplementedError, match="A item 7"):
         budget.params_count(cfg)

@@ -12,8 +12,8 @@ Planetoid pickle naming anything but arrays, sparse matrices and the
 graph's lists is refused.  The processed-dataset cache: the JAX
 package's file (its key and name) loads in the port, a cache the port
 writes reads back the same, and edge features ride the split, the link
-supervision and the transforms as in the JAX package.  OGB raises
-naming what of A13c is left.
+supervision and the transforms as in the JAX package.  OGB dispatches
+to the OGB loaders (tests/test_torch_ogb.py holds them).
 """
 
 import json
@@ -298,7 +298,8 @@ def test_mnist_superpixels_matches_jax(tmp_path):
 def test_syn_and_ogb_dispatch(monkeypatch):
     """'syn' generates the corpus of its name from cfg.seed, as the JAX
     package does (the generator itself is held to the JAX one in
-    test_torch_synthetic.py); 'OGB' raises naming A13c's second half."""
+    test_torch_synthetic.py); 'OGB' goes to the OGB loaders, which name
+    the raw directory they did not find."""
     calls = []
     from graphgym_tpu_torch.data import synthetic
     monkeypatch.setattr(synthetic, "generate_syn_graphs",
@@ -307,9 +308,9 @@ def test_syn_and_ogb_dispatch(monkeypatch):
     cfg.merge_from_list(["dataset.format", "syn", "dataset.name", "ws",
                          "seed", "7"])
     assert loaders.load_dataset(cfg) == [] and calls == [("ws", 7)]
-    cfg.dataset.format = "OGB"
-    with pytest.raises(NotImplementedError,
-                       match=r"A13c \(OGB, encoders, samplers\)"):
+    cfg.dataset.format, cfg.dataset.name = "OGB", "ogbg-absent"
+    with pytest.raises(FileNotFoundError,
+                       match="OGB raw directory for 'ogbg-absent'"):
         loaders.load_dataset(cfg)
     cfg.dataset.format = "unknown"
     with pytest.raises(ValueError, match="Unknown data format"):

@@ -536,7 +536,7 @@ def test_sageidconv_mean_is_the_jax_coo_mean():
     (["gnn.layer_type", "splineconv"], "A9b"),
     (["gnn.layer_type", "generaledgeattconvv1"], "A10b"),
     (["tpu.remat", "True"], "A0"),
-    (["dataset.node_encoder", "True"], "A13c"),
+    (["gnn.layer_type", "generalogbconv"], "A10b"),
 ])
 def test_not_ported_raises_naming_the_item(overrides, item):
     from graphgym_tpu_torch.nn.model import options_from_cfg
