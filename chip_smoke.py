@@ -470,9 +470,14 @@ try:
     from graphgym_tpu_torch.device import resolve_device
     from graphgym_tpu_torch.exp import parity
     from graphgym_tpu_torch.exp.corpus_time import corpus_digest
-    from graphgym_tpu_torch.graphs.packing import (EMBED_KINDS,
+    from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS,
+                                                   EDGE, EDGE_BOND,
+                                                   EDGE_CONVS, EDGE_DST,
+                                                   EDGE_ENCODER,
+                                                   EDGE_SRC, EMBED_KINDS,
                                                    EMBED_TABLES, LABELS,
-                                                   PAIRS, POOLINGS,
+                                                   NODE_ENCODER, PAIRS,
+                                                   POOLINGS,
                                                    build_pool_packs,
                                                    kinds_for_layer,
                                                    pool_kind)
@@ -480,6 +485,7 @@ try:
     from graphgym_tpu_torch.nn import model as M
     from graphgym_tpu_torch.nn.att_layers import SAGEInitConv
     from graphgym_tpu_torch.nn import encoders as ENC
+    from graphgym_tpu_torch.nn import layers as LY
     from graphgym_tpu_torch.nn.model import build_model
     from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
     from graphgym_tpu_torch.train import checkpoint as ckpt
@@ -624,6 +630,16 @@ SAMPLER_ITERS = {"neighbor": 1, "saint_node": 4, "saint_edge": 4,
 # graph point with the Bond edge encoder
 BOND_TU = dict(graphs=120, nodes=3000, edges=6000, min_nodes=8,
                max_nodes=60, large=0, attributes=4, edge_labels=4)
+# the edge-feature convs' paths: configs/design/design_v2ogb.yaml's model
+# (1 pre-MP, 5 MP, 1 post-MP layers at 300, BN, PReLU, add pooling,
+# batch 128, Adam at 0.01) on the BONDS stand-in that model_bond writes
+# (its four edge label columns one-hot, the convs' edge features), no
+# encoders, no ego transform (it would misalign the edge features)
+EDGE_MODEL = "design/design_v2ogb"
+EDGE_BONDS = ("dataset.format", "PyG", "dataset.name", "TU_BONDS",
+              "dataset.transform", "none", "dataset.node_encoder", "False",
+              "dataset.edge_encoder", "False", "dataset.split",
+              "[0.8, 0.1, 0.1]")
 # sweep_round1: grids/design/round1.txt sampled along 'agg' at this
 # sample_num, budget-matched to configs/design/design_v1.yaml (24
 # configs, 18 of them on the nx chunks), of which three run
@@ -727,13 +743,18 @@ def profiled_ms(fn, iters: int = 20):
 LOSSY_PROFILES = []
 
 
+def kernel_records(events) -> dict:
+    """Each kernel's count of records in a profile."""
+    return {ev.key: ev.count for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)}
+
+
 def holds_every_launch(events, iters: int) -> bool:
     """Whether a profile of ``iters`` calls kept each kernel's records of
     every call: some kernel recorded, each name's count a multiple of
     ``iters``.  A profile that did not is noted in LOSSY_PROFILES."""
-    counts = {ev.key: ev.count for ev in events
-              if ev.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(ev, "is_user_annotation", False)}
+    counts = kernel_records(events)
     lost = {k: c for k, c in counts.items() if c % iters}
     if counts and not lost:
         return True
@@ -1380,7 +1401,8 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                 index_build_s=index_s)
 
 
-def check_embed_kernel(pack, table_rows: int, d: int, device) -> dict:
+def check_embed_kernel(pack, table_rows: int, d: int, device,
+                       live_items) -> dict:
     """K2 on an encoder's embedding pack (graphs/packing.
     build_embed_pack, on the card), the tables' gradient of the lookup:
     the rows of a seeded g [items, d] gathered in slot order and summed
@@ -1390,10 +1412,13 @@ def check_embed_kernel(pack, table_rows: int, d: int, device) -> dict:
     gathers' autograd on the CPU.  Times at f32: the kernel, the plain
     version on the card, two library calls for K2's function on the
     same messages (index_add_ into zeros; torch.sparse.mm of the 0/1
-    [rows, slots] matrix), the one-hot product count^T @ g (the
-    lookup's gradient from g, no gathered messages: ``onehot_ms``) and
-    the encoder's backward (``backward_ms``).  The bound: the messages
-    read once, K2's index, the output rows written once."""
+    [rows, slots] matrix; the kernel and sparse.mm also interleaved
+    under one timer, ``interleaved_ms``), the one-hot product count^T @
+    g (the lookup's gradient from g, no gathered messages:
+    ``onehot_ms``) and the encoder's backward (``backward_ms``).  The
+    bound: the messages of the live slots read once (an item of
+    ``live_items``, the batch's real nodes or edges, and a row in the
+    tables), K2's index read once, the tables' rows written once."""
     gen = torch.Generator(device=device).manual_seed(4)
     items, n_out = pack.rows.shape[0], pack.comb_rows.shape[0]
     runs = K.SegmentRuns(pack.run_start, pack.run_out, pack.comb_rows,
@@ -1437,14 +1462,24 @@ def check_embed_kernel(pack, table_rows: int, d: int, device) -> dict:
              "onehot_mm": lambda: count @ g,
              "backward": lambda: ENC.table_grad(pack, g, table_rows)}
     index = sum(a.numel() for a in runs[:4])
-    moved = msg.numel() * 4 + index * 4 + n_out * d * 4
-    flops = msg.numel()
+    live = (torch.as_tensor(np.asarray(live_items), dtype=torch.bool,
+                            device=device)[pack.slot_items.long()]
+            & (rows < table_rows))
+    live_slots = int(live.sum())
+    moved = live_slots * d * 4 + index * 4 + table_rows * d * 4
+    flops = live_slots * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     ms, loop_ms, timed_by, queued = time_calls(calls,
                                                max(t_bytes, t_ops) * 1e3)
     library = min(("index_add", "sparse_mm"), key=ms.get)
     real_runs = int((pack.run_start[1:] > pack.run_start[:-1]).sum())
-    return dict(max_abs_err=err, table_grad_err=grad_err,
+    one_timer = interleaved_ms({"kernel": calls["kernel"],
+                                "sparse_mm": calls["sparse_mm"]})
+    med = one_timer["median_ms"]
+    return dict(interleaved=one_timer, interleaved_ms=med["kernel"],
+                interleaved_library_ms=med["sparse_mm"],
+                interleaved_ratio=med["kernel"] / med["sparse_mm"],
+                max_abs_err=err, table_grad_err=grad_err,
                 launches=launches, library_err=lib_err,
                 onehot_err=onehot_err, ms=ms["kernel"],
                 plain_ms=ms["plain"], library_ms=ms[library],
@@ -1456,9 +1491,160 @@ def check_embed_kernel(pack, table_rows: int, d: int, device) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, width=d, items=items,
                 columns=int(pack.rows.shape[1]), table_rows=table_rows,
-                slots=rows.numel(), runs=real_runs,
+                slots=rows.numel(), live_slots=live_slots, runs=real_runs,
                 padded_runs=int(pack.run_out.numel()),
                 longest_row_slots=int(torch.bincount(rows).max().item()))
+
+
+INTERLEAVE_ROUNDS = 7
+
+
+def interleaved_ms(calls: dict, rounds: int = INTERLEAVE_ROUNDS,
+                   iters: int = 20) -> dict:
+    """One timer for every call: ``queued_ms`` of each fn (CUDA events
+    around a loop queued behind a sleep kernel), the fns taking turns
+    round after round, so each side sees the same stretch of the card's
+    clocks.  Returns each fn's median over the rounds, and the rounds."""
+    per = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, f in calls.items():
+            per[k].append(queued_ms(f, iters))
+    return dict(median_ms={k: float(np.median(v)) for k, v in per.items()},
+                rounds_ms=per)
+
+
+def slot_matrix(rows: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The 0/1 [n_out, slots] CSR matrix of a slot -> row index: its
+    product with messages [slots, D] is K2's function."""
+    n = rows.numel()
+    return torch.sparse_coo_tensor(
+        torch.stack([rows.long(), torch.arange(n, device=rows.device)]),
+        torch.ones(n, device=rows.device), (n_out, n)).coalesce() \
+        .to_sparse_csr()
+
+
+def check_edge_kernel(entry, n: int, d: int, device) -> dict:
+    """K2 on an edge conv's 'edge' pack (graphs/packing.build_edge_pack,
+    on the card): seeded messages on every slot ([S, d], 0 on the slots
+    of no real edge, as the layers give it) summed per receiver by
+    ``packed_segment_runs_cuda`` on the pack's host-built index, against
+    its plain version on the CPU (hold_sums' rule: SEG_REL x the row's
+    sum of |terms| + SEG_ATOL), bitwise between two launches; the
+    layers' Function (``segment_sum_runs_vjp``) forward and its gather
+    gradient against the plain autograd on the CPU.  Times: the kernel,
+    its plain version and torch.sparse.mm of the 0/1 [rows, slots]
+    matrix (the library call of K2's function), interleaved under one
+    timer (``interleaved_ms``); the same three by ``time_calls``.  The
+    bound: the messages of the slots that hold a real edge read once
+    (the others are chunk padding or padding edges, zeros by the
+    layout and the layers' masks), K2's index read once, the n node
+    rows written once."""
+    fwd, slots = entry
+    gen = torch.Generator(device=device).manual_seed(6)
+    n_out = K.num_tiles_of(n) * K.ROWS_PER_TILE
+    runs = K.SegmentRuns(slots.run_start, slots.run_out, slots.comb_rows,
+                         slots.comb_ptr, slots.run_out.shape[0])
+    # the slots of a real edge; the layers' messages are 0 elsewhere
+    held = (fwd.weights.reshape(-1) != 0)[:, None]
+    msg = torch.randn(slots.rows.numel(), d, generator=gen,
+                      device=device) * held
+    rows = slots.rows.long()
+    K.packed_segment_matmul_cuda.launches = 0
+    got = K.packed_segment_runs_cuda(msg, runs, n_out)
+    cpu_msg, cpu_rows = msg.cpu(), rows.cpu()
+    err = hold_sums("K2 edge pack", got.cpu(),
+                    K.segment_sum_plain(cpu_msg, cpu_rows, n_out),
+                    K.segment_sum_plain(cpu_msg.abs(), cpu_rows, n_out))
+    if not torch.equal(got, K.packed_segment_runs_cuda(msg, runs, n_out)):
+        fail("K2 edge pack: two launches differ")
+    g = torch.randn(n, d, generator=gen, device=device)
+    outs = []
+    for m, r, rn in ((msg, slots.rows, runs),
+                     (cpu_msg, slots.rows.cpu(),
+                      K.SegmentRuns(*(a.cpu() for a in runs[:4]),
+                                    runs.num_partials))):
+        m = m.clone().requires_grad_(True)
+        out = K.segment_sum_runs_vjp(m, r, rn, n_out, n)
+        out.backward(g.to(m.device))
+        outs.append((out.detach().cpu(), m.grad.cpu()))
+    vjp_err = hold_sums("K2 edge vjp forward", outs[0][0], outs[1][0],
+                        K.segment_sum_plain(cpu_msg.abs(), cpu_rows,
+                                            n_out)[:n])
+    if not torch.equal(outs[0][1], outs[1][1]):
+        fail("K2 edge vjp: the gradient gather differs from the CPU's")
+    torch.cuda.synchronize()
+    launches = K.packed_segment_matmul_cuda.launches
+    ones = slot_matrix(rows, n_out)
+    lib_err = (torch.sparse.mm(ones, msg) - got).abs().max().item()
+    calls = {"kernel": lambda: K.packed_segment_runs_cuda(msg, runs, n_out),
+             "plain": lambda: K.segment_sum_plain(msg, rows, n_out),
+             "library": lambda: torch.sparse.mm(ones, msg)}
+    one_timer = interleaved_ms(calls)
+    index = sum(a.numel() for a in runs[:4])
+    live_slots = int(held.sum())
+    moved = live_slots * d * 4 + index * 4 + n * d * 4
+    flops = live_slots * d
+    times = bounded_times(calls, moved, flops)
+    med = one_timer["median_ms"]
+    return dict(max_abs_err=err, vjp_err=vjp_err, launches=launches,
+                library="sparse.mm of the 0/1 slot matrix",
+                library_err=lib_err, width=d, slots=rows.numel(),
+                live_slots=live_slots, edges=int(slots.edge_slot.numel()),
+                real_edges=int((fwd.weights != 0).sum()),
+                longest_row_slots=int(torch.bincount(
+                    rows[held[:, 0]]).max().item()),
+                padded_runs=int(slots.run_out.numel()),
+                **times, interleaved=one_timer,
+                interleaved_ms=med["kernel"],
+                interleaved_library_ms=med["library"],
+                interleaved_ratio=med["kernel"] / med["library"])
+
+
+class CardLive:
+    """Records the edges each generalsampleedgeconv call keeps on the
+    card (``GeneralEdgeConv.live_edges``), in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.real = LY.GeneralEdgeConv.live_edges
+
+        def record(mod, graph):
+            live = self.real(mod, graph)
+            self.calls.append(live.cpu())
+            return live
+        LY.GeneralEdgeConv.live_edges = record
+        return self
+
+    def __exit__(self, *exc):
+        LY.GeneralEdgeConv.live_edges = self.real
+
+
+class SameLive:
+    """Gives the CPU reference's generalsampleedgeconv calls the card's
+    kept edges, in call order: the two sides draw from generators of
+    different devices."""
+
+    def __init__(self, card_calls: list):
+        self.card = card_calls
+        self.calls = 0
+
+    def __enter__(self):
+        self.real = LY.GeneralEdgeConv.live_edges
+
+        def same(mod, graph):
+            if self.calls == len(self.card):
+                fail(f"the CPU drew more than the card's {self.calls} "
+                     "edge samples")
+            live = self.card[self.calls]
+            self.calls += 1
+            return live
+        LY.GeneralEdgeConv.live_edges = same
+        return self
+
+    def __exit__(self, *exc):
+        LY.GeneralEdgeConv.live_edges = self.real
 
 
 def longest_rows(pack: K.PackedCSR) -> dict:
@@ -1896,7 +2082,7 @@ def check_bench_runs(device) -> dict:
     def run(what, fn, want, widths=()):
         """fn's result and launches, held to ``want``; ``widths`` holds
         the launches at each (width, {kernel: (count, how)}) given."""
-        result, (launches, by_width, _) = counted(fn)
+        result, (launches, by_width, *_) = counted(fn)
         hold_counts(f"bench {what}", launches,
                     {k.__name__: v for k, v in want.items()})
         for width, want_w in widths:
@@ -2191,11 +2377,14 @@ class MatmulSums(TorchFunctionMode):
         return out
 
 
-def f64_witness(cfg, state: dict, batch, kinks: tuple, maxes: tuple) -> dict:
+def f64_witness(cfg, state: dict, batch, kinks: tuple, maxes: tuple,
+                lives: tuple = ((), ())) -> dict:
     """The CPU reference in float64: the same parameters (``state``),
     the batch's features in float64, the card's kink and max decisions
     (SameKinks, SameMax; ``kinks`` and ``maxes`` the card's train and
-    eval records), one train-mode forward and backward of the cross
+    eval records) and kept edges (SameLive, ``lives``), the batch's
+    edge features in float64 too, one train-mode forward and backward
+    of the cross
     entropy, then an eval-mode forward, as check_model runs them.  Every
     sum runs in float64, the kernels' plain versions' too; the segmented
     max's messages stay f32, which a max does not round further.
@@ -2206,12 +2395,15 @@ def f64_witness(cfg, state: dict, batch, kinks: tuple, maxes: tuple) -> dict:
     m.load_state_dict(state)
     m.double().train()
     b = batch.to(cpu)
-    b = b.replace(node_feat=b.node_feat.double())
-    with SameKinks(kinks[0]), SameMax(maxes[0]):
+    b = b.replace(node_feat=b.node_feat.double(),
+                  edge_feat=None if b.edge_feat is None
+                  else b.edge_feat.double())
+    with SameKinks(kinks[0]), SameMax(maxes[0]), SameLive(lives[0]):
         pred, label, mask = m(b)
         torch.nn.functional.cross_entropy(pred[mask], label[mask]).backward()
     m.eval()
-    with torch.no_grad(), SameKinks(kinks[1]), SameMax(maxes[1]):
+    with torch.no_grad(), SameKinks(kinks[1]), SameMax(maxes[1]), \
+            SameLive(lives[1]):
         pred_eval = m(b)[0]
     return dict(train=pred.detach(), eval=pred_eval,
                 **{k: p.grad for k, p in m.named_parameters()},
@@ -2233,7 +2425,9 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     gradient holds at the tolerance below.
 
     The CPU runs with the card's kink decisions (SameKinks; SameMax for
-    the segmented max's choices): every ReLU,
+    the segmented max's choices; SameLive for generalsampleedgeconv's
+    kept edges, which the two sides would draw from generators of
+    different devices): every ReLU,
     leaky ReLU and PReLU input is held to the card's,
     and at an input within rounding of 0 the two f32 programs may take
     either side of the kink.  There the gradient steps by that row's
@@ -2281,23 +2475,25 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
     card_train, card_eval = CardKinks(), CardKinks()
     max_train, max_eval = CardMax(), CardMax()
     same_max = (SameMax(max_train.calls), SameMax(max_eval.calls))
+    live_train, live_eval = CardLive(), CardLive()
     outs, kinks = [], []
-    for m, b, train_mode, eval_mode, maxes, scales in (
+    for m, b, train_mode, eval_mode, maxes, scales, lives in (
             (model, batch.to(device), card_train, card_eval,
-             (max_train, max_eval), contextlib.nullcontext()),
+             (max_train, max_eval), contextlib.nullcontext(),
+             (live_train, live_eval)),
             (ref, batch.to(torch.device("cpu")),
              SameKinks(card_train.inputs), SameKinks(card_eval.inputs),
-             same_max, sums)):
-        with train_mode, maxes[0], scales:
+             same_max, sums,
+             (SameLive(live_train.calls), SameLive(live_eval.calls)))):
+        with train_mode, maxes[0], scales, lives[0]:
             pred, label, mask = m(b)
             loss = torch.nn.functional.cross_entropy(pred[mask],
                                                      label[mask])
             loss.backward()
         m.eval()
-        with torch.no_grad(), eval_mode, maxes[1]:
+        with torch.no_grad(), eval_mode, maxes[1], lives[1]:
             pred_eval = m(b)[0]
-        # a parameter no loss reaches (the Bond encoder's tables: no
-        # ported layer reads edge_feat) has no gradient on either side
+        # a parameter no loss reaches has no gradient on either side
         outs.append(dict(train=pred.detach().cpu(), eval=pred_eval.cpu(),
                          **{k: (p.grad if p.grad is not None
                                 else torch.zeros_like(p)).cpu()
@@ -2324,7 +2520,8 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
         if not witness:
             witness.update(f64_witness(
                 cfg, state, batch, (card_train.inputs, card_eval.inputs),
-                (max_train.calls, max_eval.calls)))
+                (max_train.calls, max_eval.calls),
+                (live_train.calls, live_eval.calls)))
         exact = witness[key]
         if scale is not None:
             hold_sums(f"{what} card vs float64", got[miss], exact[miss],
@@ -2490,7 +2687,8 @@ def step_profile(trainer, batch, device, steps: int, base: int) -> dict:
     step 1 (on the card, eager and the capture), then over ``steps``
     more: the wall ms per step, the device time by kernel
     (torch.profiler; ``profile_holds_every_launch`` false where three
-    profiles each lost records), the device's busy share, the host time in
+    profiles each lost records, or two kept the same records), the
+    device's busy share, the host time in
     operators' own code and their calls per step, the CUDA-event time
     of a loop of steps, and the peak of device memory from the
     trainer's first step on, less ``base``, what was allocated before
@@ -2509,17 +2707,25 @@ def step_profile(trainer, batch, device, steps: int, base: int) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     peak = torch.cuda.max_memory_allocated(device) - base
-    for _ in range(3):   # a profile that lost records is taken again
+    kept = None
+    for _ in range(3):   # a profile that lost records is taken again,
+        # unless it kept the records the one before kept (a kernel the
+        # step launches a number of times no multiple of the steps: a
+        # third profile reads the same)
         events = profile_events(lambda: trainer.train_step(batch), steps)
         whole = holds_every_launch(events, steps)
-        if whole:
+        if whole or kernel_records(events) == kept:
             break
+        kept = kernel_records(events)
     by_kernel = device_ms_by_kernel(None, steps, events)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    # the port's own kernels (csrc/): row_walk_* runs K1 and K3
+    # the port's own kernels (csrc/): row_walk_* runs K1 and K3,
+    # segment_* K2
     own = sorted((kv for kv in by_kernel.items()
-                  if "row_walk" in kv[0] or "packed_" in kv[0]),
+                  if any(k in kv[0] for k in ("row_walk", "packed_",
+                                              "segment_runs",
+                                              "segment_combine"))),
                  key=lambda kv: -kv[1])
     by_op = host_ms_by_op(events, steps)
     host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
@@ -2816,19 +3022,22 @@ def by_width_kernels() -> tuple:
 def counted(fn):
     """fn's result and the launches of every kernel during it: each
     count set to 0 just before, read just after (launches, K1's and
-    K3's launches by width, and K1's rectangular launches by width:
-    those on a pooling or gather pack or its transpose)."""
+    K3's launches by width, K1's rectangular launches by width: those
+    on a pooling or gather pack or its transpose, and K2's launches by
+    the batch pack its index came from)."""
     for k in kernels():
         k.launches = 0
     for k in by_width_kernels():
         k.launches_by_width.clear()
     K.packed_spmm_cuda.launches_rectangular.clear()
+    K.packed_segment_matmul_cuda.launches_by_pack.clear()
     result = fn()
     torch.cuda.synchronize()
     return result, ({k.__name__: k.launches for k in kernels()},
                     {k.__name__: dict(k.launches_by_width)
                      for k in by_width_kernels()},
-                    dict(K.packed_spmm_cuda.launches_rectangular))
+                    dict(K.packed_spmm_cuda.launches_rectangular),
+                    dict(K.packed_segment_matmul_cuda.launches_by_pack))
 
 
 def at_width(by_width: dict, width: int) -> dict:
@@ -2846,7 +3055,8 @@ def hold_counts(what: str, launches: dict, want: dict) -> None:
 
 
 def train_path(cfg_file: str, overrides, out: str, loaders,
-               expected: dict, widths=None, rect=(0, 0)) -> dict:
+               expected: dict, widths=None, rect=(0, 0),
+               k2_packs=None) -> dict:
     """Drive graphgym_tpu_torch.main's run_single on one config, loaded
     afresh (its data pipeline writes label bins into the cfg), launches
     counted (``counted``).  ``expected`` maps a kernel wrapper to its
@@ -2859,9 +3069,12 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
     launches (the graph head's pooling, or a head's gather, forward and
     backward) per train step and eval batch, of those ``expected``
     counts; the result reports them and the rest, the layers', as
-    measured; with the graphs each step captured, and the train
-    batches' signatures over the epochs and what each epoch adds (one
-    captured program a signature)."""
+    measured.  ``k2_packs`` maps a batch pack kind to K2's launches on
+    its index (per train step, per eval batch), held as K2's launches
+    by pack (``launches_by_pack``; no K2 launch on another pack); the
+    result reports those counts as measured.  With the graphs each
+    step captured, and the train batches' signatures over the epochs
+    and what each epoch adds (one captured program a signature)."""
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_cfg(cfg_file, overrides + ["out_dir", out])
     epochs = cfg.optim.max_epoch
@@ -2875,7 +3088,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                              f"x {evals}") for k, (s, e) in per.items()}
     with LoaderCalls(keep=False) as calls, Captures() as captures, \
             Draws() as draws:
-        result, (launches, by_width, rectangular) = counted(
+        result, (launches, by_width, rectangular, k2_by_pack) = counted(
             lambda: run_single(cfg, cfg.out_dir, cfg_file))
     # the epochs' train batches (the trainer's construction and its edge
     # count draw first)
@@ -2897,6 +3110,13 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
         hold_counts(f"{cfg_file}, at width {w}", at[w], totals(per))
     hold_counts(f"{cfg_file}, on rectangular packs", {k1: rect_launches},
                 totals({K.packed_spmm_cuda: rect}))
+    if k2_packs is not None:
+        hold_counts(f"{cfg_file}, K2 by pack",
+                    {p: k2_by_pack.get(p, 0) for p in {*k2_by_pack,
+                                                       *k2_packs}},
+                    {p: (s * steps + e * evals,
+                         f"{s}/train step x {steps} + {e}/eval batch x "
+                         f"{evals}") for p, (s, e) in k2_packs.items()})
     accs = [s["accuracy"] for s in val]
     if not all(0.0 <= a <= 1.0 for a in accs):
         fail(f"{cfg_file}: val accuracies {accs}")
@@ -2911,6 +3131,7 @@ def train_path(cfg_file: str, overrides, out: str, loaders,
                 k1_rect_launches=rect_launches,
                 k1_layer_launches=launches[k1] - rect_launches,
                 k1_rect_launches_by_width=rectangular,
+                k2_launches_by_pack=k2_by_pack,
                 launches_per_train_step_and_eval_batch={
                     k.__name__: v for k, v in expected.items()},
                 captures=dict(captures.counts),
@@ -3109,11 +3330,67 @@ def config(tag: str) -> str:
     return os.path.join(ROOT, "configs", f"{tag}.yaml")
 
 
+def edge_checks(cfg, batch, dev, n: int, d: int, device) -> dict:
+    """The kernels of an edge conv's packs (graphs/packing.edge_kinds)
+    held to their plain versions and timed: K2 on the 'edge' pack at
+    the width d (``check_edge_kernel``); K1 on the 'edge_src' gather
+    packs at the width the layer gathers (``check_gather_k1``: 2 d for
+    splineconv's two projections); the segmented max on the layers'
+    max packs of the real edges (``edge_max_packs``, x one row an edge)
+    for agg max; the
+    softmax's K3 row sums on the 'edge' pack for the attention convs
+    (``check_softmax``)."""
+    lt = cfg.gnn.layer_type
+    checks = dict(k2=check_edge_kernel(dev.packs[EDGE], n, d, device))
+    checks["k1_edge_src"] = check_gather_k1(
+        dev.packs[EDGE_SRC], batch.senders, batch.edge_weight != 0, n,
+        2 * d if lt == "splineconv" else d, device)
+    if EDGE_DST in dev.packs and cfg.gnn.agg == "max" \
+            and lt in ("generaledgeconv", "generalsampleedgeconv",
+                       "generalogbconv"):
+        checks["max"] = check_max_kernel(
+            LY.edge_max_packs(dev, dev.edge_weight != 0), batch.num_edges,
+            d, device)
+    if lt.startswith("generaledgeattconv"):
+        checks["softmax"] = check_softmax(dev.packs[EDGE][0], n, device)
+    if lt == "generalsampleedgeconv":
+        checks["sample"] = check_edge_sample(cfg, batch, device)
+    return checks
+
+
+def check_edge_sample(cfg, batch, device, draws: int = 20) -> dict:
+    """generalsampleedgeconv's kept edges on the card (the model's first
+    layer, train mode, its generator): over ``draws`` calls the kept
+    share of the real edges within 5 sigma of gnn.keep_edge, no padding
+    edge kept, each call's mask new, the first mask again from a model
+    built from the same seed, and every real edge in eval mode."""
+    dev = batch.to(device)
+    real = dev.edge_weight != 0
+    masks = []
+    for _ in range(2):
+        conv = build_model(cfg, device).mp.layers[0].layer.train()
+        masks.append([conv.live_edges(dev) for _ in range(draws)])
+    kept = torch.stack(masks[0])
+    rate, trials = cfg.gnn.keep_edge, draws * int(real.sum())
+    share = kept[:, real].float().mean().item()
+    sigma = math.sqrt(rate * (1 - rate) / trials)
+    fresh = len({m.cpu().numpy().tobytes() for m in masks[0]}) == draws
+    seeded = all(map(torch.equal, masks[0], masks[1]))
+    eval_all = torch.equal(conv.eval().live_edges(dev), real)
+    if abs(share - rate) > 5 * sigma or kept[:, ~real].any() \
+            or not (fresh and seeded and eval_all):
+        fail(f"edge sample {rate}: kept share {share} (want {rate} +- "
+             f"{5 * sigma}), padding kept {bool(kept[:, ~real].any())}, "
+             f"fresh {fresh}, seeded again {seeded}, eval all {eval_all}")
+    return dict(rate=rate, kept_share=share, sigma=sigma, draws=draws,
+                real_edges=int(real.sum()))
+
+
 def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                random_features: bool = False, base: str = "",
                extra=(), rect_width=None, rect=(0, 0),
                model_graphs: int = 0, pool_width: int = 0,
-               model_nodes: int = 0) -> dict:
+               model_nodes: int = 0, k2_packs=None) -> dict:
     """The phases of one more path, as the ws paths have them:
     kernel_<tag> (its kernels at the train pack's shapes: K1 at the
     model width and at each narrow width ``widths`` names, or K3, its
@@ -3121,7 +3398,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     backward (a generalconv / idconv with gnn.agg max); the pack's
     longest rows),
     model_<tag> (``check_model``), train_<tag> (``train_path`` with
-    ``expected``, ``widths`` and ``rect``), profile_<tag> (with ``repeat_steps``;
+    ``expected``, ``widths``, ``rect`` and ``k2_packs``), profile_<tag>
+    (with ``repeat_steps``;
     no op of the eager step takes a tensor of the pack's slots times the
     width, the batch's node rows aside, and no index_add an index of the
     pack's slots) and
@@ -3155,10 +3433,17 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     cfg, loaders, host_s = load_path(cfg_file, overrides)
     batch = loaders[0].batches(0)[0]
     n, d = batch.num_nodes, cfg.gnn.dim_inner
-    (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                              cfg.gnn.normalize_adj, cfg.gnn.flow)
-    packs = batch.to(device).packs[kind]
-    if kind == "att":
+    kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
+                            cfg.gnn.normalize_adj, cfg.gnn.flow,
+                            cfg.gnn.msg_direction)
+    kind = kinds[0]
+    dev_batch = batch.to(device)
+    dev_packs = dev_batch.packs
+    packs = dev_packs[kind]
+    edge_conv = cfg.gnn.layer_type in EDGE_CONVS
+    if edge_conv:
+        checks = edge_checks(cfg, batch, dev_batch, n, d, device)
+    elif kind == "att":
         checks = dict(k3=check_attention_kernel(packs, n, d, device),
                       softmax=check_softmax(packs[0], n, device),
                       sddmm=check_sddmm_kernel(packs[0], n, d, device))
@@ -3171,14 +3456,18 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     embed_numel = 0
     for name in EMBED_KINDS:
         if name in batch.packs:
-            (pack,) = batch.to(device).packs[name]
-            table = (cfg.dataset.node_encoder_name if name == EMBED_KINDS[0]
-                     else cfg.dataset.edge_encoder_name)
-            checks[f"k2_{name}"] = check_embed_kernel(
-                pack, sum(EMBED_TABLES[table][0]), cfg.dataset.encoder_dim,
-                device)
-            embed_numel = max(embed_numel, pack.slot_items.numel()
-                              * cfg.dataset.encoder_dim)
+            (pack,) = dev_packs[name]
+            dims, width = {
+                NODE_ENCODER: (EMBED_TABLES[cfg.dataset.node_encoder_name][0],
+                               cfg.dataset.encoder_dim),
+                EDGE_ENCODER: (EMBED_TABLES[cfg.dataset.edge_encoder_name][0],
+                               cfg.dataset.encoder_dim),
+                EDGE_BOND: (BOND_FEATURE_DIMS[:pack.rows.shape[1]], d)}[name]
+            live = (batch.node_mask if name == NODE_ENCODER
+                    else batch.edge_mask)
+            checks[f"k2_{name}"] = check_embed_kernel(pack, sum(dims), width,
+                                                      device, live)
+            embed_numel = max(embed_numel, pack.slot_items.numel() * width)
     pool = {}
     if cfg.dataset.task == "graph":
         name = next(k for k in batch.packs if k.startswith("pool_"))
@@ -3220,7 +3509,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           batches=len(loaders[0]),
           slots=int(packs[0].senders.numel()),
           fwd_rows=longest_rows(packs[0]),
-          bwd_rows=longest_rows(packs[1]), pool=pool, gathers=gathers,
+          bwd_rows=None if edge_conv else longest_rows(packs[1]),
+          packs=sorted(batch.packs), pool=pool, gathers=gathers,
           supervised=supervised, **checks)
     begin(f"model_{tag}")
     model_batch, checked = loaders[1].batches(0)[0], "the first val batch"
@@ -3242,13 +3532,20 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           **check_model(cfg, model_batch, device, random_features))
     begin(f"train_{tag}")
     train = train_path(cfg_file, overrides, os.path.join(OUT, tag),
-                       loaders, expected, widths, rect)
+                       loaders, expected, widths, rect, k2_packs)
     phase(f"train_{tag}", **train)
     begin(f"profile_{tag}")
     slots = packs[0].senders.numel()
+    # an edge conv's own per-edge rows (feat, messages; slots of the
+    # 'edge' pack times 2 d + the edge columns at most) pass
+    widest = slots * (2 * d + cfg.dataset.edge_dim) if edge_conv \
+        else slots * d
     first = [FirstBatch(batch, len(loaders[0])), *loaders[1:]]
-    profile = profile_steps(cfg, first, device,
-                            forbid_numel=max(slots * d, embed_numel + 1),
+    # the profiler's processing pays for each host op call of the
+    # eager step (1,000-4,400 on these paths, 2,500-5,000 on an edge
+    # conv's): 3 steps, 2 on an edge conv, for time
+    profile = profile_steps(cfg, first, device, steps=2 if edge_conv else 3,
+                            forbid_numel=max(widest, embed_numel) + 1,
                             forbid_index_add=slots)
     phase(f"profile_{tag}", **profile,
           repeat=repeat_steps(cfg, first, device))
@@ -3261,7 +3558,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
 
 
 def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
-                layers=None) -> dict:
+                layers=None, k2_packs=None) -> dict:
     """model_<tag>, a layer type checked without a training: check_model
     on the config's first val batch at full width, the launches of its
     card side (a train-mode forward and backward, then an eval-mode
@@ -3270,24 +3567,41 @@ def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
     max) held to its plain version and timed at the width
     (``check_kernel``, ``check_max_kernel``).  ``layers`` replaces
     entries of the model's layer table while the check runs (a layer
-    built with an option its layer type does not set)."""
+    built with an option its layer type does not set).  ``k2_packs``
+    maps a batch pack kind to K2's launches on its index, held as K2's
+    launches by pack."""
     from unittest import mock
 
     cfg, loaders, _ = load_path(cfg_file, overrides)
     batch = loaders[1].batches(0)[0]
-    (kind,) = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                              cfg.gnn.normalize_adj, cfg.gnn.flow)
-    packs = batch.to(device).packs[kind]
+    kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
+                            cfg.gnn.normalize_adj, cfg.gnn.flow,
+                            cfg.gnn.msg_direction)
+    kind = kinds[0]
+    dev_batch = batch.to(device)
+    packs = dev_batch.packs[kind]
     n, d = batch.num_nodes, cfg.gnn.dim_inner
-    agg_max = cfg.gnn.agg == "max" and cfg.gnn.layer_type == "generalconv_v2"
-    check = (check_max_kernel if agg_max else check_kernel)(packs, n, d,
-                                                            device)
+    edge_conv = cfg.gnn.layer_type in EDGE_CONVS
+    if edge_conv:
+        checks = edge_checks(cfg, batch, dev_batch, n, d, device)
+        check = checks.get("max", checks["k2"])
+    else:
+        agg_max = (cfg.gnn.agg == "max"
+                   and cfg.gnn.layer_type == "generalconv_v2")
+        check = (check_max_kernel if agg_max else check_kernel)(
+            packs, n, d, device)
     with mock.patch.dict(M.LAYERS, layers or {}):
-        model, (launches, by_width, _) = counted(
+        model, (launches, by_width, _, k2_by_pack) = counted(
             lambda: check_model(cfg, batch, device))
     hold_counts(f"model_{tag}", launches,
                 {k.__name__: (c, "the train step and the eval forward")
                  for k, c in expected.items()})
+    if k2_packs is not None:
+        hold_counts(f"model_{tag}, K2 by pack",
+                    {p: k2_by_pack.get(p, 0)
+                     for p in {*k2_by_pack, *k2_packs}},
+                    {p: (c, "the train step and the eval forward")
+                     for p, c in k2_packs.items()})
     return dict(layer_type=cfg.gnn.layer_type, pack=kind, n=n, width=d,
                 real_nodes=int(np.sum(batch.node_mask)),
                 edge_columns=(None if batch.edge_feat is None
@@ -3295,9 +3609,9 @@ def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
                 chunks=int(packs[0].senders.shape[0]),
                 slots=int(packs[0].senders.numel()),
                 fwd_rows=longest_rows(packs[0]),
-                bwd_rows=longest_rows(packs[1]),
+                bwd_rows=None if edge_conv else longest_rows(packs[1]),
                 launches=launches, launches_by_width=by_width,
-                check=check, **model)
+                k2_launches_by_pack=k2_by_pack, check=check, **model)
 
 
 class LoaderCalls:
@@ -3789,7 +4103,9 @@ def ogb_rows(paths: dict, samplers: dict, row: tuple, k1_src: dict,
          "path": "ogbg_molhiv_gcnid",
          "pack": "node_encoder (Atom), ogbg_molhiv_gcnid",
          "width": k2["width"],
-         **{k: k2[k] for k in row + ("onehot_ms", "backward_ms")},
+         **{k: k2[k] for k in row + ("onehot_ms", "backward_ms",
+                                      "interleaved_ms",
+                                      "interleaved_library_ms")},
          **path_launches(K.packed_segment_matmul_cuda,
                          {"ogbg_molhiv_gcnid": t})},
         {"name": "packed_spmm_ogbn_arxiv_design", **k1_src,
@@ -3801,6 +4117,71 @@ def ogb_rows(paths: dict, samplers: dict, row: tuple, k1_src: dict,
          "samplers_arxiv_launches": {k: v["k1_launches"]
                                      for k, v in samplers.items()}},
     ]
+
+
+def edge_rows(paths: dict, models: dict, row: tuple, srcs: tuple,
+              k2_src: dict) -> list:
+    """The kernels line's rows of the edge-feature convs (``drive_path``'s
+    and ``model_phase``'s results): per path K2 on its 'edge' pack at
+    300 (the sums over the receivers, with edge_sample's live in-degree
+    at width 1; timed also interleaved with torch.sparse.mm under one
+    timer) and K1 on its 'edge_src' gather (the forward timed, the
+    backward beside it; the launches all of the path's K1, the add
+    pooling's 2 / 1 among them); generalogbconv's bond tables' gradient
+    (K2 on the 'edge_bond' embedding pack, one a layer a train step);
+    the attention softmax's K3 row sums on edge_att's 'edge' pack (timed
+    at one head, run at four); the model checks' K2 and max."""
+    k1_src, k3_src, _, max_src = srcs
+    k1, k2, k3 = (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
+                  K.packed_segment_matmul_headed_cuda)
+    keys = row + ("floor_ms",)
+    extra = ("interleaved_ms", "interleaved_library_ms")
+    out = []
+    for tag, p in paths.items():
+        c, t = p["checks"], p["train"]
+        by_pack = t["k2_launches_by_pack"]
+        out.append({"name": f"packed_segment_{tag}", **k2_src, "path": tag,
+                    "pack": f"edge, {tag}", "width": c["k2"]["width"],
+                    "library": c["k2"]["library"],
+                    **{k: c["k2"][k] for k in row + extra},
+                    "launches": by_pack.get(EDGE, 0)})
+        if f"k2_{EDGE_BOND}" in c:
+            b = c[f"k2_{EDGE_BOND}"]
+            out.append({"name": f"packed_segment_bond_tables_{tag}",
+                        **k2_src, "path": tag, "pack": f"edge_bond, {tag}",
+                        "width": b["width"],
+                        **{k: b[k] for k in row + extra},
+                        "launches": by_pack.get(EDGE_BOND, 0)})
+        g = c["k1_edge_src"]
+        out.append({"name": f"packed_spmm_edge_src_{tag}", **k1_src,
+                    "path": tag, "pack": f"edge_src, {tag}",
+                    "width": g["width"],
+                    "library": "index_select (backward: index_add_)",
+                    **{k: g["fwd"][k] for k in keys},
+                    "bwd": {k: g["bwd"][k] for k in keys},
+                    **path_launches(k1, {tag: t})})
+        if "softmax" in c:
+            out.append({"name": f"packed_attention_row_sums_{tag}",
+                        **k3_src, "path": tag, "pack": f"edge, {tag}",
+                        **{k: c["softmax"][k] for k in row},
+                        "width": 1, "path_width": 4,
+                        **path_launches(k3, {tag: t})})
+    for tag, m in models.items():
+        c = m["check"]
+        if "ties" in c:
+            out += [{"name": f"{kernel.__name__[:-5]}_{tag}", **max_src,
+                     "path": f"model_{tag}", "pack": f"edge max, {tag}",
+                     "width": c["width"], **{k: c[half][k] for k in keys},
+                     "launches": m["launches"][kernel.__name__]}
+                    for half, kernel in (("fwd", K.packed_max_cuda),
+                                         ("bwd", K.packed_max_bwd_cuda))]
+        else:
+            out.append({"name": f"packed_segment_{tag}", **k2_src,
+                        "path": f"model_{tag}", "pack": f"edge, {tag}",
+                        "width": c["width"],
+                        **{k: c[k] for k in row + extra},
+                        "launches": m["k2_launches_by_pack"].get(EDGE, 0)})
+    return out
 
 
 def sweep_round1_phase() -> dict:
@@ -4104,7 +4485,7 @@ def samplers_phase(device, overrides) -> dict:
         cfg = load_cfg(cfg_file, overrides + extra + ["out_dir", run_dir])
         t0 = time.perf_counter()
         with Draws() as draws, Captures() as captures:
-            _, (launches, by_width, _) = counted(
+            _, (launches, by_width, *_) = counted(
                 lambda: run_single(cfg, cfg.out_dir, cfg_file))
         run_s = time.perf_counter() - t0
         parity.drop_checkpoints(run_dir)
@@ -4141,22 +4522,27 @@ def samplers_phase(device, overrides) -> dict:
 def bond_phase(device, overrides) -> dict:
     """model_bond: the Bond edge encoder and its BatchNorm on the card
     against the CPU (``model_phase``), on a TU set with edge labels
-    written into OGB_DIR (data/standins.py, BOND_TU; ENZYMES has none),
-    the ENZYMES graph point without the ego transform (so the edge
-    features stay aligned with the edges) at gcnconv: the Bond
-    encoder's output and the edge BatchNorm's statistics held card
-    against CPU (no ported layer reads edge_feat, so its tables get no
-    gradient and K2 no launch); K1 12 (three layers and the add pooling,
-    forward and backward, then the eval forward)."""
+    written into OGB_DIR (data/standins.py, BOND_TU; ENZYMES has none;
+    the edge paths read the same files), the ENZYMES graph point without
+    the ego transform (so the edge features stay aligned with the edges)
+    at generaledgeconv, whose messages read the encoded edge features:
+    the Bond encoder's output, its tables' gradient and the edge
+    BatchNorm's statistics held card against CPU; K1 12 (x_j of three
+    layers on the 'edge_src' gather and the add pooling, forward and
+    backward, then the eval forward), K2 7 (the layers' sums, train and
+    eval, 6 on the 'edge' pack, and the tables' gradient, 1 on the
+    encoder's embedding pack)."""
     from graphgym_tpu_torch.data import standins as S
 
     S.write_tu_standin(OGB_DIR, "BONDS", seed=5, **BOND_TU)
     overrides = overrides + list(IDGRAPH_ENZYMES[1]) + [
         "dataset.dir", OGB_DIR, "dataset.name", "TU_BONDS",
-        "dataset.transform", "none", "gnn.layer_type", "gcnconv",
+        "dataset.transform", "none", "gnn.layer_type", "generaledgeconv",
         "dataset.edge_encoder", "True", "dataset.edge_encoder_name", "Bond"]
     out = model_phase("bond", config(IDGRAPH_ENZYMES[0]), overrides, device,
-                      {K.packed_spmm_cuda: 12})
+                      {K.packed_spmm_cuda: 12,
+                       K.packed_segment_matmul_cuda: 7},
+                      k2_packs={EDGE: 6, EDGE_ENCODER: 1})
     if not out["buffers"] or out["edge_columns"] != 4:
         fail(f"model_bond: {out['buffers']} buffers, "
              f"{out['edge_columns']} edge feature columns")
@@ -4566,8 +4952,34 @@ def main() -> None:
     # each), aggregate
     begin("sweep_round1")
     phase("sweep_round1", **sweep_round1_phase())
+    # ---- the link-prediction and edge tasks (grids/IDGNN/link.txt and
+    # path.txt's synthetic chunks): per train step K1 2 per layer at 128
+    # (pre-MP gives layer 0 an input that needs a gradient), 5 layers,
+    # and 1 per layer per eval batch; edgeid_ws's node head gathers its
+    # repeated supervised nodes on the 'labels' pack at dim_out 5 (K1
+    # forward and backward, 2 per train step, 1 per eval batch), link_ba's
+    # edge head both ends of each pair on the 'pairs' pack at 128 (the
+    # same counts); ``rect``: that share.  Constant ws features and ba's
+    # constant column: seeded random ones in the model check.
+    link_paths = {
+        "linkid_ws": grid_point(
+            "linkid_ws", "idgcn_ws", *LINKID_WS, expected={k1_: (10, 5)},
+            widths={128: {k1_: (10, 5)}}, random_features=True),
+        "edgeid_ws": grid_point(
+            "edgeid_ws", "idgcn_ws", *EDGEID_WS, expected={k1_: (12, 6)},
+            widths={128: {k1_: (10, 5)}, 5: {k1_: (2, 1)}}, rect_width=5,
+            rect=(2, 1), random_features=True),
+        "link_ba": grid_point(
+            "link_ba", "idgcn_ba", *LINK_BA, ovr=ba_overrides,
+            expected={k1_: (12, 6)}, widths={128: {k1_: (12, 6)}},
+            rect=(2, 1), random_features=True),
+    }
+    # the ID link point on ba at gatidconv: K3 and the SDDMM on the
+    # 64-copy edge-net union (~131 k nodes a batch of 32)
+    linkid_ba = linkid_ba_path(device, ba_overrides)
     # ---- grids/IDGNN/graph.txt's synthetic chunks at their own size, on
-    # the 500-node corpora regenerated beside the first phases.
+    # the 500-node corpora regenerated beside the first phases (after the
+    # link paths: on a slow host their processes outlast the sweep).
     # idgraph_ba500 (the ID chunk: gcnidconv on ba500 at 2 layers, ego at
     # r = 2, the union of the train graphs' ego nets): K1 2 per layer and
     # the pooling of each graph's 500 ego centers, forward and backward,
@@ -4600,32 +5012,6 @@ def main() -> None:
     begin("model_planted")
     phase("model_planted", **planted_faults(
         config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]), 22, device))
-
-    # ---- the link-prediction and edge tasks (grids/IDGNN/link.txt and
-    # path.txt's synthetic chunks): per train step K1 2 per layer at 128
-    # (pre-MP gives layer 0 an input that needs a gradient), 5 layers,
-    # and 1 per layer per eval batch; edgeid_ws's node head gathers its
-    # repeated supervised nodes on the 'labels' pack at dim_out 5 (K1
-    # forward and backward, 2 per train step, 1 per eval batch), link_ba's
-    # edge head both ends of each pair on the 'pairs' pack at 128 (the
-    # same counts); ``rect``: that share.  Constant ws features and ba's
-    # constant column: seeded random ones in the model check.
-    link_paths = {
-        "linkid_ws": grid_point(
-            "linkid_ws", "idgcn_ws", *LINKID_WS, expected={k1_: (10, 5)},
-            widths={128: {k1_: (10, 5)}}, random_features=True),
-        "edgeid_ws": grid_point(
-            "edgeid_ws", "idgcn_ws", *EDGEID_WS, expected={k1_: (12, 6)},
-            widths={128: {k1_: (10, 5)}, 5: {k1_: (2, 1)}}, rect_width=5,
-            rect=(2, 1), random_features=True),
-        "link_ba": grid_point(
-            "link_ba", "idgcn_ba", *LINK_BA, ovr=ba_overrides,
-            expected={k1_: (12, 6)}, widths={128: {k1_: (12, 6)}},
-            rect=(2, 1), random_features=True),
-    }
-    # the ID link point on ba at gatidconv: K3 and the SDDMM on the
-    # 64-copy edge-net union (~131 k nodes a batch of 32)
-    linkid_ba = linkid_ba_path(device, ba_overrides)
     # ---- the ID-GNN paper's real-dataset points, from files in the
     # published formats (Planetoid, TU) at the published sizes.
     # cora_gatid: Cora's one graph, transductive, the ego union at r = 2
@@ -4685,6 +5071,67 @@ def main() -> None:
     phase("samplers_arxiv", **samplers)
     begin("model_bond")
     phase("model_bond", **bond_phase(device, overrides))
+    # ---- the six edge-feature convs on design_v2ogb.yaml's model, on the
+    # BONDS files: one path a family, 5 MP layers at 300 (pre-MP gives
+    # layer 0 an input that needs a gradient).  Per layer per train step:
+    # K1 x_j on the 'edge_src' gather forward and backward (2; x_i on
+    # 'edge_dst' 2 more with msg_direction both; splineconv gathers its
+    # two projections at 600), K2 the sum over the receivers (1; the
+    # sampling conv's live in-degree at width 1 one more;
+    # generalogbconv's bond tables' gradient one more), the attention
+    # softmax's K3 row sums at the 4 heads (2); per eval batch the
+    # forwards.  The add pooling K1 2 / 1 at 300.  Every K1 launch is
+    # rectangular (gathers and the pooling).
+    edge_ovr = overrides + ["dataset.dir", OGB_DIR]
+
+    def edge_path(tag, layer_type, *extra, **kw):
+        return grid_point(tag, EDGE_MODEL, *EDGE_BONDS, "gnn.layer_type",
+                          layer_type, *extra, ovr=edge_ovr, **kw)
+    edge_paths = {
+        "edge_general": edge_path(
+            "edge_general", "generaledgeconv",
+            expected={k1_: (12, 6), k2_: (5, 5)},
+            widths={300: {k1_: (12, 6)}}, rect=(12, 6),
+            k2_packs={EDGE: (5, 5)}),
+        "edge_sample": edge_path(
+            "edge_sample", "generalsampleedgeconv", "gnn.keep_edge", "0.5",
+            "gnn.agg", "mean", "gnn.normalize_adj", "True",
+            "gnn.msg_direction", "both",
+            expected={k1_: (22, 11), k2_: (10, 10)},
+            widths={300: {k1_: (22, 11)}}, rect=(22, 11),
+            k2_packs={EDGE: (10, 10)}),
+        "edge_spline": edge_path(
+            "edge_spline", "splineconv",
+            expected={k1_: (12, 6), k2_: (5, 5)},
+            widths={600: {k1_: (10, 5)}, 300: {k1_: (2, 1)}}, rect=(12, 6),
+            k2_packs={EDGE: (5, 5)}),
+        "edge_att": edge_path(
+            "edge_att", "generaledgeattconvv2", "gnn.att_heads", "4",
+            "gnn.att_final_linear", "True", "gnn.att_final_linear_bn",
+            "True", expected={k1_: (12, 6), k2_: (5, 5), k3_: (10, 5)},
+            widths={300: {k1_: (12, 6)}, 4: {k3_: (10, 5)}}, rect=(12, 6),
+            k2_packs={EDGE: (5, 5)}),
+        "edge_ogb": edge_path(
+            "edge_ogb", "generalogbconv",
+            expected={k1_: (12, 6), k2_: (10, 5)},
+            widths={300: {k1_: (12, 6)}}, rect=(12, 6),
+            k2_packs={EDGE: (5, 5), EDGE_BOND: (5, 0)}),
+    }
+    # the other two variants without a training: generaledgeattconvv1 at
+    # one head (per layer K1 3, its softmax's K3 row sums 3 at width 1,
+    # K2 2) and generaledgeconv with agg max (K1 3, the max forward 2 and
+    # backward 1, no K2); the add pooling's K1 3
+    edge_models = {}
+    for tag, extra, expected, k2_packs in (
+            ("edge_att_v1", ["gnn.layer_type", "generaledgeattconvv1"],
+             {k1_: 18, k3_: 15, k2_: 10}, {EDGE: 10}),
+            ("edge_max", ["gnn.layer_type", "generaledgeconv", "gnn.agg",
+                          "max"], {k1_: 18, max_: 10, max_bwd_: 5}, {})):
+        begin(f"model_{tag}")
+        edge_models[tag] = model_phase(tag, config(EDGE_MODEL),
+                                       edge_ovr + list(EDGE_BONDS) + extra,
+                                       device, expected, k2_packs=k2_packs)
+        phase(f"model_{tag}", **edge_models[tag])
     # the prefetch on two loaders of many small batches (6 and 3 an
     # epoch)
     begin("prefetch_design_graph_sf")
@@ -4773,6 +5220,9 @@ def main() -> None:
                    replaces="graphgym_tpu/ops/segment.py:50 (XLA's "
                             "segment_max; no Pallas kernel)")
     srcs = (k1_src, k3_src, sddmm_src, max_src)
+    k2_src = dict(route="cuda",
+                  source="graphgym_tpu_torch/csrc/packed_segment.cu",
+                  replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309")
     kernels_line = json.dumps({"kernels": [
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
@@ -4838,10 +5288,8 @@ def main() -> None:
                          srcs),
         *graph_rows({"idgraph_enzymes": real_paths["idgraph_enzymes"]},
                     pools, row, srcs),
-        *ogb_rows(ogb_paths, samplers, row, k1_src,
-                  dict(route="cuda",
-                       source="graphgym_tpu_torch/csrc/packed_segment.cu",
-                       replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309")),
+        *ogb_rows(ogb_paths, samplers, row, k1_src, k2_src),
+        *edge_rows(edge_paths, edge_models, row, srcs, k2_src),
         *({"name": f"{kernel.__name__[:-5]}_{key}", **max_src,
            "path": None, "pack": f"plain, idgin_{key.split('_')[0]}",
            "width": check["width"],

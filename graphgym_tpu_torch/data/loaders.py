@@ -23,7 +23,10 @@ the edge head's gather; and a batch whose supervised node index repeats
 a node the label pack of the node head's gather (``graphs/packing.
 build_gather_packs``), so no gather on a training path has a
 float-atomic backward; a model with a built-in node or edge encoder
-the embedding pack of its lookup (``build_embed_pack``).  Batches carry
+the embedding pack of its lookup (``build_embed_pack``); an
+edge-feature conv the 'edge' pack and the gather packs of its messages,
+and generalogbconv the embedding pack of its bond tables where the batch
+has edge features (graphs/packing.py).  Batches carry
 the graphs' edge features where every graph has them.  A train split
 with cfg.train.sampler other than full_batch (an eval split with
 cfg.val.sampler) draws sampled subgraphs each epoch
@@ -51,8 +54,10 @@ from graphgym_tpu_torch.data.transforms import (edge_nets, ego_nets,
                                                 path_len_labels)
 from graphgym_tpu_torch.graphs.container import (GraphBatch, bucket_size,
                                                  build_graph_batch)
-from graphgym_tpu_torch.graphs.packing import (EDGE_ENCODER, EMBED_TABLES,
-                                               LABELS, NODE_ENCODER, PAIRS,
+from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS,
+                                               EDGE_BOND, EDGE_ENCODER,
+                                               EMBED_TABLES, LABELS,
+                                               NODE_ENCODER, PAIRS,
                                                build_embed_pack,
                                                build_gather_packs,
                                                build_packs, build_pool_packs,
@@ -819,7 +824,9 @@ def create_dataset(cfg, rng: Optional[np.random.Generator] = None
 
 def set_dataset_info(splits, cfg) -> None:
     """Fill cfg.share dims (reference loader_pyg.py:165-191): the classes
-    of the task's labels, graph, edge or node.  A binary link or edge
+    of the task's labels, graph, edge or node; and where the graphs have
+    edge features, their width into cfg.dataset.edge_dim, which the
+    edge-feature convs read (the JAX layers take it from the batch).  A binary link or edge
     task decodes to one score (dim_out 1) unless its edge_decoding is
     'concat'."""
     g0 = splits[0][0]
@@ -828,6 +835,9 @@ def set_dataset_info(splits, cfg) -> None:
     for key in cfg.dataset.augment_feature:
         dim_in += int(np.asarray(g0[key]).shape[-1])
     cfg.share.dim_in = dim_in
+    if "edge_feature" in g0:
+        ef = np.asarray(g0["edge_feature"])
+        cfg.dataset.edge_dim = int(ef.shape[1]) if ef.ndim > 1 else 1
     task = cfg.dataset.task
     if task in ("edge", "link_pred"):
         found = [np.asarray(g["edge_label"]).reshape(-1)
@@ -1102,12 +1112,17 @@ class GraphLoader:
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges, **pairs)
         kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                                cfg.gnn.normalize_adj, cfg.gnn.flow)
+                                cfg.gnn.normalize_adj, cfg.gnn.flow,
+                                cfg.gnn.msg_direction)
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,
-                batch.node_mask, batch.num_nodes, kinds=kinds,
+                batch.node_mask, batch.num_nodes,
+                kinds=[k for k in kinds if k != EDGE_BOND],
                 chunks=self._chunks))
+        if EDGE_BOND in kinds and batch.edge_feat is not None:
+            batch.packs[EDGE_BOND] = (build_embed_pack(
+                batch.edge_feat, BOND_FEATURE_DIMS, False),)
         # re-pad the variable-length index lists to the split-wide bucket
         if batch.node_label_index is not None:
             batch = _repad_index(batch, "node_label_index", "label_mask",

@@ -10,7 +10,9 @@ def params_count(cfg) -> int:
     """Parameter count of the model cfg describes (reference
     comp_budget.py:10-17): the port's model built on the CPU at the
     widths the cfg holds (input width ``max(share.dim_in, 1)``, as the
-    JAX package's count feeds its model), its parameters summed.
+    JAX package's count feeds its model; an edge-feature conv's edge
+    columns at dataset.edge_dim, as that count's edge features), its
+    parameters summed.
     BatchNorm's running statistics are buffers and not counted, as the
     JAX count leaves out ``batch_stats``.  Nothing runs on a device."""
     import torch

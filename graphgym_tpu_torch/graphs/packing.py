@@ -60,6 +60,20 @@ the forward gather, and for the tables' gradient the (item, column)
 slots sorted by row with K2's index of them (``fixed_runs_host``), so
 the gradient of the lookup is a segmented sum in a fixed order (the
 gradient of ``index_select`` is an ``index_add_``, float atomics).
+
+The edge-feature convs (``EDGE_CONVS``) sum, soften or take the max of a
+message per edge over its receiver (graphgym_tpu/nn/layers.py:655-730,
+att_layers.py:118-183 and :253-312, XLA segment reductions there), on
+the 'edge' pack: the raw edges, no self-loops, each weight the edge's
+validity (1 real, 0 padding), beside ``EdgeSlots``, the batch edge of
+each of its slots and K2's host-built index of the slots' rows, so the
+sum runs on K2 in a captured step.  Their per-edge gathers of node rows
+x[senders] and x[receivers] run on the gather packs 'edge_src' and
+'edge_dst' (``build_gather_packs`` of the senders and receivers); the
+segmented max reads the messages through the 'edge' pack's layout with
+the slots' edges as senders, and its backward the 'edge_dst' fwd pack.
+generalogbconv's bond tables' lookup reads the embedding pack
+'edge_bond' of the edge features (``build_embed_pack``).
 """
 
 from __future__ import annotations
@@ -188,6 +202,17 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
             s, r, w = _dir_weights(s, r, edge_weight, num_nodes)
         elif base == "dir_mean":
             s, r, w = _dir_mean_weights(s, r, edge_weight, num_nodes)
+        elif kind == EDGE:
+            out[kind] = build_edge_pack(senders, receivers, edge_weight,
+                                        num_nodes, (chunks or {}).get(
+                                            kind, (0, 0))[0])
+            continue
+        elif kind in (EDGE_SRC, EDGE_DST):
+            out[kind] = build_gather_packs(
+                senders if kind == EDGE_SRC else receivers,
+                edge_weight != 0, num_nodes,
+                (chunks or {}).get(kind, (0, 0)))
+            continue
         else:
             raise ValueError(f"unknown pack kind {kind!r}")
         (fwd, fwd_slot), (bwd, bwd_slot) = _pack_pair(
@@ -202,7 +227,8 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
 def pack_chunks(packs: Dict[str, tuple]) -> Dict[str, Tuple[int, int]]:
     """kind -> (fwd chunks, bwd chunks) of a batch's packed-CSR packs
     (the embedding packs have their loader's shape by construction)."""
-    return {kind: (entry[0].senders.shape[0], entry[1].senders.shape[0])
+    return {kind: (entry[0].senders.shape[0], 0 if kind == EDGE
+                   else entry[1].senders.shape[0])
             for kind, entry in packs.items() if kind not in EMBED_KINDS}
 
 
@@ -218,6 +244,9 @@ def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
     for kind, entry in packs.items():
         if kind in EMBED_KINDS:
             out[kind] = entry
+            continue
+        if kind == EDGE:
+            out[kind] = pad_edge_pack(entry, chunks[kind][0])
             continue
         fwd_rows, bwd_rows = (p.row_range.shape[0] for p in entry[:2])
         fwd = pad_pack(entry[0], chunks[kind][0], fwd_rows, bwd_rows)
@@ -366,10 +395,14 @@ def v2_kind(agg: str, normalize_adj: bool, flow: str) -> str:
 
 def kinds_for_layer(layer_type: str, agg: str = "add",
                     normalize_adj: bool = False,
-                    flow: str = "source_to_target") -> Tuple[str, ...]:
+                    flow: str = "source_to_target",
+                    msg_direction: str = "single") -> Tuple[str, ...]:
     """Which precomputed packs a layer type consumes (``agg``,
     ``normalize_adj`` and ``flow``: cfg.gnn's, read by generalconv,
-    idconv and generalconv_v2)."""
+    idconv and generalconv_v2; ``msg_direction`` and ``agg``, read by
+    the edge-feature convs, ``edge_kinds``)."""
+    if layer_type in EDGE_CONVS:
+        return edge_kinds(layer_type, agg, msg_direction)
     lt = layer_type.replace("Tfg-", "")
     if lt in ("generalconv", "idconv"):
         return (agg_kind(agg, normalize_adj),)
@@ -388,6 +421,108 @@ def kinds_for_layer(layer_type: str, agg: str = "add",
 
 
 PAIRS, LABELS = "pairs", "labels"
+
+# ------------------------------------------------------- edge-feature convs
+
+EDGE, EDGE_SRC, EDGE_DST = "edge", "edge_src", "edge_dst"
+EDGE_BOND = "edge_bond"
+EDGE_CONVS = ("generaledgeconv", "generalsampleedgeconv", "splineconv",
+              "generaledgeattconvv1", "generaledgeattconvv2",
+              "generalogbconv")
+
+
+def edge_kinds(layer_type: str, agg: str = "add",
+               msg_direction: str = "single") -> Tuple[str, ...]:
+    """The packs of an edge-feature conv: 'edge' (the sum, the softmax,
+    the max's forward) and 'edge_src' (x[senders]) always; 'edge_dst'
+    where it gathers x[receivers] (``msg_direction`` 'both', read by
+    generaledgeconv, generalsampleedgeconv and the attention convs) or
+    takes the max (``agg`` 'max', read by generaledgeconv,
+    generalsampleedgeconv and generalogbconv: the max's backward);
+    'edge_bond' for generalogbconv's bond tables (built where the batch
+    has edge features)."""
+    if agg not in ("add", "mean", "max"):
+        raise ValueError(f"Unknown agg: {agg}")
+    if msg_direction not in ("single", "both"):
+        raise ValueError(f"Unknown msg_direction: {msg_direction}")
+    kinds = [EDGE, EDGE_SRC]
+    reads_agg = layer_type in ("generaledgeconv", "generalsampleedgeconv",
+                               "generalogbconv")
+    reads_dir = layer_type not in ("splineconv", "generalogbconv")
+    if (reads_dir and msg_direction == "both") or (reads_agg
+                                                   and agg == "max"):
+        kinds.append(EDGE_DST)
+    if layer_type == "generalogbconv":
+        kinds.append(EDGE_BOND)
+    return tuple(kinds)
+
+
+class EdgeSlots(NamedTuple):
+    """The 'edge' fwd pack's slots and K2's index of them (S = NC * C
+    slots of the pack, E batch edges).
+
+    slot_edge  [NC, C] int32 — the batch edge of each slot, E on the
+               slots of no edge (chunk padding)
+    edge_slot  [E] int32 — the slot of each batch edge (slot_edge's
+               inverse)
+    rows       [S] int32 — K2's output row of each slot: the receiver of
+               its edge, and on a slot of no edge the row of the slot
+               before it (its message is 0), so the rows are sorted
+    run_start, run_out, comb_rows, comb_ptr — K2's index of the slots
+               (``fixed_runs_host`` over ``num_tiles_of(N)`` tiles'
+               rows): shapes of S and N alone, one captured program
+    """
+    slot_edge: Any
+    edge_slot: Any
+    rows: Any
+    run_start: Any
+    run_out: Any
+    comb_rows: Any
+    comb_ptr: Any
+
+
+def _edge_slots(fwd: PackedCSR, slot_edge: np.ndarray,
+                edge_slot: np.ndarray) -> EdgeSlots:
+    rows = (fwd.tiles.astype(np.int64)[:, None] * ROWS_PER_TILE
+            + fwd.local_rows).reshape(-1)
+    held = slot_edge.reshape(-1) < len(edge_slot)
+    rows = np.maximum.accumulate(np.where(held, rows, 0))
+    runs = fixed_runs_host(rows, num_tiles_of(fwd.row_range.shape[0])
+                           * ROWS_PER_TILE)
+    return EdgeSlots(slot_edge.astype(np.int32),
+                     edge_slot.astype(np.int32), rows.astype(np.int32),
+                     *runs[:4])
+
+
+def build_edge_pack(senders: np.ndarray, receivers: np.ndarray,
+                    edge_weight: np.ndarray, num_nodes: int,
+                    least: int = 0) -> Tuple[PackedCSR, EdgeSlots]:
+    """(fwd, EdgeSlots): the 'edge' pack of a padded batch's E edges
+    (module docstring), its chunk count bucketed and at least ``least``
+    (``_pack``)."""
+    w = (np.asarray(edge_weight) != 0).astype(np.float32)
+    fwd, edge_slot = _pack(senders, receivers, w, num_nodes, num_nodes,
+                           least, slots=True)
+    e = len(edge_slot)
+    slot_edge = native.scatter(fwd.senders.size, e, edge_slot,
+                               np.arange(e, dtype=np.int32))
+    return fwd, _edge_slots(fwd, slot_edge.reshape(fwd.senders.shape),
+                            np.asarray(edge_slot))
+
+
+def pad_edge_pack(entry: Tuple[PackedCSR, EdgeSlots],
+                  chunks: int) -> Tuple[PackedCSR, EdgeSlots]:
+    """An 'edge' entry padded to ``chunks`` chunks (``pad_pack``), the
+    new slots holding no edge, and K2's index built again."""
+    fwd, slots = entry
+    if chunks <= fwd.senders.shape[0]:
+        return entry
+    n = fwd.row_range.shape[0]
+    fwd = pad_pack(fwd, chunks, n, n)
+    e = len(slots.edge_slot)
+    slot_edge = np.full(fwd.senders.shape, e, np.int32)
+    slot_edge[:slots.slot_edge.shape[0]] = slots.slot_edge
+    return fwd, _edge_slots(fwd, slot_edge, np.asarray(slots.edge_slot))
 
 
 def build_gather_packs(index: np.ndarray, mask: np.ndarray,
@@ -410,7 +545,7 @@ def build_gather_packs(index: np.ndarray, mask: np.ndarray,
 # ---------------------------------------------------------------- encoders
 
 NODE_ENCODER, EDGE_ENCODER = "node_encoder", "edge_encoder"
-EMBED_KINDS = (NODE_ENCODER, EDGE_ENCODER)
+EMBED_KINDS = (NODE_ENCODER, EDGE_ENCODER, EDGE_BOND)
 # ogb.utils.features get_atom_feature_dims() / get_bond_feature_dims()
 ATOM_FEATURE_DIMS = [119, 4, 12, 12, 10, 6, 6, 2, 2]
 BOND_FEATURE_DIMS = [5, 6, 2]

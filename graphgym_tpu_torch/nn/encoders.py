@@ -34,28 +34,31 @@ from graphgym_tpu_torch.nn.layers import glorot
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
 
 
-def table_grad(pack: EmbedPack, g: torch.Tensor,
-               num_rows: int) -> torch.Tensor:
+def table_grad(pack: EmbedPack, g: torch.Tensor, num_rows: int,
+               kind: str = "") -> torch.Tensor:
     """The stacked tables' gradient [num_rows, D] of the lookup: each
     slot's item row of ``g`` gathered in slot order and summed per table
-    row by K2 (its plain version on the CPU); the slots of ids outside
-    the tables land past num_rows and are dropped."""
+    row by K2 (its plain version on the CPU; counted under the pack's
+    ``kind``); the slots of ids outside the tables land past num_rows
+    and are dropped."""
     msg = g.contiguous().index_select(0, pack.slot_items)
     runs = K.SegmentRuns(pack.run_start, pack.run_out, pack.comb_rows,
                          pack.comb_ptr, pack.run_out.shape[0])
     out = K.segment_sum_runs(msg, pack.slot_rows, runs,
-                             pack.comb_rows.shape[0])
+                             pack.comb_rows.shape[0], kind)
     return out[:num_rows].to(g.dtype)
 
 
 class EmbedSumFn(torch.autograd.Function):
     """out[m] = sum over the pack's columns c, in column order, of
     table[rows[m, c]] (a NaN row for rows[m, c] == table rows); the
-    table's gradient ``table_grad``.  The pack gets no gradient."""
+    table's gradient ``table_grad``, its K2 counted under the batch
+    pack's ``kind``.  The pack gets no gradient."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, pack: EmbedPack) -> torch.Tensor:
-        ctx.pack = pack
+    def forward(ctx, table: torch.Tensor, pack: EmbedPack,
+                kind: str) -> torch.Tensor:
+        ctx.pack, ctx.kind = pack, kind
         ctx.num_rows = table.shape[0]
         ext = torch.cat([table, table.new_full((1, table.shape[1]),
                                                float("nan"))])
@@ -66,7 +69,7 @@ class EmbedSumFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return table_grad(ctx.pack, g, ctx.num_rows), None
+        return table_grad(ctx.pack, g, ctx.num_rows, ctx.kind), None, None
 
 
 def embed_pack(graph: GraphBatch, kind: str) -> EmbedPack:
@@ -99,7 +102,7 @@ class IntegerFeatureEncoder(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         return graph.replace(node_feat=EmbedSumFn.apply(
-            self.embedding, embed_pack(graph, NODE_ENCODER)))
+            self.embedding, embed_pack(graph, NODE_ENCODER), NODE_ENCODER))
 
 
 class SingleAtomEncoder(nn.Module):
@@ -113,7 +116,7 @@ class SingleAtomEncoder(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         return graph.replace(node_feat=EmbedSumFn.apply(
-            self.embedding, embed_pack(graph, NODE_ENCODER)))
+            self.embedding, embed_pack(graph, NODE_ENCODER), NODE_ENCODER))
 
 
 class _MultiColumnEncoder(nn.Module):
@@ -132,7 +135,7 @@ class _MultiColumnEncoder(nn.Module):
         pack = embed_pack(graph, self.kind)
         table = torch.cat([getattr(self, f"col{i}")
                            for i in range(pack.rows.shape[1])])
-        return EmbedSumFn.apply(table, pack)
+        return EmbedSumFn.apply(table, pack, self.kind)
 
 
 class AtomEncoder(_MultiColumnEncoder):

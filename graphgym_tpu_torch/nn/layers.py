@@ -3,8 +3,10 @@ the glorot initializer with its gain, the packed SpMM, aggregation and
 attention dispatch, ``Linear``, ``MLP`` and the ``GeneralLayer``
 wrapper (conv, BatchNorm, dropout, activation), the packed-branch GCN,
 SAGE and GIN convs with the GIN MLP, GraphGym's ``GeneralConv``, the
-additive ``GATConv`` and the Tfg dot-product GAT.  Modules take and
-return a GraphBatch whose arrays are tensors.
+additive ``GATConv`` and the Tfg dot-product GAT, and the edge-feature
+convs ``SplineConv`` and ``GeneralEdgeConv`` with the per-edge message
+helpers they share with nn/att_layers.py.  Modules take and return a
+GraphBatch whose arrays are tensors.
 """
 
 from __future__ import annotations
@@ -18,13 +20,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
-from graphgym_tpu_torch.graphs.packing import agg_kind
+from graphgym_tpu_torch.graphs.packing import (EDGE, EDGE_DST, EDGE_SRC,
+                                               agg_kind, edge_kinds)
 from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
-    pack_rows, packed_max_vjp, packed_node_scores, packed_scaled_dot,
-    packed_segment_softmax, segment_matmul_headed_vjp, spmm_pack_vjp,
-    take_padded)
+    ROWS_PER_TILE, SegmentRuns, num_tiles_of, pack_rows, packed_max_vjp,
+    packed_node_scores, packed_scaled_dot, packed_segment_softmax,
+    permute_rows, segment_matmul_headed_vjp, segment_sum_runs_vjp,
+    spmm_pack_vjp, take_padded)
+from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree
 
 
 # xavier gain of the torch path's nn.Linear equivalents (Linear, MLP,
@@ -391,6 +396,234 @@ class GeneralConv(nn.Module):
             out = out + h
         elif self.self_msg == "concat":
             out = out + x @ self.self_kernel
+        return graph.replace(node_feat=out)
+
+
+# ------------------------------------------------------- per-edge messages
+#
+# The edge-feature convs build a message per batch edge [E, D] (edge
+# order: the edge features need no gather) from per-edge node rows,
+# gathered by K1 on the 'edge_src' / 'edge_dst' gather packs, and reduce
+# it over the receivers on the 'edge' pack (graphs/packing.py): K2 sums
+# the messages in the pack's slot order (``permute_rows`` moves them
+# there), the softmax runs on the pack's rows, and the segmented max
+# reads the messages through the pack's layout.  K2 adds every slot, so
+# every message is masked by its edge's validity first.
+
+
+def edge_feat_of(graph: GraphBatch, layer: str) -> torch.Tensor:
+    if graph.edge_feat is None:
+        raise ValueError(f"{layer} needs edge features, and the batch has "
+                         "none")
+    return graph.edge_feat
+
+
+def edge_valid(graph: GraphBatch) -> torch.Tensor:
+    """[E] bool: the real edges (edge weight != 0, the 'edge' pack's
+    weights)."""
+    return graph.edge_weight != 0
+
+
+def gather_nodes(graph: GraphBatch, kind: str,
+                 x: torch.Tensor) -> torch.Tensor:
+    """x[senders] ('edge_src') or x[receivers] ('edge_dst') per edge,
+    0 on padding edges: K1 on the gather pack, its gradient K1 on the
+    transpose (a node's edges in edge order)."""
+    fwd, bwd = _packs(graph, kind)
+    return spmm_pack_vjp(fwd, bwd, x)
+
+
+def _edge_sum_parts(graph: GraphBatch):
+    fwd, slots = _packs(graph, EDGE)
+    runs = SegmentRuns(slots.run_start, slots.run_out, slots.comb_rows,
+                       slots.comb_ptr, slots.run_out.shape[0])
+    return slots, runs, num_tiles_of(graph.num_nodes) * ROWS_PER_TILE
+
+
+def edges_to_slots(graph: GraphBatch, a: torch.Tensor) -> torch.Tensor:
+    """Per-edge rows [E, ...] in the 'edge' pack's slot order [S, ...],
+    0 on the slots of no edge; the gradient gathers back."""
+    _, slots = _packs(graph, EDGE)
+    return permute_rows(a, slots.slot_edge, slots.edge_slot)
+
+
+def edge_sum(graph: GraphBatch, msg: torch.Tensor,
+             in_slots: bool = False) -> torch.Tensor:
+    """[N, D]: the sum over each receiver's edges of msg [E, D] (masked
+    by the caller; [S, D] in the pack's slot order with ``in_slots``),
+    K2 in slot order; its gradient a gather."""
+    slots, runs, n_out = _edge_sum_parts(graph)
+    if not in_slots:
+        msg = edges_to_slots(graph, msg)
+    return segment_sum_runs_vjp(msg, slots.rows, runs, n_out,
+                                graph.num_nodes, EDGE)
+
+
+def edge_count(graph: GraphBatch, weight: torch.Tensor) -> torch.Tensor:
+    """[N] f32: the sum of the per-edge ``weight`` [E] over each
+    receiver's edges (the live in-edge count for a 0/1 weight), K2 at
+    width 1; no gradient."""
+    slots, runs, n_out = _edge_sum_parts(graph)
+    with torch.no_grad():
+        w = take_padded(weight.float()[:, None], slots.slot_edge.reshape(-1))
+        return segment_sum_runs_vjp(w, slots.rows, runs, n_out,
+                                    graph.num_nodes, EDGE)[:, 0]
+
+
+def edge_max(graph: GraphBatch, msg: torch.Tensor,
+             live: torch.Tensor) -> torch.Tensor:
+    """[N, D]: the max over each receiver's edges of msg [E, D] among
+    the ``live`` [E] ones, 0 where none (segment_max with a mask,
+    graphgym_tpu/ops/segment.py:50-60): the segmented max on the 'edge'
+    pack's layout with each slot's edge as its sender and the slot's
+    liveness as its weight, its backward on the 'edge_dst' fwd pack
+    (each edge's one slot reading its receiver; the caller's mask zeroes
+    what a dead edge's message gets there)."""
+    return packed_max_vjp(*edge_max_packs(graph, live), msg)
+
+
+def edge_max_packs(graph: GraphBatch, live: torch.Tensor) -> tuple:
+    """``edge_max``'s (fwd, bwd) packs for the ``live`` [E] edges."""
+    fwd, slots = _packs(graph, EDGE)
+    weights = take_padded(live.float(), slots.slot_edge)
+    return (fwd._replace(senders=slots.slot_edge, weights=weights),
+            _packs(graph, EDGE_DST)[0])
+
+
+def edge_softmax(graph: GraphBatch, logits: torch.Tensor) -> torch.Tensor:
+    """[S, H]: the softmax of per-edge logits [E, H] over each
+    receiver's real edges, in the 'edge' pack's slot order
+    (``packed_segment_softmax``: K3 row sums, no atomics)."""
+    fwd, _ = _packs(graph, EDGE)
+    alpha = packed_segment_softmax(edges_to_slots(graph, logits).reshape(
+        fwd.senders.shape + logits.shape[1:]), fwd)
+    return alpha.reshape(-1, logits.shape[1])
+
+
+def edge_aggregate(graph: GraphBatch, msg: torch.Tensor, agg: str,
+                   live: torch.Tensor,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The 'add', 'mean' or 'max' of the masked per-edge msg over the
+    receivers: mean is the sum over the live edges' count (at least 1,
+    segment_mean's), ``count`` where the caller has it."""
+    if agg == "max":
+        return edge_max(graph, msg, live)
+    out = edge_sum(graph, msg)
+    if agg == "mean":
+        if count is None:
+            count = edge_count(graph, live)
+        out = out / count.clamp_min(1.0)[:, None]
+    return out
+
+
+def check_self_msg(self_msg: str) -> None:
+    if self_msg not in ("none", "add", "concat"):
+        raise ValueError(f"self_msg {self_msg} not defined")
+
+
+class SplineConv(nn.Module):
+    """Linear B-spline conv over 1-D edge pseudo-coordinates, kernel size
+    2 (layers.py:573-604; reference layer.py:177-186): u = clip(e[:, 0],
+    0, 1), msg_e = (1 - u) (x W_0)[s] + u (x W_1)[s], out_i = sum of
+    msg_e over i's edges + x W_root (+ b).  The two projections are
+    gathered as one [N, 2 D] row on 'edge_src'; the sum is K2.  Where an
+    edge encoder feeds edge_feat, u carries its gradient to the
+    tables."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.kernel0 = glorot((dim_in, dim_out), generator)
+        self.kernel1 = glorot((dim_in, dim_out), generator)
+        self.root_kernel = glorot((dim_in, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        u = edge_feat_of(graph, "splineconv")[:, 0].clamp(0.0, 1.0)
+        d = self.kernel0.shape[1]
+        h = gather_nodes(graph, EDGE_SRC, torch.cat(
+            [x @ self.kernel0, x @ self.kernel1], -1))
+        msg = h[:, :d] * (1 - u)[:, None] + h[:, d:] * u[:, None]
+        msg = torch.where(edge_valid(graph)[:, None], msg, 0.0)
+        out = edge_sum(graph, msg) + x @ self.root_kernel
+        if self.bias is not None:
+            out = out + self.bias
+        return graph.replace(node_feat=out)
+
+
+class GeneralEdgeConv(nn.Module):
+    """GeneralConv with edge features in the message (layers.py:655-730;
+    reference contrib/layer/generalconv.py:117-218):
+
+      msg_e = [x_j, e] W_msg, or [x_i, x_j, e] W_msg with msg_direction
+      'both'; with normalize_adj times dis[i] dis[j], dis the inverse
+      square root of the live in-degree (no self-loops);
+      h = agg over receivers ('add', 'mean', 'max') (+ b);
+      self_msg 'none': h; 'add': x + h (where the widths agree); 'concat':
+      x W_self + h.
+
+    ``sample_rate`` < 1 is generalsampleedgeconv (reference layer.py:
+    210-221): in train mode each call keeps each edge with that
+    probability, a draw of ``generator``, and the degree, the mean's
+    count and the max follow the kept edges; eval mode keeps every edge.
+    x_j and x_i are K1 on the gather packs, the sum K2, the count and
+    degree K2 at width 1, the max the segmented max (``edge_kinds``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, dim_edge: int,
+                 use_bias: bool = False, agg: str = "add",
+                 self_msg: str = "concat", normalize_adj: bool = False,
+                 msg_direction: str = "single", sample_rate: float = 1.0,
+                 *, generator: torch.Generator,
+                 sample_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_self_msg(self_msg)
+        edge_kinds("generaledgeconv", agg, msg_direction)
+        if sample_rate < 1.0 and sample_generator is None:
+            raise ValueError("sample_rate < 1 needs a sample_generator")
+        self.agg, self.self_msg = agg, self_msg
+        self.normalize_adj, self.msg_direction = normalize_adj, msg_direction
+        self.sample_rate = sample_rate
+        self.sample_generator = sample_generator
+        feat = dim_in * (2 if msg_direction == "both" else 1) + dim_edge
+        self.msg_kernel = glorot((feat, dim_out), generator)
+        self.bias = zeros((dim_out,)) if use_bias else None
+        if self_msg == "concat":
+            self.self_kernel = glorot((dim_in, dim_out), generator)
+
+    def live_edges(self, graph: GraphBatch) -> torch.Tensor:
+        live = edge_valid(graph)
+        if self.sample_rate < 1.0 and self.training:
+            keep = torch.rand(live.shape, generator=self.sample_generator,
+                              device=live.device) < self.sample_rate
+            live = live & keep
+        return live
+
+    def forward(self, graph: GraphBatch) -> GraphBatch:
+        x = graph.node_feat
+        e = edge_feat_of(graph, "GeneralEdgeConv")
+        live = self.live_edges(graph)
+        x_j = gather_nodes(graph, EDGE_SRC, x)
+        if self.msg_direction == "both":
+            feat = torch.cat([gather_nodes(graph, EDGE_DST, x), x_j, e], -1)
+        else:
+            feat = torch.cat([x_j, e], -1)
+        msg = feat @ self.msg_kernel
+        count = None
+        if self.normalize_adj or self.agg == "mean":
+            count = edge_count(graph, live)
+        if self.normalize_adj:
+            dis = inv_sqrt_degree(count)
+            msg = msg * (dis.index_select(0, graph.receivers)
+                         * dis.index_select(0, graph.senders))[:, None]
+        msg = torch.where(live[:, None], msg, 0.0)
+        out = edge_aggregate(graph, msg, self.agg, live, count)
+        if self.bias is not None:
+            out = out + self.bias
+        if self.self_msg == "add" and x.shape[-1] == out.shape[-1]:
+            out = x + out
+        elif self.self_msg == "concat":
+            out = x @ self.self_kernel + out
         return graph.replace(node_feat=out)
 
 

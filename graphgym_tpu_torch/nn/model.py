@@ -17,9 +17,10 @@ Two model families, as in the JAX package:
     head gathers node slots whatever the task.
 The layer table holds the layer types of the packed paths, and a
 layer registered in register.layer_dict (the contrib 'contrib_example')
-takes precedence, as in the JAX make_conv; the edge-feature convs
-raise naming their ROADMAP item.  Node and edge encoders (nn/encoders.py,
-or registered ones) run ahead of the torch path's pre-MP layers.
+takes precedence, as in the JAX make_conv.  The edge-feature convs take
+the width of the edge features they read (``GNNOptions.dim_edge``).
+Node and edge encoders (nn/encoders.py, or registered ones) run ahead
+of the torch path's pre-MP layers.
 """
 
 from __future__ import annotations
@@ -37,14 +38,16 @@ from graphgym_tpu_torch.nn import id_layers as idl
 from graphgym_tpu_torch.nn.act import act_dict
 from graphgym_tpu_torch.nn.att_layers import (APPNP, ExampleConv,
                                               GeneralConvV2,
+                                              GeneralEdgeAttConv,
                                               GeneralMulAttConv,
-                                              SAGEInitConv)
+                                              GeneralOGBConv, SAGEInitConv)
 from graphgym_tpu_torch.nn.heads import (GNNEdgeHead, GNNGraphHead,
                                          GNNNodeHead, HeadOut,
                                          gather_supervised)
 from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
-                                          GeneralConv, GeneralLayer, GINConv,
-                                          Linear, SAGEConv, TfgGATConv,
+                                          GeneralConv, GeneralEdgeConv,
+                                          GeneralLayer, GINConv, Linear,
+                                          SAGEConv, SplineConv, TfgGATConv,
                                           glorot, zeros)
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm, l2_normalize
 
@@ -85,6 +88,40 @@ LAYERS = {
     "gmulconv": lambda dim_in, dim_out, opts, gen, _: GeneralMulAttConv(
         dim_in, dim_out, heads=opts.att_heads,
         use_bias=not opts.batchnorm, generator=gen),
+    # the edge-feature convs (nn/model.py:58-66, 85-97), at the width of
+    # the edge features they read
+    "splineconv": lambda dim_in, dim_out, opts, gen, _: SplineConv(
+        dim_in, dim_out, use_bias=not opts.batchnorm, generator=gen),
+    "generaledgeconv": lambda dim_in, dim_out, opts, gen, _: GeneralEdgeConv(
+        dim_in, dim_out, opts.dim_edge, use_bias=not opts.batchnorm,
+        agg=opts.agg, self_msg=opts.self_msg,
+        normalize_adj=opts.normalize_adj, msg_direction=opts.msg_direction,
+        generator=gen),
+    "generalsampleedgeconv": lambda dim_in, dim_out, opts, gen, drop_gen:
+        GeneralEdgeConv(
+            dim_in, dim_out, opts.dim_edge, use_bias=not opts.batchnorm,
+            agg=opts.agg, self_msg=opts.self_msg,
+            normalize_adj=opts.normalize_adj,
+            msg_direction=opts.msg_direction, sample_rate=opts.keep_edge,
+            generator=gen, sample_generator=drop_gen),
+    "generaledgeattconvv1": lambda dim_in, dim_out, opts, gen, _:
+        GeneralEdgeAttConv(
+            dim_in, dim_out, opts.dim_edge, heads=opts.att_heads,
+            use_bias=not opts.batchnorm, msg_direction=opts.msg_direction,
+            final_linear=opts.att_final_linear,
+            final_linear_bn=opts.att_final_linear_bn, version=1,
+            generator=gen),
+    "generaledgeattconvv2": lambda dim_in, dim_out, opts, gen, _:
+        GeneralEdgeAttConv(
+            dim_in, dim_out, opts.dim_edge, heads=opts.att_heads,
+            use_bias=not opts.batchnorm, msg_direction=opts.msg_direction,
+            final_linear=opts.att_final_linear,
+            final_linear_bn=opts.att_final_linear_bn, version=2,
+            generator=gen),
+    "generalogbconv": lambda dim_in, dim_out, opts, gen, _: GeneralOGBConv(
+        dim_in, dim_out, opts.dim_edge, use_bias=not opts.batchnorm,
+        agg=opts.agg, self_msg=opts.self_msg,
+        normalize_adj=opts.normalize_adj, generator=gen),
     # a bias whatever the BatchNorm, no normalize (nn/model.py:94)
     "sageinitconv": lambda dim_in, dim_out, opts, gen, _: SAGEInitConv(
         dim_in, dim_out, generator=gen),
@@ -130,15 +167,6 @@ LAYERS = {
 # the Tfg APPNP model's layer type (build_model picks TfgAPPNPNet by it)
 APPNP_TYPE = "Tfg-appnp"
 
-# layer types of the JAX package not ported yet, by ROADMAP item: the
-# edge-feature convs, which read the batch's edge_feat (queue A item 7)
-NOT_PORTED = {
-    **dict.fromkeys(("generaledgeconv", "generalsampleedgeconv",
-                     "splineconv"), "A9b, A item 7: the edge-feature convs"),
-    **dict.fromkeys(("generaledgeattconvv1", "generaledgeattconvv2",
-                     "generalogbconv"),
-                    "A10b, A item 7: the edge-feature convs"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +191,11 @@ class GNNOptions:
     self_msg: str = "concat"   # GeneralConv
     normalize_adj: bool = False
     flow: str = "source_to_target"   # GeneralConvV2
+    msg_direction: str = "single"    # the edge-feature convs: their
+    keep_edge: float = 0.5           # messages, generalsampleedgeconv's
+    att_final_linear: bool = False   # rate, the attention convs' final
+    att_final_linear_bn: bool = False   # linear and BN, and the width of
+    dim_edge: int = 0                # the edge features they read
     l2norm: bool = True
     bn_eps: float = 1e-5       # the BN wrapper's; the Tfg GIN MLP's BN
     bn_mom: float = 0.1        # keeps the defaults, as in the JAX layer
@@ -185,10 +218,6 @@ def options_from_cfg(cfg) -> GNNOptions:
     regardless of their cfg values; the torch branch reads them (its
     linear kernels are drawn at layers.LINEAR_GAIN)."""
     name = cfg.gnn.layer_type
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"layer type {name!r} is not ported yet (ROADMAP "
-            f"{NOT_PORTED[name]})")
     if name not in LAYERS and name not in register.layer_dict \
             and name != APPNP_TYPE:
         raise ValueError(f"Unknown layer type: {name}")
@@ -207,6 +236,14 @@ def options_from_cfg(cfg) -> GNNOptions:
                   att_dropout=cfg.gnn.att_dropout, gin_agg=cfg.gnn.gin_agg,
                   agg=cfg.gnn.agg, self_msg=cfg.gnn.self_msg,
                   normalize_adj=cfg.gnn.normalize_adj, flow=cfg.gnn.flow,
+                  msg_direction=cfg.gnn.msg_direction,
+                  keep_edge=cfg.gnn.keep_edge,
+                  att_final_linear=cfg.gnn.att_final_linear,
+                  att_final_linear_bn=cfg.gnn.att_final_linear_bn,
+                  dim_edge=(cfg.dataset.encoder_dim
+                            if cfg.dataset.edge_encoder
+                            and not name.startswith("Tfg-")
+                            else cfg.dataset.edge_dim),
                   bn_eps=cfg.bn.eps, bn_mom=cfg.bn.mom, task=task,
                   graph_pooling=cfg.model.graph_pooling,
                   edge_decoding=cfg.model.edge_decoding,
@@ -214,6 +251,11 @@ def options_from_cfg(cfg) -> GNNOptions:
     if name.startswith("Tfg-"):
         return GNNOptions(**common, batchnorm=False, l2norm=False,
                           tfg_head=True)
+    if name == "generalogbconv" and cfg.dataset.edge_encoder:
+        raise NotImplementedError(
+            "generalogbconv behind an edge encoder: its bond ids are the "
+            "raw edge features' (the batch's 'edge_bond' pack), the JAX "
+            "layer's the encoder's output cast to int (ROADMAP A0)")
     if cfg.tpu.remat:
         raise NotImplementedError(
             "tpu.remat (rematerialized MP layers) is not ported yet "
@@ -477,11 +519,14 @@ def build_model(cfg, device: torch.device) -> nn.Module:
     registered in register.network_dict under cfg.model.type first,
     called as GNN is (nn/model.py:446-447).  With dropout or
     att_dropout > 0 the layers draw their masks from a second Generator
-    on ``device``, seeded with cfg.seed (train mode only)."""
+    on ``device``, seeded with cfg.seed (train mode only); so does
+    generalsampleedgeconv its kept edges."""
     opts = options_from_cfg(cfg)
     generator = torch.Generator().manual_seed(int(cfg.seed))
     dropout_generator = None
-    if opts.dropout > 0 or opts.att_dropout > 0:
+    if opts.dropout > 0 or opts.att_dropout > 0 or (
+            opts.layer_type == "generalsampleedgeconv"
+            and opts.keep_edge < 1):
         dropout_generator = torch.Generator(device=device).manual_seed(
             int(cfg.seed))
     if cfg.model.type in register.network_dict:

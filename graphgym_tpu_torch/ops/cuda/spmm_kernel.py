@@ -31,8 +31,9 @@ arithmetic in plain PyTorch.
 
 Around them: the autograd Functions of the layers (SpMM, attention
 aggregation, score, the attention softmax and the node-score gathers,
-whose sums all run on K3 or K1, and the segmented max, so no float
-atomics), and the COO
+whose sums all run on K3 or K1, the segmented max, the edge convs' K2
+sum on a host-built index and the permutation of per-edge rows into
+slot order, so no float atomics), and the COO
 entries ``pack_bidir`` / ``spmm_bidir`` / ``spmm_pallas`` of the
 benchmark.
 """
@@ -787,16 +788,19 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
 
 
 packed_segment_matmul_cuda.launches = 0
+packed_segment_matmul_cuda.launches_by_pack = collections.Counter()
 
 
 def packed_segment_runs_cuda(msg: torch.Tensor, runs: SegmentRuns,
-                             n_out: int) -> torch.Tensor:
+                             n_out: int, pack: str = "") -> torch.Tensor:
     """Launch K2 on an index built on the host beside its batch (no copy
     to the host, so a captured step may launch it): f32 out [n_out, D],
     each output row the sum of its runs' slots of msg [S, D] (f32 or
     bf16) in slot order, with ``runs``' int32 arrays on msg's device and
     room for ``runs.num_partials`` partial rows.  Adds one to
-    ``packed_segment_matmul_cuda.launches`` (K2's count) per launch."""
+    ``packed_segment_matmul_cuda.launches`` (K2's count) per launch, and
+    to the entry of ``pack`` (the kind of the batch pack ``runs`` came
+    from) in its ``launches_by_pack``."""
     name = "packed_segment_runs_cuda"
     _check(name, msg.is_cuda and msg.dim() == 2,
            "msg must be a 2-D CUDA tensor")
@@ -811,13 +815,13 @@ def packed_segment_runs_cuda(msg: torch.Tensor, runs: SegmentRuns,
            and runs.comb_ptr.numel() == runs.comb_rows.numel() + 1,
            "run_start / comb_ptr must hold one entry more than "
            "run_out / comb_rows")
-    return _segment_launch(msg, runs, n_out)
+    return _segment_launch(msg, runs, n_out, pack)
 
 
-def _segment_launch(msg: torch.Tensor, runs: SegmentRuns,
-                    n_out: int) -> torch.Tensor:
+def _segment_launch(msg: torch.Tensor, runs: SegmentRuns, n_out: int,
+                    pack: str = "") -> torch.Tensor:
     """K2's two passes on the current stream: f32 out [n_out, D] from
-    msg [..., D] and its runs."""
+    msg [..., D] and its runs, counted under ``pack``."""
     msg = msg.contiguous()
     d = msg.shape[-1]
     out = torch.empty(n_out, d, dtype=torch.float32, device=msg.device)
@@ -830,6 +834,7 @@ def _segment_launch(msg: torch.Tensor, runs: SegmentRuns,
             runs.comb_rows.numel(), runs.comb_rows.data_ptr(),
             runs.comb_ptr.data_ptr(), partial.data_ptr(), out.data_ptr())
     packed_segment_matmul_cuda.launches += 1
+    packed_segment_matmul_cuda.launches_by_pack[pack] += 1
     return out
 
 
@@ -889,11 +894,12 @@ def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
 packed_max_bwd_cuda.launches = 0
 
 # every kernel wrapper; each counts its launches, K1 and K3 also by width,
-# K1 also its rectangular launches by width
+# K1 also its rectangular launches by width, K2 also by the batch pack
+# its index came from ('' for a pack's own local rows)
 KERNELS = (packed_spmm_cuda, packed_segment_matmul_cuda,
            packed_segment_matmul_headed_cuda, packed_sddmm_cuda,
            packed_max_cuda, packed_max_bwd_cuda)
-_KEYED = ("launches_by_width", "launches_rectangular")
+_KEYED = ("launches_by_width", "launches_rectangular", "launches_by_pack")
 # per wrapper: launches, then a Counter per _KEYED name (empty where the
 # wrapper has no such counter; a snapshot given fewer reads them empty)
 LaunchCounts = Dict[str, Tuple[Any, ...]]
@@ -968,12 +974,14 @@ def packed_segment_matmul(msg: torch.Tensor, local_rows: torch.Tensor,
 
 
 def segment_sum_runs(msg: torch.Tensor, rows: torch.Tensor,
-                     runs: SegmentRuns, n_out: int) -> torch.Tensor:
+                     runs: SegmentRuns, n_out: int,
+                     pack: str = "") -> torch.Tensor:
     """out[rows[s]] += msg[s] into f32 [n_out, D], msg [S, D], by the
-    slots' host-built index ``runs`` (``fixed_runs_host`` of rows): K2
-    for a CUDA tensor, the plain version for a CPU one."""
+    slots' host-built index ``runs`` (``fixed_runs_host`` of rows) of
+    the batch's ``pack``: K2 for a CUDA tensor, the plain version for a
+    CPU one."""
     if msg.is_cuda:
-        return packed_segment_runs_cuda(msg, runs, n_out)
+        return packed_segment_runs_cuda(msg, runs, n_out, pack)
     return segment_sum_plain(msg, rows, n_out)
 
 
@@ -1006,6 +1014,59 @@ class SegmentMatmulFn(torch.autograd.Function):
 def segment_matmul_vjp(msg: torch.Tensor, local_rows: torch.Tensor,
                        tiles: torch.Tensor, num_nodes: int) -> torch.Tensor:
     return SegmentMatmulFn.apply(msg, local_rows, tiles, num_nodes)
+
+
+class SegmentSumRunsFn(torch.autograd.Function):
+    """Differentiable segmented sum on a host-built index (the edge
+    convs' S.segment_sum over receivers, graphgym_tpu/nn/layers.py:706):
+    out[rows[s]] += msg[s] over every slot, K2 on ``runs`` for a CUDA
+    msg (``segment_sum_runs``, counted under ``pack``), sliced to
+    ``num_rows`` rows.  The gradient is the gather d_msg[s] = g[rows[s]].
+    rows and runs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, msg: torch.Tensor, rows: torch.Tensor,
+                runs: SegmentRuns, n_out: int, num_rows: int,
+                pack: str) -> torch.Tensor:
+        ctx.save_for_backward(rows)
+        return segment_sum_runs(msg, rows, runs, n_out, pack)[
+            :num_rows].to(msg.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (rows,) = ctx.saved_tensors
+        return g.index_select(0, rows), None, None, None, None, None
+
+
+def segment_sum_runs_vjp(msg: torch.Tensor, rows: torch.Tensor,
+                         runs: SegmentRuns, n_out: int, num_rows: int,
+                         pack: str = "") -> torch.Tensor:
+    return SegmentSumRunsFn.apply(msg, rows, runs, n_out, num_rows, pack)
+
+
+class PermuteRowsFn(torch.autograd.Function):
+    """out[s] = a[index[s]] with ``index`` a bijection between a's rows
+    and some of out's, every other out row reading an appended zero row
+    (index = a's row count): the edge convs' per-edge rows in the 'edge'
+    pack's slot order.  The gradient is the gather of the inverse map,
+    da[e] = g[inverse[e]], no scatter and no atomics.  The maps get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, index: torch.Tensor,
+                inverse: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(inverse)
+        return take_padded(a, index.reshape(-1))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (inverse,) = ctx.saved_tensors
+        return g.index_select(0, inverse), None, None
+
+
+def permute_rows(a: torch.Tensor, index: torch.Tensor,
+                 inverse: torch.Tensor) -> torch.Tensor:
+    return PermuteRowsFn.apply(a, index, inverse)
 
 
 class SpmmPackFn(torch.autograd.Function):

@@ -33,8 +33,14 @@ are siblings:
 A conv's own leaves keep their flax names: ``kernel``, ``self_kernel``
 (GeneralConv and GeneralConvV2 with self_msg 'concat'), ``id_kernel``
 (the ID convs, GeneralIDConv among them), ``att`` (GATConv, gaddconv),
-``att_bias`` (GeneralMulAttConv) and ``bias``, e.g.
-``mp/GeneralConv_2/self_kernel`` -> ``mp.layers.2.layer.self_kernel``.
+``att_bias`` (GeneralMulAttConv), the edge-feature convs' ``msg_kernel``
+(GeneralEdgeConv, GeneralEdgeAttConv), ``kernel0`` / ``kernel1`` /
+``root_kernel`` (SplineConv), ``att_kernel`` / ``key_kernel`` /
+``final_kernel`` and the masked BN ``final_bn`` (GeneralEdgeAttConv v1
+/ v2), ``bond_emb<i>`` (GeneralOGBConv's bond tables) and ``bias``, e.g.
+``mp/GeneralConv_2/self_kernel`` -> ``mp.layers.2.layer.self_kernel``,
+``mp/GeneralEdgeAttConv_0/final_bn/mean`` -> ``mp.layers.0.layer.
+final_bn.mean``.
 A conv that is itself an MLP (layer type 'mlp') nests a stage:
 ``mp/MLP_<i>/Linear_<j>/...`` -> ``mp.layers.<i>.layer.layers.<j>.
 layer...``.  Inside a conv the path keeps its names with dots, for

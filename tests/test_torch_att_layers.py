@@ -54,7 +54,7 @@ from graphgym_tpu_torch.graphs.packing import (build_packs, kinds_for_layer,
                                                v2_kind)
 from graphgym_tpu_torch.nn import att_layers, id_layers, layers
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
-from graphgym_tpu_torch.nn.model import (LAYERS, NOT_PORTED, GNNOptions,
+from graphgym_tpu_torch.nn.model import (LAYERS, GNNOptions,
                                          TfgAPPNPNet, build_model,
                                          options_from_cfg)
 from graphgym_tpu_torch.train.loop import Trainer
@@ -214,9 +214,6 @@ def test_generalmulattconv_is_unknown_in_both():
         options_from_cfg(cfg)
     with pytest.raises(ValueError, match="Unknown layer type"):
         jax_model.make_conv("generalmulattconv", 8, jax_get_cfg().gnn, True)
-    assert set(NOT_PORTED) == {
-        "generaledgeconv", "generalsampleedgeconv", "splineconv",
-        "generaledgeattconvv1", "generaledgeattconvv2", "generalogbconv"}
 
 
 @pytest.mark.parametrize("cls,jax_cls", [

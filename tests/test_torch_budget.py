@@ -12,8 +12,11 @@ Tfg-appnp; every stage type x BatchNorm x activation at two pre- /
 post-MP depths; the graph head with each pooling, the link head with
 dot, cosine and concat decoding, and the edge task.  The width comes
 from the cfg's share.dim_in / dim_out (``max(dim_in, 1)``), never from
-data.  An edge-feature layer type raises the port's NotImplementedError
-naming ROADMAP's queue A item 7.
+data.  The edge-feature layer types count their edge columns at
+dataset.edge_dim, the width of the JAX count's edge features; the JAX
+count gives splineconv and generalogbconv none (it gives them only to a
+layer type named '...edge...' or a model with an edge encoder), so for
+those two the JAX count's batch carries them (``forced_edge_feat``).
 """
 
 import itertools
@@ -26,6 +29,7 @@ import jax
 
 from graphgym_tpu.config import get_cfg as jax_get_cfg
 from graphgym_tpu.exp import budget as jax_budget
+from graphgym_tpu.graphs import container as jax_container
 from graphgym_tpu.nn import model as jax_model
 from graphgym_tpu_torch.config import get_cfg
 from graphgym_tpu_torch.exp import budget
@@ -46,9 +50,10 @@ def merged(*parts):
     return out
 
 
-def jax_count(setup):
+def jax_count(setup, forced_edge_feat: bool = False):
     """The JAX package's params_count on ``setup``, and the flax params
-    it summed."""
+    it summed; with ``forced_edge_feat`` its batch carries edge features
+    of dataset.edge_dim columns whatever the layer type."""
     cfg = jax_get_cfg()
     cfg.merge_from_dict(setup)
     seen = {}
@@ -62,17 +67,27 @@ def jax_count(setup):
             seen["variables"] = self.model.init(*args, **kw)
             return seen["variables"]
 
+    build_batch = jax_container.build_graph_batch
+
+    def with_edge_feat(s, r, x, **kw):
+        if kw.get("edge_feat") is None:
+            kw["edge_feat"] = np.random.default_rng(0).normal(size=(
+                len(s), cfg.dataset.edge_dim)).astype(np.float32)
+        return build_batch(s, r, x, **kw)
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_model, "build_model", lambda c: Spy(real(c)))
+        if forced_edge_feat:
+            mp.setattr(jax_container, "build_graph_batch", with_edge_feat)
         count = jax_budget.params_count(cfg)
     params = jax.tree_util.tree_map(np.asarray, seen["variables"]["params"])
     return count, params
 
 
-def assert_counts_match(setup):
+def assert_counts_match(setup, forced_edge_feat: bool = False):
     """params_count equal in both packages, each flax leaf a port
     parameter of its shape and every port parameter a flax leaf."""
-    want, params = jax_count(setup)
+    want, params = jax_count(setup, forced_edge_feat)
     cfg = get_cfg()
     cfg.merge_from_dict(setup)
     got = budget.params_count(cfg)
@@ -87,10 +102,16 @@ def assert_counts_match(setup):
     return got
 
 
-@pytest.mark.parametrize("layer_type", sorted(LAYERS) + [APPNP_TYPE])
+# the layer types the JAX count gives no edge features
+NO_EDGE_FEAT_IN_JAX_COUNT = ("splineconv", "generalogbconv")
+
+
+@pytest.mark.parametrize("layer_type", sorted(
+    set(LAYERS) - set(NO_EDGE_FEAT_IN_JAX_COUNT)) + [APPNP_TYPE])
 def test_every_layer_type_counts_as_jax(layer_type):
     """Each layer type of the port's table, the Tfg types and the Tfg
-    APPNP model, on the node task."""
+    APPNP model, on the node task (splineconv and generalogbconv in
+    test_edge_feature_layer_raises)."""
     assert assert_counts_match(merged(SMALL, {"gnn": {
         "layer_type": layer_type}})) > 0
 
@@ -149,10 +170,18 @@ def test_widths_come_from_the_cfg(dim_in, dim_out):
                                         "generaledgeattconvv1",
                                         "generalogbconv"])
 def test_edge_feature_layer_raises(layer_type):
-    """An edge-feature conv is not ported: params_count raises the
-    port's NotImplementedError naming ROADMAP's queue A item 7, as
-    build_model does."""
-    cfg = get_cfg()
-    cfg.merge_from_dict(merged(SMALL, {"gnn": {"layer_type": layer_type}}))
-    with pytest.raises(NotImplementedError, match="A item 7"):
-        budget.params_count(cfg)
+    """The edge-feature convs, once refused here, count as the JAX
+    package's leaf for leaf, their edge columns at dataset.edge_dim (a
+    JAX count given edge features for the two layer types its own count
+    gives none: there its layer asserts); generaledgeconv's also at
+    another edge_dim and msg_direction 'both'."""
+    setup = merged(SMALL, {"gnn": {"layer_type": layer_type}})
+    forced = layer_type in NO_EDGE_FEAT_IN_JAX_COUNT
+    if forced:
+        with pytest.raises(AssertionError, match="edge"):
+            jax_count(setup)
+    assert assert_counts_match(setup, forced) > 0
+    if layer_type == "generaledgeconv":
+        assert_counts_match(merged(setup, {
+            "dataset": {"edge_dim": 5},
+            "gnn": {"msg_direction": "both"}}))

@@ -13,7 +13,8 @@ three Adam steps stay within 2e-3 of the JAX package's losses; ``main``
 trains each point on the CPU.  design_v2ogb.yaml as written
 (generalogbconv, 5 MP layers) fails in both packages: the JAX package
 asserts that generalogbconv needs integer edge features, which its
-ogbg loader never reads, and the port names ROADMAP's queue A item 7.
+ogbg loader never reads, and the port's layer raises naming them at
+its first call.
 The grid's dataset.feature_encoder_name merges as a new key that
 neither package reads.
 """
@@ -178,9 +179,13 @@ def test_design_v2ogb_as_written_fails_in_both(ogb_dir):
     with pytest.raises(AssertionError, match="generalogbconv needs "
                                              "integer edge features"):
         jax_build_model(jcfg).init(jax.random.PRNGKey(0), jb, False)
-    cfg = load_cfg(cfg_file, ["dataset.dir", ogb_dir, "device", "cpu"])
+    cfg = load_cfg(cfg_file, ["dataset.dir", ogb_dir, "device", "cpu",
+                              "gnn.dim_inner", "16", "dataset.encoder_dim",
+                              "16"])
     splits = loaders.create_dataset(cfg)
     assert all("edge_feature" not in g for part in splits for g in part)
-    with pytest.raises(NotImplementedError,
-                       match="'generalogbconv'.*A item 7"):
-        build_model(cfg, CPU)
+    b = loaders.create_loader(splits, cfg)[0].batches(0)[0]
+    assert b.edge_feat is None and "edge_bond" not in b.packs
+    with pytest.raises(ValueError, match="generalogbconv needs integer "
+                                         "edge features"):
+        build_model(cfg, CPU)(b.to(CPU))
