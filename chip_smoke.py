@@ -364,7 +364,9 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    segment_matmul_vjp's gradient against the plain
                    version's; kernel, plain and library (index_add_,
                    torch.sparse.mm of the 0/1 slot matrix) times beside
-                   the bound.
+                   the bound, the launch floor, bf16, and one timer
+                   over the kernel, torch.sparse.mm and K1 on the same
+                   arrangement (k2_yardsticks; so on every K2 check).
   The benchmark (graphgym_tpu_torch/bench.py, the root bench.py's
   defaults: N = 131,072, E = 2,000,000, D = 128; row 0 of each pack
   takes ~5,500 slots):
@@ -465,6 +467,7 @@ if not torch.cuda.is_available():
 
 try:
     from graphgym_tpu_torch import bench as B
+    from graphgym_tpu_torch import native
     from graphgym_tpu_torch.config import load_cfg
     from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
     from graphgym_tpu_torch.device import resolve_device
@@ -479,6 +482,7 @@ try:
                                                    NODE_ENCODER, PAIRS,
                                                    POOLINGS,
                                                    build_pool_packs,
+                                                   edge_index, embed_index,
                                                    kinds_for_layer,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
@@ -1286,20 +1290,150 @@ def hold_sums(case: str, got: torch.Tensor, want: torch.Tensor,
     return err.max().item()
 
 
+def cpu_index(index: K.SegmentIndex) -> K.SegmentIndex:
+    return K.SegmentIndex(*(None if a is None else a.cpu() for a in index))
+
+
+def k2_floor(msg: torch.Tensor, index: K.SegmentIndex):
+    """The launch floor under K2 (csrc/packed_segment.cu,
+    packed_segment_floor_*): an empty kernel over the grid K2 takes for
+    these arguments.  Counts no launch of K2."""
+    suffix = "f32" if msg.dtype == torch.float32 else "bf16"
+    fn = getattr(K.library("packed_segment"),
+                 f"packed_segment_floor_{suffix}")
+    fn.argtypes = K._ARGTYPES["packed_segment"]
+    fn.restype = ctypes.c_int
+    args = (msg.data_ptr(), msg.shape[0], msg.shape[1], None, None,
+            index.row_ptr.numel() - 1, None, None, None,
+            index.run_row.numel(), None, None, None)
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"K2 floor launch: CUDA error {err}")
+    return launch
+
+
+def index_matrix(index: K.SegmentIndex, n_src: int) -> torch.Tensor:
+    """The 0/1 [n_out, n_src] CSR matrix of K2's index (a row's entry at
+    each summed position's source, repeats summed): its product with
+    the messages [n_src, D] is K2's function on the same inputs."""
+    positions = (index.src.numel() if index.src is not None
+                 else int(index.row_ptr[-1]))
+    rows = K.index_rows(index, positions)
+    cols = (index.src.long() if index.src is not None
+            else torch.arange(positions, device=rows.device))
+    n_out = index.row_ptr.numel() - 1
+    summed = (rows < n_out) & (cols < n_src)   # none left out
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[summed], cols[summed]]),
+        torch.ones(int(summed.sum()), device=rows.device),
+        (n_out, n_src)).coalesce().to_sparse_csr()
+
+
+def k1_arrangement(index: K.SegmentIndex, n_src: int) -> K.PackedCSR:
+    """K1's pack of K2's arrangement (a yardstick): a row per output
+    row, a slot per position, its sender the position's message row,
+    weight 1, so K1 on the messages computes K2's function (each
+    product by 1 exact), one owner a row."""
+    cpu = cpu_index(index)
+    positions = cpu.src.numel() if cpu.src is not None else n_src
+    summed = int(cpu.row_ptr[-1])                 # none left out
+    rows = K.index_rows(cpu, positions).numpy()[:summed]
+    src = (cpu.src.numpy() if cpu.src is not None
+           else np.arange(positions, dtype=np.int32))[:summed]
+    pack, _ = native.pack_csr_with_slots(src, rows, None,
+                                         cpu.row_ptr.numel() - 1,
+                                         num_senders=n_src, slots=False)
+    return K.PackedCSR(*(torch.from_numpy(a).to(index.row_ptr.device)
+                         for a in pack))
+
+
+def k2_checks(case: str, msg: torch.Tensor, index: K.SegmentIndex) -> dict:
+    """K2 against its plain version on the CPU (hold_sums' rule; the rows
+    one owner sums, at most OWNER_SLOTS positions, bitwise) and bitwise
+    between two
+    launches, in f32 and bf16."""
+    out = {}
+    cpu = cpu_index(index)
+    short = torch.from_numpy(np.diff(cpu.row_ptr.numpy()) <= K.OWNER_SLOTS)
+    for name, m in (("f32", msg), ("bf16", msg.bfloat16())):
+        got = K.segment_sum_cuda(m, index)
+        want = K.segment_sum_plain(m.cpu(), cpu)
+        out[f"{name}_err"] = hold_sums(
+            f"{case} {name}", got.cpu(), want,
+            K.segment_sum_plain(m.cpu().float().abs(), cpu))
+        if not torch.equal(got.cpu()[short], want[short]):
+            fail(f"{case} {name}: the rows of one owner "
+                 "differ from the plain version's bits")
+        if not torch.equal(got, K.segment_sum_cuda(m, index)):
+            fail(f"{case} {name}: two launches differ")
+    if not torch.equal(index.arrivals, torch.zeros_like(index.arrivals)):
+        fail(f"{case}: the run counters were not set back to 0")
+    return out
+
+
+def k2_yardsticks(msg: torch.Tensor, index: K.SegmentIndex, moved: int,
+                  bf16_moved: int, flops: int, calls: dict) -> dict:
+    """K2's launch floor, its bf16 time and the share of its bound
+    (queued CUDA events), and one timer (``interleaved_ms``) over the
+    kernel and ``calls`` (torch.sparse.mm of the 0/1 matrix, K1 on the
+    same arrangement ...): each median, each round, and whether the
+    kernel was the faster in every round."""
+    mb = msg.bfloat16()
+    one_timer = interleaved_ms(
+        {"kernel": lambda: K.segment_sum_cuda(msg, index), **calls})
+    rounds = one_timer["rounds_ms"]
+    med = one_timer["median_ms"]
+    bound_ms = max(moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    bf16_bound = max(bf16_moved / HBM_BYTES_PER_S,
+                     flops / F32_FLOPS_PER_S) * 1e3
+    bf16_ms = queued_ms(lambda: K.segment_sum_cuda(mb, index))
+    return dict(
+        floor_ms=queued_ms(k2_floor(msg, index)), floor_timed_by="queued",
+        bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound,
+        bf16_share_of_bound=bf16_bound / bf16_ms,
+        interleaved=one_timer, interleaved_ms=med["kernel"],
+        interleaved_share_of_bound=bound_ms / med["kernel"],
+        **{f"interleaved_{k}_ms": v for k, v in med.items()
+           if k != "kernel"},
+        faster_every_round={k: all(a < b for a, b in zip(rounds["kernel"],
+                                                        rounds[k]))
+                            for k in calls})
+
+
+def index_stats(index: K.SegmentIndex) -> dict:
+    counts = np.diff(index.row_ptr.cpu().numpy())
+    live = index.run_row >= 0
+    return dict(positions=int(counts.sum()), out_rows=len(counts),
+                runs=int(live.sum().item()),
+                padded_runs=int(index.run_row.numel()),
+                run_len_max=int(index.run_len[live].max().item())
+                if live.any() else 0,
+                long_rows=int((counts > K.OWNER_SLOTS).sum()),
+                longest_row_slots=int(counts.max(initial=0)),
+                index_bytes=4 * sum(a.numel() for a in index
+                                    if a is not None))
+
+
 def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
                          device) -> dict:
-    """K2 at the train 'plain' fwd pack: against its plain version with
-    a random message on every slot, against K1 with msg = x[senders] *
-    w, in bf16, on a pack built with G = 2; bitwise repeats; the vjp's
-    gradient; times.  Returns the launches of the checks (the timing
-    loops not counted)."""
+    """K2 at the train 'plain' fwd pack (the TPU contract: every slot
+    counts, on the pack's index, its slots stably sorted by row):
+    against its plain version with a random message on every slot,
+    against K1 with msg = x[senders] * w, in bf16, on a pack built with
+    G = 2; bitwise repeats; the vjp's gradient; times, floor, bf16, and
+    one timer over the kernel, torch.sparse.mm of the 0/1 slot matrix
+    and K1 on the same arrangement.  Returns the launches of the checks
+    (the timing loops not counted)."""
     K.packed_segment_matmul_cuda.launches = 0
     gen = torch.Generator(device=device).manual_seed(2)
     local, tiles = pack.local_rows, pack.tiles
     nt = K.num_tiles_of(n)
     t0 = time.perf_counter()
-    runs = K.segment_runs_host(local.cpu().numpy(), tiles.cpu().numpy(), nt)
+    K.pack_segment_index_host(local.cpu().numpy(), tiles.cpu().numpy(), nt)
     index_s = time.perf_counter() - t0
+    index = K.segment_index(local, tiles, nt)
 
     def seg(m, loc=local, til=tiles, group=1):
         return K.packed_segment_matmul(m, loc, til, nt, group=group)
@@ -1368,72 +1502,70 @@ def check_segment_kernel(host_batch, pack: K.PackedCSR, n: int, d: int,
     rows = K.slot_rows(local, tiles).reshape(-1)
     flat = msg.view(-1, d)
     out_lib = torch.zeros(nt * K.ROWS_PER_TILE, d, device=device)
-    ones = torch.sparse_coo_tensor(
-        torch.stack([rows, torch.arange(rows.numel(), device=device)]),
-        torch.ones(rows.numel(), device=device),
-        (nt * K.ROWS_PER_TILE, rows.numel())).coalesce().to_sparse_csr()
+    ones = index_matrix(index, rows.numel())
     lib_err = (torch.sparse.mm(ones, flat) - seg(msg)).abs().max().item()
+    k1_pack = k1_arrangement(index, rows.numel())
+    k1_err = hold_sums("K1 on K2's arrangement", K.spmm_packed(k1_pack, flat),
+                       plain(msg), scale)
     calls = {"kernel": lambda: K.packed_segment_matmul_cuda(msg, local,
                                                             tiles, nt),
              "plain": lambda: plain(msg),
              "index_add": lambda: out_lib.index_add_(0, rows, flat),
              "sparse_mm": lambda: torch.sparse.mm(ones, flat)}
+    stats = index_stats(index)
     moved = (msg.numel() * msg.element_size()        # every slot once
-             + (local.numel() + tiles.numel()) * 4     # the pack ints
+             + stats["index_bytes"]                    # K2's index
              + nt * K.ROWS_PER_TILE * d * 4)           # out written once
     flops = msg.numel()                                # one add each
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     ms, loop_ms, timed_by, queued = time_calls(calls,
                                                max(t_bytes, t_ops) * 1e3)
     library = min(("index_add", "sparse_mm"), key=ms.get)
+    yard = k2_yardsticks(
+        flat, index, moved, moved - msg.numel() * 2, flops,
+        {"library": lambda: torch.sparse.mm(ones, flat),
+         "k1": lambda: K.packed_spmm_cuda(k1_pack, flat)})
     return dict(max_abs_err=errs["random_f32"], errs=errs, launches=launches,
-                library_err=lib_err, ms=ms["kernel"], plain_ms=ms["plain"],
-                library_ms=ms[library], library=library,
-                index_add_ms=ms["index_add"], sparse_mm_ms=ms["sparse_mm"],
-                call_ms=loop_ms, timed_by=timed_by, queued_ms=queued,
+                library_err=lib_err, k1_err=k1_err, ms=ms["kernel"],
+                plain_ms=ms["plain"], library_ms=ms[library],
+                library=library, index_add_ms=ms["index_add"],
+                sparse_mm_ms=ms["sparse_mm"], call_ms=loop_ms,
+                timed_by=timed_by, queued_ms=queued,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=flops, slots=rows.numel(),
-                runs=len(runs.run_out), partials=runs.num_partials,
-                combined_rows=len(runs.comb_rows),
-                longest_row_slots=int(np.bincount(
-                    rows.cpu().numpy()).max()),
-                index_build_s=index_s)
+                share_of_bound=max(t_bytes, t_ops) * 1e3 / ms["kernel"],
+                bytes=moved, flops=flops, slots=rows.numel(), **stats,
+                index_build_s=index_s, **yard)
 
 
 def check_embed_kernel(pack, table_rows: int, d: int, device,
                        live_items) -> dict:
     """K2 on an encoder's embedding pack (graphs/packing.
     build_embed_pack, on the card), the tables' gradient of the lookup:
-    the rows of a seeded g [items, d] gathered in slot order and summed
-    per table row.  Against its plain version on the CPU (hold_sums'
-    rule), bitwise between two launches, and the encoder's whole
-    gradient (``table_grad``: the gather, then K2) against the plain
+    per table row, the rows of a seeded g [items, d] of its slots'
+    items, read in place.  Against its plain version on the CPU
+    (``k2_checks``: f32 and bf16, bitwise repeats), and the encoder's
+    whole gradient (``table_grad``, now K2 alone) against the plain
     gathers' autograd on the CPU.  Times at f32: the kernel, the plain
-    version on the card, two library calls for K2's function on the
-    same messages (index_add_ into zeros; torch.sparse.mm of the 0/1
-    [rows, slots] matrix; the kernel and sparse.mm also interleaved
-    under one timer, ``interleaved_ms``), the one-hot product count^T @
-    g (the lookup's gradient from g, no gathered messages:
-    ``onehot_ms``) and the encoder's backward (``backward_ms``).  The
-    bound: the messages of the live slots read once (an item of
-    ``live_items``, the batch's real nodes or edges, and a row in the
-    tables), K2's index read once, the tables' rows written once."""
+    version on the card, torch.sparse.mm of the 0/1 [rows, items]
+    matrix with g (the library call of the same function on the same
+    inputs), index_add_ and torch.sparse.mm of the 0/1 [rows, slots]
+    matrix on the messages gathered in slot order (the route before
+    K2 read g in place), the one-hot product count^T @ g
+    (``onehot_ms``), the encoder's backward (``backward_ms``); the
+    floor, bf16 and one timer over the kernel, the two sparse.mm and K1
+    on the same arrangement (``k2_yardsticks``).  The bound: each row
+    of g that a live slot names read once (an item of ``live_items``,
+    the batch's real nodes or edges, in a slot of a table row; an item
+    is named by a slot of each of its columns, and read once), K2's
+    index read once, the tables' rows written once."""
     gen = torch.Generator(device=device).manual_seed(4)
-    items, n_out = pack.rows.shape[0], pack.comb_rows.shape[0]
-    runs = K.SegmentRuns(pack.run_start, pack.run_out, pack.comb_rows,
-                         pack.comb_ptr, pack.run_out.shape[0])
-    rows = pack.slot_rows.long()
+    index = embed_index(pack)
+    items = pack.rows.shape[0]
+    n_out = index.row_ptr.numel() - 1
     g = torch.randn(items, d, generator=gen, device=device)
-    msg = g.index_select(0, pack.slot_items)
     K.packed_segment_matmul_cuda.launches = 0
-    got = K.packed_segment_runs_cuda(msg, runs, n_out)
-    cpu_msg, cpu_rows = msg.cpu(), rows.cpu()
-    err = hold_sums("K2 embedding", got.cpu(),
-                    K.segment_sum_plain(cpu_msg, cpu_rows, n_out),
-                    K.segment_sum_plain(cpu_msg.abs(), cpu_rows, n_out))
-    if not torch.equal(got, K.packed_segment_runs_cuda(msg, runs, n_out)):
-        fail("K2 embedding: two launches differ")
+    errs = k2_checks("K2 embedding", g, index)
     # the encoder's gradient: K2 against autograd of the plain gathers
     grad = ENC.table_grad(pack, g, table_rows)
     table = torch.zeros(table_rows + 1, d, requires_grad=True)
@@ -1446,54 +1578,61 @@ def check_embed_kernel(pack, table_rows: int, d: int, device,
                          want[:table_rows], scale[:table_rows])
     torch.cuda.synchronize()
     launches = K.packed_segment_matmul_cuda.launches
-    flat = torch.ones(rows.numel(), device=device)
-    ones = torch.sparse_coo_tensor(
-        torch.stack([rows, torch.arange(rows.numel(), device=device)]),
-        flat, (n_out, rows.numel())).coalesce().to_sparse_csr()
-    count = torch.zeros(n_out, items, device=device).index_put_(
-        (rows, pack.slot_items.long()), flat, accumulate=True)
+    got = K.segment_sum_cuda(g, index)
+    positions = index.src.numel()
+    rows = K.index_rows(index, positions)
+    msg = g.index_select(0, index.src)
+    ones = index_matrix(index, items)
+    slot_ones = slot_matrix(rows, n_out)
+    count = ones.to_dense()
     out_lib = torch.zeros(n_out, d, device=device)
-    lib_err = (torch.sparse.mm(ones, msg) - got).abs().max().item()
+    lib_err = (torch.sparse.mm(ones, g) - got).abs().max().item()
     onehot_err = (count @ g - got).abs().max().item()
-    calls = {"kernel": lambda: K.packed_segment_runs_cuda(msg, runs, n_out),
-             "plain": lambda: K.segment_sum_plain(msg, rows, n_out),
+    k1_pack = k1_arrangement(index, items)
+    k1_err = hold_sums("K1 on the embedding arrangement",
+                       K.spmm_packed(k1_pack, g).cpu(),
+                       K.segment_sum_plain(g.cpu(), cpu_index(index)),
+                       K.segment_sum_plain(g.abs().cpu(), cpu_index(index)))
+    calls = {"kernel": lambda: K.segment_sum_cuda(g, index),
+             "plain": lambda: K.segment_sum_plain(g, index),
+             "library": lambda: torch.sparse.mm(ones, g),
              "index_add": lambda: out_lib.index_add_(0, rows, msg),
-             "sparse_mm": lambda: torch.sparse.mm(ones, msg),
+             "sparse_mm_slots": lambda: torch.sparse.mm(slot_ones, msg),
              "onehot_mm": lambda: count @ g,
              "backward": lambda: ENC.table_grad(pack, g, table_rows)}
-    index = sum(a.numel() for a in runs[:4])
+    stats = index_stats(index)
     live = (torch.as_tensor(np.asarray(live_items), dtype=torch.bool,
-                            device=device)[pack.slot_items.long()]
+                            device=device)[index.src.long()]
             & (rows < table_rows))
     live_slots = int(live.sum())
-    moved = live_slots * d * 4 + index * 4 + table_rows * d * 4
+    live_sources = int(torch.unique(index.src[live]).numel())
+    moved = (live_sources * d * 4 + stats["index_bytes"]
+             + table_rows * d * 4)
     flops = live_slots * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     ms, loop_ms, timed_by, queued = time_calls(calls,
                                                max(t_bytes, t_ops) * 1e3)
-    library = min(("index_add", "sparse_mm"), key=ms.get)
-    real_runs = int((pack.run_start[1:] > pack.run_start[:-1]).sum())
-    one_timer = interleaved_ms({"kernel": calls["kernel"],
-                                "sparse_mm": calls["sparse_mm"]})
-    med = one_timer["median_ms"]
-    return dict(interleaved=one_timer, interleaved_ms=med["kernel"],
-                interleaved_library_ms=med["sparse_mm"],
-                interleaved_ratio=med["kernel"] / med["sparse_mm"],
-                max_abs_err=err, table_grad_err=grad_err,
-                launches=launches, library_err=lib_err,
-                onehot_err=onehot_err, ms=ms["kernel"],
-                plain_ms=ms["plain"], library_ms=ms[library],
-                library=library, index_add_ms=ms["index_add"],
-                sparse_mm_ms=ms["sparse_mm"], onehot_ms=ms["onehot_mm"],
-                backward_ms=ms["backward"], call_ms=loop_ms,
-                timed_by=timed_by, queued_ms=queued,
+    yard = k2_yardsticks(
+        g, index, moved, moved - live_sources * d * 2, flops,
+        {"library": lambda: torch.sparse.mm(ones, g),
+         "slot_library": lambda: torch.sparse.mm(slot_ones, msg),
+         "k1": lambda: K.packed_spmm_cuda(k1_pack, g)})
+    return dict(max_abs_err=errs["f32_err"], errs=errs,
+                table_grad_err=grad_err, launches=launches,
+                library="sparse.mm of the 0/1 [rows, items] matrix",
+                library_err=lib_err, onehot_err=onehot_err, k1_err=k1_err,
+                ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms["library"], index_add_ms=ms["index_add"],
+                sparse_mm_slots_ms=ms["sparse_mm_slots"],
+                onehot_ms=ms["onehot_mm"], backward_ms=ms["backward"],
+                call_ms=loop_ms, timed_by=timed_by, queued_ms=queued,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                share_of_bound=max(t_bytes, t_ops) * 1e3 / ms["kernel"],
                 bytes=moved, flops=flops, width=d, items=items,
                 columns=int(pack.rows.shape[1]), table_rows=table_rows,
-                slots=rows.numel(), live_slots=live_slots, runs=real_runs,
-                padded_runs=int(pack.run_out.numel()),
-                longest_row_slots=int(torch.bincount(rows).max().item()))
+                live_slots=live_slots, live_sources=live_sources, **stats,
+                **yard)
 
 
 INTERLEAVE_ROUNDS = 7
@@ -1515,7 +1654,8 @@ def interleaved_ms(calls: dict, rounds: int = INTERLEAVE_ROUNDS,
 
 def slot_matrix(rows: torch.Tensor, n_out: int) -> torch.Tensor:
     """The 0/1 [n_out, slots] CSR matrix of a slot -> row index: its
-    product with messages [slots, D] is K2's function."""
+    product with messages [slots, D] gathered in slot order is K2's
+    function."""
     n = rows.numel()
     return torch.sparse_coo_tensor(
         torch.stack([rows.long(), torch.arange(n, device=rows.device)]),
@@ -1523,81 +1663,86 @@ def slot_matrix(rows: torch.Tensor, n_out: int) -> torch.Tensor:
         .to_sparse_csr()
 
 
-def check_edge_kernel(entry, n: int, d: int, device) -> dict:
-    """K2 on an edge conv's 'edge' pack (graphs/packing.build_edge_pack,
-    on the card): seeded messages on every slot ([S, d], 0 on the slots
-    of no real edge, as the layers give it) summed per receiver by
-    ``packed_segment_runs_cuda`` on the pack's host-built index, against
-    its plain version on the CPU (hold_sums' rule: SEG_REL x the row's
-    sum of |terms| + SEG_ATOL), bitwise between two launches; the
-    layers' Function (``segment_sum_runs_vjp``) forward and its gather
-    gradient against the plain autograd on the CPU.  Times: the kernel,
-    its plain version and torch.sparse.mm of the 0/1 [rows, slots]
-    matrix (the library call of K2's function), interleaved under one
-    timer (``interleaved_ms``); the same three by ``time_calls``.  The
-    bound: the messages of the slots that hold a real edge read once
-    (the others are chunk padding or padding edges, zeros by the
-    layout and the layers' masks), K2's index read once, the n node
+def check_edge_kernel(entry, graph, n: int, d: int, device) -> dict:
+    """K2 on an edge conv's 'edge' entry (graphs/packing.build_edge_pack,
+    on the card): seeded per-edge messages [E, d] (0 on the padding
+    edges, as the layers give them, which the index leaves out) summed
+    per receiver by K2 on the entry's index of the edges, read in place
+    (``k2_checks``: against
+    the plain version on the CPU, f32 and bf16, bitwise repeats); the
+    layers' Function (``segment_sum_vjp``) forward and its gradient (the
+    gather g[receiver]) against the CPU's, the gradient bitwise.  Times:
+    the kernel, its plain version and torch.sparse.mm of the 0/1
+    [nodes, edges] matrix with the messages (the library call of the
+    same function on the same inputs), by ``time_calls``; the floor,
+    bf16 and one timer over the kernel, that sparse.mm, sparse.mm of
+    the 0/1 [rows, slots] matrix of the pack's slots on the messages
+    copied into slot order (the route before the index read them in
+    place) and K1 on the same arrangement (the 'edge' pack with the slots' edges as senders
+    and their liveness as weights, as ``edge_max_packs`` builds its fwd
+    pack), ``k2_yardsticks``.  The bound: the
+    real edges' messages read once, K2's index read once, the n node
     rows written once."""
     fwd, slots = entry
     gen = torch.Generator(device=device).manual_seed(6)
-    n_out = K.num_tiles_of(n) * K.ROWS_PER_TILE
-    runs = K.SegmentRuns(slots.run_start, slots.run_out, slots.comb_rows,
-                         slots.comb_ptr, slots.run_out.shape[0])
-    # the slots of a real edge; the layers' messages are 0 elsewhere
-    held = (fwd.weights.reshape(-1) != 0)[:, None]
-    msg = torch.randn(slots.rows.numel(), d, generator=gen,
-                      device=device) * held
-    rows = slots.rows.long()
+    index = edge_index(slots)
+    e = index.src.numel()
+    live = graph.edge_weight != 0
+    msg = torch.randn(e, d, generator=gen, device=device) * live[:, None]
     K.packed_segment_matmul_cuda.launches = 0
-    got = K.packed_segment_runs_cuda(msg, runs, n_out)
-    cpu_msg, cpu_rows = msg.cpu(), rows.cpu()
-    err = hold_sums("K2 edge pack", got.cpu(),
-                    K.segment_sum_plain(cpu_msg, cpu_rows, n_out),
-                    K.segment_sum_plain(cpu_msg.abs(), cpu_rows, n_out))
-    if not torch.equal(got, K.packed_segment_runs_cuda(msg, runs, n_out)):
-        fail("K2 edge pack: two launches differ")
+    errs = k2_checks("K2 edge", msg, index)
+    got = K.segment_sum_cuda(msg, index)
     g = torch.randn(n, d, generator=gen, device=device)
     outs = []
-    for m, r, rn in ((msg, slots.rows, runs),
-                     (cpu_msg, slots.rows.cpu(),
-                      K.SegmentRuns(*(a.cpu() for a in runs[:4]),
-                                    runs.num_partials))):
+    for m, idx, recv in ((msg, index, slots.edge_row),
+                         (msg.cpu(), cpu_index(index),
+                          slots.edge_row.cpu())):
         m = m.clone().requires_grad_(True)
-        out = K.segment_sum_runs_vjp(m, r, rn, n_out, n)
+        out = K.segment_sum_vjp(m, idx, recv, n)
         out.backward(g.to(m.device))
         outs.append((out.detach().cpu(), m.grad.cpu()))
+    cpu = cpu_index(index)
     vjp_err = hold_sums("K2 edge vjp forward", outs[0][0], outs[1][0],
-                        K.segment_sum_plain(cpu_msg.abs(), cpu_rows,
-                                            n_out)[:n])
+                        K.segment_sum_plain(msg.cpu().abs(), cpu)[:n])
     if not torch.equal(outs[0][1], outs[1][1]):
-        fail("K2 edge vjp: the gradient gather differs from the CPU's")
+        fail("K2 edge vjp: the gradient differs from the CPU's")
     torch.cuda.synchronize()
     launches = K.packed_segment_matmul_cuda.launches
-    ones = slot_matrix(rows, n_out)
+    ones = index_matrix(index, e)
     lib_err = (torch.sparse.mm(ones, msg) - got).abs().max().item()
-    calls = {"kernel": lambda: K.packed_segment_runs_cuda(msg, runs, n_out),
-             "plain": lambda: K.segment_sum_plain(msg, rows, n_out),
+    # the older route: the messages in slot order, every slot of the pack
+    msg_slots = K.take_padded(msg, slots.slot_edge.reshape(-1))
+    slot_ones = slot_matrix(K.pack_rows(fwd).reshape(-1), n)
+    k1_pack = fwd._replace(senders=slots.slot_edge,
+                           weights=K.take_padded(live.float(),
+                                                 slots.slot_edge))
+    k1_err = hold_sums("K1 on the edge arrangement",
+                       K.spmm_packed(k1_pack, msg).cpu(),
+                       K.segment_sum_plain(msg.cpu(), cpu),
+                       K.segment_sum_plain(msg.cpu().abs(), cpu))
+    calls = {"kernel": lambda: K.segment_sum_cuda(msg, index),
+             "plain": lambda: K.segment_sum_plain(msg, index),
              "library": lambda: torch.sparse.mm(ones, msg)}
-    one_timer = interleaved_ms(calls)
-    index = sum(a.numel() for a in runs[:4])
-    live_slots = int(held.sum())
-    moved = live_slots * d * 4 + index * 4 + n * d * 4
+    stats = index_stats(index)
+    live_slots = int(live.sum())
+    moved = live_slots * d * 4 + stats["index_bytes"] + n * d * 4
     flops = live_slots * d
     times = bounded_times(calls, moved, flops)
-    med = one_timer["median_ms"]
-    return dict(max_abs_err=err, vjp_err=vjp_err, launches=launches,
-                library="sparse.mm of the 0/1 slot matrix",
-                library_err=lib_err, width=d, slots=rows.numel(),
-                live_slots=live_slots, edges=int(slots.edge_slot.numel()),
-                real_edges=int((fwd.weights != 0).sum()),
-                longest_row_slots=int(torch.bincount(
-                    rows[held[:, 0]]).max().item()),
-                padded_runs=int(slots.run_out.numel()),
-                **times, interleaved=one_timer,
-                interleaved_ms=med["kernel"],
-                interleaved_library_ms=med["library"],
-                interleaved_ratio=med["kernel"] / med["library"])
+    yard = k2_yardsticks(
+        msg, index, moved, moved - live_slots * d * 2, flops,
+        {"library": lambda: torch.sparse.mm(ones, msg),
+         "slot_library": lambda: torch.sparse.mm(slot_ones, msg_slots),
+         "k1": lambda: K.packed_spmm_cuda(k1_pack, msg)})
+    return dict(max_abs_err=errs["f32_err"], errs=errs, vjp_err=vjp_err,
+                launches=launches,
+                library="sparse.mm of the 0/1 [nodes, edges] matrix",
+                library_err=lib_err, k1_err=k1_err, width=d,
+                pack_slots=int(fwd.senders.numel()), edges=e,
+                real_edges=live_slots,
+                share_of_bound=times["bound_ms"] / times["ms"],
+                **stats, **times, **yard,
+                interleaved_ratio=(yard["interleaved_ms"]
+                                   / yard["interleaved_library_ms"]))
 
 
 class CardLive:
@@ -2724,8 +2869,8 @@ def step_profile(trainer, batch, device, steps: int, base: int) -> dict:
     # segment_* K2
     own = sorted((kv for kv in by_kernel.items()
                   if any(k in kv[0] for k in ("row_walk", "packed_",
-                                              "segment_runs",
-                                              "segment_combine"))),
+                                              "segment_vec",
+                                              "segment_narrow"))),
                  key=lambda kv: -kv[1])
     by_op = host_ms_by_op(events, steps)
     host_top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]
@@ -3341,7 +3486,7 @@ def edge_checks(cfg, batch, dev, n: int, d: int, device) -> dict:
     softmax's K3 row sums on the 'edge' pack for the attention convs
     (``check_softmax``)."""
     lt = cfg.gnn.layer_type
-    checks = dict(k2=check_edge_kernel(dev.packs[EDGE], n, d, device))
+    checks = dict(k2=check_edge_kernel(dev.packs[EDGE], dev, n, d, device))
     checks["k1_edge_src"] = check_gather_k1(
         dev.packs[EDGE_SRC], batch.senders, batch.edge_weight != 0, n,
         2 * d if lt == "splineconv" else d, device)
@@ -3423,8 +3568,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     With ``pool_width`` the kernel phase also holds K1 on the path's own
     pooling packs at that width (``check_pool_k1``); a batch with an
     encoder's embedding pack has K2 held on it at the encoder width
-    (``check_embed_kernel``), and the profile's per-slot width check
-    lets the encoder's gathered messages (its slots times the width)
+    (``check_embed_kernel``); K2 reads the output gradient in place,
+    so the profile's per-slot width check lets no gathered copy of it
     pass.  The profile, repeat and graphed checks take the first train
     batch (``FirstBatch``)."""
     cfg_file = config(base or tag)
@@ -3453,7 +3598,6 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     else:
         checks = {f"d{w}": check_kernel(packs, n, w, device)
                   for w in sorted({d, *(widths or {})} - {rect_width})}
-    embed_numel = 0
     for name in EMBED_KINDS:
         if name in batch.packs:
             (pack,) = dev_packs[name]
@@ -3467,7 +3611,6 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
                     else batch.edge_mask)
             checks[f"k2_{name}"] = check_embed_kernel(pack, sum(dims), width,
                                                       device, live)
-            embed_numel = max(embed_numel, pack.slot_items.numel() * width)
     pool = {}
     if cfg.dataset.task == "graph":
         name = next(k for k in batch.packs if k.startswith("pool_"))
@@ -3545,7 +3688,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     # eager step (1,000-4,400 on these paths, 2,500-5,000 on an edge
     # conv's): 3 steps, 2 on an edge conv, for time
     profile = profile_steps(cfg, first, device, steps=2 if edge_conv else 3,
-                            forbid_numel=max(widest, embed_numel) + 1,
+                            forbid_numel=widest + 1,
                             forbid_index_add=slots)
     phase(f"profile_{tag}", **profile,
           repeat=repeat_steps(cfg, first, device))
@@ -4074,6 +4217,13 @@ def link_rows(paths: dict, row: tuple, k1_src: dict) -> list:
     return rows
 
 
+# the redesigned K2's measurements a kernels line row carries besides
+# row + floor_ms (k2_yardsticks, the share of the bound)
+K2_EXTRA = ("share_of_bound", "bf16_ms", "bf16_share_of_bound",
+            "interleaved_ms", "interleaved_library_ms", "interleaved_k1_ms",
+            "faster_every_round")
+
+
 def ogb_rows(paths: dict, samplers: dict, row: tuple, k1_src: dict,
              k2_src: dict) -> list:
     """The kernels line's rows of the OGB paths (``drive_path``'s
@@ -4103,9 +4253,8 @@ def ogb_rows(paths: dict, samplers: dict, row: tuple, k1_src: dict,
          "path": "ogbg_molhiv_gcnid",
          "pack": "node_encoder (Atom), ogbg_molhiv_gcnid",
          "width": k2["width"],
-         **{k: k2[k] for k in row + ("onehot_ms", "backward_ms",
-                                      "interleaved_ms",
-                                      "interleaved_library_ms")},
+         **{k: k2[k] for k in keys + ("onehot_ms", "backward_ms")
+            + K2_EXTRA},
          **path_launches(K.packed_segment_matmul_cuda,
                          {"ogbg_molhiv_gcnid": t})},
         {"name": "packed_spmm_ogbn_arxiv_design", **k1_src,
@@ -4135,7 +4284,7 @@ def edge_rows(paths: dict, models: dict, row: tuple, srcs: tuple,
     k1, k2, k3 = (K.packed_spmm_cuda, K.packed_segment_matmul_cuda,
                   K.packed_segment_matmul_headed_cuda)
     keys = row + ("floor_ms",)
-    extra = ("interleaved_ms", "interleaved_library_ms")
+    extra = K2_EXTRA
     out = []
     for tag, p in paths.items():
         c, t = p["checks"], p["train"]
@@ -4143,14 +4292,14 @@ def edge_rows(paths: dict, models: dict, row: tuple, srcs: tuple,
         out.append({"name": f"packed_segment_{tag}", **k2_src, "path": tag,
                     "pack": f"edge, {tag}", "width": c["k2"]["width"],
                     "library": c["k2"]["library"],
-                    **{k: c["k2"][k] for k in row + extra},
+                    **{k: c["k2"][k] for k in keys + extra},
                     "launches": by_pack.get(EDGE, 0)})
         if f"k2_{EDGE_BOND}" in c:
             b = c[f"k2_{EDGE_BOND}"]
             out.append({"name": f"packed_segment_bond_tables_{tag}",
                         **k2_src, "path": tag, "pack": f"edge_bond, {tag}",
                         "width": b["width"],
-                        **{k: b[k] for k in row + extra},
+                        **{k: b[k] for k in keys + extra},
                         "launches": by_pack.get(EDGE_BOND, 0)})
         g = c["k1_edge_src"]
         out.append({"name": f"packed_spmm_edge_src_{tag}", **k1_src,
@@ -4179,7 +4328,7 @@ def edge_rows(paths: dict, models: dict, row: tuple, srcs: tuple,
             out.append({"name": f"packed_segment_{tag}", **k2_src,
                         "path": f"model_{tag}", "pack": f"edge, {tag}",
                         "width": c["width"],
-                        **{k: c[k] for k in row + extra},
+                        **{k: c[k] for k in keys + extra},
                         "launches": m["k2_launches_by_pack"].get(EDGE, 0)})
     return out
 
@@ -5222,7 +5371,9 @@ def main() -> None:
     srcs = (k1_src, k3_src, sddmm_src, max_src)
     k2_src = dict(route="cuda",
                   source="graphgym_tpu_torch/csrc/packed_segment.cu",
-                  replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309")
+                  replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309",
+                  design="redesigned for Hopper: positions read in place, "
+                         "short rows at one owner, long rows by runs")
     kernels_line = json.dumps({"kernels": [
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
@@ -5237,11 +5388,9 @@ def main() -> None:
          "max_abs_err": bk["k1_errs"]["fwd_float32"],
          **{k: bk["k1_fwd"][k] for k in row[1:] + ("floor_ms",)},
          **path_launches(k1_, bench_k1)},
-        {"name": "packed_segment", "route": "cuda",
-         "source": "graphgym_tpu_torch/csrc/packed_segment.cu",
-         "replaces": "graphgym_tpu/ops/pallas/spmm_kernel.py:309",
+        {"name": "packed_segment", **k2_src,
          "path": None, "launches": k2["launches"],
-         **{k: k2[k] for k in row}},
+         **{k: k2[k] for k in row + ("floor_ms",) + K2_EXTRA}},
         {"name": "packed_attention", **k3_src,
          "path": "idgat_ws", **{k: k3[k] for k in row},
          **path_launches(k3_, {"idgat_ws": train_att},

@@ -13,6 +13,8 @@ constexpr int kInFlight = 4;           // gathered rows a row group keeps
                                        // in flight in the vector kernels
 constexpr int kGroupRows = 2;          // consecutive rows a row group owns
                                        // in the vector kernels
+constexpr int kNarrowCols = 8;         // widest row of the thread-a-row
+                                       // paths (K1, K2, K3)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

@@ -71,7 +71,6 @@
 namespace ggt {
 namespace {
 
-constexpr int kNarrowCols = 8;   // widest one-head row of the narrow path
 constexpr int kLongRow = 32;     // a row of more slots is a hub row: its
                                  // warp walks it in the narrow path
 constexpr int kHubBatches = 4;   // slots per lane per trip of a hub row

@@ -57,17 +57,19 @@ A model with a node or edge encoder adds the embedding pack of its
 table lookup (``build_embed_pack``, kinds 'node_encoder' and
 'edge_encoder'): the stacked tables' row of each item's id columns for
 the forward gather, and for the tables' gradient the (item, column)
-slots sorted by row with K2's index of them (``fixed_runs_host``), so
-the gradient of the lookup is a segmented sum in a fixed order (the
-gradient of ``index_select`` is an ``index_add_``, float atomics).
+slots sorted by row as K2's index (``segment_index_host``, each slot's
+item its source), so the gradient of the lookup is a segmented sum in a
+fixed order that reads the output gradient in place (the gradient of
+``index_select`` is an ``index_add_``, float atomics).
 
 The edge-feature convs (``EDGE_CONVS``) sum, soften or take the max of a
 message per edge over its receiver (graphgym_tpu/nn/layers.py:655-730,
 att_layers.py:118-183 and :253-312, XLA segment reductions there), on
 the 'edge' pack: the raw edges, no self-loops, each weight the edge's
 validity (1 real, 0 padding), beside ``EdgeSlots``, the batch edge of
-each of its slots and K2's host-built index of the slots' rows, so the
-sum runs on K2 in a captured step.  Their per-edge gathers of node rows
+each of its slots and K2's host-built index of the batch edges by
+receiver, so the sum runs on K2 over the per-edge messages in place in
+a captured step.  Their per-edge gathers of node rows
 x[senders] and x[receivers] run on the gather packs 'edge_src' and
 'edge_dst' (``build_gather_packs`` of the senders and receivers); the
 segmented max reads the messages through the 'edge' pack's layout with
@@ -86,10 +88,9 @@ import numpy as np
 
 from graphgym_tpu_torch import native
 from graphgym_tpu_torch.graphs.container import bucket_size
-from graphgym_tpu_torch.ops.cuda.spmm_kernel import (ROWS_PER_TILE,
-                                                     PackedCSR,
-                                                     fixed_runs_host,
-                                                     num_tiles_of, pad_pack)
+from graphgym_tpu_torch.ops.cuda.spmm_kernel import (PackedCSR, SegmentIndex,
+                                                     pad_pack,
+                                                     segment_index_host)
 
 Chunks = Dict[str, Tuple[int, int]]
 FLOWS = ("source_to_target", "target_to_source")   # cfg.gnn.flow
@@ -458,40 +459,38 @@ def edge_kinds(layer_type: str, agg: str = "add",
 
 
 class EdgeSlots(NamedTuple):
-    """The 'edge' fwd pack's slots and K2's index of them (S = NC * C
-    slots of the pack, E batch edges).
+    """The 'edge' fwd pack's slots and K2's index of the batch edges
+    (S = NC * C slots of the pack, E batch edges, N nodes).
 
-    slot_edge  [NC, C] int32 — the batch edge of each slot, E on the
-               slots of no edge (chunk padding)
-    edge_slot  [E] int32 — the slot of each batch edge (slot_edge's
-               inverse)
-    rows       [S] int32 — K2's output row of each slot: the receiver of
-               its edge, and on a slot of no edge the row of the slot
-               before it (its message is 0), so the rows are sorted
-    run_start, run_out, comb_rows, comb_ptr — K2's index of the slots
-               (``fixed_runs_host`` over ``num_tiles_of(N)`` tiles'
-               rows): shapes of S and N alone, one captured program
+    slot_edge   [NC, C] int32 — the batch edge of each slot, E on the
+                slots of no edge (chunk padding)
+    edge_slot   [E] int32 — the slot of each batch edge (slot_edge's
+                inverse)
+    edge_row    [E] int32 — the row K2 sums each edge into: its receiver,
+                N for a padding edge (weight 0), which the sum leaves out
+    row_ptr, edge_order, run_row, run_first, run_len, arrivals — K2's
+                index (``segment_index_host``) of the E edges, the real
+                ones by receiver, then in edge order, over the N rows,
+                the padding edges after them, left out; its src
+                ``edge_order``: the per-edge messages [E, D] are read in
+                place, and no chunk padding is listed; shapes of E and N
+                alone, one captured program
     """
     slot_edge: Any
     edge_slot: Any
-    rows: Any
-    run_start: Any
-    run_out: Any
-    comb_rows: Any
-    comb_ptr: Any
+    edge_row: Any
+    row_ptr: Any
+    edge_order: Any
+    run_row: Any
+    run_first: Any
+    run_len: Any
+    arrivals: Any
 
 
-def _edge_slots(fwd: PackedCSR, slot_edge: np.ndarray,
-                edge_slot: np.ndarray) -> EdgeSlots:
-    rows = (fwd.tiles.astype(np.int64)[:, None] * ROWS_PER_TILE
-            + fwd.local_rows).reshape(-1)
-    held = slot_edge.reshape(-1) < len(edge_slot)
-    rows = np.maximum.accumulate(np.where(held, rows, 0))
-    runs = fixed_runs_host(rows, num_tiles_of(fwd.row_range.shape[0])
-                           * ROWS_PER_TILE)
-    return EdgeSlots(slot_edge.astype(np.int32),
-                     edge_slot.astype(np.int32), rows.astype(np.int32),
-                     *runs[:4])
+def edge_index(slots: EdgeSlots) -> SegmentIndex:
+    """K2's index of the batch edges in an 'edge' entry's slots."""
+    return SegmentIndex(slots.row_ptr, slots.edge_order, slots.run_row,
+                        slots.run_first, slots.run_len, slots.arrivals)
 
 
 def build_edge_pack(senders: np.ndarray, receivers: np.ndarray,
@@ -504,25 +503,30 @@ def build_edge_pack(senders: np.ndarray, receivers: np.ndarray,
     fwd, edge_slot = _pack(senders, receivers, w, num_nodes, num_nodes,
                            least, slots=True)
     e = len(edge_slot)
+    edge_slot = np.asarray(edge_slot)
     slot_edge = native.scatter(fwd.senders.size, e, edge_slot,
                                np.arange(e, dtype=np.int32))
-    return fwd, _edge_slots(fwd, slot_edge.reshape(fwd.senders.shape),
-                            np.asarray(edge_slot))
+    # the real edges by receiver, then in edge order; the padding edges
+    # (weight 0, zero messages) left out past the last row
+    edge_row = np.where(w != 0, receivers, num_nodes).astype(np.int32)
+    order = np.argsort(edge_row, kind="stable").astype(np.int32)
+    index = segment_index_host(edge_row[order], num_nodes, order)
+    return fwd, EdgeSlots(slot_edge.reshape(fwd.senders.shape),
+                          edge_slot.astype(np.int32), edge_row, *index)
 
 
 def pad_edge_pack(entry: Tuple[PackedCSR, EdgeSlots],
                   chunks: int) -> Tuple[PackedCSR, EdgeSlots]:
     """An 'edge' entry padded to ``chunks`` chunks (``pad_pack``), the
-    new slots holding no edge, and K2's index built again."""
+    new slots holding no edge; K2's index of the edges is unchanged."""
     fwd, slots = entry
     if chunks <= fwd.senders.shape[0]:
         return entry
     n = fwd.row_range.shape[0]
     fwd = pad_pack(fwd, chunks, n, n)
-    e = len(slots.edge_slot)
-    slot_edge = np.full(fwd.senders.shape, e, np.int32)
+    slot_edge = np.full(fwd.senders.shape, len(slots.edge_slot), np.int32)
     slot_edge[:slots.slot_edge.shape[0]] = slots.slot_edge
-    return fwd, _edge_slots(fwd, slot_edge, np.asarray(slots.edge_slot))
+    return fwd, slots._replace(slot_edge=slot_edge)
 
 
 def build_gather_packs(index: np.ndarray, mask: np.ndarray,
@@ -566,21 +570,26 @@ class EmbedPack(NamedTuple):
     rows        [M, C] int32 — the stacked row of item m's column c; R
                  (one past the tables: a NaN row in the forward, no
                  gradient) where the id lies outside its table
-    slot_items  [M * C] int32 — the item of each (item, column) slot,
-                 the slots in row order (stable)
-    slot_rows   [M * C] int32 — the row of each slot, sorted
-    run_start, run_out, comb_rows, comb_ptr — K2's index of the slots
-                 (``fixed_runs_host``), over the ``num_tiles_of(R + 1)``
-                 tiles' rows; every run writes a partial, so
-                 num_partials is run_out's length
+    row_ptr, slot_items, run_row, run_first, run_len, arrivals — K2's
+                 index (``segment_index_host``) of the M * C (item,
+                 column) slots sorted by row (stable) over the R + 1
+                 rows, its src ``slot_items`` the item of each slot: the
+                 tables' gradient reads the output gradient's item rows
+                 in place
     """
     rows: Any
+    row_ptr: Any
     slot_items: Any
-    slot_rows: Any
-    run_start: Any
-    run_out: Any
-    comb_rows: Any
-    comb_ptr: Any
+    run_row: Any
+    run_first: Any
+    run_len: Any
+    arrivals: Any
+
+
+def embed_index(pack: EmbedPack) -> SegmentIndex:
+    """K2's index of an embedding pack's slots."""
+    return SegmentIndex(pack.row_ptr, pack.slot_items, pack.run_row,
+                        pack.run_first, pack.run_len, pack.arrivals)
 
 
 def build_embed_pack(feat: np.ndarray, dims: Sequence[int],
@@ -607,8 +616,6 @@ def build_embed_pack(feat: np.ndarray, dims: Sequence[int],
     # a stable sort of small ints: numpy's radix sort on int16
     order = np.argsort(flat.astype(np.int16 if total < 2 ** 15
                                    else np.int64), kind="stable")
-    slot_rows = flat[order]
-    runs = fixed_runs_host(slot_rows,
-                           num_tiles_of(total + 1) * ROWS_PER_TILE)
-    return EmbedPack(rows.astype(np.int32), (order // ncol).astype(np.int32),
-                     slot_rows.astype(np.int32), *runs[:4])
+    index = segment_index_host(flat[order], total + 1,
+                               (order // ncol).astype(np.int32))
+    return EmbedPack(rows.astype(np.int32), *index)

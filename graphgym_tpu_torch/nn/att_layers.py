@@ -42,8 +42,7 @@ from graphgym_tpu_torch.nn.layers import (GeneralConv, check_heads,
                                           check_self_msg, edge_aggregate,
                                           edge_count, edge_feat_of,
                                           edge_softmax, edge_sum,
-                                          edge_valid, edges_to_slots,
-                                          gather_nodes, glorot,
+                                          edge_valid, gather_nodes, glorot,
                                           packed_attention, packed_spmm,
                                           scaled_dot, zeros)
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm, l2_normalize
@@ -237,11 +236,9 @@ class GeneralEdgeAttConv(nn.Module):
             score = (msg * self.att_kernel).sum(-1)
         else:
             score = feat @ self.key_kernel
-        alpha = edge_softmax(graph, F.leaky_relu(score, 0.2))   # [S, H]
+        alpha = edge_softmax(graph, F.leaky_relu(score, 0.2))   # [E, H]
         msg = torch.where(edge_valid(graph)[:, None, None], msg, 0.0)
-        weighted = (edges_to_slots(graph, msg) * alpha[..., None]).view(
-            alpha.shape[0], dim_out)
-        out = edge_sum(graph, weighted, in_slots=True)
+        out = edge_sum(graph, (msg * alpha[..., None]).view(-1, dim_out))
         if hasattr(self, "final_kernel"):
             out = out @ self.final_kernel
         if hasattr(self, "final_bn"):

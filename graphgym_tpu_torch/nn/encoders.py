@@ -13,8 +13,9 @@ The lookup reads the batch's embedding pack (``graphs/packing.
 build_embed_pack``), which the loader builds beside the batch: the
 forward gathers the stacked tables' rows, and the tables' gradient is
 K2's segmented sum (``csrc/packed_segment.cu``) of the output gradient's
-rows over the (item, column) slots sorted by row, so no float atomics
-and no copy to the host in a captured step.  Modules take (emb_dim,
+item rows, read in place, over the (item, column) slots sorted by row,
+so no float atomics, no gathered copy and no copy to the host in a
+captured step.  Modules take (emb_dim,
 init generator) and map a GraphBatch to a GraphBatch, as a registered
 encoder (register.node_encoder_dict / edge_encoder_dict) does.
 """
@@ -29,23 +30,20 @@ from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.graphs.packing import (EDGE_ENCODER, EMBED_TABLES,
-                                               NODE_ENCODER, EmbedPack)
+                                               NODE_ENCODER, EmbedPack,
+                                               embed_index)
 from graphgym_tpu_torch.nn.layers import glorot
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
 
 
 def table_grad(pack: EmbedPack, g: torch.Tensor, num_rows: int,
                kind: str = "") -> torch.Tensor:
-    """The stacked tables' gradient [num_rows, D] of the lookup: each
-    slot's item row of ``g`` gathered in slot order and summed per table
-    row by K2 (its plain version on the CPU; counted under the pack's
-    ``kind``); the slots of ids outside the tables land past num_rows
-    and are dropped."""
-    msg = g.contiguous().index_select(0, pack.slot_items)
-    runs = K.SegmentRuns(pack.run_start, pack.run_out, pack.comb_rows,
-                         pack.comb_ptr, pack.run_out.shape[0])
-    out = K.segment_sum_runs(msg, pack.slot_rows, runs,
-                             pack.comb_rows.shape[0], kind)
+    """The stacked tables' gradient [num_rows, D] of the lookup: per
+    table row, the sum of ``g``'s rows of its slots' items in slot order,
+    by K2 reading g in place (its plain version on the CPU; counted
+    under the pack's ``kind``); the slots of ids outside the tables land
+    past num_rows and are dropped."""
+    out = K.segment_sum(g, embed_index(pack), kind)
     return out[:num_rows].to(g.dtype)
 
 

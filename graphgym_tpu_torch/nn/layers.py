@@ -21,14 +21,14 @@ from torch import nn
 
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.graphs.packing import (EDGE, EDGE_DST, EDGE_SRC,
-                                               agg_kind, edge_kinds)
+                                               agg_kind, edge_index,
+                                               edge_kinds)
 from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
-    ROWS_PER_TILE, SegmentRuns, num_tiles_of, pack_rows, packed_max_vjp,
-    packed_node_scores, packed_scaled_dot, packed_segment_softmax,
-    permute_rows, segment_matmul_headed_vjp, segment_sum_runs_vjp,
-    spmm_pack_vjp, take_padded)
+    pack_rows, packed_max_vjp, packed_node_scores, packed_scaled_dot,
+    packed_segment_softmax, permute_rows, segment_matmul_headed_vjp,
+    segment_sum_vjp, spmm_pack_vjp, take_padded)
 from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree
 
 
@@ -405,10 +405,12 @@ class GeneralConv(nn.Module):
 # order: the edge features need no gather) from per-edge node rows,
 # gathered by K1 on the 'edge_src' / 'edge_dst' gather packs, and reduce
 # it over the receivers on the 'edge' pack (graphs/packing.py): K2 sums
-# the messages in the pack's slot order (``permute_rows`` moves them
-# there), the softmax runs on the pack's rows, and the segmented max
-# reads the messages through the pack's layout.  K2 adds every slot, so
-# every message is masked by its edge's validity first.
+# the messages [E, D] in place, in the order of the pack's index of the
+# edges (by receiver, then edge order), the softmax runs on the pack's
+# rows (``permute_rows`` moves the logits into its slot order and the
+# weights back), and the segmented max reads the messages through the
+# pack's layout.  K2 leaves the padding edges out, and every message is
+# masked by its edge's validity first.
 
 
 def edge_feat_of(graph: GraphBatch, layer: str) -> torch.Tensor:
@@ -433,41 +435,25 @@ def gather_nodes(graph: GraphBatch, kind: str,
     return spmm_pack_vjp(fwd, bwd, x)
 
 
-def _edge_sum_parts(graph: GraphBatch):
-    fwd, slots = _packs(graph, EDGE)
-    runs = SegmentRuns(slots.run_start, slots.run_out, slots.comb_rows,
-                       slots.comb_ptr, slots.run_out.shape[0])
-    return slots, runs, num_tiles_of(graph.num_nodes) * ROWS_PER_TILE
-
-
-def edges_to_slots(graph: GraphBatch, a: torch.Tensor) -> torch.Tensor:
-    """Per-edge rows [E, ...] in the 'edge' pack's slot order [S, ...],
-    0 on the slots of no edge; the gradient gathers back."""
+def edge_sum(graph: GraphBatch, msg: torch.Tensor) -> torch.Tensor:
+    """[N, D]: the sum over each receiver's real edges of msg [E, D]
+    (masked by the caller: the padding edges' messages are zeros, which
+    the sum leaves out), K2 on the 'edge' entry's index of the edges,
+    reading msg in place; its gradient the gather d_msg[e] =
+    g[receiver(e)], 0 on a padding edge."""
     _, slots = _packs(graph, EDGE)
-    return permute_rows(a, slots.slot_edge, slots.edge_slot)
-
-
-def edge_sum(graph: GraphBatch, msg: torch.Tensor,
-             in_slots: bool = False) -> torch.Tensor:
-    """[N, D]: the sum over each receiver's edges of msg [E, D] (masked
-    by the caller; [S, D] in the pack's slot order with ``in_slots``),
-    K2 in slot order; its gradient a gather."""
-    slots, runs, n_out = _edge_sum_parts(graph)
-    if not in_slots:
-        msg = edges_to_slots(graph, msg)
-    return segment_sum_runs_vjp(msg, slots.rows, runs, n_out,
-                                graph.num_nodes, EDGE)
+    return segment_sum_vjp(msg, edge_index(slots), slots.edge_row,
+                           graph.num_nodes, EDGE)
 
 
 def edge_count(graph: GraphBatch, weight: torch.Tensor) -> torch.Tensor:
     """[N] f32: the sum of the per-edge ``weight`` [E] over each
-    receiver's edges (the live in-edge count for a 0/1 weight), K2 at
-    width 1; no gradient."""
-    slots, runs, n_out = _edge_sum_parts(graph)
+    receiver's real edges (the live in-edge count for a 0/1 weight), K2
+    at width 1; no gradient."""
+    _, slots = _packs(graph, EDGE)
     with torch.no_grad():
-        w = take_padded(weight.float()[:, None], slots.slot_edge.reshape(-1))
-        return segment_sum_runs_vjp(w, slots.rows, runs, n_out,
-                                    graph.num_nodes, EDGE)[:, 0]
+        return segment_sum_vjp(weight.float()[:, None], edge_index(slots),
+                               slots.edge_row, graph.num_nodes, EDGE)[:, 0]
 
 
 def edge_max(graph: GraphBatch, msg: torch.Tensor,
@@ -491,13 +477,16 @@ def edge_max_packs(graph: GraphBatch, live: torch.Tensor) -> tuple:
 
 
 def edge_softmax(graph: GraphBatch, logits: torch.Tensor) -> torch.Tensor:
-    """[S, H]: the softmax of per-edge logits [E, H] over each
-    receiver's real edges, in the 'edge' pack's slot order
-    (``packed_segment_softmax``: K3 row sums, no atomics)."""
-    fwd, _ = _packs(graph, EDGE)
-    alpha = packed_segment_softmax(edges_to_slots(graph, logits).reshape(
+    """[E, H]: the softmax of per-edge logits [E, H] over each
+    receiver's real edges, in edge order: the logits moved into the
+    'edge' pack's slot order (``permute_rows``), ``packed_segment_softmax``
+    on the pack (K3 row sums, no atomics), the weights moved back."""
+    fwd, slots = _packs(graph, EDGE)
+    in_slots = permute_rows(logits, slots.slot_edge, slots.edge_slot)
+    alpha = packed_segment_softmax(in_slots.reshape(
         fwd.senders.shape + logits.shape[1:]), fwd)
-    return alpha.reshape(-1, logits.shape[1])
+    return permute_rows(alpha.reshape(-1, logits.shape[1]),
+                        slots.edge_slot, slots.slot_edge.reshape(-1))
 
 
 def edge_aggregate(graph: GraphBatch, msg: torch.Tensor, agg: str,

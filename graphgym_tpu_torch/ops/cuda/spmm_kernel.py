@@ -21,7 +21,9 @@ Host side, ``pack_csr`` sorts edges by receiver and cuts them into
 chunks of C slots, each owned by one R-row output tile; the layout is
 the JAX package's, array for array.  Device side, K1, K3 and the SDDMM
 fuse the ``x[senders]`` gather that the TPU version ran outside its
-kernel; K2 sums messages it is given, every slot of the pack.
+kernel; K2 sums messages it is given, read in place through a
+host-built index of positions sorted by row (``SegmentIndex``): every
+slot of a pack, or a batch's edges, or an embedding pack's slots.
 
 On a CUDA tensor the entry points (``spmm_packed``,
 ``packed_segment_matmul``, ``packed_segment_matmul_headed``,
@@ -32,8 +34,9 @@ arithmetic in plain PyTorch.
 Around them: the autograd Functions of the layers (SpMM, attention
 aggregation, score, the attention softmax and the node-score gathers,
 whose sums all run on K3 or K1, the segmented max, the edge convs' K2
-sum on a host-built index and the permutation of per-edge rows into
-slot order, so no float atomics), and the COO
+sum on a host-built index and the permutation of the softmax's
+per-edge rows into slot order and back, so no float atomics), and the
+COO
 entries ``pack_bidir`` / ``spmm_bidir`` / ``spmm_pallas`` of the
 benchmark.
 """
@@ -374,140 +377,169 @@ def packed_max_bwd_plain(bwd_pack: PackedCSR, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# K2's row -> slots index (host-built, once per pack)
+# K2's index: positions sorted by row, and the runs of the long rows
+# (host-built, with the batch or once per pack)
 # --------------------------------------------------------------------------
 
-RUN_SLOTS = 128   # most slots of one row that one warp of K2 sums
+OWNER_SLOTS = 32   # the longest row one owner sums (kOwnerSlots)
+MIN_RUN = 16       # the shortest run a longer row is cut into
+RUN_TARGET = 2048  # about the warps the card holds: long rows of more
+                   # positions than MIN_RUN x RUN_TARGET take longer runs
+GROUP_RUNS = 16    # a long row's partials are added GROUP_RUNS at a time
+                   # (kGroupRuns), then the group sums
 
 
-class SegmentRuns(NamedTuple):
-    """Where K2 reads and writes, for one pack.
+class SegmentIndex(NamedTuple):
+    """Where K2 reads and writes: P positions sorted by output row.
 
-    run_start    [runs + 1] int32 — first flat slot of each run, then
-                 the slot count.  A run is at most RUN_SLOTS consecutive
-                 slots of one output row within one chunk; runs are in
-                 slot order and cover every slot.
-    run_out      [runs] int32 — where a run's sum goes: its output row
-                 when it is the row's only run, else partial p as -(p+1)
-    comb_rows    [M] int32 — the output rows with no run or several
-    comb_ptr     [M + 1] int32 — their partials, comb_ptr[m] up to
-                 comb_ptr[m + 1], numbered in slot order
-    num_partials int
+    row_ptr    [n_out + 1] int32 — the positions of row r are
+               row_ptr[r] up to row_ptr[r + 1]; those past row_ptr[n_out]
+               are left out
+    src        [P] int32 — the message row of each position (a value at
+               or beyond the messages' rows: none, skipped); None: the
+               position's own row
+    run_row    [L] int32 — the output row of each run of a row of more
+               than OWNER_SLOTS positions (run k of a row covers its
+               positions k * len on, at most len of them), in row order
+               and run order; -1 past the last run
+    run_first  [L] int32 — the first run of that row (its partials are
+               run_first up to run_first + the row's run count)
+    run_len    [L] int32 — the row's run length (``run_length``: one
+               for the whole index)
+    arrivals   [L] int32 — zeros: the kernel's counts of runs done (at a
+               group's first run) and of groups done (at a row's second
+               run), each set back to 0 by the arrival that completes it
+               (so launches on one index run one at a time:
+               ``segment_sum_cuda``)
+    L = ``segment_runs_bound(P)`` whatever the rows, so the shapes follow
+    P and n_out alone.
     """
-    run_start: Any
-    run_out: Any
-    comb_rows: Any
-    comb_ptr: Any
-    num_partials: int
+    row_ptr: Any
+    src: Any
+    run_row: Any
+    run_first: Any
+    run_len: Any
+    arrivals: Any
 
 
-def segment_runs_host(local_rows: np.ndarray, tiles: np.ndarray,
-                      num_tiles: int) -> SegmentRuns:
-    """K2's index of a pack (numpy): the slots cut into runs, and for
-    each output row either its single run or its partials."""
+def run_length(counts, long_positions: int):
+    """The run length of rows of ``counts`` > OWNER_SLOTS positions, of
+    an index whose long rows hold ``long_positions`` positions: MIN_RUN,
+    or as many positions as make RUN_TARGET runs where that is more (a
+    launch whose runs would outnumber the card's warps is bound by its
+    bytes, and longer runs keep its partials few)."""
+    grain = max(MIN_RUN, -(-long_positions // RUN_TARGET))
+    return np.full(np.shape(counts), grain, np.int64)
+
+
+def segment_runs_bound(positions: int) -> int:
+    """The most runs ``positions`` sorted positions can cut into: a row
+    of c > OWNER_SLOTS positions takes ceil(c / len) <= c / MIN_RUN + 1
+    < c / MIN_RUN + c / (OWNER_SLOTS + 1) runs."""
+    return -(-positions // MIN_RUN) + -(-positions // (OWNER_SLOTS + 1))
+
+
+def segment_index_host(rows: np.ndarray, n_out: int,
+                       src: Optional[np.ndarray] = None) -> SegmentIndex:
+    """K2's index (numpy) of positions whose output rows ``rows`` [P]
+    are sorted, within n_out rows, each reading message row ``src[p]``
+    (its own row p where src is None).  A position of row n_out is left
+    out: no row covers it (the positions past row_ptr[n_out])."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (np.any(rows[1:] < rows[:-1]) or rows[0] < 0
+                      or rows[-1] > n_out):
+        raise ValueError(f"rows must be sorted and within {n_out} rows")
+    if src is not None and len(src) != rows.size:
+        raise ValueError(f"src holds {len(src)} positions, rows "
+                         f"{rows.size}")
+    counts = np.bincount(rows, minlength=n_out + 1)[:n_out]
+    long_rows = np.flatnonzero(counts > OWNER_SLOTS)
+    lengths = run_length(counts[long_rows], int(counts[long_rows].sum()))
+    pieces = -(-counts[long_rows] // lengths)
+    first = np.cumsum(pieces) - pieces
+    total = segment_runs_bound(rows.size)
+    run_row = np.full(total, -1, np.int32)
+    run_first = np.zeros(total, np.int32)
+    run_len = np.zeros(total, np.int32)
+    runs = int(pieces.sum())
+    run_row[:runs] = np.repeat(long_rows, pieces)
+    run_first[:runs] = np.repeat(first, pieces)
+    run_len[:runs] = np.repeat(lengths, pieces)
+    return SegmentIndex(
+        np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        None if src is None else np.asarray(src, np.int32),
+        run_row, run_first, run_len, np.zeros(total, np.int32))
+
+
+def pack_segment_index_host(local_rows: np.ndarray, tiles: np.ndarray,
+                            num_tiles: int) -> SegmentIndex:
+    """K2's index of a pack's slots (the TPU contract: every slot, padding
+    slots included, to row tiles*R + local_rows of num_tiles tiles): the
+    slots stably sorted by row as src, so each row sums its slots in slot
+    order (None where the slots are sorted already)."""
     local_rows = np.asarray(local_rows, np.int64)
-    nc, c = local_rows.shape
     rows = (np.asarray(tiles, np.int64)[:, None] * ROWS_PER_TILE
             + local_rows).reshape(-1)
     n_out = num_tiles * ROWS_PER_TILE
     if rows.size and (rows.min() < 0 or rows.max() >= n_out):
         raise ValueError(f"pack rows outside the {n_out} rows of "
                          f"{num_tiles} tiles")
-    # a run starts at each chunk, at each change of row, and every
-    # RUN_SLOTS slots after that
-    new = np.ones(rows.size, bool)
-    new[1:] = rows[1:] != rows[:-1]
-    new[::c] = True
-    starts = np.flatnonzero(new)
-    pieces = -(-np.diff(np.append(starts, rows.size)) // RUN_SLOTS)
-    first = np.cumsum(pieces) - pieces
-    k = np.arange(int(pieces.sum()))
-    run_start = (np.repeat(starts, pieces)
-                 + (k - np.repeat(first, pieces)) * RUN_SLOTS)
-    run_row = rows[run_start]
-    count = np.bincount(run_row, minlength=n_out)
-    # partials of rows with several runs: by row, then in slot order
-    multi = np.flatnonzero(count[run_row] > 1)
-    multi = multi[np.argsort(run_row[multi], kind="stable")]
-    run_out = run_row.copy()
-    run_out[multi] = -1 - np.arange(len(multi))
-    comb_rows = np.flatnonzero(count != 1)
-    sizes = np.where(count[comb_rows] > 1, count[comb_rows], 0)
-    return SegmentRuns(
-        np.append(run_start, rows.size).astype(np.int32),
-        run_out.astype(np.int32), comb_rows.astype(np.int32),
-        np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
-        len(multi))
+    order = np.argsort(rows, kind="stable")
+    sorted_already = np.array_equal(order, np.arange(rows.size))
+    return segment_index_host(rows[order], n_out,
+                              None if sorted_already else order)
 
 
-def fixed_runs_host(rows: np.ndarray, n_out: int) -> SegmentRuns:
-    """K2's index of S slots whose output rows ``rows`` [S] never fall,
-    at shapes that depend on S and n_out alone (so batches of one loader
-    share one captured program): runs cut at each change of row and
-    every RUN_SLOTS slots, padded with empty runs to
-    ``fixed_runs_count(S, n_out)``; every run writes its own partial
-    (run j partial j), and every one of the n_out output rows is
-    combined from its partials in slot order (0 where it has none).
-    num_partials is the padded run count."""
-    rows = np.asarray(rows, np.int64)
-    if rows.size and (np.any(rows[1:] < rows[:-1]) or rows[0] < 0
-                      or rows[-1] >= n_out):
-        raise ValueError(f"rows must be sorted and within {n_out} rows")
-    new = np.ones(rows.size, bool)
-    new[1:] = rows[1:] != rows[:-1]
-    starts = np.flatnonzero(new)
-    pieces = -(-np.diff(np.append(starts, rows.size)) // RUN_SLOTS)
-    first = np.cumsum(pieces) - pieces
-    k = np.arange(int(pieces.sum()))
-    run_start = (np.repeat(starts, pieces)
-                 + (k - np.repeat(first, pieces)) * RUN_SLOTS)
-    total = fixed_runs_count(rows.size, n_out)
-    per_row = np.bincount(rows[run_start], minlength=n_out)
-    return SegmentRuns(
-        np.concatenate([run_start, np.full(total + 1 - len(run_start),
-                                           rows.size)]).astype(np.int32),
-        (-1 - np.arange(total)).astype(np.int32),
-        np.arange(n_out, dtype=np.int32),
-        np.concatenate([[0], np.cumsum(per_row)]).astype(np.int32),
-        total)
+def index_rows(index: SegmentIndex, positions: int) -> torch.Tensor:
+    """[positions] int64: the output row of each position, n_out for the
+    positions left out (past row_ptr[n_out])."""
+    ptr = index.row_ptr.long()
+    counts = torch.cat([ptr[1:] - ptr[:-1], positions - ptr[-1:]])
+    return torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts,
+        output_size=positions)
 
 
-def fixed_runs_count(slots: int, n_out: int) -> int:
-    """The most runs that sorted rows of ``slots`` slots over n_out rows
-    cut into: a row of c slots takes ceil(c / RUN_SLOTS) runs."""
-    return -(-slots // RUN_SLOTS) + n_out
-
-
-def segment_sum_plain(msg: torch.Tensor, rows: torch.Tensor,
-                      n_out: int) -> torch.Tensor:
-    """K2's function on an index of rows: f32 out [n_out, D], out[rows[s]]
-    += msg[s] (index_add_; float64 for float64 msg)."""
-    out = torch.zeros(n_out, msg.shape[-1], dtype=_sum_dtype(msg),
+def segment_sum_plain(msg: torch.Tensor,
+                      index: SegmentIndex) -> torch.Tensor:
+    """K2's function: f32 out [n_out, D], out[row(p)] += msg[src[p]]
+    over the positions of the rows in order (index_add_ of the
+    src-gathered rows; a none source adds the zero row, a left-out
+    position a row past out; float64 for float64 msg)."""
+    n_out = index.row_ptr.numel() - 1
+    if index.src is None:
+        vals = msg
+    else:
+        vals = take_padded(msg, index.src.clamp(0, msg.shape[0]))
+    out = torch.zeros(n_out + 1, msg.shape[-1], dtype=_sum_dtype(msg),
                       device=msg.device)
-    return out.index_add_(0, rows.long(), msg.to(out.dtype))
+    return out.index_add_(0, index_rows(index, vals.shape[0]),
+                          vals.to(out.dtype))[:n_out]
 
 
-_RUNS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_RUNS_CACHE_SIZE = 8
+_INDEX_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_INDEX_CACHE_SIZE = 8
 
 
-def segment_runs(local_rows: torch.Tensor, tiles: torch.Tensor,
-                 num_tiles: int) -> SegmentRuns:
-    """``segment_runs_host`` of a pack, on local_rows' device, built
-    once per pack.  The cache holds the pack's own tensors, so a hit
-    names the same memory, unchanged since (equal version counters)."""
+def segment_index(local_rows: torch.Tensor, tiles: torch.Tensor,
+                  num_tiles: int) -> SegmentIndex:
+    """``pack_segment_index_host`` of a pack, on local_rows' device,
+    built once per pack.  The cache holds the pack's own tensors, so a
+    hit names the same memory, unchanged since (equal version
+    counters)."""
     key = (local_rows.data_ptr(), tiles.data_ptr(), local_rows.device,
            tuple(local_rows.shape), tuple(tiles.shape),
            local_rows._version, tiles._version, num_tiles)
-    hit = _RUNS_CACHE.get(key)
+    hit = _INDEX_CACHE.get(key)
     if hit is None:
-        host = segment_runs_host(local_rows.cpu().numpy(),
-                                 tiles.cpu().numpy(), num_tiles)
-        runs = SegmentRuns(*(torch.from_numpy(a).to(local_rows.device)
-                             for a in host[:4]), host.num_partials)
-        hit = _RUNS_CACHE[key] = (local_rows, tiles, runs)
-        while len(_RUNS_CACHE) > _RUNS_CACHE_SIZE:
-            _RUNS_CACHE.popitem(last=False)
+        host = pack_segment_index_host(local_rows.cpu().numpy(),
+                                       tiles.cpu().numpy(), num_tiles)
+        index = SegmentIndex(*(None if a is None else
+                               torch.from_numpy(a).to(local_rows.device)
+                               for a in host))
+        hit = _INDEX_CACHE[key] = (local_rows, tiles, index)
+        while len(_INDEX_CACHE) > _INDEX_CACHE_SIZE:
+            _INDEX_CACHE.popitem(last=False)
     return hit[2]
 
 
@@ -580,9 +612,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     # x, x_rows, d, senders, weights, row_range, n_rows, out, stream
     "packed_spmm": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P],
-    # msg, d, n_runs, run_start, run_out, n_comb, comb_rows, comb_ptr,
-    # partial, out, stream
-    "packed_segment": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
+    # msg, n_src, d, src, row_ptr, n_out, run_row, run_first, run_len,
+    # n_runs, arrivals, partial, out, stream
+    "packed_segment": [_P, _LL, _I, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
+                       _P, _P],
     # v, n_rows, d, heads, senders, alpha, row_range, out, stream
     "packed_attention": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
     # a, b, n_rows, d, heads, senders, weights, local_rows, tiles, n_slots,
@@ -766,16 +799,15 @@ packed_sddmm_cuda.launches = 0
 def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
                                tiles: torch.Tensor,
                                num_tiles: int) -> torch.Tensor:
-    """Launch the Hopper kernel K2: f32 out [num_tiles*R, D],
-    out[tiles[i]*R + local_rows[i, c]] += msg[i, c] over every slot, with
-    msg [NC, C, D] f32 or bf16 and the pack's int32 local_rows [NC, C]
-    and tiles [NC] on a CUDA device.  Adds one to
-    ``packed_segment_matmul_cuda.launches`` per launch."""
+    """Launch the Hopper kernel K2 on a pack's slots (the TPU contract):
+    f32 out [num_tiles*R, D], out[tiles[i]*R + local_rows[i, c]] +=
+    msg[i, c] over every slot, with msg [NC, C, D] f32 or bf16 and the
+    pack's int32 local_rows [NC, C] and tiles [NC] on a CUDA device, on
+    the pack's index (``segment_index``, built once per pack).  Adds one
+    to ``packed_segment_matmul_cuda.launches`` per launch."""
     name = "packed_segment_matmul_cuda"
     _check(name, msg.is_cuda and msg.dim() == 3,
            "msg must be a 3-D CUDA tensor")
-    _check(name, msg.dtype in (torch.float32, torch.bfloat16),
-           f"msg dtype {msg.dtype} not supported (float32, bfloat16)")
     _check(name, tuple(local_rows.shape) == tuple(msg.shape[:2])
            and tuple(tiles.shape) == tuple(msg.shape[:1]),
            f"local_rows {tuple(local_rows.shape)} and tiles "
@@ -783,56 +815,59 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
     for field, a in (("local_rows", local_rows), ("tiles", tiles)):
         _check(name, a.device == msg.device and a.dtype == torch.int32,
                f"{field} must be an int32 tensor on {msg.device}")
-    return _segment_launch(msg, segment_runs(local_rows, tiles, num_tiles),
-                           num_tiles * ROWS_PER_TILE)
+    return segment_sum_cuda(msg.reshape(-1, msg.shape[-1]),
+                            segment_index(local_rows, tiles, num_tiles))
 
 
 packed_segment_matmul_cuda.launches = 0
 packed_segment_matmul_cuda.launches_by_pack = collections.Counter()
 
 
-def packed_segment_runs_cuda(msg: torch.Tensor, runs: SegmentRuns,
-                             n_out: int, pack: str = "") -> torch.Tensor:
-    """Launch K2 on an index built on the host beside its batch (no copy
-    to the host, so a captured step may launch it): f32 out [n_out, D],
-    each output row the sum of its runs' slots of msg [S, D] (f32 or
-    bf16) in slot order, with ``runs``' int32 arrays on msg's device and
-    room for ``runs.num_partials`` partial rows.  Adds one to
+def segment_sum_cuda(msg: torch.Tensor, index: SegmentIndex,
+                     pack: str = "") -> torch.Tensor:
+    """Launch K2 (csrc/packed_segment.cu) on an index built on the host
+    (no copy to the host, so a captured step may launch it): f32 out
+    [n_out, D], each row the sum of its positions' messages msg[src[p]]
+    [n_src, D] (f32 or bf16; msg[p] where src is None) in position
+    order, the index's int32 arrays on msg's device.  Adds one to
     ``packed_segment_matmul_cuda.launches`` (K2's count) per launch, and
-    to the entry of ``pack`` (the kind of the batch pack ``runs`` came
-    from) in its ``launches_by_pack``."""
-    name = "packed_segment_runs_cuda"
+    to the entry of ``pack`` (the kind of the batch pack the index came
+    from; '' for a pack's own slots) in its ``launches_by_pack``.
+
+    Not reentrant per index: the launch counts its long rows' runs in
+    the index's ``arrivals`` and leaves them at 0 when it ends, so two
+    launches on one index must not overlap (two streams, or two
+    branches of a captured graph).  Every caller in the port launches
+    on the current stream, one after another."""
+    name = "segment_sum_cuda"
     _check(name, msg.is_cuda and msg.dim() == 2,
            "msg must be a 2-D CUDA tensor")
     _check(name, msg.dtype in (torch.float32, torch.bfloat16),
            f"msg dtype {msg.dtype} not supported (float32, bfloat16)")
-    for field in ("run_start", "run_out", "comb_rows", "comb_ptr"):
-        a = getattr(runs, field)
-        _check(name, a.device == msg.device and a.dtype == torch.int32
-               and a.is_contiguous(),
-               f"{field} must be a contiguous int32 tensor on {msg.device}")
-    _check(name, runs.run_start.numel() == runs.run_out.numel() + 1
-           and runs.comb_ptr.numel() == runs.comb_rows.numel() + 1,
-           "run_start / comb_ptr must hold one entry more than "
-           "run_out / comb_rows")
-    return _segment_launch(msg, runs, n_out, pack)
-
-
-def _segment_launch(msg: torch.Tensor, runs: SegmentRuns, n_out: int,
-                    pack: str = "") -> torch.Tensor:
-    """K2's two passes on the current stream: f32 out [n_out, D] from
-    msg [..., D] and its runs, counted under ``pack``."""
+    for field, a in zip(index._fields, index):
+        _check(name, (a is None and field == "src")
+               or (a is not None and a.device == msg.device
+                   and a.dtype == torch.int32 and a.is_contiguous()
+                   and a.dim() == 1),
+               f"{field} must be a contiguous 1-D int32 tensor on "
+               f"{msg.device}")
+    n_runs = index.run_row.numel()
+    _check(name, all(a.numel() == n_runs for a in index[3:]),
+           "run_row, run_first, run_len and arrivals must hold one entry "
+           "a run")
     msg = msg.contiguous()
-    d = msg.shape[-1]
+    n_src, d = msg.shape
+    n_out = index.row_ptr.numel() - 1
     out = torch.empty(n_out, d, dtype=torch.float32, device=msg.device)
     if out.numel() == 0:
         return out
-    partial = torch.empty(runs.num_partials, d, dtype=torch.float32,
+    partial = torch.empty(n_runs, d, dtype=torch.float32,
                           device=msg.device)
-    _launch("packed_segment", msg, d, runs.run_out.numel(),
-            runs.run_start.data_ptr(), runs.run_out.data_ptr(),
-            runs.comb_rows.numel(), runs.comb_rows.data_ptr(),
-            runs.comb_ptr.data_ptr(), partial.data_ptr(), out.data_ptr())
+    _launch("packed_segment", msg, n_src, d,
+            None if index.src is None else index.src.data_ptr(),
+            index.row_ptr.data_ptr(), n_out, index.run_row.data_ptr(),
+            index.run_first.data_ptr(), index.run_len.data_ptr(), n_runs,
+            index.arrivals.data_ptr(), partial.data_ptr(), out.data_ptr())
     packed_segment_matmul_cuda.launches += 1
     packed_segment_matmul_cuda.launches_by_pack[pack] += 1
     return out
@@ -973,16 +1008,14 @@ def packed_segment_matmul(msg: torch.Tensor, local_rows: torch.Tensor,
     return packed_segment_matmul_plain(msg, local_rows, tiles, num_tiles)
 
 
-def segment_sum_runs(msg: torch.Tensor, rows: torch.Tensor,
-                     runs: SegmentRuns, n_out: int,
-                     pack: str = "") -> torch.Tensor:
-    """out[rows[s]] += msg[s] into f32 [n_out, D], msg [S, D], by the
-    slots' host-built index ``runs`` (``fixed_runs_host`` of rows) of
-    the batch's ``pack``: K2 for a CUDA tensor, the plain version for a
-    CPU one."""
+def segment_sum(msg: torch.Tensor, index: SegmentIndex,
+                pack: str = "") -> torch.Tensor:
+    """out[row(p)] += msg[src[p]] into f32 [n_out, D] over the positions
+    of a host-built ``index`` of the batch's ``pack``: K2 for a CUDA
+    tensor, the plain version for a CPU one."""
     if msg.is_cuda:
-        return packed_segment_runs_cuda(msg, runs, n_out, pack)
-    return segment_sum_plain(msg, rows, n_out)
+        return segment_sum_cuda(msg, index, pack)
+    return segment_sum_plain(msg, index)
 
 
 class SegmentMatmulFn(torch.autograd.Function):
@@ -1016,41 +1049,44 @@ def segment_matmul_vjp(msg: torch.Tensor, local_rows: torch.Tensor,
     return SegmentMatmulFn.apply(msg, local_rows, tiles, num_nodes)
 
 
-class SegmentSumRunsFn(torch.autograd.Function):
+class SegmentSumFn(torch.autograd.Function):
     """Differentiable segmented sum on a host-built index (the edge
     convs' S.segment_sum over receivers, graphgym_tpu/nn/layers.py:706):
-    out[rows[s]] += msg[s] over every slot, K2 on ``runs`` for a CUDA
-    msg (``segment_sum_runs``, counted under ``pack``), sliced to
-    ``num_rows`` rows.  The gradient is the gather d_msg[s] = g[rows[s]].
-    rows and runs get no gradient."""
+    out[row(p)] += msg[src[p]], K2 for a CUDA msg (``segment_sum``,
+    counted under ``pack``), sliced to ``num_rows`` rows.  Every message
+    row is the source of at most one position, and ``grad_rows``
+    [n_src] is that position's row (g's row count where it has none, or
+    is left out): the gradient is the gather d_msg[i] = g[grad_rows[i]],
+    0 past g's rows, no scatter.  The index and grad_rows get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, msg: torch.Tensor, rows: torch.Tensor,
-                runs: SegmentRuns, n_out: int, num_rows: int,
+    def forward(ctx, msg: torch.Tensor, index: SegmentIndex,
+                grad_rows: torch.Tensor, num_rows: int,
                 pack: str) -> torch.Tensor:
-        ctx.save_for_backward(rows)
-        return segment_sum_runs(msg, rows, runs, n_out, pack)[
-            :num_rows].to(msg.dtype)
+        ctx.save_for_backward(grad_rows)
+        return segment_sum(msg, index, pack)[:num_rows].to(msg.dtype)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (rows,) = ctx.saved_tensors
-        return g.index_select(0, rows), None, None, None, None, None
+        (grad_rows,) = ctx.saved_tensors
+        return take_padded(g, grad_rows), None, None, None, None
 
 
-def segment_sum_runs_vjp(msg: torch.Tensor, rows: torch.Tensor,
-                         runs: SegmentRuns, n_out: int, num_rows: int,
-                         pack: str = "") -> torch.Tensor:
-    return SegmentSumRunsFn.apply(msg, rows, runs, n_out, num_rows, pack)
+def segment_sum_vjp(msg: torch.Tensor, index: SegmentIndex,
+                    grad_rows: torch.Tensor, num_rows: int,
+                    pack: str = "") -> torch.Tensor:
+    return SegmentSumFn.apply(msg, index, grad_rows, num_rows, pack)
 
 
 class PermuteRowsFn(torch.autograd.Function):
-    """out[s] = a[index[s]] with ``index`` a bijection between a's rows
-    and some of out's, every other out row reading an appended zero row
-    (index = a's row count): the edge convs' per-edge rows in the 'edge'
-    pack's slot order.  The gradient is the gather of the inverse map,
-    da[e] = g[inverse[e]], no scatter and no atomics.  The maps get no
-    gradient."""
+    """out[s] = a[index[s]] with ``index`` a bijection between some of
+    a's rows and some of out's, every other out row reading an appended
+    zero row (index = a's row count): the edge softmax's per-edge logits
+    in the 'edge' pack's slot order, and its weights back in edge order.
+    The gradient is the gather of the inverse map, da[e] = g[inverse[e]]
+    (0 where inverse[e] is g's row count), no scatter and no atomics.
+    The maps get no gradient."""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, index: torch.Tensor,
@@ -1061,7 +1097,7 @@ class PermuteRowsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (inverse,) = ctx.saved_tensors
-        return g.index_select(0, inverse), None, None
+        return take_padded(g, inverse), None, None
 
 
 def permute_rows(a: torch.Tensor, index: torch.Tensor,

@@ -47,7 +47,7 @@ from graphgym_tpu_torch.graphs.container import build_graph_batch
 from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS, EDGE,
                                                EDGE_BOND, EDGE_CONVS,
                                                build_embed_pack, build_packs,
-                                               kinds_for_layer)
+                                               edge_index, kinds_for_layer)
 from graphgym_tpu_torch.nn import att_layers, layers
 from graphgym_tpu_torch.nn.model import LAYERS, GNNOptions
 from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
@@ -256,12 +256,12 @@ def test_k2_calls_name_their_pack(monkeypatch):
     'edge_bond'; a K2 by-pack count is snapshotted and replayed as the
     other counters are."""
     seen = []
-    real = K.segment_sum_runs
+    real = K.segment_sum
 
-    def record(msg, rows, runs, n_out, pack=""):
+    def record(msg, index, pack=""):
         seen.append(pack)
-        return real(msg, rows, runs, n_out, pack)
-    monkeypatch.setattr(K, "segment_sum_runs", record)
+        return real(msg, index, pack)
+    monkeypatch.setattr(K, "segment_sum", record)
     _, b = edge_pair(kinds_for_layer("generalogbconv", "add"), ids=True)
     mod = layer("generalogbconv", agg="add", normalize_adj=True)
     out = mod(b).node_feat
@@ -352,8 +352,10 @@ def test_sample_edge_conv_draws():
 
 def test_edge_pack_slots():
     """The 'edge' pack: each batch edge in one slot of its receiver's
-    row, the slots of no edge pointing past the edges, K2's rows sorted
-    and each edge's its receiver."""
+    row, the slots of no edge pointing past the edges; K2's index lists
+    every batch edge once and no slot of no edge, the real edges by
+    receiver and then in edge order, each edge's row its receiver, the
+    padding edges after the rows, left out."""
     _, b = edge_pair(kinds_for_layer("generaledgeconv"))
     fwd, slots = b.packs[EDGE]
     se = slots.slot_edge.reshape(-1).long()
@@ -361,11 +363,19 @@ def test_edge_pack_slots():
     assert held.sum() == E_PAD
     np.testing.assert_array_equal(se[slots.edge_slot.long()],
                                   np.arange(E_PAD))
-    rows = slots.rows.long()
-    assert torch.all(rows[1:] >= rows[:-1])
-    np.testing.assert_array_equal(rows[held], b.receivers[se[held]])
     np.testing.assert_array_equal(fwd.weights.reshape(-1)[held],
                                   (b.edge_weight[se[held]] != 0).float())
+    order = slots.edge_order.long()
+    assert sorted(order.tolist()) == list(range(E_PAD))
+    rows = K.index_rows(edge_index(slots), E_PAD)
+    real = b.edge_weight[order] != 0
+    np.testing.assert_array_equal(rows[real], b.receivers[order][real])
+    assert (rows[~real] == b.num_nodes).all() and not real[E_REAL:].any()
+    np.testing.assert_array_equal(slots.edge_row[order], rows)
+    key = rows * E_PAD + order
+    assert torch.all(key[1:] > key[:-1])
+    assert slots.row_ptr.numel() == b.num_nodes + 1
+    assert slots.row_ptr[-1] == E_REAL
 
 
 # ---------------------------------------------------------------- models

@@ -8,8 +8,8 @@ embedding pack's segmented sum (K2's plain version here), which equals
 autograd's ``index_select`` gradient.  IntegerFeatureEncoder and
 SingleAtomEncoder copy flax ``nn.Embed`` on unclipped ids: an id past
 the table gives a NaN row and no gradient, -1 the last row; Atom and
-Bond clip.  K2's fixed-shape index (``fixed_runs_host``), run as the
-kernel runs it in numpy, sums every slot once.  ``GraphBatch.edge_feat``
+Bond clip.  K2's fixed-shape index (``segment_index_host``), run as
+the kernel runs it in numpy, sums every slot once.  ``GraphBatch.edge_feat``
 equals the JAX collation (zeros on padded edges, None unless every graph
 of the batch has edge features), and the GNN's encoder stage (the
 encoders, their masked BatchNorms, encoder_dim into pre-MP) matches the
@@ -218,51 +218,73 @@ def test_table_grad_plain_equals_autograd():
     assert_sums_close(t32.grad.numpy(), want.numpy(), grad_scale.numpy())
 
 
-def emulate_k2(msg, runs, n_out):
-    """csrc/packed_segment.cu's two passes in numpy: each run's slots
-    summed in order into its output row or partial; each combined row
-    the sum of its partials."""
+def emulate_k2(msg, index):
+    """csrc/packed_segment.cu in numpy: a row with no run summed by its
+    owner in position order, a long row's runs of run_len positions
+    summed into partials and the partials added in run order,
+    GROUP_RUNS at a time and then the groups; each output row written
+    once."""
     d = msg.shape[1]
+    n_out = len(index.row_ptr) - 1
     out = np.full((n_out, d), np.nan)
-    partial = np.full((runs.num_partials, d), np.nan)
-    for j, dst in enumerate(runs.run_out):
-        s = msg[runs.run_start[j]:runs.run_start[j + 1]].sum(0)
-        if dst >= 0:
-            out[dst] = s
-        else:
-            partial[-1 - dst] = s
-    for m, row in enumerate(runs.comb_rows):
-        lo, hi = runs.comb_ptr[m], runs.comb_ptr[m + 1]
-        out[row] = partial[lo:hi].sum(0) if hi > lo else 0.0
+    ptr = index.row_ptr
+    long_rows = set(index.run_row[index.run_row >= 0].tolist())
+    for r in range(n_out):
+        if r not in long_rows:
+            out[r] = msg[index.src[ptr[r]:ptr[r + 1]]].sum(0)
+    partial = np.full((len(index.run_row), d), np.nan)
+    for j, row in enumerate(index.run_row):
+        if row >= 0:
+            n = index.run_len[j]
+            lo = ptr[row] + (j - index.run_first[j]) * n
+            hi = min(lo + n, ptr[row + 1])
+            partial[j] = msg[index.src[lo:hi]].sum(0)
+    g = K.GROUP_RUNS
+    for j, row in enumerate(index.run_row):
+        if row >= 0 and index.run_first[j] == j:
+            assert np.isnan(out[row]).all()
+            runs = -(-(ptr[row + 1] - ptr[row]) // index.run_len[j])
+            out[row] = sum(partial[g0:min(g0 + g, j + runs)].sum(0)
+                           for g0 in range(j, j + runs, g))
     return out
 
 
 @pytest.mark.parametrize("slots,long_rows", [(0, 0), (37, 0), (900, 2),
                                              (5000, 1)])
 def test_fixed_runs_cover_every_slot(slots, long_rows):
-    """fixed_runs_host: runs of at most RUN_SLOTS slots of one row,
-    padded to fixed_runs_count with empty runs; every output row
-    combined; the emulated kernel equals index_add_."""
+    """segment_index_host: shapes of the slot count and n_out alone; the
+    rows of more than OWNER_SLOTS slots, and only those, cut into runs
+    of run_length slots in row and run order; the emulated kernel sums
+    every slot once (equal to index_add_), as the plain version does."""
     rng = np.random.default_rng(slots)
     n_out = 256
     rows = np.sort(np.concatenate([
         rng.integers(0, 200, slots - 300 * long_rows),
         np.full(300 * long_rows, 7)]))
-    runs = K.fixed_runs_host(rows, n_out)
-    assert len(runs.run_out) == runs.num_partials \
-        == K.fixed_runs_count(slots, n_out)
-    assert len(runs.run_start) == runs.num_partials + 1
-    assert np.all(np.diff(runs.run_start) >= 0)
-    assert np.all(np.diff(runs.run_start) <= K.RUN_SLOTS)
-    assert runs.run_start[-1] == slots
-    np.testing.assert_array_equal(runs.comb_rows, np.arange(n_out))
+    items = rng.permutation(slots).astype(np.int32)
+    index = K.segment_index_host(rows, n_out, items)
+    assert [len(a) for a in index] == [n_out + 1, slots] + [
+        K.segment_runs_bound(slots)] * 4
+    np.testing.assert_array_equal(index.row_ptr,
+                                  np.searchsorted(rows, np.arange(n_out + 1)))
+    live = index.run_row >= 0
+    counts = np.bincount(rows, minlength=n_out)
+    long = np.flatnonzero(counts > K.OWNER_SLOTS)
+    assert (7 in long) == bool(long_rows)
+    np.testing.assert_array_equal(
+        index.run_row[live],
+        np.repeat(long, -(-counts[long] // K.run_length(
+            counts[long], counts[long].sum()))))
+    assert not live[live.sum():].any()
+    assert not index.arrivals.any()
     msg = rng.normal(size=(slots, 3))
     want = np.zeros((n_out, 3))
-    np.add.at(want, rows, msg)
-    np.testing.assert_allclose(emulate_k2(msg, runs, n_out), want,
+    np.add.at(want, rows, msg[items])
+    np.testing.assert_allclose(emulate_k2(msg, index), want,
                                rtol=1e-12, atol=1e-12)
-    plain = K.segment_sum_plain(torch.from_numpy(msg.astype(np.float32)),
-                                torch.from_numpy(rows), n_out)
+    plain = K.segment_sum_plain(
+        torch.from_numpy(msg.astype(np.float32)),
+        K.SegmentIndex(*(torch.from_numpy(a) for a in index)))
     np.testing.assert_allclose(plain.numpy(), want, rtol=1e-5, atol=1e-5)
 
 

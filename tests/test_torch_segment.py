@@ -14,9 +14,9 @@ matmul (:324-325) and the port sums in f32, so each row may differ by
 one bf16 rounding of its messages' magnitudes: |got - want| <= 2^-8 *
 sum|msg| over the row.  Gradient: ``segment_matmul_vjp`` against
 ``jax.vjp`` of the JAX one at a node count that is not a multiple of
-128, so the clamp of :526 acts.  The CUDA kernel's reading rule (the run
-index, two passes) is emulated in numpy here; the kernel itself runs
-under the ``cuda`` marker on a card.
+128, so the clamp of :526 acts.  The CUDA kernel's reading rule (the
+pack's index, owner rows and runs) is emulated in numpy here; the
+kernel itself runs under the ``cuda`` marker on a card.
 """
 
 import numpy as np
@@ -172,75 +172,98 @@ def test_segment_matmul_vjp_matches_jax(num_nodes):
                                   np.broadcast_to(g[-1], (past.sum(), 8)))
 
 
-def kernel_emulation(runs: K.SegmentRuns, msg: np.ndarray,
-                     n_out: int) -> np.ndarray:
-    """K2's two passes in numpy: each run summed in slot order (f32),
-    written to its row or its partial; then each combined row's
-    partials summed by 8 strided warps, the warp sums in order."""
+def kernel_emulation(index: K.SegmentIndex, msg: np.ndarray) -> np.ndarray:
+    """K2 in numpy (csrc/packed_segment.cu): a row with no run summed by
+    its owner in position order (f32); a longer row by runs of run_len
+    positions into partials, the partials then added in run order
+    GROUP_RUNS at a time, and those group sums in order."""
     flat = msg.reshape(-1, msg.shape[-1])
+    src = (np.arange(index.row_ptr[-1]) if index.src is None
+           else index.src)
+    n_out = len(index.row_ptr) - 1
     out = np.full((n_out, flat.shape[1]), np.nan, np.float32)
-    partial = np.zeros((runs.num_partials, flat.shape[1]), np.float32)
-    for k, dst in enumerate(runs.run_out):
+
+    def walk(lo, hi):
         acc = np.zeros(flat.shape[1], np.float32)
-        for slot in range(runs.run_start[k], runs.run_start[k + 1]):
-            acc += flat[slot]
-        if dst >= 0:
-            assert np.isnan(out[dst]).all()
-            out[dst] = acc
-        else:
-            partial[-1 - dst] = acc
-    for row, lo, hi in zip(runs.comb_rows, runs.comb_ptr[:-1],
-                           runs.comb_ptr[1:]):
-        warps = np.zeros((8, flat.shape[1]), np.float32)
         for p in range(lo, hi):
-            warps[(p - lo) % 8] += partial[p]
-        acc = np.zeros(flat.shape[1], np.float32)
-        for wsum in warps:
-            acc += wsum
-        assert np.isnan(out[row]).all()
-        out[row] = acc
+            acc += flat[src[p]]
+        return acc
+
+    long_rows = set(index.run_row[index.run_row >= 0].tolist())
+    for r in range(n_out):
+        if r not in long_rows:
+            out[r] = walk(index.row_ptr[r], index.row_ptr[r + 1])
+    partial = {}
+    for j, row in enumerate(index.run_row):
+        if row < 0:
+            continue
+        n = index.run_len[j]
+        lo = index.row_ptr[row] + (j - index.run_first[j]) * n
+        partial[j] = walk(lo, min(lo + n, index.row_ptr[row + 1]))
+    g = K.GROUP_RUNS
+    for j, row in enumerate(index.run_row):
+        if row >= 0 and index.run_first[j] == j:
+            assert np.isnan(out[row]).all()
+            runs = -(-(index.row_ptr[row + 1] - index.row_ptr[row])
+                     // index.run_len[j])
+            acc = np.zeros(flat.shape[1], np.float32)
+            for g0 in range(j, j + runs, g):
+                group = np.zeros(flat.shape[1], np.float32)
+                for p in range(g0, min(g0 + g, j + runs)):
+                    group += partial[p]
+                acc += group
+            out[row] = acc
     return out
 
 
 @pytest.mark.parametrize("seed,group,pad_to", [(0, 1, 64), (1, 2, None),
                                                 (2, 1, None)])
 def test_segment_runs_cover_every_slot(seed, group, pad_to):
-    """The run index: runs tile the slot order, each at most RUN_SLOTS
-    slots of one row within one chunk; every output row is written once
-    (by its only run or by the combine pass), and the two passes in
-    numpy equal the plain version."""
+    """A pack's index (the TPU contract): every slot once, sorted by row
+    and in slot order within a row; runs only for the rows longer than
+    OWNER_SLOTS positions, in row and run order; and the kernel's order
+    in numpy equals the plain version."""
     s, r, w, n = random_graph(seed, e=2500, hot=2000)
     pack = K.pack_csr(s, r, w, n, pad_chunks_to=pad_to, group=group)
-    runs = K.segment_runs_host(pack.local_rows, pack.tiles, num_tiles(n))
-    start = runs.run_start
-    assert start[0] == 0 and start[-1] == pack.senders.size
-    assert (np.diff(start) >= 1).all() and (np.diff(start) <= K.RUN_SLOTS
-                                            ).all()
+    index = K.pack_segment_index_host(pack.local_rows, pack.tiles,
+                                      num_tiles(n))
     rows = (pack.tiles[:, None] * R + pack.local_rows).reshape(-1)
-    c = pack.senders.shape[1]
-    for k in range(len(runs.run_out)):
-        assert (rows[start[k]:start[k + 1]] == rows[start[k]]).all()
-        assert start[k] // c == (start[k + 1] - 1) // c
+    src = index.src
+    assert src is not None            # the tiles' padding slots come last
+    assert sorted(src) == list(range(rows.size))
+    assert (np.diff(rows[src]) >= 0).all()
+    for row in np.unique(rows):       # slot order within a row
+        assert (np.diff(src[rows[src] == row]) > 0).all()
+    np.testing.assert_array_equal(np.diff(index.row_ptr),
+                                  np.bincount(rows, minlength=len(
+                                      index.row_ptr) - 1))
+    runs = index.run_row[index.run_row >= 0]
+    counts = np.diff(index.row_ptr)
+    long_rows = np.flatnonzero(counts > K.OWNER_SLOTS)
     # a hot row spans several chunks, and the padding chunks pile on
-    # row 0 of the last tile: some rows go through the combine pass
-    assert runs.num_partials > 0
+    # row 0 of the last tile: some rows are cut into runs
+    assert len(long_rows) > 0
+    long = counts[long_rows]
+    np.testing.assert_array_equal(
+        runs, np.repeat(long_rows, -(-long // K.run_length(long,
+                                                            long.sum()))))
+    assert len(index.run_row) == K.segment_runs_bound(rows.size)
     msg = random_msg(seed, pack, 4)
     want = K.packed_segment_matmul_plain(
         torch.from_numpy(msg), *pack_tensors(pack)[2:4], num_tiles(n))
-    np.testing.assert_allclose(
-        kernel_emulation(runs, msg, num_tiles(n) * R), want.numpy(),
-        rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(kernel_emulation(index, msg), want.numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_segment_runs_cached_per_pack():
     s, r, w, n = random_graph(3, e=400, hot=100)
     p = pack_tensors(K.pack_csr(s, r, w, n))
-    first = K.segment_runs(p.local_rows, p.tiles, num_tiles(n))
-    assert K.segment_runs(p.local_rows, p.tiles, num_tiles(n)) is first
+    first = K.segment_index(p.local_rows, p.tiles, num_tiles(n))
+    assert K.segment_index(p.local_rows, p.tiles, num_tiles(n)) is first
     p.local_rows[0, 0] += 0        # an in-place write: built anew
-    assert K.segment_runs(p.local_rows, p.tiles, num_tiles(n)) is not first
+    assert K.segment_index(p.local_rows, p.tiles, num_tiles(n)) is not first
     with pytest.raises(ValueError, match="outside"):
-        K.segment_runs_host(p.local_rows.numpy(), p.tiles.numpy(), 1)
+        K.pack_segment_index_host(p.local_rows.numpy(), p.tiles.numpy(), 1)
 
 
 def test_segment_cpu_tensor_takes_plain_version():
