@@ -339,6 +339,38 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   CPU check of the ENZYMES graph point at gcnconv with
                   dataset.edge_encoder, the edge BN's statistics
                   included.
+  ego_union     — (after ogb_files) the native ego-net union
+                  (native/graph_native.cpp through data/transforms.
+                  ego_nets) against its numpy plain version on
+                  MOLHIV_CUT's molecules at r = 3, every union equal
+                  array for array, both timed (the native at least 5x
+                  the numpy's speed); the native union alone on all of
+                  the stand-in's molecules; the native betweenness on
+                  ba500's first graph against the Python loop, bitwise,
+                  both timed.  Host seconds on the card machine's CPU.
+  ginconv_ba_gcn_noself — (after the ba paths) the GIN aggregation
+                  ablation (cfg.gnn.gin_agg, results/ablation_gin):
+                  configs/ginconv_ba.yaml (Tfg-ginconv, 3 x 128, batch
+                  48) with gin_agg gcn_noself through drive_path's
+                  phases: K1 on the 'gcn_noself' pack, 5 per train step
+                  (1 at D = 1) and 3 per eval batch (1), as ID-GIN ba on
+                  'plain'; then model_ginconv_ba_gcn and _mean, card vs
+                  CPU on its val batch without a training (K1 8 on
+                  'gcn' and 'wmean'); then ginconv_ba_sum_beside: the
+                  same batch under gin_agg sum ('plain') and gcn_noself,
+                  K1 on each fwd pack at 128 timed in turn over three
+                  rounds, and each config's captured replay ms.
+  remat         — (after the 500-node paths) tpu.remat: design_ws's
+                  point (BN, dropout 0.3) trained 5 captured steps by a
+                  trainer without remat and two with it, all from one
+                  seed: losses, gradients, parameters, BN statistics
+                  and the dropout generator's end state bitwise equal;
+                  K1 6 a train step without remat, 9 with it (each MP
+                  layer's forward again in the backward); then
+                  idgraph_ba500's loaded train batch without and with
+                  remat, one trainer freed before the other: each one's
+                  peak device memory, capture and replay wall ms (K1 6
+                  and 8 a step).
   prefetch_idgin_ba — ID-GIN ba's train loader (2 batches of 48 graphs
                   re-collated each epoch): the run with cfg.tpu.prefetch
                   off and on (train_path, 10 epochs, the launches of
@@ -472,6 +504,7 @@ try:
     from graphgym_tpu_torch.data.loaders import create_dataset, create_loader
     from graphgym_tpu_torch.device import resolve_device
     from graphgym_tpu_torch.exp import parity
+    from graphgym_tpu_torch.exp import remat_cost
     from graphgym_tpu_torch.exp.corpus_time import corpus_digest
     from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS,
                                                    EDGE, EDGE_BOND,
@@ -483,7 +516,7 @@ try:
                                                    POOLINGS,
                                                    build_pool_packs,
                                                    edge_index, embed_index,
-                                                   kinds_for_layer,
+                                                   gin_kind, kinds_for_cfg,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
     from graphgym_tpu_torch.nn import model as M
@@ -585,6 +618,10 @@ IDGRAPH_BA = ("dataset.task", "graph", "dataset.transductive", "False",
 # points (base config, overrides): the ID chunk's gcnidconv on ba500 (ego
 # at r = 3, its centers pooled) and the plain chunk's gatconv with
 # node_identity features on ws500 (500 nodes pooled a graph)
+# design_ws's point on configs/idgcn_ws.yaml (at ginidconv): PReLU,
+# skipsum, dropout 0.3 (BatchNorm on, the config's)
+DESIGN_WS = ("gnn.act", "prelu", "gnn.stage_type", "skipsum",
+             "gnn.dropout", "0.3")
 IDGRAPH_BA500 = parity.POINTS["idgraph_ba500"]
 # idgraph_ba500 runs here at 2 MP layers (ego nets at r = 2, the layers'
 # depth), the script's time: at the grid's 3 its ego union (~2.1 M
@@ -3578,9 +3615,7 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
     cfg, loaders, host_s = load_path(cfg_file, overrides)
     batch = loaders[0].batches(0)[0]
     n, d = batch.num_nodes, cfg.gnn.dim_inner
-    kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                            cfg.gnn.normalize_adj, cfg.gnn.flow,
-                            cfg.gnn.msg_direction)
+    kinds = kinds_for_cfg(cfg.gnn)
     kind = kinds[0]
     dev_batch = batch.to(device)
     dev_packs = dev_batch.packs
@@ -3701,7 +3736,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
 
 
 def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
-                layers=None, k2_packs=None) -> dict:
+                layers=None, k2_packs=None,
+                random_features: bool = False) -> dict:
     """model_<tag>, a layer type checked without a training: check_model
     on the config's first val batch at full width, the launches of its
     card side (a train-mode forward and backward, then an eval-mode
@@ -3712,14 +3748,13 @@ def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
     entries of the model's layer table while the check runs (a layer
     built with an option its layer type does not set).  ``k2_packs``
     maps a batch pack kind to K2's launches on its index, held as K2's
-    launches by pack."""
+    launches by pack.  ``random_features``: check_model's seeded ones
+    (a config whose features are constant)."""
     from unittest import mock
 
     cfg, loaders, _ = load_path(cfg_file, overrides)
     batch = loaders[1].batches(0)[0]
-    kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                            cfg.gnn.normalize_adj, cfg.gnn.flow,
-                            cfg.gnn.msg_direction)
+    kinds = kinds_for_cfg(cfg.gnn)
     kind = kinds[0]
     dev_batch = batch.to(device)
     packs = dev_batch.packs[kind]
@@ -3735,7 +3770,7 @@ def model_phase(tag: str, cfg_file: str, overrides, device, expected: dict,
             packs, n, d, device)
     with mock.patch.dict(M.LAYERS, layers or {}):
         model, (launches, by_width, _, k2_by_pack) = counted(
-            lambda: check_model(cfg, batch, device))
+            lambda: check_model(cfg, batch, device, random_features))
     hold_counts(f"model_{tag}", launches,
                 {k.__name__: (c, "the train step and the eval forward")
                  for k, c in expected.items()})
@@ -4714,6 +4749,198 @@ def linkid_ba_path(device, ba_overrides) -> dict:
                       random_features=True, model_graphs=8)
 
 
+def same_union(a, b) -> bool:
+    """Two ego-net unions equal array for array: the node count, the
+    edge_index (values and dtype) and every feature."""
+    return (a.num_nodes == b.num_nodes
+            and a.edge_index.dtype == b.edge_index.dtype
+            and np.array_equal(a.edge_index, b.edge_index)
+            and sorted(a.feats) == sorted(b.feats)
+            and all(np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+                    and np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                    for k in b.feats))
+
+
+def ego_union_phase() -> dict:
+    """ego_union: the native ego-net union (data/transforms.ego_nets on
+    native/graph_native.cpp's ego_sizes / ego_fill) against its numpy
+    plain version (``ego_nets_plain``) on the molhiv stand-in cut to
+    MOLHIV_CUT, at the molhiv point's r = 3 (its 3 MP layers): every
+    union equal array for array, each version timed; the native union
+    alone on all the stand-in's molecules; and the native betweenness
+    on ba500's first graph against the Python loop, bitwise, each
+    timed.  Fails unless all are equal and the native union takes at
+    most a fifth of the numpy one's time.  Host seconds on the card
+    machine's CPU."""
+    from graphgym_tpu_torch.data import structure as st
+    from graphgym_tpu_torch.data import transforms as T
+    from graphgym_tpu_torch.data.loaders import load_nx
+    from graphgym_tpu_torch.data.ogb import load_ogb_graph
+
+    radius = 3
+    cut = load_ogb_graph("ogbg-molhiv", OGB_CUT_DIR)
+    t0 = time.perf_counter()
+    plain = [T.ego_nets_plain(g, radius) for g in cut]
+    t1 = time.perf_counter()
+    fast = [T.ego_nets(g, radius) for g in cut]
+    t2 = time.perf_counter()
+    numpy_s, native_s = t1 - t0, t2 - t1
+    bad = [i for i, (a, b) in enumerate(zip(fast, plain))
+           if not same_union(a, b)]
+    if bad or len(fast) != MOLHIV_CUT["graphs"]:
+        fail(f"native ego union differs from the numpy one on molecules "
+             f"{bad[:10]} of {len(fast)}")
+    if native_s * 5 > numpy_s:
+        fail(f"native ego union {native_s:.3f} s, numpy {numpy_s:.3f} s: "
+             "less than 5x")
+    full = load_ogb_graph("ogbg-molhiv", OGB_DIR)
+    t0 = time.perf_counter()
+    unions = [T.ego_nets(g, radius) for g in full]
+    full_s = time.perf_counter() - t0
+    (g,) = load_nx("ba500", CORPUS500_DIR)[:1]
+    t0 = time.perf_counter()
+    want = st.betweenness_centrality_plain(g)
+    t1 = time.perf_counter()
+    got = st.betweenness_centrality(g)
+    t2 = time.perf_counter()
+    if not np.array_equal(got, want):
+        fail(f"native betweenness differs from the Python loop by up to "
+             f"{np.abs(got - want).max()}")
+    return dict(
+        radius=radius, cut=dict(
+            molecules=len(cut), union_nodes=sum(u.num_nodes for u in fast),
+            union_edges=sum(u.num_edges for u in fast), numpy_s=numpy_s,
+            native_s=native_s, speedup=numpy_s / native_s,
+            arrays_equal=True),
+        full=dict(molecules=len(full),
+                  union_nodes=sum(u.num_nodes for u in unions),
+                  union_edges=sum(u.num_edges for u in unions),
+                  native_s=full_s),
+        betweenness=dict(graph="ba500[0]", nodes=g.num_nodes,
+                         edges=g.num_edges, python_s=t1 - t0,
+                         native_s=t2 - t1, bitwise_equal=True))
+
+
+def gin_sum_beside(device, overrides) -> dict:
+    """ginconv_ba's first train batch under gin_agg sum (the 'plain'
+    pack) beside gcn_noself (its 'gcn_noself' pack: the same edges,
+    other weights): K1 on each fwd pack at the model width, the two
+    timed in turn over three rounds (``timings``), and each config's
+    captured trainer (exp/remat_cost.run without remat, 7 steps): its
+    median replay wall ms.  No path's launches are counted here."""
+    fwd, steps = {}, {}
+    for agg in ("sum", "gcn_noself"):
+        cfg, loaders, _ = load_path(config("ginconv_ba"), list(overrides)
+                                    + ["gnn.gin_agg", agg])
+        host_batch = loaders[0].batches(0)[0]
+        fwd[agg] = host_batch.to(device).packs[gin_kind(agg)][0]
+        steps[agg] = remat_cost.run(cfg, loaders, host_batch, device,
+                                    False, 7)["step_wall_ms"]
+    n, d = host_batch.num_nodes, cfg.gnn.dim_inner
+    x = torch.randn(n, d, generator=torch.Generator(
+        device=device).manual_seed(0), device=device)
+    rounds = [{agg: timings({"kernel": lambda p=pack: K.packed_spmm_cuda(
+        p, x)}, pack, x, slot_bytes=8)["ms"] for agg, pack in fwd.items()}
+        for _ in range(3)]
+    return dict(n=n, width=d, packs={agg: dict(
+        kind=gin_kind(agg), slots=int(pack.senders.numel()),
+        real_slots=real_slots_of(pack)) for agg, pack in fwd.items()},
+        k1_ms_rounds=rounds, replay_wall_ms=steps)
+
+
+def remat_trainer(cfg, loaders, host_batch, device, remat: bool,
+                  steps: int) -> dict:
+    """exp/remat_cost.run's captured trainer at tpu.remat ``remat`` on
+    ``host_batch`` (its losses, peak memory and median replay wall ms),
+    with the launches of its steps and, after them, its gradients,
+    parameters, buffers, the end state of the generators its modules
+    hold, its capture seconds and graphs; fails unless every MP layer
+    has the remat flag asked."""
+    def state(trainer) -> dict:
+        model = trainer.model
+        if not all(m.remat == remat for m in model.mp.layers):
+            fail(f"tpu.remat {remat}: the MP layers' remat flags differ")
+        (prog,) = trainer.train_step.programs.values()
+        return dict(
+            grads=[p.grad.detach().clone() for p in model.parameters()],
+            params=[p.detach().clone() for p in model.parameters()],
+            buffers=[b.clone() for b in model.buffers()],
+            generators=[g.get_state() for g in {
+                id(v): v for m in model.modules() for v in vars(m).values()
+                if isinstance(v, torch.Generator)}.values()],
+            capture_s=prog.capture_s, graphs=trainer.train_step.captured)
+    out, (launches, *_) = counted(lambda: remat_cost.run(
+        cfg, loaders, host_batch, device, remat, steps, extra=state))
+    return dict(out, launches=launches)
+
+
+def remat_phase(device, overrides, ba500) -> dict:
+    """remat: tpu.remat on design_ws's point (ginidconv, PReLU,
+    skipsum, BatchNorm, dropout 0.3, full width) on its first train
+    batch: three captured trainers from one seed, 5 steps each, one
+    without remat and two with it; fails unless their losses,
+    gradients, parameters, BN running statistics and the dropout
+    generator's end state (so its masks' draws) are bitwise equal,
+    unless K1 launches 6 a train step without remat and 9 with it (each
+    of the 3 MP layers' forwards again in the backward) and unless each
+    trainer captures one graph.  Then idgraph_ba500's train batch as
+    its path loaded it (``ba500``: the cfg, loaders and host batch), a
+    captured trainer without remat and, after it is freed, one with
+    it, 7 steps each: the peak device memory of each above what was
+    allocated before it, the capture seconds and the median wall ms of
+    the replays; K1 6 and 8 a train step (the pooling's 2 beside 2 per
+    layer, 2 layers); the losses bitwise equal."""
+    cfg, loaders, _ = load_path(config("idgcn_ws"), overrides + [
+        "gnn.layer_type", "ginidconv", *DESIGN_WS])
+    host_batch = loaders[0].batches(0)[0]
+    k1 = K.packed_spmm_cuda.__name__
+    runs = [remat_trainer(cfg, loaders, host_batch, device, on, 5)
+            for on in (False, True, True)]
+    keys = ("losses", "grads", "params", "buffers", "generators")
+
+    def equal(a, b):
+        return all(all(map(torch.equal, a[k], b[k])) if k != "losses"
+                   else a[k] == b[k] for k in keys)
+    if not (equal(runs[0], runs[1]) and equal(runs[1], runs[2])):
+        fail("design_ws with tpu.remat: the trainings differ from each "
+             "other or from the one without remat: losses "
+             f"{[r['losses'] for r in runs]}")
+    if not runs[0]["generators"]:
+        fail("design_ws: no dropout generator")
+    want = [6 * 5, 9 * 5, 9 * 5]
+    got = [r["launches"].get(k1, 0) for r in runs]
+    if got != want or any(r["graphs"] != 1 for r in runs):
+        fail(f"design_ws remat: K1 launches {got} (want {want}), graphs "
+             f"{[r['graphs'] for r in runs]}")
+    design = dict(losses=runs[0]["losses"], k1_launches=got,
+                  bitwise_equal=True, peak_memory_bytes=[
+                      r["peak_memory_bytes"] for r in runs],
+                  replay_wall_ms=[r["step_wall_ms"] for r in runs])
+    del runs
+    cfg, loaders, host_batch = ba500
+    big = {}
+    for on in (False, True):
+        r = remat_trainer(cfg, loaders, host_batch, device, on, 7)
+        big["remat" if on else "plain"] = {
+            k: r[k] for k in ("losses", "peak_memory_bytes", "capture_s",
+                              "step_wall_ms", "graphs")}
+        big["remat" if on else "plain"]["k1_launches"] = \
+            r["launches"].get(k1, 0)
+        del r
+    plain, rem = big["plain"], big["remat"]
+    if plain["losses"] != rem["losses"] or plain["k1_launches"] != 6 * 7 \
+            or rem["k1_launches"] != 8 * 7:
+        fail(f"idgraph_ba500 remat: losses {plain['losses']} / "
+             f"{rem['losses']}, K1 {plain['k1_launches']} / "
+             f"{rem['k1_launches']} (want 42 / 56)")
+    return dict(design_ws=design, idgraph_ba500=dict(
+        big, nodes=int(host_batch.num_nodes), width=cfg.gnn.dim_inner,
+        layers_mp=cfg.gnn.layers_mp,
+        peak_saved_bytes=plain["peak_memory_bytes"]
+        - rem["peak_memory_bytes"],
+        step_ms_added=rem["step_wall_ms"] - plain["step_wall_ms"]))
+
+
 def main() -> None:
     shutil.rmtree(OUT, ignore_errors=True)
     begin("device")
@@ -4905,6 +5132,33 @@ def main() -> None:
                                {k3_: (18, 6), sddmm_: (6, 3)},
                                widths={1: {k3_: (6, 3)}}),
     }
+    # ---- the GIN aggregation ablation (cfg.gnn.gin_agg,
+    # results/ablation_gin) on ba: Tfg-ginconv at full width
+    # (configs/ginconv_ba.yaml: 3 x 128, batch 48, 2 train batches, no
+    # transform, a constant 1-wide feature) with gin_agg gcn_noself, K1
+    # on the 'gcn_noself' pack as ID-GIN ba on 'plain': layer 0 sums the
+    # raw feature (no gradient), 1 + 2 x 2 per train step, 3 per eval
+    # batch, 1 of each at D = 1; then gcn (the 'gcn' pack) and mean
+    # ('wmean') card vs CPU on its val batch without a training (K1 8:
+    # the train step's 5 and the eval forward's 3).  Seeded random
+    # features in the model checks: under mean a constant input stays
+    # the same in every row, and the MLPs' BatchNorms would normalize
+    # rounding noise.
+    gin_ablation = drive_path(
+        "ginconv_ba_gcn_noself", device, ba_overrides, base="ginconv_ba",
+        extra=("gnn.gin_agg", "gcn_noself"), expected={k1_: (5, 3)},
+        widths={1: {k1_: (1, 1)}}, random_features=True)
+    gin_models = {}
+    for agg in ("gcn", "mean"):
+        tag = f"ginconv_ba_{agg}"
+        begin(f"model_{tag}")
+        gin_models[tag] = model_phase(
+            tag, config("ginconv_ba"), ba_overrides + ["gnn.gin_agg", agg],
+            device, {k1_: 8}, random_features=True)
+        phase(f"model_{tag}", **gin_models[tag])
+    begin("ginconv_ba_sum_beside")
+    gin_beside = gin_sum_beside(device, ba_overrides)
+    phase("ginconv_ba_sum_beside", **gin_beside)
     # the epoch prefetch and the native pack builder on ID-GIN ba's two
     # train batches of 48 graphs a epoch
     begin("prefetch_idgin_ba")
@@ -4946,9 +5200,8 @@ def main() -> None:
                                widths={1: {k3_: (8, 2)}},
                                random_features=True),
         "design_ws": grid_point("design_ws", "idgcn_ws", "gnn.layer_type",
-                                "ginidconv", "gnn.act", "prelu",
-                                "gnn.stage_type", "skipsum", "gnn.dropout",
-                                "0.3", expected={k1_: (6, 3)},
+                                "ginidconv", *DESIGN_WS,
+                                expected={k1_: (6, 3)},
                                 random_features=True),
     }
     # ---- the Tfg APPNP model on ID-GCN ws's config: Dense [64, C], then
@@ -5158,6 +5411,11 @@ def main() -> None:
             widths={1: {k3_: (12, 3)}, 128: {k1_: (2, 1), k3_: (6, 3)}},
             rect=(2, 1), model_graphs=22),
     }
+    # ---- tpu.remat: design_ws bitwise with and without it, and
+    # idgraph_ba500's peak memory and step with and without it
+    begin("remat")
+    phase("remat", **remat_phase(device, overrides,
+                                 LOADED["idgraph_ba500"]))
     begin("model_planted")
     phase("model_planted", **planted_faults(
         config(GRAPH_WS500[0]), c500 + list(GRAPH_WS500[1]), 22, device))
@@ -5199,6 +5457,8 @@ def main() -> None:
     # arxiv's samplers and node sampling, and the Bond encoder
     begin("ogb_files")
     phase("ogb_files", **ogb_files_phase(ogb_writer))
+    begin("ego_union")
+    phase("ego_union", **ego_union_phase())
     ogb = overrides + ["dataset.dir", OGB_DIR, *OGB_CACHE]
     k2_ = K.packed_segment_matmul_cuda
     ogb_paths = {
@@ -5431,6 +5691,9 @@ def main() -> None:
          **{k: appnp["checks"]["d6"][k] for k in row + ("floor_ms",)},
          **path_launches(k1_, {"appnp_ws": appnp["train"]}, width=6)},
         *model_rows(models, row, srcs),
+        *[dict(r, sum_beside=gin_beside) for r in torch_path_rows(
+            {"ginconv_ba_gcn_noself": gin_ablation}, row, srcs)],
+        *model_rows(gin_models, row, srcs),
         *link_rows(link_paths, row, k1_src),
         *torch_path_rows({"linkid_ba": linkid_ba}, row, srcs),
         *torch_path_rows({"cora_gatid": real_paths["cora_gatid"]}, row,

@@ -62,7 +62,7 @@ from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS,
                                                build_gather_packs,
                                                build_packs, build_pool_packs,
                                                host_pool,
-                                               kinds_for_layer, pack_chunks,
+                                               kinds_for_cfg, pack_chunks,
                                                pad_packs)
 
 # the repository's own corpus directory, searched after cfg.dataset.dir
@@ -1111,9 +1111,7 @@ class GraphLoader:
                        else None),
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges, **pairs)
-        kinds = kinds_for_layer(cfg.gnn.layer_type, cfg.gnn.agg,
-                                cfg.gnn.normalize_adj, cfg.gnn.flow,
-                                cfg.gnn.msg_direction)
+        kinds = kinds_for_cfg(cfg.gnn)
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,

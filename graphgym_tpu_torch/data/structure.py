@@ -7,9 +7,12 @@ statistics and the feature augmentations (degree, path lengths,
 PageRank, betweenness, Laplacian spectrum) run on them.  The BFS and the
 triangle count run in the port's own native library
 (graphgym_tpu_torch/native: ``bfs_from_sources``, ``triangle_counts``),
-which returns integers only; every float operation stays here.  Their
-numpy bodies, ``bfs_from_sources_plain`` and ``triangle_counts_plain``,
-are the plain versions the tests hold them to.
+which returns integers only; every float operation stays here.  So
+does Brandes' betweenness (``betweenness_centrality``), whose native
+sums are the Python loop's, in its order.  The numpy and Python
+bodies, ``bfs_from_sources_plain``, ``triangle_counts_plain`` and
+``betweenness_centrality_plain``, are the plain versions the tests hold
+them to.
 """
 
 from __future__ import annotations
@@ -209,7 +212,23 @@ def betweenness_centrality(g: HostGraph, normalized: bool = True
                            ) -> np.ndarray:
     """Brandes' algorithm (unweighted), matching
     nx.betweenness_centrality's normalization 2/((n-1)(n-2)) for
-    undirected graphs."""
+    undirected graphs: the native ``betweenness`` sums, scaled here as
+    the plain version scales its own."""
+    return _betweenness_scale(native.betweenness(*g.csr()), normalized)
+
+
+def _betweenness_scale(bc: np.ndarray, normalized: bool) -> np.ndarray:
+    n = len(bc)
+    bc /= 2.0  # undirected: each pair counted twice
+    if normalized and n > 2:
+        bc *= 2.0 / ((n - 1) * (n - 2))
+    return bc
+
+
+def betweenness_centrality_plain(g: HostGraph, normalized: bool = True
+                                 ) -> np.ndarray:
+    """The plain version of ``betweenness_centrality``: the Python
+    loop, one source at a time."""
     n = g.num_nodes
     indptr, indices = g.csr()
     bc = np.zeros(n, np.float64)
@@ -239,10 +258,7 @@ def betweenness_centrality(g: HostGraph, normalized: bool = True
                 delta[u] += sigma[u] / sigma[v] * (1 + delta[v])
             if v != s0:
                 bc[v] += delta[v]
-    bc /= 2.0  # undirected: each pair counted twice
-    if normalized and n > 2:
-        bc *= 2.0 / ((n - 1) * (n - 2))
-    return bc
+    return _betweenness_scale(bc, normalized)
 
 
 def laplacian_spectrum(g: HostGraph) -> np.ndarray:

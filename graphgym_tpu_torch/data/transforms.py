@@ -13,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 
+from graphgym_tpu_torch import native
 from graphgym_tpu_torch.data import structure as st
 from graphgym_tpu_torch.data.hostgraph import HostGraph
 
@@ -26,9 +27,40 @@ def ego_nets(g: HostGraph, radius: int = 2) -> HostGraph:
     Node features/labels are copied from the original node of each ego
     member; node_label_index (supervised centers) is preserved.
 
-    radius > 4 short-circuits to n copies of the full graph
-    (transform.py:18-19).
+    The union comes from the port's native library (``native.ego_union``,
+    ``ego_nets_plain``'s arrays) where radius <= 4; radius > 4
+    short-circuits to n copies of the full graph (transform.py:18-19),
+    ``ego_nets_plain``'s own path.
     """
+    if radius > 4:
+        return ego_nets_plain(g, radius)
+    us, ur, orig_of = native.ego_union(g.senders, g.receivers, g.num_nodes,
+                                       radius)
+    return _union(g, np.stack([us, ur]), orig_of)
+
+
+def _union(g: HostGraph, edge_index: np.ndarray,
+           orig_of: np.ndarray) -> HostGraph:
+    """The union graph: ``edge_index`` (int32), each node's features
+    copied from its original node ``orig_of``, the centers marked."""
+    n = g.num_nodes
+    out = HostGraph(len(orig_of), edge_index.astype(np.int32))
+    for key, val in g.feats.items():
+        if key.startswith("node_") and key != "node_label_index" \
+                and len(val) == n:
+            out[key] = np.asarray(val)[orig_of]
+        else:
+            out[key] = val
+    out["node_id_index"] = np.arange(n)
+    return out
+
+
+def ego_nets_plain(g: HostGraph, radius: int = 2) -> HostGraph:
+    """The plain version of ``ego_nets`` (the JAX package's numpy path):
+    the ego sets from the all-pairs hop distances, a loop over the egos
+    that relabels each one's members in ascending original id and takes
+    its induced edges by a mask over the whole edge list, in its
+    order."""
     n = g.num_nodes
     if radius > 4:
         ego_sets = [np.arange(n)] * n
@@ -68,16 +100,7 @@ def ego_nets(g: HostGraph, radius: int = 2) -> HostGraph:
     orig_of = np.empty(total_nodes, np.int64)
     for i in range(n):
         orig_of[mapped_ids[i]] = ego_sets[i]
-
-    out = HostGraph(total_nodes, edge_index)
-    for key, val in g.feats.items():
-        if key.startswith("node_") and key != "node_label_index" \
-                and len(val) == n:
-            out[key] = np.asarray(val)[orig_of]
-        else:
-            out[key] = val
-    out["node_id_index"] = np.arange(n)
-    return out
+    return _union(g, edge_index, orig_of)
 
 
 def edge_nets(g: HostGraph) -> HostGraph:

@@ -24,8 +24,10 @@ package's own CPU run of the config at the same seeds is recorded
 beside the first judgement.  A grid point (``POINTS``: a base config
 and a grid's overrides, by name) has no parity.json row: it is
 reported, and judged against ``JAX_CPU_RUNS`` where that holds the
-point.  The table is written as DIR/parity.md and DIR/parity.json, and
-nowhere else.
+point, and against the reference's row of the config a point names
+after its overrides (the GIN aggregation ablation's points).  The
+table is written as DIR/parity.md and DIR/parity.json, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -114,6 +116,23 @@ JAX_CPU_RUNS = {
     "design_att_sf_add_graph": dict(
         best_val_acc_per_seed=[0.4167, 0.2917, 0.375], mean=0.3611,
         std=0.052),
+    # the GIN aggregation ablation's points the same way: --cfg
+    # configs/<config>.yaml --repeat 3 gnn.gin_agg <agg> tpu.spmm_impl
+    # xla, the JAX package's own ba corpus regenerated under dataset.dir;
+    # the runs' aggregates and each seed's val curve are under
+    # results/parity/jax_cpu_gin_ablation/<point>/
+    "ginconv_ba_gcn": dict(
+        best_val_acc_per_seed=[0.6673, 0.6673, 0.6302], mean=0.6549,
+        std=0.0175),
+    "ginconv_ba_gcn_noself": dict(
+        best_val_acc_per_seed=[0.6335, 0.6615, 0.6367], mean=0.6439,
+        std=0.0125),
+    "ginconv_ba_mean": dict(
+        best_val_acc_per_seed=[0.4362, 0.4134, 0.3548], mean=0.4015,
+        std=0.0343),
+    "ginconvFast_ba_gcn": dict(
+        best_val_acc_per_seed=[0.9355, 0.9512, 0.9414], mean=0.9427,
+        std=0.0065),
 }
 
 
@@ -177,7 +196,16 @@ OGB_ID_GRID = ("dataset.format", "OGB", "dataset.name", "ogbg-molhiv",
                "gnn.layers_pre_mp", "1", "gnn.layers_mp", "3",
                "gnn.layers_post_mp", "3", "gnn.layer_type", "gcnidconv",
                "optim.max_epoch", "100")
+# A point is (base config, overrides) or (base config, overrides, the
+# config whose parity.json row it is judged against).  The GIN
+# aggregation ablation (cfg.gnn.gin_agg; docs/PARITY_NOTES.md:43-75):
+# the reference's ginconv / ginconvFast configs on ba with the JAX
+# package's candidate aggregations, each judged against the reference's
+# row of its config.
 POINTS = {
+    **{f"{cfg}_{agg}": (cfg, ("gnn.gin_agg", agg), cfg)
+       for cfg, agg in (("ginconv_ba", "gcn"), ("ginconv_ba", "gcn_noself"),
+                        ("ginconv_ba", "mean"), ("ginconvFast_ba", "gcn"))},
     "ogbg_molhiv_gcnid": ("design/design_v2ogb", OGB_ID_GRID),
     "ogbn_arxiv_design": ("design/design_v2", (
         "dataset.format", "OGB", "dataset.name", "ogbn-arxiv")),
@@ -211,7 +239,7 @@ POINTS = {
 
 def point_config(name: str) -> Tuple[str, List[str]]:
     """A grid point's base config file and overrides."""
-    base, opts = POINTS[name]
+    base, opts = POINTS[name][:2]
     return os.path.join(ROOT, "configs", f"{base}.yaml"), list(opts)
 
 
@@ -350,10 +378,14 @@ def parity_row(cfg_file: str, summary: Dict,
     return row
 
 
-def point_row(name: str, summary: Dict) -> Dict:
-    """One row of the table for a grid point: the port's summary, no
-    reference (parity.json has no row for it), judged against the JAX
-    package's CPU run where ``JAX_CPU_RUNS`` holds the point."""
+def point_row(name: str, summary: Dict,
+              path: str = PARITY_JSON) -> Dict:
+    """One row of the table for a grid point: the port's summary,
+    judged against the JAX package's run where ``JAX_CPU_RUNS`` holds
+    the point, and against the reference's row of the config the point
+    names (``POINTS``; that row's JAX result is the config's own, not
+    the point's, so the JAX column stays empty).  A point that names
+    none has no reference."""
     mean, std = summary["mean"], summary["std"]
     row = dict(config=name, model=name, dataset=None, port=mean,
                port_std=std, seeds=summary["seeds"],
@@ -362,6 +394,18 @@ def point_row(name: str, summary: Dict) -> Dict:
                reference=None, judged_against=None, passes=None,
                note="no parity.json row")
     cpu = JAX_CPU_RUNS.get(name)
+    if len(POINTS[name]) > 2:
+        model, dataset = config_key(POINTS[name][2])
+        ref = reference(model, dataset, path)
+        passes, limit = pass_rule(mean - ref["reference"],
+                                  ref["reference_std"], std)
+        row.update(model=model, dataset=dataset, jax=None,
+                   reference=ref["reference"],
+                   reference_std=ref["reference_std"],
+                   delta=mean - ref["reference"], limit=limit,
+                   passes_reference=passes, judged_against="reference",
+                   passes=passes,
+                   note=f"the reference's {model} / {dataset} row")
     if cpu is not None:
         passes, limit = pass_rule(mean - cpu["mean"], cpu["std"], std)
         row.update(jax_cpu=cpu["mean"], jax_cpu_std=cpu["std"],
@@ -389,8 +433,9 @@ def table(rows: Sequence[Dict]) -> str:
             delta, limit = ((r["delta_jax"], r["limit_jax"])
                             if r["judged_against"] == "jax"
                             else (r["delta"], r["limit"]))
-            judged = (f"{_pm(r['jax'], r['jax_std'])} ({r['jax_seeds']}) | "
-                      f"{_pm(r['reference'], r['reference_std'])} | "
+            jax = ("—" if r["jax"] is None else
+                   f"{_pm(r['jax'], r['jax_std'])} ({r['jax_seeds']})")
+            judged = (f"{jax} | {_pm(r['reference'], r['reference_std'])} | "
                       f"{delta:+.4f} | {limit:.4f} | {r['judged_against']} "
                       f"| {r['passes']} |")
         out.append(

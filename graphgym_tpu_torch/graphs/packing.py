@@ -6,9 +6,17 @@ graph structure) and the packed chunk layouts of A and A^T:
 
   'gcn'   — D^-1/2 (A + I) D^-1/2 with the reference's inf guard
             (TfgIDLayer.py:528-566); self-loops only on real nodes.
+  'gcn_improved' — the same with self-loops of weight 2 (GCNConv's
+            ``improved``, graphgym_tpu/ops/sparse.py:110).
+  'gcn_noself' — D^-1/2 A D^-1/2, no self-loops, the degree the
+            weighted in-degree (``gcn_norm(add_self_loops=False)``:
+            GINConv's gin_agg 'gcn_noself').
   'plain' — raw A (GIN sum aggregation).
   'mean'  — D^-1 A (SAGE mean aggregation; GeneralConv's agg 'mean'),
             the degree counting edges of nonzero weight.
+  'wmean' — each weight over max(its receiver's weighted in-degree, 1)
+            (GINConv's gin_agg 'mean', graphgym_tpu/nn/layers.py:
+            537-540); 'mean' where every weight is 0 or 1.
   'gcn_mean' — the 'gcn' weights over each receiver's count of slots of
             nonzero weight, its real in-edges and its self-loop
             (GeneralConv's agg 'mean' with normalize_adj: segment_mean
@@ -99,13 +107,16 @@ REV = "rev_"        # the prefix of a kind of the reversed edges
 
 def _gcn_weights(senders: np.ndarray, receivers: np.ndarray,
                  edge_weight: np.ndarray, node_mask: np.ndarray,
-                 num_nodes: int):
-    """Append weight-1 self loops on real nodes and sym-normalize."""
-    loop = np.arange(num_nodes, dtype=senders.dtype)
-    s = np.concatenate([senders, loop])
-    r = np.concatenate([receivers, loop])
-    w = np.concatenate([edge_weight,
-                        node_mask.astype(np.float32)])
+                 num_nodes: int, fill: Optional[float] = 1.0):
+    """Append self loops of weight ``fill`` on real nodes (none where
+    ``fill`` is None) and sym-normalize by the weighted in-degree."""
+    s, r, w = senders, receivers, edge_weight
+    if fill is not None:
+        loop = np.arange(num_nodes, dtype=senders.dtype)
+        s = np.concatenate([senders, loop])
+        r = np.concatenate([receivers, loop])
+        w = np.concatenate([edge_weight,
+                            np.where(node_mask, fill, 0).astype(np.float32)])
     deg = np.bincount(r, weights=w, minlength=num_nodes)
     with np.errstate(divide="ignore"):
         dis = deg ** -0.5
@@ -122,6 +133,15 @@ def _mean_weights(senders: np.ndarray, receivers: np.ndarray,
     inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
     return senders, receivers, (edge_weight * inv[receivers]).astype(
         np.float32)
+
+
+def _wmean_weights(senders: np.ndarray, receivers: np.ndarray,
+                   edge_weight: np.ndarray, num_nodes: int):
+    """Each edge's weight over max(its receiver's weighted in-degree,
+    1)."""
+    deg = np.bincount(receivers, weights=edge_weight, minlength=num_nodes)
+    return senders, receivers, (edge_weight / np.maximum(deg, 1.0)[
+        receivers]).astype(np.float32)
 
 
 def _gcn_mean_weights(senders: np.ndarray, receivers: np.ndarray,
@@ -170,6 +190,20 @@ def _att_edges(senders: np.ndarray, receivers: np.ndarray,
     return s, r, w
 
 
+# the sym-normalized kinds: the weight of their self-loops (None: none)
+GCN_FILL = {"gcn": 1.0, "gcn_improved": 2.0, "gcn_noself": None}
+# GINConv's neighbour aggregation (cfg.gnn.gin_agg) -> its pack
+GIN_KINDS = {"sum": "plain", "gcn": "gcn", "gcn_noself": "gcn_noself",
+             "mean": "wmean"}
+
+
+def gin_kind(gin_agg: str) -> str:
+    """The pack of GINConv's aggregation ``gin_agg``."""
+    if gin_agg not in GIN_KINDS:
+        raise ValueError(f"gin_agg {gin_agg!r} not in {sorted(GIN_KINDS)}")
+    return GIN_KINDS[gin_agg]
+
+
 def build_packs(senders: np.ndarray, receivers: np.ndarray,
                 edge_weight: np.ndarray, node_mask: np.ndarray,
                 num_nodes: int, kinds: Sequence[str] = ("gcn",),
@@ -188,12 +222,15 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
         base = kind[len(REV):] if kind.startswith(REV) else kind
         s, r = ((receivers, senders) if base != kind
                 else (senders, receivers))
-        if base == "gcn":
-            s, r, w = _gcn_weights(s, r, edge_weight, node_mask, num_nodes)
+        if base in GCN_FILL:
+            s, r, w = _gcn_weights(s, r, edge_weight, node_mask, num_nodes,
+                                   GCN_FILL[base])
         elif base == "plain":
             w = edge_weight
         elif base == "mean":
             s, r, w = _mean_weights(s, r, edge_weight, num_nodes)
+        elif base == "wmean":
+            s, r, w = _wmean_weights(s, r, edge_weight, num_nodes)
         elif base == "gcn_mean":
             s, r, w = _gcn_mean_weights(s, r, edge_weight, node_mask,
                                         num_nodes)
@@ -397,11 +434,13 @@ def v2_kind(agg: str, normalize_adj: bool, flow: str) -> str:
 def kinds_for_layer(layer_type: str, agg: str = "add",
                     normalize_adj: bool = False,
                     flow: str = "source_to_target",
-                    msg_direction: str = "single") -> Tuple[str, ...]:
+                    msg_direction: str = "single",
+                    gin_agg: str = "sum") -> Tuple[str, ...]:
     """Which precomputed packs a layer type consumes (``agg``,
     ``normalize_adj`` and ``flow``: cfg.gnn's, read by generalconv,
     idconv and generalconv_v2; ``msg_direction`` and ``agg``, read by
-    the edge-feature convs, ``edge_kinds``)."""
+    the edge-feature convs, ``edge_kinds``; ``gin_agg``, read by
+    ginconv, ``gin_kind``)."""
     if layer_type in EDGE_CONVS:
         return edge_kinds(layer_type, agg, msg_direction)
     lt = layer_type.replace("Tfg-", "")
@@ -411,14 +450,22 @@ def kinds_for_layer(layer_type: str, agg: str = "add",
         return (v2_kind(agg, normalize_adj, flow),)
     if lt in ("gcnconv", "gcnidconv", "idgcn", "appnp"):
         return ("gcn",)
-    if lt in ("ginconv", "ginidconv", "idgin", "exampleconv1",
-              "exampleconv2", "contrib_example"):
+    if lt == "ginconv":
+        return (gin_kind(gin_agg),)
+    if lt in ("ginidconv", "idgin", "exampleconv1", "exampleconv2",
+              "contrib_example"):
         return ("plain",)
     if lt in ("sageconv", "idsage", "sageidconv", "sageinitconv"):
         return ("mean",)
     if lt in ("gatconv", "idgat", "gatidconv", "gaddconv", "gmulconv"):
         return ("att",)
     return ()
+
+
+def kinds_for_cfg(gnn) -> Tuple[str, ...]:
+    """``kinds_for_layer`` of a config's gnn group."""
+    return kinds_for_layer(gnn.layer_type, gnn.agg, gnn.normalize_adj,
+                           gnn.flow, gnn.msg_direction, gnn.gin_agg)
 
 
 PAIRS, LABELS = "pairs", "labels"

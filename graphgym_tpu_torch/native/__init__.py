@@ -1,21 +1,25 @@
 """The loader's host pack builder and the data pipeline's graph
-statistics: ``graph_native.cpp`` through ctypes.
+statistics and ego-net union: ``graph_native.cpp`` through ctypes.
 
 The port's own copy of the chunk packer of graphgym_tpu/native (the JAX
 package's build is never loaded), and of its BFS and triangle count
 (``bfs_distances``, ``triangle_counts``: integers only, which
 data/structure.py turns into path lengths and clustering coefficients
-in the numpy plain versions' float order).  ``g++ -O3`` compiles the
+in the numpy plain versions' float order), its ego-net union
+(``ego_union``, data/transforms.py's numpy ``ego_nets_plain`` array
+for array) and Brandes' betweenness (``betweenness``, the sums of
+data/structure.py's Python loop in its order, on threads).  ``g++ -O3`` compiles the
 source at first use into ``csrc/build/``, beside the kernels, under a
 name that
 carries the hash of the source and the flags; each process compiles to
 a file of its own and renames it into place, so processes that build at
 once all end with the same library.  A failed build raises with the
 compiler's message: the loader has no other packer and the pipeline
-no other BFS.  The numpy ``pack_csr_with_slots``
-(ops/cuda/spmm_kernel.py) and data/structure.py's
-``bfs_from_sources_plain`` and ``triangle_counts_plain`` are the plain
-versions the tests hold these to, array for array.
+no other BFS or union.  The numpy ``pack_csr_with_slots``
+(ops/cuda/spmm_kernel.py), data/structure.py's
+``bfs_from_sources_plain``, ``triangle_counts_plain`` and
+``betweenness_centrality_plain`` and data/transforms.py's
+``ego_nets_plain`` are the plain versions the tests hold these to.
 
 ctypes releases the GIL during a call, so a pack built on the trainer's
 prefetch thread leaves the main thread free.
@@ -40,7 +44,8 @@ from graphgym_tpu_torch.ops.cuda.spmm_kernel import (BUILD_DIR,
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "graph_native.cpp")
 CXX = "g++"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+             "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -95,6 +100,13 @@ def library() -> ctypes.CDLL:
             lib.multi_bfs.restype = ctypes.c_int
             lib.triangle_counts.argtypes = [i64, ptr, ptr, ptr]
             lib.triangle_counts.restype = ctypes.c_int
+            lib.ego_sizes.argtypes = [i64, i64, ptr, ptr, i64, ptr, ptr]
+            lib.ego_sizes.restype = ctypes.c_int
+            lib.ego_fill.argtypes = [i64, i64, ptr, ptr, i64, ptr, ptr,
+                                     ptr]
+            lib.ego_fill.restype = ctypes.c_int
+            lib.betweenness.argtypes = [i64, ptr, ptr, i64, ptr]
+            lib.betweenness.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -216,3 +228,53 @@ def triangle_counts(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     if library().triangle_counts(n, _ptr(indptr), _ptr(indices), _ptr(tri)):
         raise ValueError(f"a neighbour outside [0, {n})")
     return tri
+
+
+def ego_union(senders: np.ndarray, receivers: np.ndarray, n: int,
+              radius: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The disjoint union of every node's ``radius``-hop ego net over
+    the out-edges (reference transform.py:11-39), as the numpy
+    ``ego_nets_plain`` lays it out: (union senders, union receivers,
+    int32; the original node of each union node, int64).  Center c
+    keeps id c; ego c's other members follow ego c-1's, in ascending
+    original id; ego c's edges are the input edges with both ends in
+    it, in input order.  Sized in one native pass, filled in a second."""
+    senders, receivers = _int32(senders, "a sender"), _int32(receivers,
+                                                             "a receiver")
+    e = len(senders)
+    if len(receivers) != e:
+        raise ValueError(f"{e} senders, {len(receivers)} receivers")
+    lib = library()
+    node_counts = np.empty(n, np.int64)
+    edge_counts = np.empty(n, np.int64)
+    if lib.ego_sizes(n, e, _ptr(senders), _ptr(receivers), int(radius),
+                     _ptr(node_counts), _ptr(edge_counts)):
+        raise ValueError(f"an edge endpoint outside [0, {n})")
+    # each center counts itself: the union has sum(node_counts) nodes
+    total_nodes, total_edges = int(node_counts.sum()), int(edge_counts.sum())
+    if max(total_nodes, total_edges) >= 2 ** 31:
+        raise ValueError("the ego-net union overflows int32 node or edge "
+                         "indices")
+    us = np.empty(total_edges, np.int32)
+    ur = np.empty(total_edges, np.int32)
+    orig_of = np.empty(total_nodes, np.int64)
+    lib.ego_fill(n, e, _ptr(senders), _ptr(receivers), int(radius),
+                 _ptr(us), _ptr(ur), _ptr(orig_of))
+    return us, ur, orig_of
+
+
+def betweenness(indptr: np.ndarray, indices: np.ndarray,
+                threads: Optional[int] = None) -> np.ndarray:
+    """Per node, float64: the sum over sources s of s's dependency on it
+    (Brandes, unweighted, over the CSR's out-edges; unnormalized, each
+    unordered pair of an undirected graph counted twice), the sums of
+    data/structure.py's Python loop to the bit, on ``threads`` threads
+    (default the CPUs, at most 8) with the same result at any count."""
+    indptr, indices, n = _csr(indptr, indices)
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 8)
+    bc = np.empty(n, np.float64)
+    if library().betweenness(n, _ptr(indptr), _ptr(indices), int(threads),
+                             _ptr(bc)):
+        raise ValueError(f"a neighbour outside [0, {n})")
+    return bc

@@ -26,11 +26,20 @@
 // triangle counts): every float operation of the statistics built on
 // them stays in data/structure.py, in the numpy plain versions' order.
 //
+// The ego-net union (ego_sizes, ego_fill) and Brandes' betweenness
+// (betweenness) are the port's counterparts of the JAX package's
+// (graphgym_tpu/native/graph_native.cpp:114-180, :318-377), written to
+// the port's plain versions rather than to the JAX code's order: the
+// union is data/transforms.py's numpy ego_nets array for array, and
+// the betweenness sums are data/structure.py's Python loop's, in its
+// order, whatever the thread count.
+//
 // A plain C ABI bound with ctypes; no call keeps state or allocates
 // what it returns (the caller passes every output buffer).
 
 #include <algorithm>
 #include <cstdint>
+#include <thread>
 #include <vector>
 
 extern "C" {
@@ -248,6 +257,216 @@ int triangle_counts(int64_t n, const int64_t* indptr,
     }
     tri[j] = t;
     for (int64_t a = indptr[j]; a < indptr[j + 1]; ++a) mark[indices[a]] = 0;
+  }
+  return 0;
+}
+
+// The out-edge CSR of an edge list: indptr [n + 1], each slot's
+// receiver (nbr) and input edge id (eid), the edges of a sender in
+// input order (a stable counting sort).  Returns false for an endpoint
+// outside [0, n).
+static bool edge_csr(int64_t n, int64_t e, const int32_t* senders,
+                     const int32_t* receivers, std::vector<int64_t>& indptr,
+                     std::vector<int32_t>& nbr, std::vector<int64_t>& eid) {
+  indptr.assign(n + 1, 0);
+  for (int64_t i = 0; i < e; ++i) {
+    if (senders[i] < 0 || senders[i] >= n || receivers[i] < 0 ||
+        receivers[i] >= n)
+      return false;
+    indptr[senders[i] + 1]++;
+  }
+  for (int64_t u = 0; u < n; ++u) indptr[u + 1] += indptr[u];
+  std::vector<int64_t> cursor(indptr.begin(), indptr.end() - 1);
+  nbr.resize(e);
+  eid.resize(e);
+  for (int64_t i = 0; i < e; ++i) {
+    int64_t k = cursor[senders[i]]++;
+    nbr[k] = receivers[i];
+    eid[k] = i;
+  }
+  return true;
+}
+
+// The members of center c's ego net, the nodes within `radius` hops
+// along out-edges (BFS order, c first, in queue[0:*count]); dist holds
+// their hop counts and -1 elsewhere (the caller resets the members').
+static void ego_bfs(const std::vector<int64_t>& indptr,
+                    const std::vector<int32_t>& nbr, int64_t c,
+                    int64_t radius, int32_t* dist, int32_t* queue,
+                    int64_t* count) {
+  int64_t head = 0, tail = 0;
+  dist[c] = 0;
+  queue[tail++] = (int32_t)c;
+  while (head < tail) {
+    int32_t u = queue[head++];
+    if (dist[u] >= radius) continue;
+    for (int64_t k = indptr[u]; k < indptr[u + 1]; ++k) {
+      int32_t v = nbr[k];
+      if (dist[v] < 0) {
+        dist[v] = dist[u] + 1;
+        queue[tail++] = v;
+      }
+    }
+  }
+  *count = tail;
+}
+
+// Pass 1 of the ego-net union: per center c, the members of its
+// radius-hop ego net (node_counts[c], c included) and the input edges
+// with both ends among them (edge_counts[c]).  Returns 0, or 1 for an
+// endpoint outside [0, n).
+int ego_sizes(int64_t n, int64_t e, const int32_t* senders,
+              const int32_t* receivers, int64_t radius,
+              int64_t* node_counts, int64_t* edge_counts) {
+  std::vector<int64_t> indptr, eid;
+  std::vector<int32_t> nbr;
+  if (!edge_csr(n, e, senders, receivers, indptr, nbr, eid)) return 1;
+  std::vector<int32_t> dist(n, -1), queue(n);
+  for (int64_t c = 0; c < n; ++c) {
+    int64_t cnt = 0, ec = 0;
+    ego_bfs(indptr, nbr, c, radius, dist.data(), queue.data(), &cnt);
+    for (int64_t q = 0; q < cnt; ++q)
+      for (int64_t k = indptr[queue[q]]; k < indptr[queue[q] + 1]; ++k)
+        ec += dist[nbr[k]] >= 0;
+    node_counts[c] = cnt;
+    edge_counts[c] = ec;
+    for (int64_t q = 0; q < cnt; ++q) dist[queue[q]] = -1;
+  }
+  return 0;
+}
+
+// Pass 2: the union into caller-allocated arrays, sized by pass 1:
+// union_senders / union_receivers [sum(edge_counts)], orig_of
+// [n + sum(node_counts - 1)], the original node of each union node.
+// The layout of the numpy ego_nets: center c keeps id c; ego c's other
+// members take the next ids in ascending original id; ego c's edges
+// follow ego c-1's, in input order (its members' edge ids, sorted).
+// Returns 0, or 1 for an endpoint outside [0, n).
+int ego_fill(int64_t n, int64_t e, const int32_t* senders,
+             const int32_t* receivers, int64_t radius,
+             int32_t* union_senders, int32_t* union_receivers,
+             int64_t* orig_of) {
+  std::vector<int64_t> indptr, eid;
+  std::vector<int32_t> nbr;
+  if (!edge_csr(n, e, senders, receivers, indptr, nbr, eid)) return 1;
+  std::vector<int32_t> dist(n, -1), queue(n);
+  std::vector<int64_t> newid(n, -1), edges;
+  for (int64_t i = 0; i < n; ++i) orig_of[i] = i;
+  int64_t next_id = n, epos = 0;
+  for (int64_t c = 0; c < n; ++c) {
+    int64_t cnt = 0;
+    ego_bfs(indptr, nbr, c, radius, dist.data(), queue.data(), &cnt);
+    std::sort(queue.begin(), queue.begin() + cnt);
+    edges.clear();
+    for (int64_t q = 0; q < cnt; ++q) {
+      int32_t u = queue[q];
+      if (u == c) {
+        newid[u] = c;
+      } else {
+        newid[u] = next_id;
+        orig_of[next_id++] = u;
+      }
+      for (int64_t k = indptr[u]; k < indptr[u + 1]; ++k)
+        if (dist[nbr[k]] >= 0) edges.push_back(eid[k]);
+    }
+    std::sort(edges.begin(), edges.end());
+    for (int64_t i : edges) {
+      union_senders[epos] = (int32_t)newid[senders[i]];
+      union_receivers[epos++] = (int32_t)newid[receivers[i]];
+    }
+    for (int64_t q = 0; q < cnt; ++q) {
+      dist[queue[q]] = -1;
+      newid[queue[q]] = -1;
+    }
+  }
+  return 0;
+}
+
+// Brandes' betweenness, unnormalized: bc[v] = the sum over sources s != v
+// of s's dependency on v, over the CSR (row u: u's out-neighbours, in
+// the order the Python loop reads them).  Each source's dependencies
+// are the loop's to the bit: sigma summed in BFS order, and each
+// delta[u] summed over its successors v in reverse BFS order, as
+// sigma[u] / sigma[v] * (1 + delta[v]), one term per edge u -> v (the
+// predecessors of v read from the transpose).  Sources run on
+// `num_threads` threads in blocks, each source's dependencies into a
+// row of its own, and the rows are added into bc in source order: the
+// same sums on every run and at every thread count.  Returns 0, or 2 for
+// a neighbour outside [0, n).
+int betweenness(int64_t n, const int64_t* indptr, const int32_t* indices,
+                int64_t num_threads, double* bc) {
+  int64_t e = n > 0 ? indptr[n] : 0;
+  for (int64_t k = 0; k < e; ++k)
+    if (indices[k] < 0 || indices[k] >= n) return 2;
+  std::fill(bc, bc + n, 0.0);
+  // the transpose: the senders of v's in-edges
+  std::vector<int64_t> tptr(n + 1, 0);
+  std::vector<int32_t> tidx(e);
+  for (int64_t k = 0; k < e; ++k) tptr[indices[k] + 1]++;
+  for (int64_t v = 0; v < n; ++v) tptr[v + 1] += tptr[v];
+  {
+    std::vector<int64_t> cursor(tptr.begin(), tptr.end() - 1);
+    for (int64_t u = 0; u < n; ++u)
+      for (int64_t k = indptr[u]; k < indptr[u + 1]; ++k)
+        tidx[cursor[indices[k]]++] = (int32_t)u;
+  }
+  const int64_t T = std::max<int64_t>(1, num_threads);
+  const int64_t B = std::min<int64_t>(n, 256);
+  std::vector<double> rows((size_t)B * (size_t)n);
+  auto source = [&](int64_t s0, double* delta, std::vector<double>& sigma,
+                    std::vector<int64_t>& dist, std::vector<int32_t>& order) {
+    std::fill(sigma.begin(), sigma.end(), 0.0);
+    std::fill(dist.begin(), dist.end(), -1);
+    std::fill(delta, delta + n, 0.0);
+    sigma[s0] = 1.0;
+    dist[s0] = 0;
+    int64_t head = 0, tail = 0;
+    order[tail++] = (int32_t)s0;
+    while (head < tail) {
+      int32_t u = order[head++];
+      for (int64_t k = indptr[u]; k < indptr[u + 1]; ++k) {
+        int32_t v = indices[k];
+        if (dist[v] < 0) {
+          dist[v] = dist[u] + 1;
+          order[tail++] = v;
+        }
+        if (dist[v] == dist[u] + 1) sigma[v] += sigma[u];
+      }
+    }
+    for (int64_t i = tail - 1; i >= 0; --i) {
+      int32_t v = order[i];
+      for (int64_t k = tptr[v]; k < tptr[v + 1]; ++k) {
+        int32_t u = tidx[k];
+        if (dist[u] >= 0 && dist[u] == dist[v] - 1)
+          delta[u] += sigma[u] / sigma[v] * (1 + delta[v]);
+      }
+    }
+  };
+  for (int64_t b0 = 0; b0 < n; b0 += B) {
+    int64_t nb = std::min(B, n - b0);
+    auto work = [&](int64_t t) {
+      std::vector<double> sigma(n);
+      std::vector<int64_t> dist(n);
+      std::vector<int32_t> order(n);
+      for (int64_t j = t; j < nb; j += T)
+        source(b0 + j, rows.data() + (size_t)j * n, sigma, dist, order);
+    };
+    auto reduce = [&](int64_t t) {
+      int64_t lo = n * t / T, hi = n * (t + 1) / T;
+      for (int64_t j = 0; j < nb; ++j) {
+        const double* delta = rows.data() + (size_t)j * n;
+        for (int64_t v = lo; v < hi; ++v)
+          if (v != b0 + j) bc[v] += delta[v];
+      }
+    };
+    std::vector<std::thread> threads;
+    for (int64_t t = 1; t < T; ++t) threads.emplace_back(work, t);
+    work(0);
+    for (auto& th : threads) th.join();
+    threads.clear();
+    for (int64_t t = 1; t < T; ++t) threads.emplace_back(reduce, t);
+    reduce(0);
+    for (auto& th : threads) th.join();
   }
   return 0;
 }

@@ -36,11 +36,14 @@ class GCNIDConv(nn.Module):
     """ID-GCN: id-colored projection then the renormalized SpMM.
 
     h = x @ W; h[id] += x[id] @ W_id; h = D^-1/2(A+I)D^-1/2 h + b
-    (reference idconv.py:104-189 == TfgIDLayer.py:478-525 gcn_id)."""
+    (reference idconv.py:104-189 == TfgIDLayer.py:478-525 gcn_id), on
+    the 'gcn' pack; ``improved`` (self-loops of weight 2, set by no
+    config) on the 'gcn_improved' pack."""
 
     def __init__(self, dim_in: int, dim_out: int, use_bias: bool = True,
-                 *, generator: torch.Generator):
+                 improved: bool = False, *, generator: torch.Generator):
         super().__init__()
+        self.kind = "gcn_improved" if improved else "gcn"
         self.kernel = glorot((dim_in, dim_out), generator)
         self.id_kernel = glorot((dim_in, dim_out), generator)
         self.bias = zeros((dim_out,)) if use_bias else None
@@ -49,7 +52,7 @@ class GCNIDConv(nn.Module):
         idx, id_mask = _id_index(graph)
         h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
                                 self.id_kernel, id_mask)
-        h = packed_spmm(graph, "gcn", h)
+        h = packed_spmm(graph, self.kind, h)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)

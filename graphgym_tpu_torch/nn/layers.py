@@ -22,7 +22,8 @@ from torch import nn
 from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.graphs.packing import (EDGE, EDGE_DST, EDGE_SRC,
                                                agg_kind, edge_index,
-                                               edge_kinds)
+                                               edge_kinds, gin_kind)
+from graphgym_tpu_torch.nn import remat
 from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
@@ -155,8 +156,8 @@ def packed_attention(graph: GraphBatch, h_heads: torch.Tensor,
     alpha = packed_segment_softmax(alpha.reshape(
         fwd.senders.shape + (heads,)), fwd)
     if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(alpha.shape, generator=generator,
-                          device=alpha.device) < 1.0 - dropout_rate
+        keep = remat.keep_draw(alpha.shape, 1.0 - dropout_rate, generator,
+                         alpha.device)
         alpha = torch.where(keep, alpha / (1.0 - dropout_rate), 0.0)
     out = segment_matmul_headed_vjp(v.reshape(n, heads * dv), alpha, fwd,
                                     bwd, slot_map)
@@ -309,18 +310,19 @@ class GATConv(nn.Module):
 class GCNConv(nn.Module):
     """GCN with the renormalization trick: h = D^-1/2 (A+I) D^-1/2 (x W)
     + b (layers.py:266-293; reference layer.py:135-142,
-    TfgIDLayer.py:478-525 without the id kernel), on the 'gcn' pack.
-    The JAX layer's ``improved`` option takes the COO path (ROADMAP A0)
-    and no model sets it."""
+    TfgIDLayer.py:478-525 without the id kernel), on the 'gcn' pack;
+    ``improved`` (self-loops of weight 2, set by no config) on the
+    'gcn_improved' pack."""
 
     def __init__(self, dim_in: int, dim_out: int, use_bias: bool = False,
-                 *, generator: torch.Generator):
+                 improved: bool = False, *, generator: torch.Generator):
         super().__init__()
+        self.kind = "gcn_improved" if improved else "gcn"
         self.kernel = glorot((dim_in, dim_out), generator)
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        h = packed_spmm(graph, "gcn", graph.node_feat @ self.kernel)
+        h = packed_spmm(graph, self.kind, graph.node_feat @ self.kernel)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
@@ -583,8 +585,8 @@ class GeneralEdgeConv(nn.Module):
     def live_edges(self, graph: GraphBatch) -> torch.Tensor:
         live = edge_valid(graph)
         if self.sample_rate < 1.0 and self.training:
-            keep = torch.rand(live.shape, generator=self.sample_generator,
-                              device=live.device) < self.sample_rate
+            keep = remat.keep_draw(live.shape, self.sample_rate,
+                             self.sample_generator, live.device)
             live = live & keep
         return live
 
@@ -652,26 +654,26 @@ def _gin_mlp(mod: nn.Module, prefix: str, h: torch.Tensor,
 
 
 class GINConv(nn.Module):
-    """GIN: h = MLP((1 + eps) x + sum_neighbors x) (layers.py:502-548;
-    reference layer.py:165-174, TfgIDLayer.py:123-167), the neighbor sum
-    on the 'plain' pack, with eps = 0 (the JAX layer's default, which no
-    model changes).  Only ``agg='sum'`` is ported: the JAX package's
-    other cfg.gnn.gin_agg ablations take the COO SpMM (ROADMAP A0)."""
+    """GIN: h = MLP((1 + eps) x + agg_neighbors x) (layers.py:502-548;
+    reference layer.py:165-174, TfgIDLayer.py:123-167), with eps = 0
+    (the JAX layer's default, which no model changes).  ``agg`` is
+    cfg.gnn.gin_agg, the JAX layer's ablation switch, each on K1 over
+    the pack ``gin_kind`` names: 'sum' the 'plain' pack, 'gcn' the
+    'gcn' pack (D^-1/2 (A + I) D^-1/2), 'gcn_noself' the 'gcn_noself'
+    pack, 'mean' the 'wmean' pack (the sum over max(the weighted
+    in-degree, 1), the JAX layer's COO SpMM and division)."""
 
     def __init__(self, dim_in: int, dim_out: int, mlp_bn: bool = False,
                  agg: str = "sum", mlp_gain: float = 1.0, *,
                  generator: torch.Generator):
         super().__init__()
-        if agg != "sum":
-            raise NotImplementedError(
-                f"GINConv agg {agg!r} needs the COO SpMM, which is not "
-                "ported yet (ROADMAP A0)")
+        self.kind = gin_kind(agg)
         gin_mlp_init(self, "mlp", dim_in, dim_out, mlp_bn, generator,
                      mlp_gain)
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
-        h = x + packed_spmm(graph, "plain", x)
+        h = x + packed_spmm(graph, self.kind, x)
         return graph.replace(node_feat=_gin_mlp(self, "mlp", h,
                                                 graph.node_mask))
 
@@ -681,8 +683,7 @@ def dropout(x: torch.Tensor, rate: float,
     """flax nn.Dropout in train mode: each entry kept with probability
     1 - rate, from a uniform draw of ``generator``, and scaled by 1 /
     (1 - rate); dropped entries are 0."""
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
+    keep = remat.keep_draw(x.shape, 1.0 - rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
@@ -694,16 +695,20 @@ class GeneralLayer(nn.Module):
     the activation (act ``prelu`` is the learnable ``PReLU`` module
     ``act``).  The JAX wrapper's own L2 norm is set by no caller: the
     stages apply theirs.  The Tfg path's wrapper is a conv and its
-    activation."""
+    activation.  ``remat`` (cfg.tpu.remat on the MP stage's layers)
+    recomputes the layer's activations in the backward of a train-mode
+    step (nn/remat.py), the same function to the bit."""
 
     def __init__(self, layer: nn.Module, dim_out: Optional[int] = None,
                  has_act: bool = True, has_bn: bool = False,
                  dropout: float = 0.0, act: str = "relu",
                  bn_eps: float = 1e-5, bn_mom: float = 0.1,
-                 dropout_generator: Optional[torch.Generator] = None):
+                 dropout_generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         if dropout > 0 and dropout_generator is None:
             raise ValueError("dropout > 0 needs a dropout_generator")
+        self.remat = remat
         self.layer = layer
         self.bn = (MaskedBatchNorm(dim_out, eps=bn_eps, momentum=bn_mom)
                    if has_bn else None)
@@ -715,6 +720,11 @@ class GeneralLayer(nn.Module):
             self.act = act_dict[act] if has_act else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat.checkpoint(self._forward, graph)
+        return self._forward(graph)
+
+    def _forward(self, graph: GraphBatch) -> GraphBatch:
         graph = self.layer(graph)
         x = graph.node_feat
         if self.bn is not None:

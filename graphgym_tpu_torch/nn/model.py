@@ -210,6 +210,7 @@ class GNNOptions:
     edge_encoder: str = ""
     edge_encoder_bn: bool = True
     encoder_dim: int = 128
+    remat: bool = False        # recompute the MP layers in the backward
 
 
 def options_from_cfg(cfg) -> GNNOptions:
@@ -256,10 +257,6 @@ def options_from_cfg(cfg) -> GNNOptions:
             "generalogbconv behind an edge encoder: its bond ids are the "
             "raw edge features' (the batch's 'edge_bond' pack), the JAX "
             "layer's the encoder's output cast to int (ROADMAP A0)")
-    if cfg.tpu.remat:
-        raise NotImplementedError(
-            "tpu.remat (rematerialized MP layers) is not ported yet "
-            "(ROADMAP A0)")
     return GNNOptions(**common, stage_type=cfg.gnn.stage_type,
                       layers_pre_mp=cfg.gnn.layers_pre_mp,
                       layers_post_mp=max(cfg.gnn.layers_post_mp, 1),
@@ -272,15 +269,18 @@ def options_from_cfg(cfg) -> GNNOptions:
                       edge_encoder=(cfg.dataset.edge_encoder_name
                                     if cfg.dataset.edge_encoder else ""),
                       edge_encoder_bn=cfg.dataset.edge_encoder_bn,
-                      encoder_dim=cfg.dataset.encoder_dim)
+                      encoder_dim=cfg.dataset.encoder_dim,
+                      remat=bool(cfg.tpu.remat))
 
 
 def _gnn_layer(opts: GNNOptions, dim_in: int, gen: torch.Generator,
                drop_gen: Optional[torch.Generator],
                has_act: bool = True) -> GeneralLayer:
-    """GeneralLayer(conv) of the MP stage (nn/model.py:165-176); a
-    registered layer is called as the JAX make_conv calls it, with the
-    port's input width and init generator."""
+    """GeneralLayer(conv) of the MP stage (nn/model.py:165-176),
+    rematerialized with ``opts.remat`` (cfg.tpu.remat; the Tfg models
+    ignore it, as the JAX package's do); a registered layer is called
+    as the JAX make_conv calls it, with the port's input width and init
+    generator."""
     if opts.layer_type in register.layer_dict:
         conv = register.layer_dict[opts.layer_type](
             dim_in, opts.dim_inner, use_bias=not opts.batchnorm, opts=opts,
@@ -291,7 +291,8 @@ def _gnn_layer(opts: GNNOptions, dim_in: int, gen: torch.Generator,
     return GeneralLayer(conv, opts.dim_inner, has_act=has_act,
                         has_bn=opts.batchnorm, dropout=opts.dropout,
                         act=opts.act, bn_eps=opts.bn_eps,
-                        bn_mom=opts.bn_mom, dropout_generator=drop_gen)
+                        bn_mom=opts.bn_mom, dropout_generator=drop_gen,
+                        remat=opts.remat)
 
 
 class GNNStackStage(nn.Module):

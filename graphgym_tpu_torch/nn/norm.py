@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from graphgym_tpu_torch.nn.remat import recomputing
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the rows ``mask`` selects (all rows without one).
@@ -22,7 +24,9 @@ class MaskedBatchNorm(nn.Module):
     variance, the running variance tracks the unbiased one (count /
     (count - 1)), ``momentum`` is the weight of the new batch statistic
     (cfg.bn.mom), and ``eval()`` normalizes with the running ``mean``
-    and ``var`` buffers, as the JAX eval step uses ``batch_stats``.
+    and ``var`` buffers, as the JAX eval step uses ``batch_stats``.  A
+    rematerialized layer's recompute (nn/remat.py) leaves the buffers as
+    its forward moved them.
     Statistics are taken in f32 (float64 for float64 x).  Parameters ``scale`` and ``bias`` and
     the buffers keep the flax names."""
 
@@ -51,10 +55,11 @@ class MaskedBatchNorm(nn.Module):
                 mean = xs.mean(0)
                 var = xs.var(0, unbiased=False)
                 unbiased = var * n / max(n - 1, 1)
-            with torch.no_grad():
-                mom = self.momentum
-                self.mean.copy_((1 - mom) * self.mean + mom * mean)
-                self.var.copy_((1 - mom) * self.var + mom * unbiased)
+            if not recomputing():    # once a step under remat
+                with torch.no_grad():
+                    mom = self.momentum
+                    self.mean.copy_((1 - mom) * self.mean + mom * mean)
+                    self.var.copy_((1 - mom) * self.var + mom * unbiased)
         else:
             mean, var = self.mean, self.var
         y = ((xs - mean) * torch.reciprocal(torch.sqrt(var + self.eps)))

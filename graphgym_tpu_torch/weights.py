@@ -11,6 +11,9 @@ are siblings:
     mp/GeneralLayer_<i>/MaskedBatchNorm_0/<leaf>
                                        ->  mp.layers.<i>.bn.<leaf>
     mp/GeneralLayer_<i>/PReLU_0/slope  ->  mp.layers.<i>.act.slope
+    mp/CheckpointGeneralLayer_<i>/...  ->  mp.layers.<i>...
+                                           (the wrapper under
+                                           tpu.remat's nn.remat)
     Linear_<i>/kernel (pre-MP, in GNN's scope)
                                        ->  pre_mp.<i>.layer.kernel
     pre_mp_<i>/<wrapper path>          ->  pre_mp.<i>.<bn|act>...
@@ -88,7 +91,7 @@ def _in_stage(segs: list, prefix: str, path: str) -> str:
     if m is None or len(segs) < 2:
         raise KeyError(f"no port parameter for flax path {path!r}")
     cls, i, rest = m.group(1), m.group(2), segs[1:]
-    if cls == "GeneralLayer":
+    if cls in ("GeneralLayer", "CheckpointGeneralLayer"):   # tpu.remat
         return f"{prefix}.{i}.{_wrapper(rest, path)}"
     if cls == "MLP":
         return _in_stage(rest, f"{prefix}.{i}.layer.layers", path)

@@ -268,9 +268,14 @@ def test_layer_matches_jax(layer_graphs, name):
 
 
 def test_gin_agg_other_than_sum_not_ported():
+    """Every gin_agg builds, each on its own pack (once only 'sum' was
+    ported; the variants against the JAX package in
+    tests/test_torch_gin_agg.py); SAGE's concat needs an even width."""
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP A0"):
-        layers.GINConv(4, 4, agg="mean", generator=gen)
+    kinds = {agg: layers.GINConv(4, 4, agg=agg, generator=gen).kind
+             for agg in ("sum", "gcn", "gcn_noself", "mean")}
+    assert kinds == {"sum": "plain", "gcn": "gcn",
+                     "gcn_noself": "gcn_noself", "mean": "wmean"}
     with pytest.raises(ValueError, match="even"):
         layers.SAGEConv(4, 5, combine="concat", generator=gen)
 

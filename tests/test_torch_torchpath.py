@@ -532,12 +532,14 @@ def test_sageidconv_mean_is_the_jax_coo_mean():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["tpu.remat", "True"], "A0"),
+    (["gnn.layer_type", "generalogbconv", "dataset.edge_encoder", "True"],
+     "A0"),
 ])
 def test_not_ported_raises_naming_the_item(overrides, item):
-    """What the port does not run raises naming its ROADMAP item (the
-    edge-feature convs, once here, build and train in
-    tests/test_torch_edge_convs.py)."""
+    """What the port does not run raises naming its ROADMAP item:
+    generalogbconv behind an edge encoder (the edge-feature convs, once
+    here, build and train in tests/test_torch_edge_convs.py; tpu.remat
+    in tests/test_torch_remat.py)."""
     from graphgym_tpu_torch.nn.model import options_from_cfg
 
     cfg = load_cfg(config_file("gcnidconv"),
