@@ -58,6 +58,24 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                 same seed (K1 6 a step in both), the parameters and the
                 optimizer's state stay on the card, and 2 eval steps
                 beside them are captured (K1 3 each).
+  6d. bf16_main — the main path at tpu.dtype bfloat16 (mixed precision,
+                train/graphed.py): 5 epochs captured, K1 6 a train step
+                and 3 an eval batch, every launch on bf16 input; two
+                trainings and captured against eager bitwise; card vs
+                CPU at BF16_TIGHT, no witness, which turns down a
+                planted K1 that leaves its weights unrounded; the
+                masters, Adam and the buffers f32; replay
+                ms and peak memory at f32 and bf16 on the train batch;
+                K1 on bf16 input timed beside its bound.
+  6e. coo_route — the main path at tpu.spmm_impl xla (nn/coo.py), 2
+                epochs captured: K2 9 a train step and 6 an eval batch
+                on the 'coo_loops' entry, each of its three roles (the
+                sum, the degree, the gather's gradient) counted under
+                its own label, no K1; two trainings bitwise;
+                card vs CPU; K2 on the entry's receiver and sender
+                indexes against its plain version and timed beside its
+                bound; K2's ms a step beside K1's route, and both
+                routes' replay ms on the same graphs.
   ID-GAT Full / ws (configs/idgat_ws.yaml), kernels K3 and the SDDMM:
   7. kernel_att  — at the real train 'att' pack (D = 128, H = 1) with a
                    softmax'd random alpha: kernel vs plain on the fwd
@@ -371,6 +389,14 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                   remat, one trainer freed before the other: each one's
                   peak device memory, capture and replay wall ms (K1 6
                   and 8 a step).
+  bf16_models   — (after the edge models) check_model at bf16 on
+                  ID-GAT ws, design_sf_max, edge_general and the molhiv
+                  cut, the card side's launches by input dtype; each
+                  path's kernels on bf16 input against their plain
+                  versions and timed beside their bounds (K3 and the
+                  SDDMM on 'att', the max on 'plain', K2 on 'edge', K1
+                  on 'gcn' and K2 on the Atom pack); ID-GCN ba's replay
+                  ms and peak memory at f32 and bf16.
   prefetch_idgin_ba — ID-GIN ba's train loader (2 batches of 48 graphs
                   re-collated each epoch): the run with cfg.tpu.prefetch
                   off and on (train_path, 10 epochs, the launches of
@@ -425,7 +451,10 @@ Phases (each prints one line; a failure prints {"phase": ..., "error":
                    (captured steps after two warm-up epochs) and
                    bench_tu_epoch on the ENZYMES stand-in (gcnconv, 8
                    batches an epoch: K1 8 per step), rates and epoch
-                   times as median and IQR.
+                   times as median and IQR; then one run each of the
+                   suite's other modes: ID-GCN's epoch at impl xla (K2 9
+                   a step, no K1) and in bf16 (K1 6), the TU epoch at
+                   xla (K2 9, the pooling's K1 2).
 Then the kernel table as one JSON line, also written to
 OUT/kernels.json (K1 at D = 128, at D = 1 and on
 make_graph's pack; K3's aggregation and its softmax row sums on ws and
@@ -445,7 +474,9 @@ packs; K3, its row sums and the SDDMM on linkid_ba's 'att' pack and on
 cora_gatid's; K1 on idgraph_enzymes' layer pack and its pooling
 packs; K1 on the molhiv ID point's 'gcn' pack and its add pooling at
 300, K2 on its Atom encoder's embedding pack, K1 on the arxiv design
-point's 'plain' pack at 256), and last the result line
+point's 'plain' pack at 256; each kernel on bf16 input on its bf16
+path's pack, with its launches there on bf16 input; K2 on the COO
+route's indexes), and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -515,17 +546,21 @@ try:
                                                    NODE_ENCODER, PAIRS,
                                                    POOLINGS,
                                                    build_pool_packs,
+                                                   coo_recv_index,
+                                                   coo_send_index,
                                                    edge_index, embed_index,
                                                    gin_kind, kinds_for_cfg,
                                                    pool_kind)
     from graphgym_tpu_torch.main import run_single
     from graphgym_tpu_torch.nn import model as M
     from graphgym_tpu_torch.nn.att_layers import SAGEInitConv
+    from graphgym_tpu_torch.nn.coo import COO_DEGREE, COO_GRAD, COO_SUM
     from graphgym_tpu_torch.nn import encoders as ENC
     from graphgym_tpu_torch.nn import layers as LY
     from graphgym_tpu_torch.nn.model import build_model
     from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
     from graphgym_tpu_torch.train import checkpoint as ckpt
+    from graphgym_tpu_torch.train.graphed import forward
     from graphgym_tpu_torch.train.loop import Trainer
 except ImportError as exc:
     fail(f"{type(exc).__name__}: {exc} (run from the root of a checkout "
@@ -980,14 +1015,20 @@ def timings(calls: dict, pack: K.PackedCSR, x: torch.Tensor,
     pack's slot_bytes on each slot the kernel reads, row_range), the f32
     output written once, over the card's memory rate, against 2 flops
     per slot and column over its f32 rate."""
+    return dict(**bounded_times(calls, *timings_moved(pack, x, slot_bytes)),
+                slots=pack.senders.numel(), real_slots=real_slots_of(pack))
+
+
+def timings_moved(pack: K.PackedCSR, x: torch.Tensor, slot_bytes: int):
+    """(bytes, flops) of a row walk at x's width and dtype: the rows of x
+    the live slots name read once, the pack's slot_bytes on each slot of
+    the row ranges, row_range, the f32 output written once; 2 flops per
+    slot and column."""
     n, d = x.shape
     real_slots = real_slots_of(pack)
-    moved = (live_rows(pack, n) * d * x.element_size()   # x rows read
-             + real_slots * slot_bytes
-             + pack.row_range.numel() * 4
-             + n * d * 4)                         # out written once
-    return dict(**bounded_times(calls, moved, 2 * real_slots * d),
-                slots=pack.senders.numel(), real_slots=real_slots)
+    return (live_rows(pack, n) * d * x.element_size()
+            + real_slots * slot_bytes + pack.row_range.numel() * 4
+            + n * d * 4), 2 * real_slots * d
 
 
 def real_slots_of(pack: K.PackedCSR) -> int:
@@ -1875,6 +1916,32 @@ def live_rows(pack: K.PackedCSR, n_src: int) -> int:
     return int(torch.unique(senders[live]).numel())
 
 
+def max_library(fwd: K.PackedCSR, x: torch.Tensor, g: torch.Tensor,
+                out: torch.Tensor, case: str) -> tuple:
+    """The segmented max's library calls: scatter_reduce(amax) over the
+    f32 messages w * x (``max_messages``) gathered before the timing,
+    and that call's backward (the gradient of each gathered message, a
+    tie split evenly, without the sum of the messages' gradients into
+    dx).  Fails unless the forward equals the kernel's ``out``."""
+    rows, d = out.shape
+    msg, msg_rows = max_messages(fwd, x)
+    index = msg_rows[:, None].expand(-1, d)
+    msg = msg.requires_grad_()
+    lib_out = torch.zeros(rows, d, device=x.device).scatter_reduce(
+        0, index, msg, "amax", include_self=False)
+
+    def library():
+        with torch.no_grad():
+            return torch.zeros(rows, d, device=x.device).scatter_reduce_(
+                0, index, msg, "amax", include_self=False)
+
+    def library_bwd():
+        return torch.autograd.grad(lib_out, msg, g, retain_graph=True)[0]
+    if not torch.equal(library(), out):
+        fail(f"{case}: scatter_reduce(amax) differs from the kernel")
+    return library, library_bwd
+
+
 def check_max_kernel(packs, n: int, d: int, device) -> dict:
     """The segmented max (csrc/packed_max.cu) against its plain version
     on the CPU, f32, at width d on the fwd pack and its backward on the
@@ -1929,21 +1996,7 @@ def check_max_kernel(packs, n: int, d: int, device) -> dict:
                           most_tied=int(cnt.max()),
                           bwd_bitwise=torch.equal(dx.cpu(), want_dx))
     out, cnt = K.packed_max(fwd, x)
-    msg, msg_rows = max_messages(fwd, x)
-    index = msg_rows[:, None].expand(-1, d)
-    msg = msg.requires_grad_()
-    lib_out = torch.zeros(rows, d, device=device).scatter_reduce(
-        0, index, msg, "amax", include_self=False)
-
-    def library():
-        with torch.no_grad():
-            return torch.zeros(rows, d, device=device).scatter_reduce_(
-                0, index, msg, "amax", include_self=False)
-
-    def library_bwd():
-        return torch.autograd.grad(lib_out, msg, g, retain_graph=True)[0]
-    if not torch.equal(library(), out):
-        fail(f"max d={d}: scatter_reduce(amax) differs from the kernel")
+    library, library_bwd = max_library(fwd, x, g, out, f"max d={d}")
     floors = {name: time_calls({"floor": max_floor(r, d, name == "bwd")},
                                bound_ms=1e-9)[0]["floor"]
               for name, r in (("fwd", rows), ("bwd", n))}
@@ -2096,9 +2149,12 @@ def check_bench_kernels(device) -> dict:
             xin = x.to(dtype)
             case = f"K1 make_graph {name} {str(dtype)[6:]}"
             got = K.packed_spmm_cuda(p, xin)
+            # the f32 sums of the kernel's products: its weights as it
+            # takes them against xin (rounded to bf16 for bf16)
+            wp = p._replace(weights=K.weight_as(p.weights, xin).float())
             errs[f"{name}_{str(dtype)[6:]}"] = hold_sums(
-                case, got, K.spmm_packed_plain(p, xin.float()),
-                K.spmm_packed_plain(p, xin.float().abs()))
+                case, got, K.spmm_packed_plain(wp, xin.float()),
+                K.spmm_packed_plain(wp, xin.float().abs()))
             if not torch.equal(got, K.packed_spmm_cuda(p, xin)):
                 fail(f"{case}: two launches differ")
     grads = []
@@ -2340,6 +2396,32 @@ def check_bench_runs(device) -> dict:
     tu_epoch = dict(epoch_s=median_iqr([r[0] for r in runs]),
                     train_edges_per_s=median_iqr([r[1] for r in runs]),
                     dataset="ENZYMES", launches=launches)
+    # the suite's other two modes (A14, A0's COO route), one run each, for
+    # time: ID-GCN's epoch at impl xla (K2 9 a step: per layer the degree
+    # and the sum forward, the gather's gradient backward; no K1) and at
+    # bf16 (K1 6 a step), and the TU epoch at xla (K2 9 and the add
+    # pooling's K1 2 a step)
+    k2 = K.packed_segment_matmul_cuda
+    ws_steps, tu1 = 2 + EPOCHS, 8 * (1 + EPOCHS)
+    (xla,), xla_launches, _ = run("idgcn xla", lambda: [B.bench_train_epoch(
+        "Tfg-idgcn", "xla", EPOCHS, device=device)],
+        {k2: (9 * ws_steps, f"9/train step x {ws_steps}")})
+    (bf16_epoch,), bf16_epoch_launches, _ = run(
+        "idgcn bf16", lambda: [B.bench_train_epoch(
+            "Tfg-idgcn", "pallas", EPOCHS, "bfloat16", device=device)],
+        {k1: (6 * ws_steps, f"6/train step x {ws_steps}")})
+    (tu_xla,), tu_xla_launches, _ = run("tu_epoch xla", lambda: [
+        B.bench_tu_epoch("xla", EPOCHS, device=device, dataset_dir=RAW_DIR)],
+        {k2: (9 * tu1, f"9/train step x {tu1}"),
+         k1: (2 * tu1, f"2/train step x {tu1} (the pooling)")})
+    filled = {"idgcn_ws_epoch_s_xla": xla[0],
+              "idgcn_ws_train_edges_per_s_xla": xla[1],
+              "idgcn_ws_epoch_s_pallas_bf16": bf16_epoch[0],
+              "idgcn_ws_train_edges_per_s_pallas_bf16": bf16_epoch[1],
+              "tu_enzymes_epoch_s_xla": tu_xla[0],
+              "tu_enzymes_train_edges_per_s_xla": tu_xla[1]}
+    if not all(v > 0 for v in filled.values()) or tu_xla[2] != "ENZYMES":
+        fail(f"bench: the xla and bf16 modes gave {filled} ({tu_xla[2]})")
     return dict(iters=it, repeats=rep, main=line,
                 main_launches=main_launches,
                 bf16_fwd_bwd_edges_per_s=median_iqr(bf16),
@@ -2349,7 +2431,11 @@ def check_bench_runs(device) -> dict:
                 attention_launches_by_width=att_by_width,
                 attention_grads_bitwise_equal=True,
                 attention_small_card_vs_cpu_max_err=small_err,
-                train_epochs=epochs, tu_epoch=tu_epoch)
+                train_epochs=epochs, tu_epoch=tu_epoch,
+                xla_and_bf16=filled,
+                xla_and_bf16_launches={"idgcn_xla": xla_launches,
+                                       "idgcn_bf16": bf16_epoch_launches,
+                                       "tu_xla": tu_xla_launches})
 
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)   # card vs CPU, forward values
@@ -2593,9 +2679,70 @@ def f64_witness(cfg, state: dict, batch, kinks: tuple, maxes: tuple,
 
 
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)    # card vs CPU, gradients
+# card vs CPU at tpu.dtype bfloat16, both sides in bf16: a bf16 value
+# rounded on either side of a sum that the two programs add in another
+# order moves by one bf16 ulp (2^-8 relative), and the ulps carry
+# through the layers.  Each path is held at its own tier, set from its
+# readings (PERF.md §6, PR 24): the logits, BN statistics and kink and
+# max inputs at "logit", the gradients at "grad"; with "witness" an
+# entry beyond them is held against the float64 witness by
+# BF16_WITNESS (the card within twice the CPU's own bf16 distance from
+# float64 on that tensor), without it a miss fails.
+#
+# BF16_TIGHT, the main path and ID-GAT ws: their card-vs-CPU readings
+# are at most 6.1e-5 on the logits and gradients and 4.9e-4 on a kink
+# input (the largest 0.36).  A K1 that leaves its weights unrounded
+# parts from the CPU by 5.2e-4 on the main path's logits (the largest
+# 0.04) and by up to 7.6e-3 on a gradient (that tensor's largest
+# 5.2e-2; the CPU's plain versions with and without the rounding).
+# rtol holds one or two ulps of any entry, atol five times the sound
+# readings; no witness, since an unrounded run lies nearer to float64
+# than the CPU does.  ``planted_bf16`` shows that the tier turns the
+# unrounded K1 down on the card.
+BF16_TIGHT = dict(logit=dict(rtol=1e-2, atol=3e-4),
+                  grad=dict(rtol=1e-2, atol=3e-4), witness=False)
+# BF16_SF_MAX, design_sf_max (6 max layers at 256 with BatchNorm; its
+# messages w * h, and all after them, f32): readings 1.0e-3 on the
+# logits (the largest 7.2), 4.9e-4 on the gradients (tensors' largest
+# 0.01 to 0.22), 1.0e-2 on a kink input and 7.8e-3 on a max output
+# (atol scaled by the call's largest, up to 17): each at least three
+# times under this tier.
+BF16_SF_MAX = dict(logit=dict(rtol=2e-2, atol=3e-3),
+                   grad=dict(rtol=2e-2, atol=2e-3), witness=False)
+# BF16_V2OGB, the five-layer design_v2ogb models (edge_general, the
+# molhiv cut): readings up to 4.7e-2 on the logits, 1.4e-2 on a
+# gradient and 2.0 on a kink input; the CPU's own bf16 gradients part
+# from float64 by a large share of the tensor's largest entry, so no
+# fixed elementwise tolerance holds them (ROADMAP C: bf16), and the
+# witness decides.
+BF16_V2OGB = dict(logit=dict(rtol=2e-2, atol=5e-2),
+                  grad=dict(rtol=5e-2, atol=5e-3), witness=True)
+BF16_WITNESS = 2.0
 
 
-def check_model(cfg, batch, device, random_features: bool = False) -> dict:
+def check_model(cfg, batch, device, random_features: bool = False,
+                compute_dtype=None, bf16_tier=None) -> dict:
+    """``_check_model``; with ``compute_dtype`` (cfg.tpu.dtype's) both
+    sides run the mixed-precision forward (``forward``: the parameters
+    and features cast, the masters and buffers f32) and are held at
+    ``bf16_tier`` (BF16_TIGHT, BF16_SF_MAX or BF16_V2OGB), the kink and
+    max inputs too; the float64 witness stays exact float64."""
+    global LOGIT_TOL, GRAD_TOL
+    if compute_dtype is None:
+        return _check_model(cfg, batch, device, random_features)
+    saved = LOGIT_TOL, GRAD_TOL
+    LOGIT_TOL, GRAD_TOL = bf16_tier["logit"], bf16_tier["grad"]
+    try:
+        return dict(_check_model(cfg, batch, device, random_features,
+                                 compute_dtype, bf16_tier["witness"]),
+                    dtype=str(compute_dtype), logit_tol=LOGIT_TOL,
+                    grad_tol=GRAD_TOL, witness=bf16_tier["witness"])
+    finally:
+        LOGIT_TOL, GRAD_TOL = saved
+
+
+def _check_model(cfg, batch, device, random_features: bool = False,
+                 compute_dtype=None, use_witness: bool = True) -> dict:
     """Full-width logits, gradients and BatchNorm running statistics,
     card (kernel) vs CPU (plain), and then the eval-mode logits (which
     read those running statistics).  ``random_features`` replaces the
@@ -2636,7 +2783,9 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
 
     With gnn.dropout > 0 the two sides would draw their masks from
     different generators, so the comparison runs at dropout 0, and the
-    dropout itself is held apart (``check_dropout``)."""
+    dropout itself is held apart (``check_dropout``).  Without
+    ``use_witness`` (a bf16 tier's) an entry beyond the tolerance fails
+    the check outright."""
     import contextlib
 
     if random_features:
@@ -2668,15 +2817,16 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
              same_max, sums,
              (SameLive(live_train.calls), SameLive(live_eval.calls)))):
         with train_mode, maxes[0], scales, lives[0]:
-            pred, label, mask = m(b)
-            loss = torch.nn.functional.cross_entropy(pred[mask],
+            pred, label, mask = forward(m, b, compute_dtype)
+            loss = torch.nn.functional.cross_entropy(pred[mask].float(),
                                                      label[mask])
             loss.backward()
         m.eval()
         with torch.no_grad(), eval_mode, maxes[1], lives[1]:
-            pred_eval = m(b)[0]
+            pred_eval = forward(m, b, compute_dtype)[0]
         # a parameter no loss reaches has no gradient on either side
-        outs.append(dict(train=pred.detach().cpu(), eval=pred_eval.cpu(),
+        outs.append(dict(train=pred.detach().float().cpu(),
+                         eval=pred_eval.float().cpu(),
                          **{k: (p.grad if p.grad is not None
                                 else torch.zeros_like(p)).cpu()
                             for k, p in m.named_parameters()},
@@ -2699,13 +2849,25 @@ def check_model(cfg, batch, device, random_features: bool = False) -> dict:
         miss = ~torch.isclose(got, want, **tol)
         if not miss.any():
             return
+        if not use_witness:
+            fail(f"{what}: {int(miss.sum())} entries beyond {tol} of the "
+                 f"CPU, max err {(got - want).abs().max().item()}")
         if not witness:
             witness.update(f64_witness(
                 cfg, state, batch, (card_train.inputs, card_eval.inputs),
                 (max_train.calls, max_eval.calls),
                 (live_train.calls, live_eval.calls)))
         exact = witness[key]
-        if scale is not None:
+        if compute_dtype is not None:
+            bound = BF16_WITNESS * (want.double() - exact).abs().max() \
+                .item() + 1e-6
+            err = (got[miss].double() - exact[miss]).abs().max().item()
+            if err > bound:
+                fail(f"{what}: {int(miss.sum())} entries beyond {tol} of "
+                     f"the CPU, max err {(got - want).abs().max().item()}, "
+                     f"and {err} from float64, beyond {BF16_WITNESS} x "
+                     f"the CPU's own bf16 distance ({bound})")
+        elif scale is not None:
             hold_sums(f"{what} card vs float64", got[miss], exact[miss],
                       scale[miss])
         else:
@@ -3213,6 +3375,8 @@ def counted(fn):
         k.launches_by_width.clear()
     K.packed_spmm_cuda.launches_rectangular.clear()
     K.packed_segment_matmul_cuda.launches_by_pack.clear()
+    for k in kernels():
+        k.launches_by_dtype.clear()
     result = fn()
     torch.cuda.synchronize()
     return result, ({k.__name__: k.launches for k in kernels()},
@@ -3220,6 +3384,13 @@ def counted(fn):
                      for k in by_width_kernels()},
                     dict(K.packed_spmm_cuda.launches_rectangular),
                     dict(K.packed_segment_matmul_cuda.launches_by_pack))
+
+
+def by_dtype() -> dict:
+    """Each kernel's launches by the dtype of its input since the last
+    ``counted`` began, the kernels that launched."""
+    return {k.__name__: dict(k.launches_by_dtype) for k in kernels()
+            if k.launches_by_dtype}
 
 
 def at_width(by_width: dict, width: int) -> dict:
@@ -3460,6 +3631,19 @@ def first_graphs_batch(cfg_file: str, overrides, graphs: int):
 # a graph path's config, loaders and first train batch, kept by
 # drive_path for kernel_pool
 LOADED: dict = {}
+# the node-task paths whose loaders bf16_models takes again
+KEEP_LOADED = ("idgcn_ba", "design_sf_max")
+# design_sf_max's grid point on scalefree (its overrides after the
+# design config's)
+DESIGN_SF_MAX = (
+    "dataset.format", "nx", "dataset.task", "node", "dataset.transductive",
+    "True", "dataset.name", "scalefree", "dataset.augment_feature",
+    "['node_const']", "dataset.augment_label",
+    "node_clustering_coefficient", "train.batch_size", "16",
+    "gnn.layers_pre_mp", "1", "gnn.layers_mp", "6", "gnn.layers_post_mp",
+    "3", "gnn.stage_type", "skipsum", "gnn.batchnorm", "True", "gnn.act",
+    "relu", "gnn.dropout", "0.6", "gnn.agg", "max", "optim.optimizer",
+    "adam", "optim.base_lr", "0.001")
 
 
 def pool_phase(paths: dict, device) -> dict:
@@ -3729,7 +3913,8 @@ def drive_path(tag: str, device, overrides, expected: dict, widths=None,
           repeat=repeat_steps(cfg, first, device))
     begin(f"graphed_{tag}")
     phase(f"graphed_{tag}", **graphed_check(cfg, first, device))
-    if cfg.dataset.task == "graph":       # kernel_pool's, not loaded again
+    if cfg.dataset.task == "graph" or tag in KEEP_LOADED:
+        # kernel_pool's and bf16_models', not loaded again
         LOADED[tag] = (cfg, loaders, batch)
     return dict(width=d, pack=f"{kind}, {base or tag}", checks=checks,
                 gathers=gathers, train=train, profile=profile)
@@ -4941,6 +5126,433 @@ def remat_phase(device, overrides, ba500) -> dict:
         step_ms_added=rem["step_wall_ms"] - plain["step_wall_ms"]))
 
 
+# ------------------------------------------------------------------------
+# A14 (tpu.dtype bfloat16) and A0's COO layer route (tpu.spmm_impl xla)
+# ------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def dtype_runs(cfg, loaders, host_batch, device,
+               dtypes=("float32", "bfloat16")) -> dict:
+    """For each cfg.tpu.dtype of ``dtypes`` a fresh captured trainer on
+    ``host_batch`` (``remat_cost.run``: STEPS steps, two to capture, the
+    median wall ms of the replays, the peak device memory above what was
+    allocated before it), the first freed before the next; fails unless
+    the losses are finite and the master parameters, the Adam moments
+    and the buffers stay f32."""
+    def not_f32(trainer):
+        bad = [k for k, p in trainer.model.named_parameters()
+               if p.dtype != torch.float32]
+        bad += [k for k, b in trainer.model.named_buffers()
+                if b.is_floating_point() and b.dtype != torch.float32]
+        bad += [f"adam {k}" for st in trainer.optimizer.state.values()
+                for k, v in st.items() if torch.is_tensor(v)
+                and v.is_floating_point() and v.dtype != torch.float32]
+        return dict(not_f32=bad)
+    out = {}
+    for name in dtypes:
+        c = cfg.clone()
+        c.tpu.dtype = name
+        r = remat_cost.run(c, loaders, host_batch, device, False,
+                           remat_cost.STEPS, extra=not_f32)
+        if r["not_f32"] or not all(map(math.isfinite, r["losses"])):
+            fail(f"{cfg.gnn.layer_type} at {name}: losses {r['losses']}, "
+                 f"state not f32: {r['not_f32']}")
+        out[name] = {k: r[k] for k in ("losses", "step_wall_ms",
+                                       "peak_memory_bytes")}
+    return dict(out, steps=remat_cost.STEPS, nodes=int(host_batch.num_nodes),
+                timed="median wall ms of the replays after 2 steps")
+
+
+def bf16_main_phase(device, overrides) -> dict:
+    """bf16_main: the main path (configs/idgcn_ws.yaml: ID-GCN Full, 3 x
+    128, the Tfg head at 256) at tpu.dtype bfloat16, EPOCHS epochs
+    through the captured steps (``train_path``: K1 6 a train step and 3
+    an eval batch, every launch on bf16 input), two trainings bitwise
+    (``repeat_steps``), eager against captured bitwise
+    (``graphed_check``), card against CPU at BF16_TIGHT, no witness
+    (``check_model``), that tier turning down a K1 that leaves its
+    weights unrounded (``planted_bf16``), and the replay ms and peak
+    memory of a train step at f32 and at bf16 on the train batch, the
+    masters f32 (``dtype_runs``)."""
+    ovr = overrides + ["tpu.dtype", "bfloat16"]
+    cfg, loaders, _ = load_path(CFG, ovr)
+    k1 = K.packed_spmm_cuda
+    train = train_path(CFG, ovr, os.path.join(OUT, "idgcn_bf16"), loaders,
+                       {k1: (6, 3)})
+    dtypes = by_dtype()
+    if dtypes != {k1.__name__: {str(BF16): train["launches"][k1.__name__]}}:
+        fail(f"bf16_main: launches by input dtype {dtypes}; every K1 "
+             "launch must read bf16")
+    return dict(train=train, launches_by_dtype=dtypes,
+                repeat=repeat_steps(cfg, loaders, device),
+                graphed=graphed_check(cfg, loaders, device),
+                model=check_model(cfg, loaders[1].batches(0)[0], device,
+                                  compute_dtype=BF16, bf16_tier=BF16_TIGHT),
+                planted=planted_bf16(cfg, loaders[1].batches(0)[0],
+                                     device),
+                cost=dtype_runs(cfg, loaders, loaders[0].batches(0)[0],
+                                device))
+
+
+def planted_bf16(cfg, batch, device) -> str:
+    """check_model at BF16_TIGHT with a K1 on the card that leaves its
+    weights unrounded against a bf16 x (the f32 kernel on x widened,
+    its output cast back to bf16; the CPU reference keeps the rounding):
+    the check must fail; returns its message."""
+    real = K.spmm_packed
+
+    def unrounded(pack, x):
+        if x.is_cuda and x.dtype == BF16:
+            return real(pack, x.float()).to(BF16)
+        return real(pack, x)
+    K.spmm_packed, _PLANTED[0] = unrounded, True
+    try:
+        check_model(cfg, batch, device, compute_dtype=BF16,
+                    bf16_tier=BF16_TIGHT)
+    except CheckFailed as exc:
+        return str(exc)
+    finally:
+        K.spmm_packed, _PLANTED[0] = real, False
+    fail("planted bf16 fault (K1's weights unrounded): the model check "
+         "passed at BF16_TIGHT")
+
+
+def library_or_none(fn):
+    """fn where the library call runs on these inputs (a bf16 sparse
+    product may not), else None."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+def timed_row(calls: dict, moved: int, flops: int, err: float) -> dict:
+    """A kernels-line row's numbers from ``bounded_times``: a call left
+    out of ``calls`` (no library call) reads None."""
+    calls = {k: f for k, f in calls.items() if f is not None}
+    t = bounded_times(calls, moved, flops)
+    return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"], timed_by=t["timed_by"],
+                bytes=t["bytes"])
+
+
+def held(case: str, got: torch.Tensor, want: torch.Tensor,
+         tol: dict) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **tol):
+        fail(f"{case}: kernel vs plain max err {err} beyond {tol}")
+    return err
+
+
+def bf16_k1(pack: K.PackedCSR, n: int, d: int, device) -> dict:
+    """K1 on bf16 x against its plain version (both round the weights to
+    bf16) and its times beside the bound (x read at 2 bytes)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(n, d, generator=gen, device=device).bfloat16()
+    err = held("K1 bf16", K.spmm_packed(pack, x),
+               K.spmm_packed_plain(pack, x), BF16_TOL)
+    a = csr_of(pack, n).to(BF16)
+    row = timed_row({"kernel": lambda: K.packed_spmm_cuda(pack, x),
+                     "plain": lambda: K.spmm_packed_plain(pack, x),
+                     "library": library_or_none(
+                         lambda: torch.sparse.mm(a, x))},
+                    *timings_moved(pack, x, 8), err)
+    return dict(row, width=d)
+
+
+def bf16_att(packs, n: int, d: int, heads: int, device) -> dict:
+    """K3 on bf16 v (alpha the softmax of random logits, rounded to bf16
+    by both versions) and the SDDMM on bf16 a, b at the path's 'att'
+    pack, each against its plain version and timed beside its bound."""
+    fwd = packs[0]
+    gen = torch.Generator(device=device).manual_seed(6)
+    v = torch.randn(n, d, generator=gen, device=device).bfloat16()
+    alpha = K.packed_segment_softmax(torch.randn(
+        fwd.senders.shape + (heads,), generator=gen, device=device), fwd)
+    err = held("K3 bf16", K.packed_segment_matmul_headed_cuda(fwd, v, alpha),
+               K.packed_segment_matmul_headed_plain(fwd, v, alpha), BF16_TOL)
+    # one head: the library call is torch.sparse.mm of alpha's bf16 CSR
+    csr = csr_of(fwd, n, alpha[..., 0]).to(BF16)
+    k3 = timed_row({"kernel": lambda: K.packed_segment_matmul_headed_cuda(
+        fwd, v, alpha), "plain": lambda: K.packed_segment_matmul_headed_plain(
+            fwd, v, alpha), "library": library_or_none(
+                lambda: torch.sparse.mm(csr, v)) if heads == 1 else None},
+        *timings_moved(fwd, v, 4 + 4 * heads), err)
+    a, b = (torch.randn(n, heads, d // heads, generator=gen,
+                        device=device).bfloat16() for _ in range(2))
+    got = K.packed_sddmm_cuda(fwd, a, b)
+    want = K.packed_sddmm_plain(fwd, a, b)
+    valid = valid_csr(fwd, n).to(BF16)
+    a1, b1t = a[:, 0], b[:, 0].t()
+    sddmm = timed_row({"kernel": lambda: K.packed_sddmm_cuda(fwd, a, b),
+                       "plain": lambda: K.packed_sddmm_plain(fwd, a, b),
+                       "library": library_or_none(
+                           lambda: torch.sparse.sampled_addmm(
+                               valid, a1, b1t, beta=0.0))
+                       if heads == 1 else None},
+                      *sddmm_bound(fwd, a),
+                      held("SDDMM bf16", got, want, BF16_TOL))
+    return dict(k3=dict(k3, width=d, heads=heads),
+                sddmm=dict(sddmm, heads=heads, dh=d // heads))
+
+
+def bf16_max(packs, n: int, d: int, device) -> dict:
+    """The segmented max forward and backward on bf16 x against their
+    plain versions (the forward bitwise: a max of w * x in f32 is
+    exact), timed beside their bounds (x read at 2 bytes) and the
+    library calls (``max_library``: the messages w * x, f32 as the
+    kernel's, gathered from the bf16 x before the timing)."""
+    fwd, bwd = packs
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(n, d, generator=gen, device=device).bfloat16()
+    rows = fwd.row_range.shape[0]
+    g = torch.randn(rows, d, generator=gen, device=device)
+    out, cnt = K.packed_max_cuda(fwd, x)
+    want, want_cnt = K.packed_max_plain(fwd, x)
+    if not (torch.equal(out, want) and torch.equal(cnt, want_cnt)):
+        fail(f"max bf16 d={d}: forward differs from the plain version")
+    dx = K.packed_max_bwd_cuda(bwd, x, g, out, cnt)
+    err = held("max bwd bf16", dx, K.packed_max_bwd_plain(bwd, x, g, out, cnt),
+               F32_TOL)
+    library, library_bwd = max_library(fwd, x, g, out, f"max bf16 d={d}")
+    rd4 = rows * d * 4
+    f_slots, b_slots = real_slots_of(fwd), real_slots_of(bwd)
+    fwd_row = timed_row(
+        {"kernel": lambda: K.packed_max_cuda(fwd, x),
+         "plain": lambda: K.packed_max_plain(fwd, x), "library": library},
+        live_rows(fwd, n) * d * 2 + 2 * rd4 + f_slots * 8
+        + fwd.row_range.numel() * 4, 2 * f_slots * d, 0.0)
+    bwd_row = timed_row(
+        {"kernel": lambda: K.packed_max_bwd_cuda(bwd, x, g, out, cnt),
+         "plain": lambda: K.packed_max_bwd_plain(bwd, x, g, out, cnt),
+         "library": library_bwd},
+        int((bwd.row_range[:, 1] > bwd.row_range[:, 0]).sum()) * d * 2
+        + 3 * rd4 + n * d * 4 + b_slots * 8 + bwd.row_range.numel() * 4,
+        4 * b_slots * d, err)
+    return dict(width=d, fwd=fwd_row, bwd=bwd_row)
+
+
+def bf16_k2(index: K.SegmentIndex, n_src: int, d: int, device) -> dict:
+    """K2 on bf16 messages [n_src, d] of ``index`` against its plain
+    version on the CPU (``k2_checks``, f32 and bf16), timed beside its
+    bound: each message row the summed positions name read once at 2
+    bytes (an embedding pack's positions name an item's row once per id
+    column), the index, the f32 output written once."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    msg = torch.randn(n_src, d, generator=gen, device=device)
+    errs = k2_checks("K2 bf16", msg, index)
+    mb = msg.bfloat16()
+    positions = int(index.row_ptr[-1])
+    n_out = index.row_ptr.numel() - 1
+    read = (positions if index.src is None
+            else int(torch.unique(index.src[:positions]).numel()))
+    moved = (read * d * 2 + 4 * sum(a.numel() for a in index
+                                    if a is not None)
+             + n_out * d * 4)
+    mat = index_matrix(index, n_src).to(BF16)
+    row = timed_row({"kernel": lambda: K.segment_sum_cuda(mb, index),
+                     "plain": lambda: K.segment_sum_plain(mb, index),
+                     "library": library_or_none(
+                         lambda: torch.sparse.mm(mat, mb))},
+                    moved, positions * d, errs["bf16_err"])
+    return dict(row, width=d, positions=positions, rows_read=read,
+                errs=errs)
+
+
+def bf16_model(cfg, batch, device, random_features, tier) -> dict:
+    """check_model at bf16 on one path's batch at its ``tier``, its card
+    side's launches by kernel and input dtype."""
+    cfg = cfg.clone()
+    cfg.tpu.dtype = "bfloat16"
+    model, (launches, *_) = counted(lambda: check_model(
+        cfg, batch, device, random_features, compute_dtype=BF16,
+        bf16_tier=tier))
+    return dict(model, launches={k: v for k, v in launches.items() if v},
+                launches_by_dtype=by_dtype())
+
+
+BF16_TIERS = {"idgat_ws": BF16_TIGHT, "design_sf_max": BF16_SF_MAX,
+              "edge_general": BF16_V2OGB, "ogbg_molhiv_gcnid": BF16_V2OGB}
+
+
+def bf16_models_phase(device, paths: dict, ba) -> dict:
+    """bf16_models: ``check_model`` at bf16 (a train step's logits and
+    gradients and an eval forward, card against CPU, each path at its
+    tier, BF16_TIERS) on ID-GAT ws, design_sf_max, edge_general and the molhiv
+    cut, each path's kernels on bf16 input at its train batch's packs
+    against their plain versions and timed beside their bounds (K3 and
+    the SDDMM on 'att'; the max on 'plain'; K2 on 'edge'; K1 on 'gcn'
+    and K2 on the Atom encoder's pack at 300), and the replay ms and
+    peak memory of ID-GCN ba's train step (327,680 rows) at f32 and
+    bf16.  ``paths``: tag -> (cfg, loaders, model batch,
+    random_features)."""
+    out = {}
+    for tag, (cfg, loaders, model_batch, rf) in paths.items():
+        begin(f"bf16_models {tag}")
+        host = loaders[0].batches(0)[0]
+        dev = host.to(device)
+        n, d = host.num_nodes, cfg.gnn.dim_inner
+        if tag == "idgat_ws":
+            kernels = bf16_att(dev.packs["att"], n, d, cfg.gnn.att_heads,
+                               device)
+        elif tag == "design_sf_max":
+            kernels = dict(max=bf16_max(dev.packs["plain"], n, d, device))
+        elif tag == "edge_general":
+            _, slots = dev.packs[EDGE]
+            kernels = dict(k2=bf16_k2(edge_index(slots), host.num_edges, d,
+                                      device))
+        else:
+            (pack,) = dev.packs[NODE_ENCODER]
+            kernels = dict(k1=bf16_k1(dev.packs["gcn"][0], n, d, device),
+                           k2=bf16_k2(embed_index(pack), n,
+                                      cfg.dataset.encoder_dim, device))
+        out[tag] = dict(model=bf16_model(cfg, model_batch, device, rf,
+                                         BF16_TIERS[tag]),
+                        kernels=kernels)
+    begin("bf16_models idgcn_ba")
+    cfg, loaders = ba
+    out["idgcn_ba"] = dtype_runs(cfg, loaders, loaders[0].batches(0)[0],
+                                 device)
+    return out
+
+
+def coo_route_phase(device, overrides, pallas_train_batch) -> dict:
+    """coo_route: the main path at tpu.spmm_impl xla (the MP layers on
+    the COO route, nn/coo.py), 2 epochs through the captured steps: K2
+    9 a train step (per layer the degree at width 1 and the sum at 128,
+    the gather's gradient in the backward) and 6 an eval batch, all on
+    the 'coo_loops' entry's indexes, each role held under its own label
+    (nn/coo.py ``COO_SUM``, ``COO_DEGREE``, ``COO_GRAD``), K1 none; two
+    trainings bitwise;
+    card against CPU at check_model's f32 tolerances; the replay ms of a
+    train step beside K1's route on the same graphs; K2 on the entry's
+    two indexes at 128 and 1 against its plain version and timed beside
+    its bound, and the K2 ms a step beside K1's 6 launches on the 'gcn'
+    packs (``pallas_train_batch``, K1's route's train batch)."""
+    ovr = overrides + ["tpu.spmm_impl", "xla", "optim.max_epoch", "2"]
+    cfg, loaders, _ = load_path(CFG, ovr)
+    k2 = K.packed_segment_matmul_cuda
+    layers = cfg.gnn.layers_mp
+    train = train_path(CFG, ovr, os.path.join(OUT, "idgcn_xla"), loaders,
+                       {k2: (3 * layers, 2 * layers)},
+                       k2_packs={COO_SUM: (layers, layers),
+                                 COO_DEGREE: (layers, layers),
+                                 COO_GRAD: (layers, 0)})
+    host = loaders[0].batches(0)[0]
+    if set(host.packs) != {"coo_loops"}:
+        fail(f"coo_route: the batch carries {sorted(host.packs)}")
+    dev = host.to(device)
+    (edges,) = dev.packs["coo_loops"]
+    n, d, p = host.num_nodes, cfg.gnn.dim_inner, edges.senders.numel()
+    recv, send = coo_recv_index(edges), coo_send_index(edges)
+    k2_rows = {}
+    for name, index, width in ((COO_SUM, recv, d), (COO_GRAD, send, d),
+                               (COO_DEGREE, recv, 1)):
+        gen = torch.Generator(device=device).manual_seed(9)
+        msg = torch.randn(p, width, generator=gen, device=device)
+        errs = k2_checks(f"coo {name}", msg, index)
+        mat = index_matrix(index, p)
+        positions = int(index.row_ptr[-1])
+        moved = (positions * width * 4 + 4 * sum(
+            a.numel() for a in index if a is not None) + n * width * 4)
+        k2_rows[name] = dict(timed_row(
+            {"kernel": lambda: K.segment_sum_cuda(msg, index),
+             "plain": lambda: K.segment_sum_plain(msg, index),
+             "library": lambda: torch.sparse.mm(mat, msg)},
+            moved, positions * width, errs["f32_err"]), width=width,
+            positions=positions,
+            launches=train["k2_launches_by_pack"][name])
+    fwd, bwd = pallas_train_batch.to(device).packs["gcn"]
+    x = torch.randn(n, d, device=device)
+    k1_ms = {name: time_calls({"kernel": lambda: K.packed_spmm_cuda(pack, x)},
+                              1e-9)[0]["kernel"]
+             for name, pack in (("fwd", fwd), ("bwd", bwd))}
+    return dict(train=train, repeat=repeat_steps(cfg, loaders, device),
+                model=check_model(cfg, loaders[1].batches(0)[0], device),
+                positions=p, nodes=n, k2=k2_rows,
+                k2_ms_per_step=layers * sum(r["ms"] for r in
+                                            k2_rows.values()),
+                k1_ms_per_step=layers * (k1_ms["fwd"] + k1_ms["bwd"]),
+                k1_ms=k1_ms,
+                replay=dict(
+                    xla=remat_cost.run(cfg, loaders, host, device, False,
+                                       remat_cost.STEPS)["step_wall_ms"],
+                    pallas=remat_cost.run(
+                        load_cfg(CFG, overrides), [FirstBatch(
+                            pallas_train_batch, 1), *loaders[1:]],
+                        pallas_train_batch, device, False,
+                        remat_cost.STEPS)["step_wall_ms"]))
+
+
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "timed_by")
+
+
+def a14_rows(bf16_main: dict, bf16_models: dict, coo_route: dict,
+             srcs: dict) -> list:
+    """The kernels line's rows of this slice's paths: each kernel on bf16
+    input at a bf16 path's packs (its launches on bf16 input in the
+    path's run: bf16_main's training, or bf16_models' model check on
+    the card), and K2 on the COO route's indexes (its launches under
+    each role's label in coo_route's training)."""
+    def bf16_launches(by_dtype: dict, kernel) -> int:
+        return by_dtype.get(kernel.__name__, {}).get(str(BF16), 0)
+
+    def row(name, src, path, numbers, launches, **extra):
+        return {"name": name, **srcs[src], "path": path, "dtype": "bfloat16",
+                **{k: numbers.get(k) for k in ROW_KEYS}, **extra,
+                "launches": launches}
+    models = {k: v["model"]["launches_by_dtype"]
+              for k, v in bf16_models.items() if "model" in v}
+    kern = {k: v["kernels"] for k, v in bf16_models.items() if "kernels" in v}
+    rows = [
+        row("packed_spmm_bf16", "k1", "idgcn_ws at bf16",
+            bf16_main["kernels"]["k1"],
+            bf16_launches(bf16_main["launches_by_dtype"], K.packed_spmm_cuda),
+            width=bf16_main["kernels"]["k1"]["width"]),
+        row("packed_spmm_bf16_molhiv", "k1", "ogbg_molhiv_gcnid at bf16",
+            kern["ogbg_molhiv_gcnid"]["k1"],
+            bf16_launches(models["ogbg_molhiv_gcnid"], K.packed_spmm_cuda),
+            width=kern["ogbg_molhiv_gcnid"]["k1"]["width"]),
+        row("packed_attention_bf16", "k3", "idgat_ws at bf16",
+            kern["idgat_ws"]["k3"],
+            bf16_launches(models["idgat_ws"],
+                          K.packed_segment_matmul_headed_cuda),
+            width=kern["idgat_ws"]["k3"]["width"]),
+        row("packed_sddmm_bf16", "sddmm", "idgat_ws at bf16",
+            kern["idgat_ws"]["sddmm"],
+            bf16_launches(models["idgat_ws"], K.packed_sddmm_cuda)),
+        *(row(f"{kernel.__name__[:-5]}_bf16", "max",
+              "design_sf_max at bf16 (its messages w * h are f32)",
+              kern["design_sf_max"]["max"][half],
+              bf16_launches(models["design_sf_max"], kernel),
+              width=kern["design_sf_max"]["max"]["width"])
+          for half, kernel in (("fwd", K.packed_max_cuda),
+                               ("bwd", K.packed_max_bwd_cuda))),
+        row("packed_segment_bf16_edge", "k2", "edge_general at bf16",
+            kern["edge_general"]["k2"],
+            bf16_launches(models["edge_general"],
+                          K.packed_segment_matmul_cuda),
+            width=kern["edge_general"]["k2"]["width"]),
+        row("packed_segment_bf16_atom", "k2", "ogbg_molhiv_gcnid at bf16",
+            kern["ogbg_molhiv_gcnid"]["k2"],
+            bf16_launches(models["ogbg_molhiv_gcnid"],
+                          K.packed_segment_matmul_cuda),
+            width=kern["ogbg_molhiv_gcnid"]["k2"]["width"]),
+    ]
+    for name, numbers in coo_route["k2"].items():
+        rows.append(dict(row(f"packed_segment_{name}", "k2",
+                             "idgcn_ws at tpu.spmm_impl xla", numbers,
+                             numbers["launches"], width=numbers["width"]),
+                         dtype="float32"))
+    return rows
+
+
 def main() -> None:
     shutil.rmtree(OUT, ignore_errors=True)
     begin("device")
@@ -4983,6 +5595,7 @@ def main() -> None:
     phase("kernel", n=n, d=d, chunks=int(dev_batch.packs["gcn"][0]
                                          .senders.shape[0]),
           host_data_s=host_s, **k1)
+    main_batch = train_batch
     begin("model")
     phase("model", **check_model(cfg, loaders[1].batches(0)[0], device))
     # every layer's SpMM input (x W) needs a gradient: 2 per layer
@@ -5007,6 +5620,17 @@ def main() -> None:
         "optim.scheduler", "none"])
     phase("registered_optim", **registered_optim(cfg, loaders, device,
                                                  k1=(6, 3)))
+    # ---- A14: the main path at tpu.dtype bfloat16, and A0's COO route
+    # (tpu.spmm_impl xla) on it
+    begin("bf16_main")
+    bf16_main = bf16_main_phase(device, overrides)
+    bf16_main["kernels"] = dict(k1=bf16_k1(
+        main_batch.to(device).packs["gcn"][0], main_batch.num_nodes,
+        d, device))
+    phase("bf16_main", **bf16_main)
+    begin("coo_route")
+    coo_route = coo_route_phase(device, overrides, main_batch)
+    phase("coo_route", **coo_route)
 
     # ---- ID-GAT Full / ws: kernels K3 and the SDDMM
     begin("kernel_att")
@@ -5260,14 +5884,7 @@ def main() -> None:
             "optim.base_lr", "0.1", ovr=dz, expected={k1_: (8, 4)},
             widths={256: {k1_: (8, 4)}}),
         "design_sf_max": grid_point(
-            "design_sf_max", "design/design_v1", *node, "dataset.name",
-            "scalefree", "dataset.augment_feature", "['node_const']",
-            "dataset.augment_label", "node_clustering_coefficient",
-            "train.batch_size", "16", "gnn.layers_pre_mp", "1",
-            "gnn.layers_mp", "6", "gnn.layers_post_mp", "3",
-            "gnn.stage_type", "skipsum", "gnn.batchnorm", "True",
-            "gnn.act", "relu", "gnn.dropout", "0.6", "gnn.agg", "max",
-            "optim.optimizer", "adam", "optim.base_lr", "0.001", ovr=dz,
+            "design_sf_max", "design/design_v1", *DESIGN_SF_MAX, ovr=dz,
             expected={max_: (6, 6), max_bwd_: (6, 0)},
             random_features=True),
         "idconv_ws": grid_point("idconv_ws", "idgcn_ws", "gnn.layer_type",
@@ -5541,6 +6158,20 @@ def main() -> None:
                                        edge_ovr + list(EDGE_BONDS) + extra,
                                        device, expected, k2_packs=k2_packs)
         phase(f"model_{tag}", **edge_models[tag])
+    # ---- A14 on the other kernels' paths: ID-GAT ws (K3, the SDDMM),
+    # design_sf_max (the max), edge_general (K2 on 'edge'), the molhiv
+    # cut (the Atom encoder's K2, K1 at 300), and ID-GCN ba's step
+    begin("bf16_models")
+    gat_cfg, gat_loaders, _ = load_path(CFG_ATT, overrides)
+    bf16_paths = {"idgat_ws": (gat_cfg, gat_loaders,
+                               gat_loaders[1].batches(0)[0], False)}
+    for tag, rf in (("design_sf_max", True), ("edge_general", False),
+                    ("ogbg_molhiv_gcnid", False)):
+        p_cfg, p_loaders, _ = LOADED[tag]
+        bf16_paths[tag] = (p_cfg, p_loaders, p_loaders[1].batches(0)[0], rf)
+    bf16_models = bf16_models_phase(device, bf16_paths,
+                                    LOADED["idgcn_ba"][:2])
+    phase("bf16_models", **bf16_models)
     # the prefetch on two loaders of many small batches (6 and 3 an
     # epoch)
     begin("prefetch_design_graph_sf")
@@ -5634,6 +6265,8 @@ def main() -> None:
                   replaces="graphgym_tpu/ops/pallas/spmm_kernel.py:309",
                   design="redesigned for Hopper: positions read in place, "
                          "short rows at one owner, long rows by runs")
+    a14_srcs = {"k1": k1_src, "k3": k3_src, "sddmm": sddmm_src,
+                "max": max_src, "k2": k2_src}
     kernels_line = json.dumps({"kernels": [
         {"name": "packed_spmm", **k1_src,
          "path": ", ".join(k1_paths), "width": k1["width"],
@@ -5715,6 +6348,7 @@ def main() -> None:
            **{k: bk["max"][half][k] for k in row + ("floor_ms",)},
            "launches": 0}
           for half, kernel in (("fwd", max_), ("bwd", max_bwd_))),
+        *a14_rows(bf16_main, bf16_models, coo_route, a14_srcs),
     ]})
     with open(os.path.join(OUT, "kernels.json"), "w") as f:
         f.write(kernels_line + "\n")

@@ -211,12 +211,13 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
     on the card the eager step 0 and the capture of step 1), then
     ``epochs`` timed, replays of the captured step.
     Returns (seconds per epoch, real edges per second).  impl 'xla'
-    raises (``_epoch_device``), and dtype bfloat16 raises in the loader
-    (A14)."""
+    runs the MP layers on the COO route (nn/coo.py: K2), 'pallas' and
+    'auto' on their packs (K1); dtype 'bfloat16' trains in mixed
+    precision (train/graphed.py)."""
     from graphgym_tpu_torch.config import get_cfg
     from graphgym_tpu_torch.data.loaders import create_dataset
 
-    device = _epoch_device(impl, device)
+    device = _epoch_device(device)
     cfg = get_cfg()     # the root bench.py's ID-GNN / ws config, :137-146
     cfg.merge_from_dict({
         "dataset": {"format": "nx", "name": "ws", "task": "node",
@@ -234,14 +235,8 @@ def bench_train_epoch(layer="Tfg-idgcn", impl="pallas", epochs=5,
     return _epoch_rate(cfg, create_dataset(cfg), 2, epochs)
 
 
-def _epoch_device(impl, device) -> str:
-    """The device name a train-epoch benchmark's config takes; impl
-    'xla', the JAX package's COO layer path, raises (ROADMAP A0): the
-    port's layers run the packs (the hand-written kernels) only."""
-    if impl not in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"impl {impl!r}: the port's layers run the packed kernels "
-            "only; the COO layer path is not ported yet (ROADMAP A0)")
+def _epoch_device(device) -> str:
+    """The device name a train-epoch benchmark's config takes."""
     return device.type if isinstance(device, torch.device) else device
 
 
@@ -274,12 +269,13 @@ def bench_tu_epoch(impl="pallas", epochs=5, device="auto", dim_inner=128,
     64 (8 train batches), or, where the TU files are missing, the ws
     corpus as a stand-in multi-batch graph task (graph_path_len labels).
     One warm-up epoch (on the card the eager step 0 and the capture of
-    step 1), then ``epochs`` timed.  Returns (seconds per epoch, real
-    edges per second, the dataset run: 'ENZYMES' or 'ws')."""
+    step 1), then ``epochs`` timed; ``impl`` as ``bench_train_epoch``'s.
+    Returns (seconds per epoch, real edges per second, the dataset run:
+    'ENZYMES' or 'ws')."""
     from graphgym_tpu_torch.config import get_cfg
     from graphgym_tpu_torch.data.loaders import create_dataset
 
-    device = _epoch_device(impl, device)
+    device = _epoch_device(device)
     model = {"gnn": {"layers_mp": 3, "dim_inner": dim_inner,
                      "layer_type": "gcnconv"},
              "train": {"batch_size": 64}, "tpu": {"spmm_impl": impl},
@@ -325,10 +321,11 @@ def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
               epochs=5, dim_inner=128):
     """The extended suite (the root bench.py:210-236) -> ``out_path``:
     SpMM fwd+bwd (COO and packed, f32; packed bf16), attention, a train
-    epoch of each of the four ID-GNN / ws paths, and the multi-batch
-    graph-task epoch (``bench_tu_epoch``; which dataset it ran under
-    'tu_enzymes_dataset').  Keys the port
-    cannot fill are null, with the reason under 'null_reasons'."""
+    epoch of each of the four ID-GNN / ws paths, ID-GCN's also on the
+    COO route and in bf16, and the multi-batch graph-task epoch
+    (``bench_tu_epoch``, packed and COO; which dataset it ran under
+    'tu_enzymes_dataset').  A key the port cannot fill would be null,
+    with the reason under 'null_reasons'; none is now."""
     dims = dims or (131072, 2_000_000, 128)
     n, e, d = dims
     details = {"device": device_name(device), "null_reasons": {}}
@@ -340,7 +337,6 @@ def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
         device=device)[0], 1)
     details["attention_fwd_bwd_edges_per_s"] = round(bench_attention(
         n, e, iters=iters, device=device), 1)
-    reasons = details["null_reasons"]
     for layer in TRAIN_LAYERS:
         name = layer.replace("Tfg-", "")
         dt, eps = bench_train_epoch(layer, "pallas", epochs,
@@ -352,15 +348,16 @@ def run_suite(out_path=DEFAULT_OUT, device="auto", dims=None, iters=20,
     details["tu_enzymes_epoch_s_pallas"] = round(dt, 4)
     details["tu_enzymes_train_edges_per_s_pallas"] = round(eps, 1)
     details["tu_enzymes_dataset"] = source
-    for key, why in (
-            ("idgcn_ws_epoch_s_xla", "the COO layer path is not ported "
-             "(ROADMAP A0)"),
-            ("idgcn_ws_epoch_s_pallas_bf16", "tpu.dtype bfloat16 is not "
-             "ported (ROADMAP A14)"),
-            ("tu_enzymes_epoch_s_xla", "the COO layer path is not ported "
-             "(ROADMAP A0)")):
-        details[key] = None
-        reasons[key] = why
+    for impl, dtype, suffix in (("xla", "float32", "xla"),
+                                ("pallas", "bfloat16", "pallas_bf16")):
+        dt, eps = bench_train_epoch("Tfg-idgcn", impl, epochs, dtype,
+                                    device=device, dim_inner=dim_inner)
+        details[f"idgcn_ws_epoch_s_{suffix}"] = round(dt, 4)
+        details[f"idgcn_ws_train_edges_per_s_{suffix}"] = round(eps, 1)
+    dt, eps, _ = bench_tu_epoch("xla", epochs, device=device,
+                                dim_inner=dim_inner)
+    details["tu_enzymes_epoch_s_xla"] = round(dt, 4)
+    details["tu_enzymes_train_edges_per_s_xla"] = round(eps, 1)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(details, f, indent=1)

@@ -281,10 +281,11 @@ def set_cfg(cfg: CfgNode) -> CfgNode:
     # -------------------------------------------------- tpu group
     # The JAX package's device group, kept with its defaults so that
     # configs setting any of these keys still merge.  The port reads
-    # pad_buckets, prefetch and profile / profile_epochs (a
-    # torch.profiler trace, train/loop.py); loaders raise on a non-empty
-    # mesh_shape (multi-GPU is ROADMAP A16) and on a dtype other than
-    # float32 (A14).
+    # spmm_impl ('xla': the MP layers' COO route, nn/coo.py; 'auto' and
+    # 'pallas': their packs), dtype (bfloat16: mixed precision,
+    # train/graphed.py), pad_buckets, prefetch, remat and profile /
+    # profile_epochs (a torch.profiler trace, train/loop.py); loaders
+    # raise on a non-empty mesh_shape (multi-GPU is ROADMAP A16).
     cfg.tpu = CfgNode()
     cfg.tpu.spmm_impl = "auto"
     cfg.tpu.dtype = "float32"

@@ -21,6 +21,20 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// A slot weight (K1's pack weight, K3's alpha) as the TPU kernels take
+// it against a message of T: f32 for f32, rounded to bf16 for bf16
+// (_kernel_weighted and _kernel_headed cast the weighted one-hot to the
+// message's dtype before the product, spmm_kernel.py:362-364, 567-568).
+// The product of two bf16 values is exact in f32.
+template <typename T>
+__device__ __forceinline__ float as_weight(float a) {
+  return a;
+}
+template <>
+__device__ __forceinline__ float as_weight<__nv_bfloat16>(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
 // Sixteen bytes of T, the unit of a vector load: Vec<T>::kN values,
 // unpacked to f32.  A bf16 value is the high half of its f32.
 template <typename T>

@@ -5,9 +5,10 @@
 //
 // over the slots of a PackedCSR layout, with the per-slot, per-head
 // coefficients alpha in a slot-major [num_chunks * chunk, heads] f32
-// array.  K1 is the one-head case with alpha = the pack's weights (whose
-// [num_chunks, chunk] array is the same memory as [num_chunks * chunk,
-// 1]); K3 passes its attention coefficients.  A row's slots are
+// array, each rounded to bf16 against a bf16 v (as_weight).  K1 is the
+// one-head case with alpha = the pack's weights (whose [num_chunks,
+// chunk] array is the same memory as [num_chunks * chunk, 1]); K3 passes
+// its attention coefficients.  A row's slots are
 // contiguous and row_range[r] = [start, end) ends after its last slot of
 // nonzero pack weight, so the walk never reads padding slots,
 // bucket-padding chunks or trailing zero-weight edges (each would add 0).
@@ -107,7 +108,7 @@ row_walk_narrow(const T* __restrict__ v, long long n_src,
       for (int j = 0; j < kAhead; ++j) {
         const bool in = k0 + j < end;
         s[j] = in ? senders[k0 + j] : -1;
-        a[j] = in ? alpha[k0 + j] : 0.f;
+        a[j] = in ? as_weight<T>(alpha[k0 + j]) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < kAhead; ++j) {
@@ -146,7 +147,7 @@ row_walk_narrow(const T* __restrict__ v, long long n_src,
       for (int u = 0; u < kHubBatches; ++u) {
         const int k = k0 + u * 32 + lane;
         s[u] = k < e ? senders[k] : -1;
-        a[u] = k < e ? alpha[k] : 0.f;
+        a[u] = k < e ? as_weight<T>(alpha[k]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kHubBatches; ++u) {
@@ -195,7 +196,8 @@ row_walk_vec(const T* __restrict__ v, long long n_src, long long n_rows,
   auto load_batch = [&](int b, int e, int& s, float& a) {
     const int nb = min(per_batch, e - b);
     s = lane < nb ? senders[b + lane] : -1;
-    a = lane < nb * heads ? alpha[(long long)b * heads + lane] : 0.f;
+    a = lane < nb * heads ? as_weight<T>(alpha[(long long)b * heads + lane])
+                          : 0.f;
   };
   int next_s;
   float next_a;
@@ -288,7 +290,8 @@ row_walk_scalar(const T* __restrict__ v, long long n_src, long long n_rows,
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) {
         const int col = c0 + j * 32 + lane;
-        if (col < d) acc[j] += __fmul_rn(a[head[j]], to_float(vs[col]));
+        if (col < d)
+          acc[j] += __fmul_rn(as_weight<T>(a[head[j]]), to_float(vs[col]));
       }
     }
 #pragma unroll

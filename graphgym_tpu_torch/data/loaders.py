@@ -33,7 +33,7 @@ cfg.val.sampler) draws sampled subgraphs each epoch
 (``SamplerLoader``, data/samplers.py); cfg.train.sample_node
 (cfg.val.sample_node) supervises a fresh subset of nodes each epoch.
 What the port does not run yet raises NotImplementedError naming its
-ROADMAP item: mesh plans (A16), bfloat16 (A14).
+ROADMAP item: mesh plans (A16).
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from graphgym_tpu_torch.graphs.packing import (BOND_FEATURE_DIMS,
                                                build_embed_pack,
                                                build_gather_packs,
                                                build_packs, build_pool_packs,
+                                               coo_kinds,
                                                host_pool,
                                                kinds_for_cfg, pack_chunks,
                                                pad_packs)
@@ -901,8 +902,6 @@ class GraphLoader:
                  rng: Optional[np.random.Generator] = None):
         if cfg.tpu.mesh_shape:
             raise _not_ported("multi-device layouts", "A16")
-        if cfg.tpu.dtype not in ("float32", "f32", ""):
-            raise _not_ported(f"dtype {cfg.tpu.dtype!r}", "A14")
         self.graphs = list(graphs)
         self.cfg = cfg
         self.batch_size = max(1, min(batch_size, len(self.graphs)))
@@ -1111,7 +1110,8 @@ class GraphLoader:
                        else None),
             pad_nodes_to=self.pad_nodes,
             pad_edges_to=self.pad_edges, **pairs)
-        kinds = kinds_for_cfg(cfg.gnn)
+        kinds = (coo_kinds(cfg.gnn) if cfg.tpu.spmm_impl == "xla"
+                 else kinds_for_cfg(cfg.gnn))
         if kinds:
             batch = batch.replace(packs=build_packs(
                 batch.senders, batch.receivers, batch.edge_weight,

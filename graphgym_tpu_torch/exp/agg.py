@@ -124,6 +124,22 @@ def agg_runs(parent_dir: str, metric: str = "accuracy",
     return results
 
 
+def tag_runs(parent_dir: str, tags: Dict) -> None:
+    """Write ``tags`` into every line of the aggregate under parent_dir
+    (agg/<split>/stats.json and best.json): main names a
+    mixed-precision run's tpu.dtype there, so its aggregate cannot be
+    read as an f32 run's."""
+    agg_dir = os.path.join(parent_dir, "agg")
+    for split in sorted(os.listdir(agg_dir)) if os.path.isdir(agg_dir) \
+            else ():
+        for name in ("stats.json", "best.json"):
+            path = os.path.join(agg_dir, split, name)
+            if os.path.exists(path):
+                lines = [{**d, **tags} for d in _read_stats(path)]
+                with open(path, "w") as f:
+                    f.writelines(json.dumps(d) + "\n" for d in lines)
+
+
 def name_to_dict(run_name: str) -> Dict[str, str]:
     """Parse 'base-alias=val-alias2=val2' grid run names (reference
     name_to_dict, agg_runs.py:52-62)."""

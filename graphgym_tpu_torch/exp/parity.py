@@ -27,7 +27,10 @@ reported, and judged against ``JAX_CPU_RUNS`` where that holds the
 point, and against the reference's row of the config a point names
 after its overrides (the GIN aggregation ablation's points).  The
 table is written as DIR/parity.md and DIR/parity.json, and nowhere
-else.
+else.  Each row names the run's tpu.dtype (``--opts tpu.dtype
+bfloat16``: mixed precision; the table writes it after the config where
+it is not float32), and a bf16 row is judged against the same rows as
+the f32 one of its config, the same model at another dtype.
 """
 
 from __future__ import annotations
@@ -414,6 +417,13 @@ def point_row(name: str, summary: Dict,
     return row
 
 
+def run_dtype(cfg_file: str, opts: Sequence[str]) -> str:
+    """The tpu.dtype a run of ``cfg_file`` with ``opts`` trains in."""
+    from graphgym_tpu_torch.config import load_cfg
+
+    return load_cfg(cfg_file, list(opts)).tpu.dtype
+
+
 def _pm(mean: float, std: float) -> str:
     return f"{mean:.4f}±{std:.4f}"
 
@@ -438,8 +448,10 @@ def table(rows: Sequence[Dict]) -> str:
             judged = (f"{jax} | {_pm(r['reference'], r['reference_std'])} | "
                       f"{delta:+.4f} | {limit:.4f} | {r['judged_against']} "
                       f"| {r['passes']} |")
+        dtype = r.get("dtype", "float32")
+        tag = "" if dtype in ("float32", "f32", "") else f" ({dtype})"
         out.append(
-            f"| {r['config']} | {_pm(r['port'], r['port_std'])} "
+            f"| {r['config']}{tag} | {_pm(r['port'], r['port_std'])} "
             f"({r['seeds']}) | {judged} "
             f"{runs} | {1e3 * r['time_iter_median_s']:.2f} | "
             + (f"{_pm(r['jax_cpu'], r['jax_cpu_std'])}: "
@@ -489,7 +501,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
         _, summary = run_config(cfg_file, args.repeat, out,
                                 opts + list(args.opts))
         drop_checkpoints(out)
-        rows.append(row(summary))
+        rows.append(dict(row(summary), dtype=run_dtype(
+            cfg_file, opts + list(args.opts))))
         write(rows, args.out)
         print(json.dumps(rows[-1]), flush=True)
     return rows

@@ -84,6 +84,15 @@ segmented max reads the messages through the 'edge' pack's layout with
 the slots' edges as senders, and its backward the 'edge_dst' fwd pack.
 generalogbconv's bond tables' lookup reads the embedding pack
 'edge_bond' of the edge features (``build_embed_pack``).
+
+On the COO route (cfg.tpu.spmm_impl 'xla', nn/coo.py) the MP layers
+take no pack: the batch carries instead, for each edge list they read,
+the entry ``build_coo_edges`` makes, 'coo' (the batch's E edges) or
+'coo_loops' (E + N, a self-loop on every node slot): its senders and
+receivers and K2's indexes of the positions by receiver (the sum) and
+by sender (the gather's gradient), shapes of E and N alone
+(``coo_kinds`` names them for a config; GeneralConv's max adds the
+'edge' pack and 'edge_dst', the edge convs' max).
 """
 
 from __future__ import annotations
@@ -190,6 +199,13 @@ def _att_edges(senders: np.ndarray, receivers: np.ndarray,
     return s, r, w
 
 
+# the COO route's edge lists (nn/coo.py), and the list of each MP
+# layer kind it runs
+COO, COO_LOOPS = "coo", "coo_loops"
+COO_KINDS = {"plain": COO, "mean": COO, "wmean": COO, "gcn_noself": COO,
+             "gcn": COO_LOOPS, "gcn_improved": COO_LOOPS,
+             "gcn_mean": COO_LOOPS}
+
 # the sym-normalized kinds: the weight of their self-loops (None: none)
 GCN_FILL = {"gcn": 1.0, "gcn_improved": 2.0, "gcn_noself": None}
 # GINConv's neighbour aggregation (cfg.gnn.gin_agg) -> its pack
@@ -240,6 +256,10 @@ def build_packs(senders: np.ndarray, receivers: np.ndarray,
             s, r, w = _dir_weights(s, r, edge_weight, num_nodes)
         elif base == "dir_mean":
             s, r, w = _dir_mean_weights(s, r, edge_weight, num_nodes)
+        elif kind in (COO, COO_LOOPS):
+            out[kind] = (build_coo_edges(senders, receivers, num_nodes,
+                                         kind == COO_LOOPS),)
+            continue
         elif kind == EDGE:
             out[kind] = build_edge_pack(senders, receivers, edge_weight,
                                         num_nodes, (chunks or {}).get(
@@ -267,7 +287,8 @@ def pack_chunks(packs: Dict[str, tuple]) -> Dict[str, Tuple[int, int]]:
     (the embedding packs have their loader's shape by construction)."""
     return {kind: (entry[0].senders.shape[0], 0 if kind == EDGE
                    else entry[1].senders.shape[0])
-            for kind, entry in packs.items() if kind not in EMBED_KINDS}
+            for kind, entry in packs.items()
+            if kind not in EMBED_KINDS + (COO, COO_LOOPS)}
 
 
 def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
@@ -280,7 +301,7 @@ def pad_packs(packs: Dict[str, tuple], chunks: Dict[str, Tuple[int, int]]
     padded fwd slots."""
     out = {}
     for kind, entry in packs.items():
-        if kind in EMBED_KINDS:
+        if kind in EMBED_KINDS + (COO, COO_LOOPS):
             out[kind] = entry
             continue
         if kind == EDGE:
@@ -468,6 +489,35 @@ def kinds_for_cfg(gnn) -> Tuple[str, ...]:
                            gnn.flow, gnn.msg_direction, gnn.gin_agg)
 
 
+def coo_kinds(gnn) -> Tuple[str, ...]:
+    """The entries a batch carries on the COO route (cfg.tpu.spmm_impl
+    'xla') for a config's gnn group: each MP layer kind's edge list
+    (``COO_KINDS``), and for GeneralConv's / GeneralIDConv's max the
+    edge convs' 'edge' and 'edge_dst' packs; the edge convs' own packs
+    as they are.  A kind the route does not run raises
+    NotImplementedError naming ROADMAP A0: the attention layers'
+    'att', generalconv_v2's directed norms, the max over self-loops."""
+    out = []
+    lt = gnn.layer_type.replace("Tfg-", "")
+    for kind in kinds_for_cfg(gnn):
+        if kind in (EDGE, EDGE_SRC, EDGE_DST, EDGE_BOND):
+            out.append(kind)
+            continue
+        agg = gnn.agg if lt in ("generalconv", "idconv") else None
+        if kind not in COO_KINDS or (agg == "max"
+                                     and COO_KINDS[kind] != COO):
+            what = ("the max over self-loops (gnn.agg max with "
+                    "normalize_adj)" if kind in COO_KINDS
+                    else f"pack kind {kind!r}")
+            raise NotImplementedError(
+                f"the COO route (tpu.spmm_impl xla) of {what} is not "
+                "ported yet (ROADMAP A0)")
+        out.append(COO_KINDS[kind])
+        if agg == "max":
+            out += [EDGE, EDGE_DST]
+    return tuple(dict.fromkeys(out))
+
+
 PAIRS, LABELS = "pairs", "labels"
 
 # ------------------------------------------------------- edge-feature convs
@@ -574,6 +624,63 @@ def pad_edge_pack(entry: Tuple[PackedCSR, EdgeSlots],
     slot_edge = np.full(fwd.senders.shape, len(slots.edge_slot), np.int32)
     slot_edge[:slots.slot_edge.shape[0]] = slots.slot_edge
     return fwd, slots._replace(slot_edge=slot_edge)
+
+
+class CooEdges(NamedTuple):
+    """A COO route entry (module docstring): P positions, the batch's E
+    edges in batch order, then with loops the N node slots.
+
+    senders, receivers   [P] int32
+    recv_ptr, recv_src, recv_run_row, recv_run_first, recv_run_len,
+        recv_arrivals — K2's index (``segment_index_host``) of the
+        positions by receiver (stable), its src the position: the sum
+        reads the per-position messages in place
+    send_ptr, send_src, send_run_row, send_run_first, send_run_len,
+        send_arrivals — the same by sender: the gather's gradient
+    """
+    senders: Any
+    receivers: Any
+    recv_ptr: Any
+    recv_src: Any
+    recv_run_row: Any
+    recv_run_first: Any
+    recv_run_len: Any
+    recv_arrivals: Any
+    send_ptr: Any
+    send_src: Any
+    send_run_row: Any
+    send_run_first: Any
+    send_run_len: Any
+    send_arrivals: Any
+
+
+def coo_recv_index(edges: CooEdges) -> SegmentIndex:
+    """K2's index of a COO entry's positions by receiver."""
+    return SegmentIndex(*edges[2:8])
+
+
+def coo_send_index(edges: CooEdges) -> SegmentIndex:
+    """K2's index of a COO entry's positions by sender."""
+    return SegmentIndex(*edges[8:14])
+
+
+def _sorted_index(rows: np.ndarray, num_nodes: int) -> SegmentIndex:
+    order = np.argsort(rows, kind="stable").astype(np.int32)
+    return segment_index_host(rows[order], num_nodes, order)
+
+
+def build_coo_edges(senders: np.ndarray, receivers: np.ndarray,
+                    num_nodes: int, loops: bool) -> CooEdges:
+    """The COO route's entry of a padded batch's edges (and with
+    ``loops`` a self-loop on each of the ``num_nodes`` slots, appended
+    as ``gcn_norm`` appends them)."""
+    s = np.asarray(senders, np.int32)
+    r = np.asarray(receivers, np.int32)
+    if loops:
+        loop = np.arange(num_nodes, dtype=np.int32)
+        s, r = np.concatenate([s, loop]), np.concatenate([r, loop])
+    return CooEdges(s, r, *_sorted_index(r, num_nodes),
+                    *_sorted_index(s, num_nodes))
 
 
 def build_gather_packs(index: np.ndarray, mask: np.ndarray,

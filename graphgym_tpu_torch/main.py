@@ -15,7 +15,9 @@ decoding, or with ``dataset.transform edge`` the node head on the
 edge-net union) and the Tfg one's (Tfg-idgcn, ...: node tasks).
 After the seeds, ``exp/agg.agg_runs`` writes their aggregate under
 ``<out_dir>/<cfg-name>/agg/`` (and its tensorboard copy with
-``tensorboard_agg``, where tensorboardX imports).
+``tensorboard_agg``, where tensorboardX imports); a mixed-precision run
+(tpu.dtype bfloat16) names its dtype in every aggregated line
+(``exp/agg.tag_runs``).
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ def run_single(cfg, out_dir_parent: str, cfg_file: str):
 
 def main(argv=None):
     from graphgym_tpu_torch.config import get_parent_dir, load_cfg
-    from graphgym_tpu_torch.exp.agg import agg_runs
+    from graphgym_tpu_torch.exp.agg import agg_runs, tag_runs
+    from graphgym_tpu_torch.train.graphed import compute_dtype_of
 
     args = parse_args(argv)
     results = []
@@ -92,8 +95,11 @@ def main(argv=None):
     metric = cfg.metric_best if cfg.metric_best != "auto" \
         else ("accuracy" if "classification" in cfg.dataset.task_type
               else "mae")
-    agg_runs(get_parent_dir(out_dir_parent, args.cfg_file), metric=metric,
-             metric_agg=cfg.metric_agg, tensorboard=cfg.tensorboard_agg)
+    parent = get_parent_dir(out_dir_parent, args.cfg_file)
+    agg_runs(parent, metric=metric, metric_agg=cfg.metric_agg,
+             tensorboard=cfg.tensorboard_agg)
+    if compute_dtype_of(cfg.tpu.dtype) is not None:
+        tag_runs(parent, {"dtype": cfg.tpu.dtype})
     if args.mark_done:
         os.rename(args.cfg_file, args.cfg_file + "_done")
     return results

@@ -46,7 +46,7 @@ from graphgym_tpu_torch.nn.layers import (GeneralConv, check_heads,
                                           packed_attention, packed_spmm,
                                           scaled_dot, zeros)
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm, l2_normalize
-from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree
+from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree, mm
 
 
 class GeneralMulAttConv(nn.Module):
@@ -72,7 +72,7 @@ class GeneralMulAttConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        h = graph.node_feat @ self.kernel
+        h = mm(graph.node_feat, self.kernel)
         n, dim_out = h.shape
         per_head = dim_out // self.heads
         out = packed_attention(
@@ -122,7 +122,8 @@ class SAGEInitConv(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
-        h = torch.cat([x, packed_spmm(graph, "mean", x)], -1) @ self.kernel
+        h = mm(torch.cat([x, packed_spmm(graph, "mean", x, coo_dtype=True)],
+                         -1), self.kernel)
         if self.bias is not None:
             h = h + self.bias
         if self.normalize:
@@ -142,8 +143,8 @@ class ExampleConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        h = graph.node_feat @ self.kernel
-        out = h + packed_spmm(graph, "plain", h)
+        h = mm(graph.node_feat, self.kernel)
+        out = h + packed_spmm(graph, "plain", h, coo_dtype=True)
         if self.bias is not None:
             out = out + self.bias
         return graph.replace(node_feat=out)
@@ -170,12 +171,13 @@ class APPNP(nn.Module):
     def forward(self, graph: GraphBatch) -> GraphBatch:
         h = graph.node_feat
         for i in range(self.depth):
-            h = h @ getattr(self, f"kernel{i}") + getattr(self, f"bias{i}")
+            h = mm(h, getattr(self, f"kernel{i}")) + getattr(self, f"bias{i}")
             if i < self.depth - 1:
                 h = torch.relu(h)
         h0 = h
         for _ in range(self.num_iterations):
-            h = ((1 - self.alpha) * packed_spmm(graph, "gcn", h)
+            h = ((1 - self.alpha) * packed_spmm(graph, "gcn", h,
+                                                coo_dtype=True)
                  + self.alpha * h0)
         return graph.replace(node_feat=h)
 
@@ -230,17 +232,17 @@ class GeneralEdgeAttConv(nn.Module):
             feat = torch.cat([gather_nodes(graph, EDGE_DST, x), x_j, e], -1)
         else:
             feat = torch.cat([x_j, e], -1)
-        msg = (feat @ self.msg_kernel).view(-1, self.heads,
+        msg = mm(feat, self.msg_kernel).view(-1, self.heads,
                                             dim_out // self.heads)
         if self.version == 1:
             score = (msg * self.att_kernel).sum(-1)
         else:
-            score = feat @ self.key_kernel
+            score = mm(feat, self.key_kernel)
         alpha = edge_softmax(graph, F.leaky_relu(score, 0.2))   # [E, H]
         msg = torch.where(edge_valid(graph)[:, None, None], msg, 0.0)
         out = edge_sum(graph, (msg * alpha[..., None]).view(-1, dim_out))
         if hasattr(self, "final_kernel"):
-            out = out @ self.final_kernel
+            out = mm(out, self.final_kernel)
         if hasattr(self, "final_bn"):
             out = self.final_bn(out, graph.node_mask)
         if self.bias is not None:
@@ -297,7 +299,7 @@ class GeneralOGBConv(nn.Module):
         table = torch.cat([getattr(self, f"bond_emb{i}")
                            for i in range(self.num_tables)])
         emb = EmbedSumFn.apply(table, pack, EDGE_BOND)
-        h = x @ self.kernel
+        h = mm(x, self.kernel)
         w = graph.edge_weight
         if self.normalize_adj:
             deg = edge_count(graph, w) + graph.node_mask.float()
@@ -313,5 +315,5 @@ class GeneralOGBConv(nn.Module):
         if self.self_msg == "add":
             out = out + h
         elif self.self_msg == "concat":
-            out = out + x @ self.self_kernel
+            out = out + mm(x, self.self_kernel)
         return graph.replace(node_feat=out)

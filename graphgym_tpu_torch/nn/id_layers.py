@@ -52,7 +52,7 @@ class GCNIDConv(nn.Module):
         idx, id_mask = _id_index(graph)
         h = sp.apply_id_weights(graph.node_feat, idx, self.kernel,
                                 self.id_kernel, id_mask)
-        h = packed_spmm(graph, self.kind, h)
+        h = packed_spmm(graph, self.kind, h, coo_dtype=self.kind != "gcn")
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
@@ -109,7 +109,8 @@ class SAGEIDConv(nn.Module):
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
         idx, id_mask = _id_index(graph)
-        a = torch.cat([x, packed_spmm(graph, "mean", x)], -1)
+        a = torch.cat([x, packed_spmm(graph, "mean", x, coo_dtype=True)],
+                      -1)
         h = sp.apply_id_weights(a, idx, self.kernel, self.id_kernel,
                                 id_mask)
         if self.bias is not None:
@@ -152,7 +153,7 @@ class TfgIDSAGE(nn.Module):
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
         idx, id_mask = _id_index(graph)
-        h_nb = packed_spmm(graph, "mean", x) @ self.neighbor_kernel
+        h_nb = sp.mm(packed_spmm(graph, "mean", x), self.neighbor_kernel)
         h = sp.apply_id_weights(x, idx, self.self_kernel, self.id_kernel,
                                 id_mask)
         h = torch.cat([h, h_nb], -1)

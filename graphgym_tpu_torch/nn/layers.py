@@ -1,6 +1,7 @@
 """Layer building blocks of the port (graphgym_tpu/nn/layers.py subset):
 the glorot initializer with its gain, the packed SpMM, aggregation and
-attention dispatch, ``Linear``, ``MLP`` and the ``GeneralLayer``
+attention dispatch (the MP layers' COO route under tpu.spmm_impl 'xla':
+nn/coo.py), ``Linear``, ``MLP`` and the ``GeneralLayer``
 wrapper (conv, BatchNorm, dropout, activation), the packed-branch GCN,
 SAGE and GIN convs with the GIN MLP, GraphGym's ``GeneralConv``, the
 additive ``GATConv`` and the Tfg dot-product GAT, and the edge-feature
@@ -23,14 +24,14 @@ from graphgym_tpu_torch.graphs.container import GraphBatch
 from graphgym_tpu_torch.graphs.packing import (EDGE, EDGE_DST, EDGE_SRC,
                                                agg_kind, edge_index,
                                                edge_kinds, gin_kind)
-from graphgym_tpu_torch.nn import remat
+from graphgym_tpu_torch.nn import coo, remat
 from graphgym_tpu_torch.nn.act import PReLU, act_dict
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm
 from graphgym_tpu_torch.ops.cuda.spmm_kernel import (
     pack_rows, packed_max_vjp, packed_node_scores, packed_scaled_dot,
     packed_segment_softmax, permute_rows, segment_matmul_headed_vjp,
     segment_sum_vjp, spmm_pack_vjp, take_padded)
-from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree
+from graphgym_tpu_torch.ops.sparse import inv_sqrt_degree, mm
 
 
 # xavier gain of the torch path's nn.Linear equivalents (Linear, MLP,
@@ -62,18 +63,37 @@ def zeros(shape) -> nn.Parameter:
 
 def _packs(graph: GraphBatch, kind: str) -> tuple:
     """The batch-carried packs of ``kind``.  The port always builds the
-    packs a layer consumes, so a missing pack is an error."""
+    packs a layer consumes (or, on the COO route, the entry of its
+    edges), so a missing pack is an error."""
     if graph.packs is None or kind not in graph.packs:
         raise ValueError(f"batch carries no {kind!r} pack")
     return graph.packs[kind]
 
 
-def packed_spmm(graph: GraphBatch, kind: str,
-                h: torch.Tensor) -> torch.Tensor:
+def as_coo_message(h: torch.Tensor) -> torch.Tensor:
+    """h as the JAX package's COO ``spmm`` aggregates it, where its layer
+    takes that route whatever the batch carries: the message h[s] times
+    an f32 weight (or, unweighted, a mean over an f32 count) is f32, so
+    a bf16 h aggregates in f32 and its result is f32; f32 and float64
+    as they are."""
+    return h.to(torch.promote_types(h.dtype, torch.float32))
+
+
+def packed_spmm(graph: GraphBatch, kind: str, h: torch.Tensor,
+                coo_dtype: bool = False) -> torch.Tensor:
     """SpMM over the batch-carried packs of ``kind`` (layers.py:63-84,
-    single-device branch)."""
+    single-device branch); on the COO route (tpu.spmm_impl 'xla', a
+    batch with the entry of the kind's edges in place of its packs) the
+    per-edge messages' sum on K2 (nn/coo.py; 'mean' unweighted, SAGE's
+    ``spmm(None)``).  ``coo_dtype``: the JAX layer takes the COO spmm
+    even with packs (GCN's ``improved``, GINConv's gin_agg other than
+    sum, SAGEIDConv, sageinitconv, APPNP, the example conv), so its
+    result's dtype is the COO route's (``as_coo_message``), not K1's
+    cast back to h's."""
+    if coo.on_coo(graph, kind):
+        return coo.coo_spmm(graph, kind, h, weighted=False)
     fwd, bwd = _packs(graph, kind)
-    return spmm_pack_vjp(fwd, bwd, h)
+    return spmm_pack_vjp(fwd, bwd, as_coo_message(h) if coo_dtype else h)
 
 
 def packed_aggregate(graph: GraphBatch, h: torch.Tensor, agg: str,
@@ -83,8 +103,18 @@ def packed_aggregate(graph: GraphBatch, h: torch.Tensor, agg: str,
     'add' and 'mean' are K1 on the packs of ``kind`` (``agg_kind``'s or
     ``v2_kind``'s; the mean's division is in its weights), 'max' the
     segmented max on them, each with its backward on the transpose
-    pack: no float atomics."""
+    pack: no float atomics.  The JAX layers aggregate on the COO
+    ``spmm`` whatever the batch carries, so the result's dtype is that
+    route's (``as_coo_message``).  On the COO route the per-edge
+    messages w * h[s] reduce on K2 ('add', 'mean') or on the edge convs'
+    max (nn/coo.py)."""
+    if coo.on_coo(graph, kind):
+        if agg == "max":
+            return edge_max(graph, coo.weighted_messages(graph, h),
+                            graph.edge_mask)
+        return coo.coo_spmm(graph, kind, h)
     fwd, bwd = _packs(graph, kind)
+    h = as_coo_message(h)
     if agg == "max":
         return packed_max_vjp(fwd, bwd, h)
     return spmm_pack_vjp(fwd, bwd, h)
@@ -228,14 +258,14 @@ class TfgGATConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def values(self, graph: GraphBatch) -> torch.Tensor:
-        return torch.matmul(graph.node_feat, self.kernel)
+        return mm(graph.node_feat, self.kernel)
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
         n, dim_out = x.shape[0], self.kernel.shape[1]
         dh = dim_out // self.heads
-        q = torch.relu(x @ self.query_kernel + self.query_bias)
-        k = torch.relu(x @ self.key_kernel + self.key_bias)
+        q = torch.relu(mm(x, self.query_kernel) + self.query_bias)
+        k = torch.relu(mm(x, self.key_kernel) + self.key_bias)
         v = self.values(graph)
         out = packed_attention(
             graph, q.view(n, self.heads, dh), scaled_dot(dh, x.dtype),
@@ -287,7 +317,7 @@ class GATConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def project(self, graph: GraphBatch) -> torch.Tensor:
-        return graph.node_feat @ self.kernel
+        return mm(graph.node_feat, self.kernel)
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         h = self.project(graph)
@@ -322,7 +352,8 @@ class GCNConv(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        h = packed_spmm(graph, self.kind, graph.node_feat @ self.kernel)
+        h = packed_spmm(graph, self.kind, mm(graph.node_feat, self.kernel),
+                        coo_dtype=self.kind != "gcn")
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)
@@ -352,8 +383,8 @@ class SAGEConv(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
-        h_nb = packed_spmm(graph, "mean", x) @ self.neighbor_kernel
-        h_self = x @ self.self_kernel
+        h_nb = mm(packed_spmm(graph, "mean", x), self.neighbor_kernel)
+        h_self = mm(x, self.self_kernel)
         h = (torch.cat([h_self, h_nb], -1) if self.combine == "concat"
              else h_self + h_nb)
         if self.bias is not None:
@@ -390,14 +421,14 @@ class GeneralConv(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
-        h = x @ self.kernel
+        h = mm(x, self.kernel)
         out = packed_aggregate(graph, h, self.agg, self.kind)
         if self.bias is not None:
             out = out + self.bias
         if self.self_msg == "add":
             out = out + h
         elif self.self_msg == "concat":
-            out = out + x @ self.self_kernel
+            out = out + mm(x, self.self_kernel)
         return graph.replace(node_feat=out)
 
 
@@ -534,10 +565,10 @@ class SplineConv(nn.Module):
         u = edge_feat_of(graph, "splineconv")[:, 0].clamp(0.0, 1.0)
         d = self.kernel0.shape[1]
         h = gather_nodes(graph, EDGE_SRC, torch.cat(
-            [x @ self.kernel0, x @ self.kernel1], -1))
+            [mm(x, self.kernel0), mm(x, self.kernel1)], -1))
         msg = h[:, :d] * (1 - u)[:, None] + h[:, d:] * u[:, None]
         msg = torch.where(edge_valid(graph)[:, None], msg, 0.0)
-        out = edge_sum(graph, msg) + x @ self.root_kernel
+        out = edge_sum(graph, msg) + mm(x, self.root_kernel)
         if self.bias is not None:
             out = out + self.bias
         return graph.replace(node_feat=out)
@@ -599,7 +630,7 @@ class GeneralEdgeConv(nn.Module):
             feat = torch.cat([gather_nodes(graph, EDGE_DST, x), x_j, e], -1)
         else:
             feat = torch.cat([x_j, e], -1)
-        msg = feat @ self.msg_kernel
+        msg = mm(feat, self.msg_kernel)
         count = None
         if self.normalize_adj or self.agg == "mean":
             count = edge_count(graph, live)
@@ -614,7 +645,7 @@ class GeneralEdgeConv(nn.Module):
         if self.self_msg == "add" and x.shape[-1] == out.shape[-1]:
             out = x + out
         elif self.self_msg == "concat":
-            out = x @ self.self_kernel + out
+            out = mm(x, self.self_kernel) + out
         return graph.replace(node_feat=out)
 
 
@@ -645,8 +676,8 @@ def _gin_mlp(mod: nn.Module, prefix: str, h: torch.Tensor,
     contain 'kernel', so the Tfg L2 term covers them."""
     def p(name):
         return getattr(mod, f"{prefix}_{name}")
-    h = torch.relu(h @ p("kernel1") + p("bias1"))
-    h = h @ p("kernel2") + p("bias2")
+    h = torch.relu(mm(h, p("kernel1")) + p("bias1"))
+    h = mm(h, p("kernel2")) + p("bias2")
     bn = getattr(mod, f"{prefix}_bn", None)
     if bn is not None:
         h = torch.relu(bn(h, mask))
@@ -673,7 +704,8 @@ class GINConv(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         x = graph.node_feat
-        h = x + packed_spmm(graph, self.kind, x)
+        h = x + packed_spmm(graph, self.kind, x,
+                            coo_dtype=self.kind != "plain")
         return graph.replace(node_feat=_gin_mlp(self, "mlp", h,
                                                 graph.node_mask))
 
@@ -721,7 +753,7 @@ class GeneralLayer(nn.Module):
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
         if self.remat and self.training and torch.is_grad_enabled():
-            return remat.checkpoint(self._forward, graph)
+            return remat.checkpoint(self, self._forward, graph)
         return self._forward(graph)
 
     def _forward(self, graph: GraphBatch) -> GraphBatch:
@@ -747,7 +779,7 @@ class Linear(nn.Module):
         self.bias = zeros((dim_out,)) if use_bias else None
 
     def forward(self, graph: GraphBatch) -> GraphBatch:
-        h = graph.node_feat @ self.kernel
+        h = mm(graph.node_feat, self.kernel)
         if self.bias is not None:
             h = h + self.bias
         return graph.replace(node_feat=h)

@@ -50,6 +50,7 @@ from graphgym_tpu_torch.nn.layers import (LINEAR_GAIN, MLP, GATConv, GCNConv,
                                           SAGEConv, SplineConv, TfgGATConv,
                                           glorot, zeros)
 from graphgym_tpu_torch.nn.norm import MaskedBatchNorm, l2_normalize
+from graphgym_tpu_torch.ops.sparse import mm
 
 # layer type -> conv(dim_in, dim_out, opts, init generator, dropout
 # generator) (make_conv, nn/model.py:36-120 of the JAX package).  The
@@ -385,9 +386,9 @@ class TfgMLPHead(nn.Module):
         self.head_bias2 = zeros((dim_out,))
 
     def forward(self, graph: GraphBatch) -> HeadOut:
-        h = torch.relu(graph.node_feat @ self.head_kernel1
+        h = torch.relu(mm(graph.node_feat, self.head_kernel1)
                        + self.head_bias1)
-        return gather_supervised(graph, h @ self.head_kernel2
+        return gather_supervised(graph, mm(h, self.head_kernel2)
                                  + self.head_bias2)
 
 

@@ -21,6 +21,13 @@ leaves the statistics alone (``recomputing``).  Nothing here touches a
 generator's state, so a captured step (train/graphed.py) captures the
 recompute as it captures any other kernel.  The kept masks are bool, the
 tensors a dropout keeps for its backward anyway.
+
+The layer's parameters go into the checkpoint as inputs, and the
+recompute reads them back (``torch.func.functional_call``): under mixed
+precision (train/graphed.py) they are the step's compute-dtype copies,
+which live only while the forward runs; in f32 they are the
+``nn.Parameter`` masters themselves, and the recompute does the same
+arithmetic.
 """
 
 from __future__ import annotations
@@ -87,9 +94,32 @@ def recomputing() -> bool:
     return tape is not None and tape.replay
 
 
-def checkpoint(fn: Callable, *args):
-    """``fn(*args)`` with its activations recomputed in the backward
-    (non-reentrant ``torch.utils.checkpoint``, the default generators
-    not saved: the port draws from its own), inside a ``Remat`` tape."""
-    return _checkpoint(Remat().run, fn, *args, use_reentrant=False,
-                       preserve_rng_state=False)
+class _Bound(torch.nn.Module):
+    """``fn``, a method of ``layer``, as a module's forward, so that
+    ``torch.func.functional_call`` can give it the layer's parameters."""
+
+    def __init__(self, layer: torch.nn.Module, fn: Callable):
+        super().__init__()
+        self.layer = layer
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def checkpoint(layer: torch.nn.Module, fn: Callable, *args):
+    """``fn(*args)``, a method of ``layer``, with its activations
+    recomputed in the backward (non-reentrant ``torch.utils.checkpoint``,
+    the default generators not saved: the port draws from its own),
+    inside a ``Remat`` tape, the layer's parameters inputs of the
+    checkpoint."""
+    params = dict(layer.named_parameters())
+    bound = _Bound(layer, fn)
+    names = [f"layer.{name}" for name in params]
+    n = len(args)
+
+    def swapped(*flat):
+        return torch.func.functional_call(
+            bound, dict(zip(names, flat[n:])), flat[:n])
+    return _checkpoint(Remat().run, swapped, *args, *params.values(),
+                       use_reentrant=False, preserve_rng_state=False)

@@ -245,17 +245,26 @@ def _tiles(n: int, d: int, dtype, device) -> torch.Tensor:
                        device=device)
 
 
+def weight_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Slot weights as the kernels take them against a message x: as
+    they are, rounded to bf16 for a bf16 x (the TPU kernels cast the
+    weighted one-hot to the message's dtype, spmm_kernel.py:362-364,
+    567-568; csrc/common.cuh ``as_weight``)."""
+    return w.to(torch.bfloat16) if x.dtype == torch.bfloat16 else w
+
+
 def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x from the packed layout: gather, weight, index_add_
-    into f32 tiles (float64 for float64 x), cast to x.dtype.  out has
-    the pack's rows (x's on a square pack); the padding sender, x's row
-    count, reads an appended zero row."""
+    """out = A @ x from the packed layout: gather, weight (rounded to
+    bf16 for a bf16 x, ``weight_as``), index_add_ into f32 tiles
+    (float64 for float64 x), cast to x.dtype.  out has the pack's rows
+    (x's on a square pack); the padding sender, x's row count, reads an
+    appended zero row."""
     d = x.shape[1]
     rows = pack.row_range.shape[0]
     acc = _sum_dtype(x)
     xp = torch.cat([x, x.new_zeros(1, d)]).to(acc)
     msg = xp.index_select(0, pack.senders.reshape(-1).long())
-    msg = msg * pack.weights.reshape(-1, 1)
+    msg = msg * weight_as(pack.weights, x).reshape(-1, 1).to(acc)
     out = _tiles(rows, d, acc, x.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg)
     return out[:rows].to(x.dtype)
@@ -264,16 +273,18 @@ def spmm_packed_plain(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
 def packed_segment_matmul_headed_plain(pack: PackedCSR, v: torch.Tensor,
                                        alpha: torch.Tensor) -> torch.Tensor:
     """out[row(s), h*dv + k] += alpha[s, h] * v[senders[s], h*dv + k]
-    over the pack's slots: gather, per-head multiply, index_add_ into
-    f32 tiles.  v [num_nodes, H*dv] f32 or bf16, alpha [NC, C, H];
-    out [num_nodes, H*dv] f32 (float64 for float64 v and alpha).  The
-    padding sender num_nodes reads an appended zero row."""
+    over the pack's slots: gather, per-head multiply (alpha rounded to
+    bf16 for a bf16 v, ``weight_as``), index_add_ into f32 tiles.  v
+    [num_nodes, H*dv] f32 or bf16, alpha [NC, C, H]; out [num_nodes,
+    H*dv] f32 (float64 for float64 v and alpha).  The padding sender
+    num_nodes reads an appended zero row."""
     n, d = v.shape
     heads = alpha.shape[-1]
     acc = _sum_dtype(v)
     vp = torch.cat([v, v.new_zeros(1, d)]).to(acc)
     msg = vp.index_select(0, pack.senders.reshape(-1).long())
-    msg = msg.view(-1, heads, d // heads) * alpha.reshape(-1, heads, 1)
+    msg = msg.view(-1, heads, d // heads) * weight_as(
+        alpha, v).reshape(-1, heads, 1).to(acc)
     out = _tiles(n, d, msg.dtype, v.device)
     out.index_add_(0, pack_rows(pack).reshape(-1), msg.view(-1, d))
     return out[:n]
@@ -703,6 +714,7 @@ def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
             out.data_ptr())
     packed_spmm_cuda.launches += 1
     packed_spmm_cuda.launches_by_width[d] += 1
+    packed_spmm_cuda.launches_by_dtype[str(x.dtype)] += 1
     if n != x_rows:
         packed_spmm_cuda.launches_rectangular[d] += 1
     return out
@@ -711,6 +723,7 @@ def packed_spmm_cuda(pack: PackedCSR, x: torch.Tensor) -> torch.Tensor:
 packed_spmm_cuda.launches = 0
 packed_spmm_cuda.launches_by_width = collections.Counter()
 packed_spmm_cuda.launches_rectangular = collections.Counter()
+packed_spmm_cuda.launches_by_dtype = collections.Counter()
 
 
 def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
@@ -743,11 +756,13 @@ def packed_segment_matmul_headed_cuda(pack: PackedCSR, v: torch.Tensor,
             pack.row_range.data_ptr(), out.data_ptr())
     packed_segment_matmul_headed_cuda.launches += 1
     packed_segment_matmul_headed_cuda.launches_by_width[d] += 1
+    packed_segment_matmul_headed_cuda.launches_by_dtype[str(v.dtype)] += 1
     return out
 
 
 packed_segment_matmul_headed_cuda.launches = 0
 packed_segment_matmul_headed_cuda.launches_by_width = collections.Counter()
+packed_segment_matmul_headed_cuda.launches_by_dtype = collections.Counter()
 
 
 def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
@@ -790,10 +805,12 @@ def packed_sddmm_cuda(pack: PackedCSR, a: torch.Tensor,
             pack.local_rows.data_ptr(), pack.tiles.data_ptr(),
             pack.senders.numel(), out.data_ptr())
     packed_sddmm_cuda.launches += 1
+    packed_sddmm_cuda.launches_by_dtype[str(a.dtype)] += 1
     return out
 
 
 packed_sddmm_cuda.launches = 0
+packed_sddmm_cuda.launches_by_dtype = collections.Counter()
 
 
 def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
@@ -821,6 +838,7 @@ def packed_segment_matmul_cuda(msg: torch.Tensor, local_rows: torch.Tensor,
 
 packed_segment_matmul_cuda.launches = 0
 packed_segment_matmul_cuda.launches_by_pack = collections.Counter()
+packed_segment_matmul_cuda.launches_by_dtype = collections.Counter()
 
 
 def segment_sum_cuda(msg: torch.Tensor, index: SegmentIndex,
@@ -870,6 +888,7 @@ def segment_sum_cuda(msg: torch.Tensor, index: SegmentIndex,
             index.arrivals.data_ptr(), partial.data_ptr(), out.data_ptr())
     packed_segment_matmul_cuda.launches += 1
     packed_segment_matmul_cuda.launches_by_pack[pack] += 1
+    packed_segment_matmul_cuda.launches_by_dtype[str(msg.dtype)] += 1
     return out
 
 
@@ -890,10 +909,12 @@ def packed_max_cuda(pack: PackedCSR, x: torch.Tensor):
             pack.weights.data_ptr(), pack.row_range.data_ptr(), n,
             out.data_ptr(), cnt.data_ptr())
     packed_max_cuda.launches += 1
+    packed_max_cuda.launches_by_dtype[str(x.dtype)] += 1
     return out, cnt
 
 
 packed_max_cuda.launches = 0
+packed_max_cuda.launches_by_dtype = collections.Counter()
 
 
 def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
@@ -923,18 +944,23 @@ def packed_max_bwd_cuda(bwd_pack: PackedCSR, x: torch.Tensor,
             bwd_pack.row_range.data_ptr(), out.shape[0], dx.data_ptr(),
             entry="packed_max_bwd")
     packed_max_bwd_cuda.launches += 1
+    packed_max_bwd_cuda.launches_by_dtype[str(x.dtype)] += 1
     return dx
 
 
 packed_max_bwd_cuda.launches = 0
+packed_max_bwd_cuda.launches_by_dtype = collections.Counter()
 
-# every kernel wrapper; each counts its launches, K1 and K3 also by width,
-# K1 also its rectangular launches by width, K2 also by the batch pack
-# its index came from ('' for a pack's own local rows)
+# every kernel wrapper; each counts its launches, and by the dtype of
+# the input it reads (x, v, a, msg: 'torch.float32' or
+# 'torch.bfloat16'), K1 and K3 also by width, K1 also its rectangular
+# launches by width, K2 also by the batch pack its index came from (''
+# for a pack's own local rows)
 KERNELS = (packed_spmm_cuda, packed_segment_matmul_cuda,
            packed_segment_matmul_headed_cuda, packed_sddmm_cuda,
            packed_max_cuda, packed_max_bwd_cuda)
-_KEYED = ("launches_by_width", "launches_rectangular", "launches_by_pack")
+_KEYED = ("launches_by_width", "launches_rectangular", "launches_by_pack",
+          "launches_by_dtype")
 # per wrapper: launches, then a Counter per _KEYED name (empty where the
 # wrapper has no such counter; a snapshot given fewer reads them empty)
 LaunchCounts = Dict[str, Tuple[Any, ...]]
@@ -1217,6 +1243,15 @@ def spmm_bidir(pack: BidirPack, x: torch.Tensor,
     return SpmmPackFn.apply(pack.fwd, pack.bwd, x)
 
 
+def sddmm_edge_grad(pack: BidirPack, x: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """dL/dw[e] = <g[receivers[e]], x[senders[e]]>, the edge-weight
+    gradient of ``spmm_bidir`` (spmm_kernel.py:713-717, XLA gathers
+    there, so plain PyTorch here)."""
+    return (g.index_select(0, pack.receivers.long())
+            * x.index_select(0, pack.senders.long())).sum(-1)
+
+
 def spmm_pallas(senders, receivers, edge_weight, x: torch.Tensor,
                 num_nodes: int) -> torch.Tensor:
     """The COO entry of the packed SpMM (spmm_kernel.py:721-728): packs
@@ -1243,7 +1278,11 @@ def packed_segment_matmul_headed(pack: PackedCSR, v: torch.Tensor,
     """Per-head weighted aggregation from a packed layout
     (spmm_kernel.py:584-625, with the v[senders] gather fused): the
     kernel for a CUDA tensor, the plain version for a CPU one.  f32
-    out [num_nodes, H*dv]."""
+    out [num_nodes, H*dv] whatever v's dtype, as the TPU kernel's
+    (:621).  A bf16 alpha (a mixed-precision softmax's) goes in as f32;
+    against a bf16 v both versions round it to bf16 anyway."""
+    if alpha.dtype == torch.bfloat16:
+        alpha = alpha.float()
     if v.is_cuda:
         return packed_segment_matmul_headed_cuda(pack, v, alpha)
     return packed_segment_matmul_headed_plain(pack, v, alpha)

@@ -1,14 +1,17 @@
-"""COO SpMM, GCN normalization, row scatter and the ID-GNN
-identity-colored projection.
+"""COO SpMM, SDDMM, GCN normalization, row scatter, the ID-GNN
+identity-colored projection, and the products of mixed precision.
 
-The port of ``spmm``, ``degree``, ``inv_sqrt_degree``, ``gcn_norm``,
-``scatter_add_rows`` and ``apply_id_weights`` from
-graphgym_tpu/ops/sparse.py:25-57 and 77-152.  The JAX package leaves
-the COO gather -> scale -> segment reduce and the row scatter to XLA;
-here they are ``index_select``, ``index_add`` and ``scatter_reduce``
-(``index_add`` adds with atomics on the card, in no fixed order).  The
-COO ``spmm`` with ``implementation="pallas"`` packs the edges on the
-host and runs the hand-written Hopper kernel K1 instead.
+The port of ``spmm``, ``sddmm_dot``, ``degree``, ``inv_sqrt_degree``,
+``gcn_norm``, ``scatter_add_rows`` and ``apply_id_weights`` from
+graphgym_tpu/ops/sparse.py:25-152, and ``mm``, jnp.dot's promotion of
+mixed float dtypes.  The JAX package leaves the COO gather -> scale ->
+segment reduce and the row scatter to XLA; here, as free functions,
+they are ``index_select``, ``index_add`` and ``scatter_reduce``
+(``index_add`` adds with atomics on the card, in no fixed order: the
+benchmark's COO SpMM and the degree sums of unit weights, exact
+integers, use it; the MP layers' COO route, nn/coo.py, sums on K2
+instead).  The COO ``spmm`` with ``implementation="pallas"`` packs the
+edges on the host and runs the hand-written Hopper kernel K1 instead.
 """
 
 from __future__ import annotations
@@ -47,6 +50,28 @@ def spmm(senders: torch.Tensor, receivers: torch.Tensor,
     if reduce == "max":
         return S.segment_max(msg, receivers, num_nodes, mask=edge_mask)
     raise ValueError(f"Unknown reduce: {reduce}")
+
+
+def sddmm_dot(senders: torch.Tensor, receivers: torch.Tensor,
+              a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-edge dot products out[e] = <a[receivers[e]], b[senders[e]]>
+    (graphgym_tpu/ops/sparse.py:60-69, XLA gathers there; the packed
+    attention's scores run on the SDDMM kernel instead)."""
+    return (a.index_select(0, receivers) * b.index_select(0, senders)
+            ).sum(-1)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, two float dtypes promoted as JAX promotes them: ``jnp.dot``
+    and flax's layers take bf16 with f32 to an f32 product, where
+    ``torch.matmul`` refuses mixed dtypes.  Under mixed precision
+    (cfg.tpu.dtype) the parameters are bf16 and an activation turns f32
+    where the JAX package's does (K3's output, an f32 edge weight on the
+    COO route), and every product after it is f32."""
+    if a.dtype != b.dtype:
+        common = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(common), b.to(common)
+    return torch.matmul(a, b)
 
 
 def degree(receivers: torch.Tensor, edge_weight: torch.Tensor,
@@ -100,6 +125,6 @@ def apply_id_weights(x: torch.Tensor, id_index: torch.Tensor,
                      ) -> torch.Tensor:
     """h = x @ W with rows in id_index additionally += x[id] @ W_id
     (the identity-coloring trick, reference idconv.py:62-67)."""
-    h = torch.matmul(x, weight)
-    h_id = torch.matmul(x.index_select(0, id_index), weight_id)
+    h = mm(x, weight)
+    h_id = mm(x.index_select(0, id_index), weight_id)
     return scatter_add_rows(h, id_index, h_id, mask=id_mask)

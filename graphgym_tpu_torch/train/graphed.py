@@ -33,6 +33,18 @@ the card; ``eager=True`` asks for eager steps on any device: for
 comparisons against the captured ones, and the trainer's train step
 where a registered optimizer cannot be captured (train/optim.py
 ``capturable``).
+
+Mixed precision (cfg.tpu.dtype, ``compute_dtype``) is the JAX
+package's ``_cast_for_compute`` (loop.py:50-66): the forward runs on
+copies of every floating parameter and of the float node and edge
+features in the compute dtype (``forward``, through
+``torch.func.functional_call``), cast inside the step and so inside its
+graph.  The master parameters, the optimizer state, the BatchNorm
+running statistics (buffers, updated in place), the loss and the Tfg
+kernel L2 stay f32; the gradients reach the masters in f32 through the
+casts.  Not ``torch.autocast``: it picks a dtype per op, keeps
+elementwise ops and reductions f32 and casts the inputs of products the
+JAX package leaves f32.
 """
 
 from __future__ import annotations
@@ -53,6 +65,37 @@ from graphgym_tpu_torch.ops.cuda import spmm_kernel as K
 from graphgym_tpu_torch.train.loss import LossOptions, compute_loss, kernel_l2
 
 StepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+# cfg.tpu.dtype -> the forward's dtype (None: f32, no cast); the
+# kernels take f32 and bf16 input
+COMPUTE_DTYPES = {"float32": None, "f32": None, "": None,
+                  "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> Optional[torch.dtype]:
+    """The compute dtype of cfg.tpu.dtype ``name``."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"tpu.dtype {name!r} not supported: the port's "
+                         "kernels take float32 and bfloat16")
+    return COMPUTE_DTYPES[name]
+
+
+def forward(model: torch.nn.Module, batch: GraphBatch,
+            compute_dtype: Optional[torch.dtype] = None):
+    """``model(batch)``, under a compute dtype on its cast copies: every
+    floating parameter and the float ``node_feat`` / ``edge_feat`` in
+    ``compute_dtype`` (integer features, encoder ids, stay as they are),
+    the buffers the module's own."""
+    if compute_dtype is None:
+        return model(batch)
+
+    def cast(a):
+        return a.to(compute_dtype) if a is not None and \
+            a.is_floating_point() else a
+    params = {name: cast(p) for name, p in model.named_parameters()}
+    batch = batch.replace(node_feat=cast(batch.node_feat),
+                          edge_feat=cast(batch.edge_feat))
+    return torch.func.functional_call(model, params, (batch,))
 
 
 def _map(a, fn):
@@ -313,14 +356,17 @@ def _quiet_capturable(fn):
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_opts: LossOptions, scheduler=None, *,
                     max_programs: int = 8, pool=None,
-                    eager: bool = False) -> GraphedStep:
-    """The train step: forward, masked loss (+ kernel L2 on the Tfg
+                    eager: bool = False,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> GraphedStep:
+    """The train step: forward (in ``compute_dtype`` where one is given,
+    ``forward``), masked loss (+ kernel L2 of the f32 masters on the Tfg
     path), backward and the Adam update (BatchNorm running statistics
     updated in place) as one program; the lr schedule steps after it,
     on the host."""
     @_quiet_capturable
     def program(batch: GraphBatch) -> StepOut:
-        pred, label, mask = model(batch)
+        pred, label, mask = forward(model, batch, compute_dtype)
         loss, score = compute_loss(pred, label, mask, loss_opts)
         if loss_opts.l2_kernel:                 # the Tfg path's term
             loss = loss + kernel_l2(model, loss_opts.l2_kernel)
@@ -340,12 +386,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 def make_eval_step(model: torch.nn.Module, loss_opts: LossOptions, *,
                    max_programs: int = 8, pool=None,
-                   eager: bool = False) -> GraphedStep:
-    """The eval step: the forward in eval mode and the loss, no
-    gradient."""
+                   eager: bool = False,
+                   compute_dtype: Optional[torch.dtype] = None
+                   ) -> GraphedStep:
+    """The eval step: the forward in eval mode (in ``compute_dtype``
+    where one is given) and the loss, no gradient."""
     @torch.no_grad()
     def program(batch: GraphBatch) -> StepOut:
-        pred, label, mask = model(batch)
+        pred, label, mask = forward(model, batch, compute_dtype)
         loss, score = compute_loss(pred, label, mask, loss_opts)
         return loss, score, label, mask
 

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from graphgym_tpu_torch.train import checkpoint as ckpt
-from graphgym_tpu_torch.train.graphed import make_eval_step, make_train_step
+from graphgym_tpu_torch.train.graphed import (compute_dtype_of, forward,
+                                             make_eval_step,
+                                             make_train_step)
 from graphgym_tpu_torch.train.logger import Logger
 from graphgym_tpu_torch.train.loss import LossOptions
 from graphgym_tpu_torch.train.optim import capturable, create_optimizer
@@ -134,12 +136,16 @@ class Trainer:
         if eager_train and not eager:
             logging.info("optimizer %s is not capturable: train steps run "
                          "eagerly on %s", cfg.optim.optimizer, device)
+        # mixed precision (cfg.tpu.dtype): the forward on cast copies,
+        # the masters and the optimizer state f32 (train/graphed.py)
+        self.compute_dtype = compute_dtype_of(cfg.tpu.dtype)
         self.train_step = make_train_step(
             model, self.optimizer, self.loss_opts, self.scheduler,
-            max_programs=self._place_cap, pool=pool, eager=eager_train)
+            max_programs=self._place_cap, pool=pool, eager=eager_train,
+            compute_dtype=self.compute_dtype)
         self.eval_step = make_eval_step(
             model, self.loss_opts, max_programs=self._place_cap, pool=pool,
-            eager=eager)
+            eager=eager, compute_dtype=self.compute_dtype)
         # on the card batches move on a stream of their own, so the next
         # one moves while the device runs the step just enqueued
         self._copy_stream = (torch.cuda.Stream(device)
@@ -208,10 +214,10 @@ class Trainer:
         try:
             self.model.eval()
             with torch.no_grad():
-                self.model(self._place(batch))
+                forward(self.model, self._place(batch), self.compute_dtype)
         finally:
             hook.remove()
-        emb = seen[0].cpu().numpy()
+        emb = seen[0].float().cpu().numpy()
         mask = np.asarray(batch.node_mask)
         labels = (np.asarray(batch.node_label)
                   if batch.node_label is not None else np.zeros(len(mask)))
