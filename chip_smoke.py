@@ -5304,7 +5304,8 @@ def bf16_att(packs, n: int, d: int, heads: int, device) -> dict:
 def bf16_max(packs, n: int, d: int, device) -> dict:
     """The segmented max forward and backward on bf16 x against their
     plain versions (the forward bitwise: a max of w * x in f32 is
-    exact), timed beside their bounds (x read at 2 bytes) and the
+    exact; the backward at F32_TOL against the plain version on the
+    CPU, which sums in slot order as ``check_max_kernel``'s), timed beside their bounds (x read at 2 bytes) and the
     library calls (``max_library``: the messages w * x, f32 as the
     kernel's, gathered from the bf16 x before the timing)."""
     fwd, bwd = packs
@@ -5317,8 +5318,12 @@ def bf16_max(packs, n: int, d: int, device) -> dict:
     if not (torch.equal(out, want) and torch.equal(cnt, want_cnt)):
         fail(f"max bf16 d={d}: forward differs from the plain version")
     dx = K.packed_max_bwd_cuda(bwd, x, g, out, cnt)
-    err = held("max bwd bf16", dx, K.packed_max_bwd_plain(bwd, x, g, out, cnt),
-               F32_TOL)
+    # the plain version on the CPU, whose index_add_ sums in slot order as
+    # the kernel does (on the card its index_add_ adds in any order)
+    cpu_bwd = K.PackedCSR(*(a.cpu() for a in bwd))
+    want_dx = K.packed_max_bwd_plain(cpu_bwd, x.cpu(), g.cpu(), out.cpu(),
+                                     cnt.cpu())
+    err = held("max bwd bf16", dx.cpu(), want_dx, F32_TOL)
     library, library_bwd = max_library(fwd, x, g, out, f"max bf16 d={d}")
     rd4 = rows * d * 4
     f_slots, b_slots = real_slots_of(fwd), real_slots_of(bwd)
